@@ -4,16 +4,25 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``coarsegrainingvae_tpu_torch/
-csrc`` with nvcc, holds each against its plain PyTorch version on the card at
-the shapes the served model gives it, then serves dipeptide backmapping at
-the full ``bench.py::dipeptide_config`` width (n_basis 600, enc 4 / dec 5,
-pseudo decoder, bf16 matmuls) from seeded random weights through
-``Backmapper.backmap`` and checks the result. Every phase raises on failure;
-there is no CPU fallback. Output, in order: the card's name and power limit
-(nvidia-smi), the build, each kernel against its plain version, the serve
-checks and timings, one JSON line with the kernels' numbers, and last one
-JSON line ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports
-nothing of JAX.
+csrc`` with nvcc (one nvcc per source, started together), holds each kernel,
+forward and backward, against its plain PyTorch version on the card at the
+shapes the served and the trained model give it, then drives the port's two
+main paths at the full ``bench.py::dipeptide_config`` width (n_basis 600,
+enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
+
+- serve: dipeptide backmapping through ``Backmapper.backmap``;
+- train: ``Trainer.train_step`` at batch 128 over a ``DeviceDataset`` on the
+  card (bench.py's recipe: Adam with bf16 moments, lr 3.2e-4, beta 0.05,
+  gamma 25, clip 0.01), 100 steps then 100 timed steps, a profiled window,
+  one f32 step held against the same step on the CPU, and a 2-epoch
+  ``Trainer.fit``.
+
+Every phase raises on failure; there is no CPU fallback. Output, in order:
+the card's name and power limit (nvidia-smi), the build, each kernel against
+its plain version, the serve and train checks and timings, one JSON line
+with the kernels' numbers, and last one JSON line ``{"ok": true, "device":
+{...}}``. The profile's table goes to ``chiprun_out/train_profile.txt``.
+Needs one CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -21,15 +30,23 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 # kernel comparison: max |kernel - plain| / max |plain| per output (f32,
-# different summation order only)
+# different summation order only; the backward's d_w also sums the batch in
+# another order)
 KERNEL_RTOL = 1e-4
 # serving: f32 model on the card vs the same model on the CPU (plain path),
 # 5 decoder layers of f32 GEMMs and kernels summed in another order
 SERVE_RTOL = 1e-4
+# training: one f32 step on the card vs the same step on the CPU, every
+# gradient and every updated parameter, relative to the tensor's max |ref|
+TRAIN_RTOL = 1e-4
 N_REQUESTS, FRAMES_PER_REQUEST, N_SAMPLES = 4, 4, 64
-PRIOR_LAYERS, DECODER_LAYERS = 4, 5
+ENCODER_LAYERS, PRIOR_LAYERS, DECODER_LAYERS = 4, 4, 5
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS, PROFILE_STEPS = 128, 256, 100, 5
+OUT_DIR = Path("chiprun_out")
 
 
 def card_line() -> str:
@@ -81,50 +98,93 @@ def kernel_inputs(kind: str, b: int, n: int, s: int, f: int, r: int, seed: int):
     xyz = randn(b, n, 3) * 3.0
     mask = torch.ones(b, n, device="cuda")
     mask[::2, -1] = 0.0
-    if kind == "message":
-        return xyz, mask, randn(b, n, s, f), randn(b, n, 3, f), randn(r + 1, s, f) * 0.3
-    return (xyz, mask, randn(b, n, 9, f), randn(b, n, f), randn(b, n, f),
-            randn(b, n, 3, f), randn(b, n, 3, f), randn(r + 1, 9, f) * 0.3)
+    if kind.startswith("message"):
+        args = (xyz, mask, randn(b, n, s, f), randn(b, n, 3, f), randn(r + 1, s, f) * 0.3)
+        cts = (randn(b, n, f), randn(b, n, 3, f))
+    else:
+        args = (xyz, mask, randn(b, n, 9, f), randn(b, n, f), randn(b, n, f),
+                randn(b, n, 3, f), randn(b, n, 3, f), randn(r + 1, 9, f) * 0.3)
+        cts = (randn(b, n, f), randn(b, n, f), randn(b, n, 3, f), randn(b, n, 3, f))
+    return args + cts if kind.endswith("vjp") else args
 
 
 def check_kernels() -> dict:
     import torch
 
-    from coarsegrainingvae_tpu_torch.ops.fused_message import fused_message, message_reference
-    from coarsegrainingvae_tpu_torch.ops.fused_pseudo import fused_pseudo_message, pseudo_reference
+    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
+    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
 
     f, r = 600, 8
-    # (kernel, inputs, cutoff, label); the first case of each kernel is the
-    # served shape and gives its timing
+    # (kernel, (B, N, S), cutoff, label, timed): the shapes the served model
+    # (B = 64 samples) and the trained model (B = 128 frames) give each
+    # kernel; the first timed case of a kernel gives its JSON numbers
     cases = [
-        ("message", (64, 3, 3), 9.5, "prior B=64 M=3 S=3"),
-        ("message", (64, 27, 3), 9.5, "encoder B=64 N=27 S=3"),
-        ("message", (64, 27, 4), 9.5, "cross B=64 N=27 S=4"),
-        ("pseudo", (64, 3, 9), 8.5, "decoder B=64 M=3"),
-        ("pseudo", (64, 6, 9), 8.5, "decoder B=64 M=6"),
+        ("message", (64, 3, 3), 9.5, "prior serve B=64 M=3 S=3", True),
+        ("message", (128, 27, 3), 9.5, "encoder train B=128 N=27 S=3", True),
+        ("message", (128, 3, 3), 9.5, "prior train B=128 M=3 S=3", True),
+        ("message", (64, 27, 4), 9.5, "cross B=64 N=27 S=4", False),
+        ("pseudo", (64, 3, 9), 8.5, "decoder serve B=64 M=3", True),
+        ("pseudo", (128, 3, 9), 8.5, "decoder train B=128 M=3", True),
+        ("pseudo", (64, 6, 9), 8.5, "decoder B=64 M=6", False),
+        ("message_vjp", (128, 27, 3), 9.5, "encoder train B=128 N=27 S=3", True),
+        ("message_vjp", (128, 3, 3), 9.5, "prior train B=128 M=3 S=3", True),
+        ("message_vjp", (64, 27, 4), 9.5, "cross B=64 N=27 S=4", False),
+        ("message_vjp", (16, 70, 3), 9.5, "two sender chunks B=16 N=70 S=3", False),
+        ("pseudo_vjp", (128, 3, 9), 8.5, "decoder train B=128 M=3", True),
+        ("pseudo_vjp", (64, 6, 9), 8.5, "decoder B=64 M=6", False),
     ]
-    fns = {"message": (fused_message, message_reference),
-           "pseudo": (fused_pseudo_message, pseudo_reference)}
+    fns = {"message": (mo.fused_message, mo.message_reference),
+           "pseudo": (po.fused_pseudo_message, po.pseudo_reference),
+           "message_vjp": (mo.fused_message_vjp, mo.message_vjp_reference),
+           "pseudo_vjp": (po.fused_pseudo_vjp, po.pseudo_vjp_reference)}
     stats = {}
-    for seed, (kind, (b, n, s), cut, label) in enumerate(cases):
+    for seed, (kind, (b, n, s), cut, label, timed) in enumerate(cases):
         kern, plain = fns[kind]
         args = kernel_inputs(kind, b, n, s, f, r, seed) + (cut, r)
-        out = kern(*args)
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        rel, err = rel_err(out, ref)
-        st = stats.setdefault(kind, {"max_abs_err": 0.0, "max_rel_err": 0.0})
-        st["max_abs_err"] = max(st["max_abs_err"], err)
-        st["max_rel_err"] = max(st["max_rel_err"], rel)
-        line = f"kernel {kind} [{label}]: max|err| {err:.3e}, max|err|/max|ref| {rel:.3e}"
-        if "ms" not in st:
-            st["ms"] = cuda_ms(lambda: kern(*args))
-            st["plain_ms"] = cuda_ms(lambda: plain(*args))
-            line += f"; kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms"
+        with torch.no_grad():
+            out = kern(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            rel, err = rel_err(out, ref)
+            st = stats.setdefault(kind, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            st["max_rel_err"] = max(st["max_rel_err"], rel)
+            line = f"kernel {kind} [{label}]: max|err| {err:.3e}, max|err|/max|ref| {rel:.3e}"
+            if timed:
+                ms, plain_ms = cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))
+                st.setdefault("ms", ms)
+                st.setdefault("plain_ms", plain_ms)
+                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
         print(line, flush=True)
         if not rel <= KERNEL_RTOL:
             raise RuntimeError(f"{kind} kernel disagrees with its plain version: {rel:.3e} > {KERNEL_RTOL}")
     return stats
+
+
+def reset_counts() -> None:
+    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
+    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+
+    for fn in (mo.fused_message, mo.fused_message_vjp, po.fused_pseudo_message,
+               po.fused_pseudo_vjp):
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
+    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+
+    return {fn.__name__: fn.launches for fn in (
+        mo.fused_message, mo.fused_message_vjp, po.fused_pseudo_message, po.fused_pseudo_vjp)}
+
+
+def dipeptide_model_cfg(**kw):
+    """bench.py::dipeptide_config's model, at the port's full width."""
+    from coarsegrainingvae_tpu_torch.config import ModelConfig
+
+    return ModelConfig(n_cgs=3, n_basis=600, n_rbf=8, atom_cutoff=8.5, cg_cutoff=9.5,
+                       enc_nconv=4, dec_nconv=5, activation="swish", dec_type="pseudo",
+                       breaksym=True, **kw)
 
 
 def serve() -> dict:
@@ -133,13 +193,11 @@ def serve() -> dict:
     import numpy as np
     import torch
 
-    from coarsegrainingvae_tpu_torch.config import ExperimentConfig, ModelConfig
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
     from coarsegrainingvae_tpu_torch.data.dataset import _segment_mean_np
     from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
     from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
-    from coarsegrainingvae_tpu_torch.ops.fused_message import fused_message
-    from coarsegrainingvae_tpu_torch.ops.fused_pseudo import fused_pseudo_message
     from coarsegrainingvae_tpu_torch.serve import Backmapper
 
     t0 = time.perf_counter()
@@ -150,19 +208,13 @@ def serve() -> dict:
     print(f"serve setup: dipeptide {z.shape[0]} atoms, 3 beads, {n_frames} CG frames "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
 
-    # bench.py::dipeptide_config's model, with both message paths on the kernels
-    model_cfg = ModelConfig(
-        n_cgs=3, n_basis=600, n_rbf=8, atom_cutoff=8.5, cg_cutoff=9.5,
-        enc_nconv=4, dec_nconv=5, activation="swish", dec_type="pseudo",
-        breaksym=True, message_impl="pallas", pseudo_impl="pallas",
-    )
+    model_cfg = dipeptide_model_cfg()
     cfg = ExperimentConfig(model=model_cfg)
     model = DenseCGVAE(model_cfg, generator=torch.Generator().manual_seed(0))
     bm = Backmapper(model, mapping, z, cfg, device="cuda")
     bm.backmap(cg[0], n_samples=N_SAMPLES, seed=99)       # warm-up request
 
-    fused_message.launches = 0
-    fused_pseudo_message.launches = 0
+    reset_counts()
     outs, lat = [], []
     for q in range(N_REQUESTS):
         req = cg[q * FRAMES_PER_REQUEST:(q + 1) * FRAMES_PER_REQUEST]
@@ -171,8 +223,7 @@ def serve() -> dict:
         outs.append(bm.backmap(req, n_samples=N_SAMPLES, seed=q))
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t)
-    launches = {"fused_message": fused_message.launches,
-                "fused_pseudo_message": fused_pseudo_message.launches}
+    launches = read_counts()
 
     ens = np.stack(outs)                     # (requests, frames, samples, N, 3)
     want = (N_REQUESTS, FRAMES_PER_REQUEST, N_SAMPLES, z.shape[0], 3)
@@ -189,8 +240,8 @@ def serve() -> dict:
     if not spread > 1e-5:
         raise RuntimeError("samples of one frame do not differ")
     n_calls = N_REQUESTS * FRAMES_PER_REQUEST
-    expect = {"fused_message": PRIOR_LAYERS * n_calls,
-              "fused_pseudo_message": DECODER_LAYERS * n_calls}
+    expect = {"fused_message": PRIOR_LAYERS * n_calls, "fused_message_vjp": 0,
+              "fused_pseudo_message": DECODER_LAYERS * n_calls, "fused_pseudo_vjp": 0}
     if launches != expect:
         raise RuntimeError(f"kernel launches {launches}, expected {expect}")
     print(f"serve checks: shape {ens.shape}, finite, COM error {com_err:.2e} A, "
@@ -220,6 +271,217 @@ def serve() -> dict:
     return launches
 
 
+def window_starts(n_frames: int, bs: int, steps: int):
+    """bench.py::window_starts: batch windows cycling over the frames."""
+    import numpy as np
+
+    return (np.arange(steps) * bs) % (n_frames - bs + 1)
+
+
+def device_profile(prof, wall_ms: float, steps: int) -> dict:
+    """Device busy time (union of kernel intervals), the top device items
+    and the device launches per step of a torch.profiler window."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    host_launches = sum(1 for e in prof.events()
+                        if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    return {"busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
+            "device_events_per_step": len(events) / steps,
+            "host_launch_calls_per_step": host_launches / steps,
+            "top": [(name[:70], us / 1e3 / steps, n // steps) for name, (us, n) in top]}
+
+
+def f32_step_card_vs_cpu(ds) -> tuple:
+    """One f32 train step at full width (batch 8) on the card and on the
+    CPU from the same parameters: (worst max|err|/max|ref| over every
+    gradient, the same over every updated parameter). The reference update
+    is the CPU's optimizer applied to the card's gradient: Adam's first
+    step maps g to g / (|g| + 1e-8), which turns rounding-level gradient
+    differences of entries near zero into update differences up to lr, so
+    the gradients are compared first and the update on its own."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.config import DataConfig, ExperimentConfig, TrainConfig
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    cfg = ExperimentConfig(
+        model=dipeptide_model_cfg(compute_dtype="float32", det=True),
+        data=DataConfig(batch_size=8),
+        train=TrainConfig(lr=3.2e-4, beta=0.05, gamma=25.0, grad_clip=0.01,
+                          adam_moment_dtype="bfloat16"))
+    batch = ds.batch(np.arange(8))
+    steps = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(1)), cfg,
+                     device=device)
+        state = tr.init_state(batch)
+        loss, _, grads = tr.loss_and_grads(state, batch.to(device))
+        steps[device] = (tr, state, loss, grads)
+    tr, state, loss, grads = steps["cuda"]
+    state, ok = tr.apply_gradients(state, loss, grads)
+    card_params = [p.detach().cpu() for p in state.params.values()]
+    card_grads = [g.cpu() for g in grads]
+    tr, state, _, ref_grads = steps["cpu"]
+    state, ok_ref = tr.apply_gradients(state, loss.cpu(), card_grads)
+    if not (bool(ok) and bool(ok_ref)):
+        raise RuntimeError("the f32 check step was rejected by the skip guard")
+
+    def worst(got, want):
+        return max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                   for a, b in zip(got, want))
+
+    return worst(card_grads, ref_grads), worst(card_params, list(state.params.values()))
+
+
+def train() -> dict:
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.config import DataConfig, ExperimentConfig, TrainConfig
+    from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
+    from coarsegrainingvae_tpu_torch.data.device import DeviceDataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    # bench.py::dipeptide_dataset
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=TRAIN_FRAMES, seed=0, device="cuda")
+    mapping = newman_mapping(bonds, z.shape[0], 3, seed=0)
+    ds = build_dataset(mapping, frames, atom_cutoff=8.5, cg_cutoff=9.5, atomic_nums=z,
+                       bonds=bonds, order=2, rotate=True)
+    # bench.py::dipeptide_config(128)
+    cfg = ExperimentConfig(
+        model=dipeptide_model_cfg(), data=DataConfig(batch_size=TRAIN_BATCH),
+        train=TrainConfig(lr=1.6e-4 * (TRAIN_BATCH / 64), beta=0.05, gamma=25.0,
+                          grad_clip=0.01, adam_moment_dtype="bfloat16"))
+    tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                 device="cuda")
+    dds = DeviceDataset.from_dataset(ds, "cuda")
+    state = tr.init_state(ds.batch(np.arange(TRAIN_BATCH)))
+    n_params = sum(p.numel() for p in state.params.values())
+    print(f"train setup: {len(ds)} frames, {len(ds.bonds)} graph-loss edges, "
+          f"{n_params} parameters ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    starts = window_starts(len(ds), TRAIN_BATCH, TRAIN_STEPS)
+    idx = torch.as_tensor(starts[:, None] + np.arange(TRAIN_BATCH)[None, :],
+                          dtype=torch.long, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run(state, record):
+        for i in range(TRAIN_STEPS):
+            state, m = tr.train_step(state, dds.gather(idx[i]), gen)
+            record.append(m)
+        return state
+
+    first, second = [], []
+    t = time.perf_counter()
+    state = run(state, first)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+
+    reset_counts()
+    t = time.perf_counter()
+    state = run(state, second)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = read_counts()
+
+    def series(rec, key):
+        return torch.stack([m[key] for m in rec]).float().cpu().numpy()
+
+    loss = np.concatenate([series(first, "loss"), series(second, "loss")])
+    recon = np.concatenate([series(first, "recon"), series(second, "recon")])
+    skipped = float(series(first, "skipped").sum() + series(second, "skipped").sum())
+    ms = dt / TRAIN_STEPS * 1e3
+    print(f"train: {TRAIN_STEPS} steps in {warm_s:.2f} s, then {TRAIN_STEPS} timed steps in "
+          f"{dt:.3f} s: {ms:.3f} ms/step, {TRAIN_STEPS * TRAIN_BATCH / dt:.1f} samples/s "
+          f"(batch {TRAIN_BATCH}, bf16 matmuls, bf16 Adam moments)", flush=True)
+    print(f"train loss: first 10 mean {loss[:10].mean():.4f}, last 10 mean "
+          f"{loss[-10:].mean():.4f}; recon first 10 {recon[:10].mean():.4f}, last 10 "
+          f"{recon[-10:].mean():.4f} (not gated); skipped batches {skipped:.0f}", flush=True)
+    if not np.isfinite(loss).all():
+        raise RuntimeError("a training loss is not finite")
+    if not loss[-10:].mean() < loss[:10].mean():
+        raise RuntimeError("the total loss did not fall over 200 steps")
+    per_step = {"fused_message": ENCODER_LAYERS + PRIOR_LAYERS,
+                "fused_message_vjp": ENCODER_LAYERS + PRIOR_LAYERS,
+                "fused_pseudo_message": DECODER_LAYERS, "fused_pseudo_vjp": DECODER_LAYERS}
+    expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    print(f"train launches over the {TRAIN_STEPS} timed steps: {launches} (expected {expect})",
+          flush=True)
+    if launches != expect:
+        raise RuntimeError(f"train kernel launches {launches}, expected {expect}")
+
+    # where the time goes: a profiled window of a few steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            state, _ = tr.train_step(state, dds.gather(idx[i]), gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    p = device_profile(prof, wall_ms, PROFILE_STEPS)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "train_profile.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    print(f"train profile ({PROFILE_STEPS} steps, {wall_ms / PROFILE_STEPS:.3f} ms/step profiled): "
+          f"device busy {p['busy_ms'] / PROFILE_STEPS:.3f} ms/step = {100 * p['busy_share']:.1f} % "
+          f"of wall; {p['device_events_per_step']:.0f} device events and "
+          f"{p['host_launch_calls_per_step']:.0f} host launch calls per step", flush=True)
+    for name, ms_step, n in p["top"]:
+        print(f"  device {ms_step:.3f} ms/step, {n}/step: {name}", flush=True)
+
+    grad_err, param_err = f32_step_card_vs_cpu(ds)
+    print(f"train f32 step card vs CPU (batch 8): every gradient max|err|/max|ref| "
+          f"{grad_err:.3e}, every updated parameter {param_err:.3e} "
+          f"(tolerance {TRAIN_RTOL:g})", flush=True)
+    if not max(grad_err, param_err) <= TRAIN_RTOL:
+        raise RuntimeError("the f32 train step on the card disagrees with the CPU")
+
+    # Trainer.fit, 2 epochs on a 224/32 split
+    reset_counts()
+    fit_tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(2)), cfg,
+                     device="cuda")
+    fit_state = fit_tr.init_state(ds.batch(np.arange(TRAIN_BATCH)))
+    t = time.perf_counter()
+    fit_state, hist = fit_tr.fit(fit_state, ds.subset(np.arange(224)),
+                                 ds.subset(np.arange(224, 256)), nepochs=2)
+    fit_launches = read_counts()
+    if len(hist) != 2 or not all(np.isfinite(v) for row in hist for v in row.values()):
+        raise RuntimeError(f"fit history is not 2 finite rows: {hist}")
+    print(f"fit: 2 epochs in {time.perf_counter() - t:.2f} s, train_loss "
+          f"{[round(r['train_loss'], 4) for r in hist]}, val_loss "
+          f"{[round(r['val_loss'], 4) for r in hist]}, launches {fit_launches}", flush=True)
+    if min(fit_launches.values()) == 0:
+        raise RuntimeError(f"fit did not launch every kernel: {fit_launches}")
+    return {"train": launches, "fit": fit_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -242,9 +504,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    message_ops.build()
-    pseudo_ops.build()
-    print(f"build: both kernels ready in {time.perf_counter() - t0:.2f} s "
+    with ThreadPoolExecutor(2) as pool:         # one nvcc per source, together
+        list(pool.map(lambda ops: ops.build(), (message_ops, pseudo_ops)))
+    print(f"build: both kernel sources ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc: {', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.BUILD_SECONDS.items())})",
           flush=True)
     for name, log in cuda_build.BUILD_LOG.items():
@@ -253,27 +515,28 @@ def main() -> int:
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
 
     stats = check_kernels()
-    launches = serve()
+    paths = {"serve": serve()}
+    paths.update(train())
 
-    kernels = [
-        {"name": "fused_message", "route": "cuda",
-         "source": "coarsegrainingvae_tpu_torch/csrc/fused_message.cu",
-         "replaces": "coarsegrainingvae_tpu/ops/pallas_message.py:126",
-         "launches": launches["fused_message"], **_numbers(stats["message"])},
-        {"name": "fused_pseudo_message", "route": "cuda",
-         "source": "coarsegrainingvae_tpu_torch/csrc/fused_pseudo.cu",
-         "replaces": "coarsegrainingvae_tpu/ops/pallas_pseudo.py:192",
-         "launches": launches["fused_pseudo_message"], **_numbers(stats["pseudo"])},
-    ]
+    source = "coarsegrainingvae_tpu_torch/csrc/"
+    rows = [("fused_message", "message", "fused_message.cu", "pallas_message.py:126"),
+            ("fused_message_vjp", "message_vjp", "fused_message.cu", "pallas_message.py:202"),
+            ("fused_pseudo_message", "pseudo", "fused_pseudo.cu", "pallas_pseudo.py:192"),
+            ("fused_pseudo_vjp", "pseudo_vjp", "fused_pseudo.cu", "pallas_pseudo.py:210")]
+    kernels = []
+    for name, kind, src, tpu in rows:
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source + src,
+            "replaces": "coarsegrainingvae_tpu/ops/" + tpu,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": stats[kind]["max_abs_err"], "ms": stats[kind]["ms"],
+            "plain_ms": stats[kind]["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-def _numbers(st: dict) -> dict:
-    return {"max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"]}
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of coarsegrainingvae_tpu.
 
 Same layout and names as the JAX package (``config``, ``ops``, ``models``,
-``data``, ``serve``). The port imports torch and numpy only, never JAX. The
-TPU's Pallas kernels become hand-written CUDA kernels for Hopper
-(``csrc/``), built with nvcc on first use on a CUDA device. The first
-slice serves the dense CGVAE: ``convert.convert_flax_params``,
-``models.dense_cgvae.DenseCGVAE.generate`` and ``serve.Backmapper.backmap``.
+``data``, ``train``, ``serve``). The port imports torch and numpy only, never
+JAX. The TPU's Pallas kernels, forward and backward, become hand-written
+CUDA kernels for Hopper (``csrc/``), built with nvcc on first use on a CUDA
+device. It trains and serves the dense CGVAE: ``train.trainer.Trainer``
+over ``data.dataset.build_dataset`` / ``data.device.DeviceDataset``,
+``models.dense_cgvae.DenseCGVAE`` and ``serve.Backmapper.backmap``;
+``convert.convert_flax_params`` loads a JAX model's parameters.
 """

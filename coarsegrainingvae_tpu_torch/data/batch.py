@@ -1,15 +1,17 @@
 """Fixed-shape padded batches (port of ``coarsegrainingvae_tpu.data.batch``).
 
-Only the fields the dense model reads are carried; the edge lists of the
-JAX ``CGBatch`` (nbrs, cg_nbrs, bonds) wait for the sparse model
+Only the fields the dense model and the loss read are carried; the radius
+graphs of the JAX ``CGBatch`` (nbrs, cg_nbrs) wait for the sparse model
 (ROADMAP.md). Index conventions are the JAX package's: ``mapping[b, i]`` is
-the CG bead of atom i and ``channel_idx[b, i]`` its per-bead channel.
+the CG bead of atom i, ``channel_idx[b, i]`` its per-bead channel, and
+``bonds[b]`` the local (per-sample) graph-loss edges. Serving builds batches
+without bonds; generation never reads them.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -24,12 +26,25 @@ class CGBatch:
     cg_mask: torch.Tensor      # (B, M) bool
     mapping: torch.Tensor      # (B, N) int64
     channel_idx: torch.Tensor  # (B, N) int64
+    bonds: Optional[torch.Tensor] = None      # (B, Eb, 2) int64
+    bond_mask: Optional[torch.Tensor] = None  # (B, Eb) bool
 
     def to(self, device: Union[str, torch.device]) -> "CGBatch":
-        return CGBatch(**{f.name: getattr(self, f.name).to(device)
-                          for f in dataclasses.fields(self)})
+        def move(t):
+            return None if t is None else t.to(device)
 
+        return CGBatch(**{f.name: move(getattr(self, f.name))
+                          for f in dataclasses.fields(self)})
 
     @property
     def n_atoms(self) -> int:
         return self.z.shape[1]
+
+
+def flatten_ids(local: torch.Tensor, stride: int) -> torch.Tensor:
+    """Local per-sample indices (B, ...) -> global flat indices:
+    global[b, k] = local[b, k] + b * stride, flattened over (B, k)."""
+    b = local.shape[0]
+    offsets = torch.arange(b, dtype=local.dtype, device=local.device) * stride
+    out = local + offsets.reshape((b,) + (1,) * (local.ndim - 1))
+    return out.reshape((-1,) + tuple(local.shape[2:]))

@@ -1,12 +1,62 @@
 """Per-topology precomputation (port of ``coarsegrainingvae_tpu.data.topology``).
 
-The slice needs only the per-bead channel index of every atom, which depends
-on the CG mapping alone and is computed once on the host (CG2ChannelIdx,
-cgvae.py:451-460 of the original code).
+These quantities depend only on the molecular topology and the CG mapping,
+so they are computed once on the host with numpy: the bonded adjacency, the
+high-order bonded edges of the graph loss, the bond-contracted CG graph and
+the per-bead channel index of every atom (CG2ChannelIdx, cgvae.py:451-460 of
+the original code).
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def adjacency_from_edges(edges: np.ndarray, n: int) -> np.ndarray:
+    adj = np.zeros((n, n), dtype=np.int64)
+    if edges.shape[0]:
+        adj[edges[:, 0], edges[:, 1]] = 1
+        adj[edges[:, 1], edges[:, 0]] = 1
+    return adj
+
+
+def high_order_edges(edges: np.ndarray, order: int, n_atoms: int) -> np.ndarray:
+    """All node pairs within graph distance <= order
+    (get_higher_order_adj_matrix, data.py:25-40 + get_high_order_edge,
+    datasets.py:447-457 of the original code), by a breadth-first search
+    over adjacency lists. Returns upper-triangular (e, 2) int32 pairs,
+    sorted."""
+    nbrs: list = [[] for _ in range(n_atoms)]
+    for a, b in np.asarray(edges, dtype=np.int64):
+        nbrs[a].append(int(b))
+        nbrs[b].append(int(a))
+
+    out = []
+    for i in range(n_atoms):
+        frontier = {i}
+        seen = {i}
+        for _ in range(order):
+            frontier = {
+                k for j in frontier for k in nbrs[j] if k not in seen
+            }
+            seen |= frontier
+        out.extend((i, j) for j in seen if j > i)
+    if not out:
+        return np.zeros((0, 2), np.int32)
+    return np.asarray(sorted(out), dtype=np.int32)
+
+
+def cg_graph_from_bonds(
+    bonds: np.ndarray, mapping: np.ndarray, n_atoms: int, n_cgs: int
+) -> np.ndarray:
+    """CG neighbor list contracted from the bonded atom graph -- the
+    cg_cutoff=None path (data.py:227-248). Returns directed (e, 2) int32."""
+    adj = adjacency_from_edges(bonds, n_atoms).astype(np.float64)
+    assign = np.zeros((n_atoms, n_cgs))
+    assign[np.arange(n_atoms), mapping] = 1.0
+    cg_adj = assign.T @ adj @ assign
+    pairs = np.argwhere(cg_adj > 0)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    return pairs.astype(np.int32)
 
 
 def channel_index_from_mapping(mapping: np.ndarray) -> np.ndarray:

@@ -1,7 +1,10 @@
-"""Model outputs (port of part of ``coarsegrainingvae_tpu.models.cgvae``).
+"""Model outputs and the flat graph the loss reads (port of part of
+``coarsegrainingvae_tpu.models.cgvae``).
 
-Only ``VAEOutput`` is ported so far; the sparse ``CGequiVAE`` is listed in
-ROADMAP.md.
+``VAEOutput``, ``FlatGraph`` and ``flatten_batch`` are ported; the sparse
+``CGequiVAE`` is listed in ROADMAP.md. ``FlatGraph`` carries only the
+fields the loss reads; the flattened radius graphs wait for the sparse
+model.
 """
 from __future__ import annotations
 
@@ -9,6 +12,32 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from coarsegrainingvae_tpu_torch.data.batch import CGBatch, flatten_ids
+
+
+@dataclass
+class FlatGraph:
+    """A CGBatch flattened to one global graph."""
+
+    z: torch.Tensor          # (BN,)
+    xyz: torch.Tensor        # (BN, 3)
+    atom_mask: torch.Tensor  # (BN,)
+    cg_mask: torch.Tensor    # (BM,)
+    bonds: torch.Tensor      # (BEb, 2) global atom ids
+    bond_mask: torch.Tensor  # (BEb,)
+
+
+def flatten_batch(batch: CGBatch) -> FlatGraph:
+    n = batch.z.shape[1]
+    return FlatGraph(
+        z=batch.z.reshape(-1),
+        xyz=batch.xyz.reshape(-1, 3),
+        atom_mask=batch.atom_mask.reshape(-1),
+        cg_mask=batch.cg_mask.reshape(-1),
+        bonds=flatten_ids(batch.bonds, n),
+        bond_mask=batch.bond_mask.reshape(-1),
+    )
 
 
 @dataclass

@@ -7,10 +7,12 @@ message block goes through a fused CUDA kernel on the card
 (``ops.fused_message`` for the encoder and prior, ``ops.fused_pseudo`` for
 the pseudo decoder); on CPU tensors the kernels' plain versions run.
 
-Entry points: ``forward(batch, eps=None)`` returns all six ``VAEOutput``
-fields; ``generate(batch, generator=None, eps=None)`` returns only the
+Entry points: ``forward(batch, eps=None, generator=None)`` returns all six
+``VAEOutput`` fields and is differentiable (training runs it under
+autograd: each kernel has a hand-written backward kernel);
+``generate(batch, generator=None, eps=None)`` returns only the
 reconstruction drawn from the prior and skips the encoder, whose outputs
-never reach it. Inference only: the kernels have no backward yet.
+never reach it.
 """
 from __future__ import annotations
 

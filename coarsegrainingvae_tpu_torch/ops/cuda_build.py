@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
-with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
-the checkout, under a file name that carries the source's hash, so an edited
+Each ``csrc/<name>.cu`` has a plain C interface and may include the shared
+headers ``csrc/*.cuh``. On first use it is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into ``build/kernels/`` at the root of the checkout, under a file
+name that carries the hash of the source and the headers, so an edited
 source is rebuilt and a stale library is never loaded. The library is loaded
 with ``ctypes``. Nothing here runs at import time, and there is no fallback:
 a missing ``nvcc`` or a failed build raises.
@@ -47,8 +48,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library's path; its name hashes the source and every shared
+    header in ``csrc/``, so an edit to either means a rebuild."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def load(name: str, symbols: Dict[str, Tuple[List, object]]) -> ctypes.CDLL:

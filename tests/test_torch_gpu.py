@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels, forward and backward, against their plain
+PyTorch versions on the card, and one train step on the card against the
+same step on the CPU.
 
 This file imports no JAX, so it runs on a machine with a GPU and no JAX
 (``--noconftest`` skips tests/conftest.py, which configures JAX):
@@ -6,8 +8,8 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Without a CUDA device every test skips: the kernels are CUDA C++ for
-sm_90a and have no CPU or interpret mode (their plain versions are held
-against the JAX package by tests/test_torch_kernels.py).
+sm_90a and have no CPU or interpret mode (their plain versions and plain
+VJPs are held against the JAX package by tests/test_torch_kernels.py).
 """
 import pytest
 import torch
@@ -15,8 +17,18 @@ import torch
 from coarsegrainingvae_tpu_torch.config import ModelConfig
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
-from coarsegrainingvae_tpu_torch.ops.fused_message import fused_message, message_reference
-from coarsegrainingvae_tpu_torch.ops.fused_pseudo import fused_pseudo_message, pseudo_reference
+from coarsegrainingvae_tpu_torch.ops.fused_message import (
+    fused_message,
+    fused_message_vjp,
+    message_reference,
+    message_vjp_reference,
+)
+from coarsegrainingvae_tpu_torch.ops.fused_pseudo import (
+    fused_pseudo_message,
+    fused_pseudo_vjp,
+    pseudo_reference,
+    pseudo_vjp_reference,
+)
 
 torch.set_num_threads(1)
 
@@ -77,6 +89,75 @@ def test_pseudo_kernel_matches_plain_on_card(cuda_device, m):
         torch.testing.assert_close(a, b, **TOL)
 
 
+def _cotangents(like, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(t.shape, generator=g).to(device) for t in like]
+
+
+def _close_rel(out, ref, rtol=1e-4):
+    """max |kernel - plain| <= rtol * max |plain|, per output (f32, another
+    order of summation; d_w also sums over the batch in another order)."""
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= rtol * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [3, 11, 27, 70])      # 70 > one 64-partner chunk
+@pytest.mark.parametrize("s", [3, 4])
+def test_message_vjp_kernel_matches_plain_on_card(cuda_device, n, s):
+    args = _message_inputs(n, s, 8, cuda_device)
+    gs, gv = _cotangents(message_reference(*args, CUT, R), 9, cuda_device)
+    before = fused_message_vjp.launches
+    out = fused_message_vjp(*args, gs, gv, CUT, R)
+    torch.cuda.synchronize()
+    assert fused_message_vjp.launches == before + 1
+    ref = message_vjp_reference(*args, gs, gv, CUT, R)
+    _close_rel(out, ref)
+    # the masked last node gets no gradient
+    assert float(out[0][:, -1].abs().max()) == 0.0
+    assert float(out[1][:, -1].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [3, 6, 70])     # 70 > one 64-partner chunk
+def test_pseudo_vjp_kernel_matches_plain_on_card(cuda_device, m):
+    args = _pseudo_inputs(m, 10, cuda_device)
+    cts = _cotangents(pseudo_reference(*args, CUT, R), 11, cuda_device)
+    before = fused_pseudo_vjp.launches
+    out = fused_pseudo_vjp(*args, *cts, CUT, R)
+    torch.cuda.synchronize()
+    assert fused_pseudo_vjp.launches == before + 1
+    _close_rel(out, pseudo_vjp_reference(*args, *cts, CUT, R))
+    for grad in out[:5]:
+        assert float(grad[:, -1].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_autograd_runs_both_kernels_on_card(cuda_device):
+    """Backward through the wrappers launches the backward kernels, and a
+    non-contiguous upstream gradient is accepted."""
+    margs = _message_inputs(11, 4, 12, cuda_device)
+    for t in margs[2:]:
+        t.requires_grad_(True)
+    before = (fused_message.launches, fused_message_vjp.launches)
+    ds, dv = fused_message(*margs, CUT, R)
+    (ds.sum() + dv.transpose(2, 3).square().sum()).backward()
+    assert (fused_message.launches, fused_message_vjp.launches) == (before[0] + 1, before[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_(t.requires_grad) for t in margs]
+    ds, dv = fused_message(*cpu, CUT, R)
+    (ds.sum() + dv.transpose(2, 3).square().sum()).backward()
+    _close_rel([t.grad.cpu() for t in margs[2:]], [t.grad for t in cpu[2:]])
+
+    pargs = _pseudo_inputs(3, 13, cuda_device)
+    for t in pargs[2:]:
+        t.requires_grad_(True)
+    before = fused_pseudo_vjp.launches
+    ds, dsbar, dv, dvbar = fused_pseudo_message(*pargs, CUT, R)
+    (ds.sum() + dv.square().sum()).backward()       # dsbar and dvbar unused
+    assert fused_pseudo_vjp.launches == before + 1
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_bad_inputs_on_card(cuda_device):
     args = _message_inputs(5, 3, 7, cuda_device)
@@ -110,3 +191,52 @@ def test_generate_on_card_matches_cpu(cuda_device):
             want = cpu.generate(batch, eps=eps)
             got = gpu.generate(batch.to(cuda_device), eps=eps).cpu()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One f32 train step of a small DenseCGVAE on the card (kernels forward
+    and backward) against the same step on the CPU (plain versions and plain
+    VJPs): every gradient and every updated parameter within 1e-4 of the
+    tensor's max |ref|; each message layer's backward kernel launches
+    once."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.config import DataConfig, ExperimentConfig, TrainConfig
+    from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=8, seed=0)
+    ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
+                       bonds, order=2)
+    cfg = ExperimentConfig(
+        model=ModelConfig(n_cgs=3, n_basis=F, n_rbf=R, enc_nconv=2, dec_nconv=2,
+                          breaksym=True, det=True, compute_dtype="float32"),
+        data=DataConfig(batch_size=8),
+        train=TrainConfig(lr=3e-4, gamma=25.0, adam_moment_dtype="bfloat16"))
+    batch = ds.batch(np.arange(8))
+    steps = {}
+    for device in ("cpu", cuda_device):
+        tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                     device=device)
+        state = tr.init_state(batch)
+        before = (fused_message_vjp.launches, fused_pseudo_vjp.launches)
+        loss, _, grads = tr.loss_and_grads(state, batch.to(device))
+        after = (fused_message_vjp.launches, fused_pseudo_vjp.launches)
+        steps[str(device)] = (tr, state, loss, grads, (after[0] - before[0], after[1] - before[1]))
+    assert steps["cpu"][4] == (0, 0) and steps["cuda"][4] == (4, 2)
+    for got, want in zip(steps["cuda"][3], steps["cpu"][3]):
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    # the update: the card's step against the CPU's optimizer applied to the
+    # card's gradient (Adam's first step maps g to g / (|g| + 1e-8), so
+    # rounding-level gradient differences near zero would move it by ~lr)
+    tr, state, loss, grads, _ = steps["cuda"]
+    state, ok = tr.apply_gradients(state, loss, grads)
+    tr_cpu, state_cpu, _, _, _ = steps["cpu"]
+    state_cpu, ok_cpu = tr_cpu.apply_gradients(state_cpu, loss.cpu(), [g.cpu() for g in grads])
+    assert bool(ok) and bool(ok_cpu)
+    for name, want in state_cpu.params.items():
+        got = state.params[name].detach().cpu()
+        assert float((got - want.detach()).abs().max()) <= 1e-4 * float(want.abs().max()), name

@@ -1,9 +1,11 @@
 """The port's two kernel modules against the JAX Pallas kernels.
 
 On the CPU the port's wrappers take the kernels' plain versions
-(message_reference, pseudo_reference); those are held against the JAX
-kernels run in interpret mode and against the JAX references, at the
-tolerance of tests/test_pallas_pseudo.py:74-76. The CUDA kernels themselves
+(message_reference, pseudo_reference) and their plain VJPs
+(message_vjp_reference, pseudo_vjp_reference); those are held against the
+JAX kernels run in interpret mode, forward and backward (jax.vjp runs the
+Pallas _bwd_kernel), against the JAX references, against torch autograd of
+the plain forward, and by gradcheck in float64. The CUDA kernels themselves
 are compared with the plain versions on the card by tests/test_torch_gpu.py
 and by chip_smoke.py.
 """
@@ -16,13 +18,26 @@ import pytest
 import torch
 
 from coarsegrainingvae_tpu.ops import pallas_message, pallas_pseudo
-from coarsegrainingvae_tpu_torch.ops.fused_message import fused_message, message_reference
-from coarsegrainingvae_tpu_torch.ops.fused_pseudo import fused_pseudo_message, pseudo_reference
+from coarsegrainingvae_tpu_torch.ops.fused_message import (
+    fused_message,
+    fused_message_vjp,
+    message_reference,
+    message_vjp_reference,
+)
+from coarsegrainingvae_tpu_torch.ops.fused_pseudo import (
+    fused_pseudo_message,
+    fused_pseudo_vjp,
+    pseudo_reference,
+    pseudo_vjp_reference,
+)
 
 torch.set_num_threads(1)
 
 B, F, R, CUT = 3, 24, 6, 9.0
 TOL = dict(rtol=1e-4, atol=1e-5)
+# gradients: the tolerance of the JAX package's own VJP tests
+# (tests/test_pallas_pseudo.py:100)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
 def _message_inputs(n, s, seed):
@@ -98,12 +113,96 @@ def test_cpu_tensors_take_the_plain_version_and_are_not_counted():
 
 
 def test_wrappers_refuse_autograd_and_other_devices():
+    """The wrappers no longer refuse autograd: it goes through them (their
+    backward is the plain VJP on the CPU), and xyz and mask get no
+    gradient. They still refuse any device but the CPU and CUDA."""
     margs = [torch.as_tensor(a) for a in _message_inputs(4, 3, seed=2)]
+    margs[0].requires_grad_(True)
     margs[2].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        fused_message(*margs, CUT, R)
+    before = (fused_message.launches, fused_message_vjp.launches)
+    ds, dv = fused_message(*margs, CUT, R)
+    assert ds.requires_grad and dv.requires_grad
+    (ds.sum() + dv.sum()).backward()
+    assert margs[0].grad is None and margs[2].grad is not None
+    assert (fused_message.launches, fused_message_vjp.launches) == before
     with torch.no_grad():
-        fused_message(*margs, CUT, R)                # allowed: nothing records
+        assert not fused_message(*margs, CUT, R)[0].requires_grad
     pargs = [torch.as_tensor(a).to("meta") for a in _pseudo_inputs(3, seed=2)]
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_pseudo_message(*pargs, CUT, R)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_message(*[a.to("meta") for a in margs], CUT, R)
+
+
+def _cotangents(outs, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=tuple(o.shape)).astype(np.float32) for o in outs]
+
+
+@pytest.mark.parametrize("n", [3, 11])
+@pytest.mark.parametrize("s", [3, 4])
+def test_message_vjp_matches_jax_kernel(n, s):
+    """The plain VJP against jax.vjp of the Pallas kernel in interpret mode
+    (its hand-derived _bwd_kernel) and against torch autograd of the plain
+    forward; random xyz, so a sign error on the antisymmetric unit channel
+    shows."""
+    args = _message_inputs(n, s, seed=n * 10 + s + 1)
+    gs, gv = _cotangents(message_reference(*[torch.as_tensor(a) for a in args], CUT, R), seed=n + s)
+    xyz, mask = jnp.asarray(args[0]), jnp.asarray(args[1])
+    kern = functools.partial(pallas_message.fused_message, cutoff=CUT, n_rbf=R,
+                             tile_i=8, interpret=True)
+    _, vjp = jax.vjp(lambda *a: kern(xyz, mask, *a), *[jnp.asarray(a) for a in args[2:]])
+    ref = jax.jit(vjp)((jnp.asarray(gs), jnp.asarray(gv)))
+    t = [torch.as_tensor(a) for a in args]
+    out = message_vjp_reference(*t, torch.as_tensor(gs), torch.as_tensor(gv), CUT, R)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+    leaves = [x.clone().requires_grad_(True) for x in t[2:]]
+    auto = torch.autograd.grad(message_reference(*t[:2], *leaves, CUT, R), leaves,
+                               [torch.as_tensor(gs), torch.as_tensor(gv)])
+    for a, b in zip(out, auto):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    # the masked last node gets no gradient
+    assert float(out[0][:, -1].abs().max()) == 0.0 and float(out[1][:, -1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("m", [3, 6])
+def test_pseudo_vjp_matches_jax_kernel(m):
+    args = _pseudo_inputs(m, seed=m + 20)
+    t = [torch.as_tensor(a) for a in args]
+    cts = _cotangents(pseudo_reference(*t, CUT, R), seed=m + 21)
+    xyz, mask = jnp.asarray(args[0]), jnp.asarray(args[1])
+    kern = functools.partial(pallas_pseudo.fused_pseudo_message, cutoff=CUT,
+                             n_rbf=R, tile_b=8, interpret=True)
+    _, vjp = jax.vjp(lambda *a: kern(xyz, mask, *a), *[jnp.asarray(a) for a in args[2:]])
+    ref = jax.jit(vjp)(tuple(jnp.asarray(c) for c in cts))
+    tcts = [torch.as_tensor(c) for c in cts]
+    out = pseudo_vjp_reference(*t, *tcts, CUT, R)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+    leaves = [x.clone().requires_grad_(True) for x in t[2:]]
+    auto = torch.autograd.grad(pseudo_reference(*t[:2], *leaves, CUT, R), leaves, tcts)
+    for a, b in zip(out, auto):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    for grad in out[:5]:
+        assert float(grad[:, -1].abs().max()) == 0.0
+
+
+def test_wrapper_backward_passes_gradcheck_in_float64():
+    """The autograd Functions' hand-derived backward (the plain VJPs on the
+    CPU) against finite differences of their forward, in float64."""
+    def f64(a):
+        return torch.as_tensor(a, dtype=torch.float64)
+
+    margs = [f64(a) for a in _message_inputs(5, 4, seed=30)]
+    margs = [a[..., :6] if i in (2, 3, 4) else a for i, a in enumerate(margs)]
+    for a in margs[2:]:
+        a.requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda *a: fused_message(*margs[:2], *a, CUT, R),
+                                    margs[2:])
+    pargs = [f64(a) for a in _pseudo_inputs(3, seed=31)]
+    pargs = [a if i < 2 else a[..., :4] for i, a in enumerate(pargs)]
+    for a in pargs[2:]:
+        a.requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda *a: fused_pseudo_message(*pargs[:2], *a, CUT, R),
+                                    pargs[2:])
