@@ -18,15 +18,19 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   ``Trainer.fit``.
 
 Every phase raises on failure; there is no CPU fallback. Output, in order:
-the card's name and power limit (nvidia-smi), the build, each kernel against
-its plain version, the serve and train checks and timings, one JSON line
-with the kernels' numbers, and last one JSON line ``{"ok": true, "device":
-{...}}``. The profile's table goes to ``chiprun_out/train_profile.txt``.
-Needs one CUDA device; imports nothing of JAX.
+the card's name and power limit (nvidia-smi), the build with each main-path
+kernel's ptxas registers and spills, each kernel against its plain version
+(with, at the main path's shapes, its time and the plain version's from CUDA
+graph replays, and its roofline bound from ``kernel_cost``), the serve and
+train checks and timings, one JSON line with one entry per kernel and timed
+shape, and last one JSON line ``{"ok": true, "device": {...}}``. The
+profile's table goes to ``chiprun_out/train_profile.txt``. Needs one CUDA
+device; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,19 +61,52 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def cuda_ms(fn, per_graph: int = 20, replays: int = 5) -> float:
+    """ms per call of ``fn``: ``per_graph`` calls captured in one CUDA graph,
+    replayed ``replays`` times between two CUDA events, so the host's launch
+    cost stays out of the time (device time, also at the small shapes)."""
     import torch
 
-    for _ in range(warmup):
+    for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (per_graph * replays)
+
+
+def ptxas_summary(log: str) -> dict:
+    """Each kernel's registers, shared memory and spills from the
+    ``-Xptxas -v`` output of a build: {mangled kernel name: summary}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = ""
+        elif name is not None and ("spill" in line or "Used" in line):
+            out[name] = (out[name] + "; " + line.split(":", 1)[-1].strip()).strip("; ")
+    return out
+
+
+def print_ptxas(label: str, log: str, ra: int = 9) -> None:
+    """The ptxas lines of the main path's instantiations: the message
+    kernels exist for every R+1 in 2..16, the first template argument,
+    mangled ``ILi<R+1>E``."""
+    for kernel, line in ptxas_summary(log).items():
+        if "ILi" not in kernel or f"ILi{ra}E" in kernel:
+            print(f"  ptxas {label} {kernel}: {line}", flush=True)
 
 
 def rel_err(out, ref) -> tuple:
@@ -83,6 +120,65 @@ def rel_err(out, ref) -> tuple:
         worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, err / max(b.abs().max().item(), 1e-30))
     return worst_rel, worst_abs
+
+
+# published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s
+# and FP32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+LIBRARY_NOTE = "no single PyTorch call computes this function"
+
+
+def kernel_cost(kind: str, b: int, n: int, s: int, f: int, n_rbf: int, pairs: int) -> tuple:
+    """(bytes, FLOPs) that one call of a kernel's function needs, whichever
+    kernel computes it: each f32 input read once and each output written
+    once (scratch not counted), and the least arithmetic over ``pairs``, the
+    ordered pairs with adj * env != 0 summed over the batch (the others
+    contribute nothing; adj and K are symmetric, so ``pairs`` is even);
+    FMA = 2 FLOPs. K[p,q] = K[q,p], so per unordered pair and feature the
+    filter filt_c = K.w_c is folded once for both directions (S (R+1) FMAs),
+    and a sum over pairs of K[p,q,r] x_c(p,q), as in d_w, is one (R+1)-long
+    FMA chain on x_c(p,q) + x_c(q,p) (S adds and S (R+1) FMAs).
+
+    message      per unordered pair the filters; per ordered pair 1 + 3 (S - 1)
+                 product FMAs and S - 1 multiplies; per node (S = 4) the
+                 receiver cross, 12.
+    message_vjp  per unordered pair the filters and d_w; per ordered pair S
+                 multiplies phi t and the cotangent terms, 22 (+ 19 when
+                 S = 4); per node phi_0 a_0, 3 (+ 30 when S = 4).
+    pseudo       (S = 9 channels) per unordered pair the filters; per ordered
+                 pair 9 multiplies and 55 aggregate FLOPs; per node 57.
+    pseudo_vjp   per unordered pair the filters and d_w; per ordered pair 161;
+                 per node 75.
+    """
+    ra, nodes = n_rbf + 1, b * n
+    geometry = nodes * 4                        # xyz and mask
+    filters, d_w = 2 * s * ra, s + 2 * s * ra   # per unordered pair
+    if kind == "message":
+        node_io, w_io = (s + 3) + 4, ra * s * f
+        per_unordered, per_pair = filters, 2 + 7 * (s - 1)
+        per_node = 12 if s == 4 else 0
+    elif kind == "message_vjp":
+        node_io, w_io = (s + 3 + 4) + (s + 3), 2 * ra * s * f
+        per_unordered, per_pair = filters + d_w, s + 22 + (19 if s == 4 else 0)
+        per_node = 3 + (30 if s == 4 else 0)
+    elif kind == "pseudo":
+        node_io, w_io = (9 + 2 + 6) + 8, ra * 9 * f
+        per_unordered, per_pair, per_node = filters, 64, 57
+    elif kind == "pseudo_vjp":
+        node_io, w_io = (9 + 2 + 6 + 8) + (9 + 8), 2 * ra * 9 * f
+        per_unordered, per_pair, per_node = filters + d_w, 161, 75
+    else:
+        raise ValueError(f"unknown kernel {kind!r}")
+    n_bytes = 4 * (geometry + nodes * node_io * f + w_io)
+    return n_bytes, f * (pairs // 2 * per_unordered + pairs * per_pair + nodes * per_node)
+
+
+def bound(n_bytes: int, flops: int) -> tuple:
+    """(ms, "bytes" or "operations", "HBM" or "FP32"): the least time one
+    H100 could take, the larger of bytes over the HBM rate and FLOPs over
+    the FP32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes", "HBM") if t_bytes >= t_ops else (t_ops, "operations", "FP32")
 
 
 def kernel_inputs(kind: str, b: int, n: int, s: int, f: int, r: int, seed: int):
@@ -108,37 +204,45 @@ def kernel_inputs(kind: str, b: int, n: int, s: int, f: int, r: int, seed: int):
     return args + cts if kind.endswith("vjp") else args
 
 
-def check_kernels() -> dict:
+def check_kernels() -> list:
+    """Every kernel against its plain version at each case; the timed cases'
+    numbers, one dict per (kernel, shape)."""
     import torch
 
     from coarsegrainingvae_tpu_torch.ops import fused_message as mo
     from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+    from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
-    f, r = 600, 8
-    # (kernel, (B, N, S), cutoff, label, timed): the shapes the served model
-    # (B = 64 samples) and the trained model (B = 128 frames) give each
-    # kernel; the first timed case of a kernel gives its JSON numbers
+    f = 600
+    # (kernel, (B, N, S, n_rbf), cutoff, label, timed): the shapes the served
+    # model (B = 64 samples) and the trained model (B = 128 frames) give each
+    # kernel, the cross variant, N beyond one 32-partner chunk, and the
+    # smallest and largest n_rbf the message kernels take at N = 27 (their
+    # radial sines come from a recurrence whose error grows with the index)
     cases = [
-        ("message", (64, 3, 3), 9.5, "prior serve B=64 M=3 S=3", True),
-        ("message", (128, 27, 3), 9.5, "encoder train B=128 N=27 S=3", True),
-        ("message", (128, 3, 3), 9.5, "prior train B=128 M=3 S=3", True),
-        ("message", (64, 27, 4), 9.5, "cross B=64 N=27 S=4", False),
-        ("pseudo", (64, 3, 9), 8.5, "decoder serve B=64 M=3", True),
-        ("pseudo", (128, 3, 9), 8.5, "decoder train B=128 M=3", True),
-        ("pseudo", (64, 6, 9), 8.5, "decoder B=64 M=6", False),
-        ("message_vjp", (128, 27, 3), 9.5, "encoder train B=128 N=27 S=3", True),
-        ("message_vjp", (128, 3, 3), 9.5, "prior train B=128 M=3 S=3", True),
-        ("message_vjp", (64, 27, 4), 9.5, "cross B=64 N=27 S=4", False),
-        ("message_vjp", (16, 70, 3), 9.5, "two sender chunks B=16 N=70 S=3", False),
-        ("pseudo_vjp", (128, 3, 9), 8.5, "decoder train B=128 M=3", True),
-        ("pseudo_vjp", (64, 6, 9), 8.5, "decoder B=64 M=6", False),
-    ]
+        ("message", (64, 3, 3, 8), 9.5, "prior serve B=64 M=3 S=3", True),
+        ("message", (128, 27, 3, 8), 9.5, "encoder train B=128 N=27 S=3", True),
+        ("message", (128, 3, 3, 8), 9.5, "prior train B=128 M=3 S=3", True),
+        ("message", (64, 27, 4, 8), 9.5, "cross B=64 N=27 S=4", False),
+        ("message", (16, 70, 4, 8), 9.5, "three partner chunks B=16 N=70 S=4", False),
+        ("pseudo", (64, 3, 9, 8), 8.5, "decoder serve B=64 M=3", True),
+        ("pseudo", (128, 3, 9, 8), 8.5, "decoder train B=128 M=3", True),
+        ("pseudo", (64, 6, 9, 8), 8.5, "decoder B=64 M=6", False),
+        ("message_vjp", (128, 27, 3, 8), 9.5, "encoder train B=128 N=27 S=3", True),
+        ("message_vjp", (128, 3, 3, 8), 9.5, "prior train B=128 M=3 S=3", True),
+        ("message_vjp", (64, 27, 4, 8), 9.5, "cross B=64 N=27 S=4", False),
+        ("message_vjp", (16, 70, 3, 8), 9.5, "three partner chunks B=16 N=70 S=3", False),
+        ("message_vjp", (16, 70, 4, 8), 9.5, "three partner chunks B=16 N=70 S=4", False),
+        ("pseudo_vjp", (128, 3, 9, 8), 8.5, "decoder train B=128 M=3", True),
+        ("pseudo_vjp", (64, 6, 9, 8), 8.5, "decoder B=64 M=6", False),
+    ] + [(kind, (64, 27, s, r), 9.5, f"B=64 N=27 S={s} n_rbf={r}", False)
+         for kind in ("message", "message_vjp") for s, r in ((3, 1), (3, 15), (4, 1), (4, 15))]
     fns = {"message": (mo.fused_message, mo.message_reference),
            "pseudo": (po.fused_pseudo_message, po.pseudo_reference),
            "message_vjp": (mo.fused_message_vjp, mo.message_vjp_reference),
            "pseudo_vjp": (po.fused_pseudo_vjp, po.pseudo_vjp_reference)}
-    stats = {}
-    for seed, (kind, (b, n, s), cut, label, timed) in enumerate(cases):
+    timed = []
+    for seed, (kind, (b, n, s, r), cut, label, is_timed) in enumerate(cases):
         kern, plain = fns[kind]
         args = kernel_inputs(kind, b, n, s, f, r, seed) + (cut, r)
         with torch.no_grad():
@@ -146,19 +250,25 @@ def check_kernels() -> dict:
             ref = plain(*args)
             torch.cuda.synchronize()
             rel, err = rel_err(out, ref)
-            st = stats.setdefault(kind, {"max_abs_err": 0.0, "max_rel_err": 0.0})
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            st["max_rel_err"] = max(st["max_rel_err"], rel)
             line = f"kernel {kind} [{label}]: max|err| {err:.3e}, max|err|/max|ref| {rel:.3e}"
-            if timed:
+            if is_timed:
                 ms, plain_ms = cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))
-                st.setdefault("ms", ms)
-                st.setdefault("plain_ms", plain_ms)
-                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                pairs = int(pair_filter_basis(args[0], args[1], cut, r)[1].sum().item())
+                n_bytes, flops = kernel_cost(kind, b, n, s if kind.startswith("message") else 9,
+                                             f, r, pairs)
+                bound_ms, bound_by, resource = bound(n_bytes, flops)
+                timed.append({"kind": kind, "shape": label, "max_abs_err": err,
+                              "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                              "bytes": n_bytes, "flops": flops, "pairs": pairs,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "bound_resource": resource, "share": bound_ms / ms})
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({resource}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP over "
+                         f"{pairs} pairs), {100 * bound_ms / ms:.1f} % of it")
         print(line, flush=True)
         if not rel <= KERNEL_RTOL:
             raise RuntimeError(f"{kind} kernel disagrees with its plain version: {rel:.3e} > {KERNEL_RTOL}")
-    return stats
+    return timed
 
 
 def reset_counts() -> None:
@@ -509,29 +619,30 @@ def main() -> int:
     print(f"build: both kernel sources ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc: {', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.BUILD_SECONDS.items())})",
           flush=True)
-    for name, log in cuda_build.BUILD_LOG.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  ptxas {name}: {ln.strip()}", flush=True)
+    for source, log in cuda_build.BUILD_LOG.items():
+        print_ptxas(source, log)
 
-    stats = check_kernels()
+    timed = check_kernels()
     paths = {"serve": serve()}
     paths.update(train())
 
     source = "coarsegrainingvae_tpu_torch/csrc/"
-    rows = [("fused_message", "message", "fused_message.cu", "pallas_message.py:126"),
-            ("fused_message_vjp", "message_vjp", "fused_message.cu", "pallas_message.py:202"),
-            ("fused_pseudo_message", "pseudo", "fused_pseudo.cu", "pallas_pseudo.py:192"),
-            ("fused_pseudo_vjp", "pseudo_vjp", "fused_pseudo.cu", "pallas_pseudo.py:210")]
+    rows = {"message": ("fused_message", "fused_message.cu", "pallas_message.py:126"),
+            "message_vjp": ("fused_message_vjp", "fused_message.cu", "pallas_message.py:202"),
+            "pseudo": ("fused_pseudo_message", "fused_pseudo.cu", "pallas_pseudo.py:192"),
+            "pseudo_vjp": ("fused_pseudo_vjp", "fused_pseudo.cu", "pallas_pseudo.py:210")}
     kernels = []
-    for name, kind, src, tpu in rows:
+    for t in timed:                             # one entry per (kernel, timed shape)
+        name, src, tpu = rows[t["kind"]]
         by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
-            "name": name, "route": "cuda", "source": source + src,
+            "name": name, "shape": t["shape"], "route": "cuda", "source": source + src,
             "replaces": "coarsegrainingvae_tpu/ops/" + tpu,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": stats[kind]["max_abs_err"], "ms": stats[kind]["ms"],
-            "plain_ms": stats[kind]["plain_ms"]})
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_resource": t["bound_resource"], "share": t["share"],
+            "library_ms": None, "library_note": LIBRARY_NOTE})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,10 @@
 // (sm_90a).
 //
 // Replaces the TPU kernels coarsegrainingvae_tpu/ops/pallas_message.py::
-// _fused_kernel (forward, launched by _fused_call) and ::_bwd_kernel (its
-// hand-derived VJP, launched by _bwd_call). Same semantics as the plain
-// versions message_reference (pallas_message.py:72-113) and
-// message_vjp_reference (coarsegrainingvae_tpu_torch/ops/fused_message.py):
+// _fused_kernel (forward, :126-199, launched by _fused_call) and ::_bwd_kernel
+// (its hand-derived VJP, :202-342, launched by _bwd_call). Same semantics as
+// the plain versions message_reference and message_vjp_reference
+// (coarsegrainingvae_tpu_torch/ops/fused_message.py):
 //
 //   K[i,j,r] = adj_ij * env(d_ij) * [rbf_1..R(d_ij), 1]_r
 //   filt_c   = sum_r K[i,j,r] w[r,c,f]
@@ -13,57 +13,197 @@
 //   dv_i     = sum_j filt_2 unit_ij phi[j,2] + sum_j filt_0 phi[j,0] v_j
 //            (+ v_i x w3_i,  w3_i = sum_j filt_3 phi[j,3] v_j   when S == 4)
 //
-// with r_ij = x_j - x_i, d = sqrt(|r|^2 + 1e-3), unit = r / d, and
-// adj = (d < cutoff) * (i != j) * mask_i * mask_j (pair_geometry.cuh).
-//
-// Forward. What bounds it on this card: on the served path (B = 64
-// samples, M = 3 beads, F = 600) one call reads and writes ~4.7 MB and does
-// ~12 MFLOP, i.e. ~1.4 us at 3.35 TB/s: it is launch- and latency-bound,
-// far from both the memory and the FP32 rate. At N = 27 (the encoder) the
-// senders' phi/v rows are re-read by every receiver block, from L2. Design:
-// one block per (batch element, receiver i), threads striding over F so
-// every global access is coalesced along F. The block builds the pair
-// geometry for a chunk of senders in shared memory once (rebuilt per
-// F-group only when N exceeds one chunk), and each thread keeps one
-// channel's w[:, c, f] column in registers while it walks the senders.
-//
-// Backward. Given the cotangents gs (B,N,F) and gv (B,N,3,F) it writes
-// d_phi (B,N,S,F), d_v (B,N,3,F) and d_w (R+1,S,F) summed over the batch;
-// xyz and mask get no gradient (the JAX contract, pallas_message.py:38-42).
-// With node p as the sender of the pair (q <- p) and t_c(q) the cotangent
-// that pair hands channel c per unit of p's payload:
+// with r_ij = x_j - x_i, d = sqrt(|r|^2 + 1e-3), unit = r / d and
+// adj = (d < cutoff) * (i != j) * mask_i * mask_j. The backward takes the
+// cotangents gs (B,N,F), gv (B,N,3,F) and writes d_phi (B,N,S,F), d_v
+// (B,N,3,F) and d_w (R+1,S,F) summed over the batch; xyz and mask get no
+// gradient (pallas_message.py:38-42). With node p the sender of the pair
+// (q <- p) and t_c(q) the cotangent that pair hands channel c:
 //
 //   t_1 = gs_q,   t_2 = gv_q . unit_qp,   t_0 = gv_q . v_p,
 //   t_3 = (gv_q x v_q) . v_p
 //   d_phi[p,c] = sum_q filt_c[p,q] t_c(q)
 //   d_v_p      = phi[p,0] sum_q filt_0 gv_q + phi[p,3] sum_q filt_3 (gv_q x v_q)
 //              + w3_p x gv_p                       (receiver side of the cross)
-//   d_w[r,c]   = sum_b sum_p phi[p,c] sum_q K[p,q,r] t_c(q)
+//   d_w[r,c]   = sum_b sum_p sum_q K[p,q,r] phi[p,c] t_c(q)
 //
-// K is symmetric and unit antisymmetric (unit_qp = -unit_pq), so one row
-// of geometry per node p serves both roles, as in the TPU kernel. The TPU
-// kernel sums d_w across its sequential grid into one block; blocks here run
-// in no order, so the sum takes two passes: each block writes one partial
-// d_w per batch element (B x (R+1) x S x F floats, 8.3 MB at B = 128, F =
-// 600), and sum_over_batch adds them in a fixed order. No atomics; the
-// result is deterministic. Design: one block per (batch element, chunk of
-// 128 features); each thread owns one feature column and walks the nodes p,
-// the channels c and the partners q, so every output element has one writer.
-// The forward's "fold the basis first" trick (filt in a register) serves
-// d_phi and d_v; d_w needs the R+1 per-basis sums sum_q K[r] t_c(q), kept
-// in registers for one (p, c) at a time and added into the block's partial.
-// What bounds it: at B = 128, N = 27, F = 600, S = 3 it reads ~25 MB and
-// does ~2 GFLOP, latency-bound on the per-pair loop.
+// K is symmetric and unit antisymmetric, so one geometry record per (p, q)
+// serves a node in either role, as in the TPU kernel.
 //
-// The TPU kernels' 8-node tiling and their padding of N to a multiple of 8
-// came from the (8, 128) vreg layout and are not carried over.
+// What bounds them on this card (chip_smoke.py::kernel_cost, the least
+// work of the function: K is symmetric, so each unordered pair's filter and
+// its d_w chain count once). At the encoder's shape (B 128, N 27, S 3,
+// F 600, R+1 9; 702 interacting ordered pairs per batch element) the forward
+// moves 83 MB (25 us at 3.35 TB/s) and does 2.3 GFLOP (35 us at the
+// 67 TFLOP/s FP32 rate); the backward moves 133 MB (40 us) and does 4.3
+// GFLOP (65 us). Both are bound by the FP32 rate, and nearly every useful
+// operation is a fused multiply-add, so the design keeps the FMA pipes fed:
+// no padded basis, no global or L2 traffic on the pair loop's critical path,
+// independent work in each warp.
+//
+// Design, all three kernels:
+// - A block owns one batch element b, a tile of rows (receivers in the
+//   forward, nodes p in the backward) and 32 features, one per lane. Warps
+//   run along f, so each per-node read is one coalesced 128-byte line and
+//   each geometry read is a shared-memory broadcast. F = 600 is 19 tiles of
+//   32 with 8 idle lanes in the last (1.3 %).
+// - The block stages its batch element's coordinates and mask, then builds
+//   the geometry of its pairs once, in shared memory: per pair the R+1
+//   values K[r] and the unit vector, padded to a multiple of 4 floats and
+//   read as float4 (12 floats at R+1 = 9). One rsqrtf and one __sincosf per
+//   pair; the radial sines follow by the angle-addition recurrence (relative
+//   error ~3e-6 against the plain version's sin per basis, far inside its
+//   1e-4 gate).
+// - R+1 and S are template parameters (the C entry points switch over R+1
+//   in 2..16 and S in {3, 4}): the basis loops unroll with no zero padding
+//   and w[:, :, f] lives in registers.
+// Forward, S = 3 and N <= 27 (the encoder and the prior; fused_message_sym_
+//   kernel): K is symmetric and unit antisymmetric, so each unordered pair's
+//   folded filter serves both directions: 3 (R+1) + 18 FMAs per pair instead
+//   of 2 (3 (R+1) + 9). Each warp holds a group of 9 nodes' payloads and sums
+//   in registers and takes the pairs inside its group and those between its
+//   group and the next; the sums that land in another warp's group pass
+//   through shared memory, one writer per node. Why a second forward: at
+//   B 128, N 27, S 3 it takes 0.1046 ms where the tiled kernel takes
+//   0.1297 ms, and the two are equal at M 3 (scripts/kernel_ab.py against
+//   this source with the dispatch to it switched off, one H100 80GB HBM3
+//   at 700 W).
+// Forward, otherwise (fused_message_kernel): each thread keeps the sums of 9
+//   receivers in registers, so a sender's payload, read once, feeds all nine.
+//   Each warp streams the senders' payloads through a private 3-slot ring in
+//   shared memory with cp.async, two senders ahead; partner chunks of 32
+//   cover any N (the cross decoder's N = 209).
+// Backward: each warp owns 9 nodes p (3 warps cover N = 27) and takes them
+//   three at a time against every partner q, so a partner's row, read once,
+//   feeds three nodes' independent sums. The partners' cotangent rows (gs,
+//   gv, and for S = 4 gv x v and phi_3 v) are staged per chunk with cp.async
+//   while the geometry is built, and read as float4. Each thread keeps its
+//   share of d_w, the sum over its nodes and partners of K[r] phi[p,c] t_c,
+//   in registers; the block adds its warps' sums through shared memory in a
+//   fixed order and writes one partial per (b, node tile, feature), and
+//   sum_over_batch adds the partials in a fixed order. No atomics: d_w is
+//   deterministic.
+// Left out, and why:
+// - Tensor cores. The f32 gate against the plain version is 1e-4 of the
+//   output's max; single-pass TF32 (~5e-4 relative) fails it, so the TPU's
+//   per-basis contraction (TI (R+1), N) @ (N, F) would need the 3xTF32
+//   split, three MMAs per product on a contraction depth of only N = 27.
+//   They become the lever once these kernels reach about half their FP32
+//   bound.
+// - K's symmetry in the backward: one pair would need both nodes' inputs
+//   (v, phi, gs, gv) and sums (d_phi, d_v) at once, some 16 registers per
+//   node beyond the 9-node group's, more than a thread holds.
+
+#include <algorithm>
+#include <type_traits>
 
 #include "pair_geometry.cuh"
 
 namespace cgvae {
 namespace {
 
-__global__ void fused_message_kernel(
+constexpr int kLanes = 32;        // features per block, one per lane
+constexpr int kCols = 32;         // partner nodes per shared-memory chunk
+constexpr int kFwdRows = 9;       // receivers per thread (forward)
+constexpr int kFwdMaxWarps = 4;
+constexpr int kRing = 3;          // senders in flight per warp (forward)
+constexpr int kBwdRows = 9;       // nodes per warp (backward)
+constexpr int kBwdTogether = 3;   // of which a warp takes this many at once
+constexpr int kBwdMaxWarps = 3;
+constexpr int kSymRows = 9;       // nodes per warp group (symmetric forward)
+constexpr int kSymGroups = 3;     // so it covers N <= 27
+constexpr int kMaxDevices = 64;
+
+// floats per pair record: K[0..RA-1], unit[0..2], padded to a multiple of 4
+__host__ __device__ constexpr int record_width(int RA) { return (RA + 3 + 3) / 4 * 4; }
+
+// 4-byte asynchronous copy global -> shared (cp.async), its group commit
+// and the wait until at most n groups are in flight.
+__device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int n>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(n)); }
+
+// Stage one batch element's coordinates and mask, (x, y, z, m) per node.
+__device__ __forceinline__ void stage_nodes(float4* __restrict__ nodes,
+                                            const float* __restrict__ xb,
+                                            const float* __restrict__ mb, int N) {
+  for (int n = threadIdx.x; n < N; n += blockDim.x)
+    nodes[n] = make_float4(xb[n * 3 + 0], xb[n * 3 + 1], xb[n * 3 + 2], mb[n]);
+}
+
+// The geometry record of row node p against partner q (zeros when either
+// lies past N): K[r] for the pair, then unit = (x_q - x_p) / d. nodes holds
+// (x, y, z, mask); pi_c = pi / cutoff.
+template <int RA>
+__device__ __forceinline__ void pair_record(float* __restrict__ rec,
+                                            const float4* __restrict__ nodes,
+                                            int p, int q, int N, float cutoff, float pi_c) {
+  constexpr int W = record_width(RA);
+  float out[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) out[k] = 0.f;
+  if (p < N && q < N) {
+    const float4 a = nodes[p], c = nodes[q];
+    const float r0 = c.x - a.x, r1 = c.y - a.y, r2 = c.z - a.z;
+    const float d2 = r0 * r0 + r1 * r1 + r2 * r2 + kEps;
+    const float inv_d = rsqrtf(d2);
+    const float d = d2 * inv_d;
+    out[RA + 0] = r0 * inv_d;
+    out[RA + 1] = r1 * inv_d;
+    out[RA + 2] = r2 * inv_d;
+    if (d < cutoff && p != q) {
+      float s1, c1;                       // sin and cos of pi d / cutoff
+      __sincosf(pi_c * d, &s1, &c1);    // |error| < 4e-7 for arguments in [0, pi)
+      const float ae = a.w * c.w * (0.5f * (c1 + 1.f));
+      const float ae_d = ae * inv_d;
+      float sk = s1, ck = c1;             // sin and cos of (k + 1) pi d / cutoff
+#pragma unroll
+      for (int k = 0; k < RA - 1; ++k) {
+        out[k] = ae_d * sk;
+        const float sn = sk * c1 + ck * s1;
+        ck = ck * c1 - sk * s1;
+        sk = sn;
+      }
+      out[RA - 1] = ae;
+    }
+  }
+  float4* r4 = reinterpret_cast<float4*>(rec);
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k)
+    r4[k] = make_float4(out[4 * k], out[4 * k + 1], out[4 * k + 2], out[4 * k + 3]);
+}
+
+template <int W>
+__device__ __forceinline__ void load_record(float (&g)[W], const float* rec) {
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k) {
+    const float4 t = r4[k];
+    g[4 * k] = t.x; g[4 * k + 1] = t.y; g[4 * k + 2] = t.z; g[4 * k + 3] = t.w;
+  }
+}
+
+// filt[c] = sum_r K[r] w[r][c]
+template <int RA, int S, int W>
+__device__ __forceinline__ void fold(float (&filt)[S], const float (&g)[W],
+                                     const float (&wr)[RA][S]) {
+#pragma unroll
+  for (int c = 0; c < S; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < RA; ++r) acc = fmaf(g[r], wr[r][c], acc);
+    filt[c] = acc;
+  }
+}
+
+template <int RA, int S>
+__global__ void __launch_bounds__(kLanes * kFwdMaxWarps,
+                                  S * RA + kFwdRows * (S == 4 ? 7 : 4) <= 72 ? 4 : 2)
+fused_message_kernel(
     const float* __restrict__ xyz,    // (B, N, 3)
     const float* __restrict__ mask,   // (B, N)
     const float* __restrict__ phi,    // (B, N, S, F)
@@ -71,83 +211,258 @@ __global__ void fused_message_kernel(
     const float* __restrict__ w,      // (RA, S, F)
     float* __restrict__ ds,           // (B, N, F)
     float* __restrict__ dv,           // (B, N, 3, F)
-    int N, int S, int F, int RA, float cutoff) {
-  __shared__ PairChunk pc;
+    int N, int F, float cutoff) {
+  constexpr int W = record_width(RA);
+  constexpr int P = S + 3;            // payload floats per sender: phi[j, :], v[j, :]
+  constexpr int kCross = S == 4 ? kFwdRows : 1;
+  extern __shared__ float4 smem[];
 
-  const int b = blockIdx.x / N;
-  const int i = blockIdx.x % N;
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int rows = blockDim.x / kLanes * kFwdRows;
+  const int cols = min(N, kCols);
+  const int b = blockIdx.z, i0 = blockIdx.y * rows;
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float pi_c = kPi / cutoff;
+  float4* nodes = smem;                               // (N): x, y, z, mask
+  float* geo = reinterpret_cast<float*>(smem + N);    // (rows, chunk, W)
+  // this warp's ring of sender payloads, (slot, P, lane), at this lane
+  float* ring = geo + rows * cols * W + warp * kRing * P * kLanes + lane;
   const float* xb = xyz + (size_t)b * N * 3;
   const float* mb = mask + (size_t)b * N;
-  const int n_chunks = (N + kChunk - 1) / kChunk;
+  const float* phib = phi + (size_t)b * N * S * F + f;
+  const float* vb = v + (size_t)b * N * 3 * F + f;
 
-  for (int f0 = 0; f0 < F; f0 += blockDim.x) {
-    const int f = f0 + threadIdx.x;
-    const bool active = f < F;
-    float acc_s = 0.f;
-    float acc_v[3] = {0.f, 0.f, 0.f};
-    float acc_w3[3] = {0.f, 0.f, 0.f};
+  float wr[RA][S];
+#pragma unroll
+  for (int r = 0; r < RA; ++r)
+#pragma unroll
+    for (int c = 0; c < S; ++c) wr[r][c] = w[((size_t)r * S + c) * F + f];
+  float acc_s[kFwdRows], acc_v[kFwdRows][3], acc_w3[kCross][3];
+#pragma unroll
+  for (int k = 0; k < kFwdRows; ++k) {
+    acc_s[k] = 0.f;
+    acc_v[k][0] = acc_v[k][1] = acc_v[k][2] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < kCross; ++k) acc_w3[k][0] = acc_w3[k][1] = acc_w3[k][2] = 0.f;
 
-    for (int c0 = 0; c0 < n_chunks; ++c0) {
-      const int j0 = c0 * kChunk;
-      const int nj = min(kChunk, N - j0);
-      if (n_chunks > 1 || f0 == 0) {
-        __syncthreads();
-        build_pair_chunk(pc, xb, mb, i, j0, nj, RA, cutoff);
-        __syncthreads();
+  stage_nodes(nodes, xb, mb, N);
+  for (int j0 = 0; j0 < N; j0 += kCols) {
+    const int nc = min(kCols, N - j0);
+    // sender jj's payload into ring slot jj % kRing, one commit group each
+    auto stage = [&](int jj) {
+      if (jj < nc) {
+        float* dst = ring + (jj % kRing) * P * kLanes;
+        const size_t j = j0 + jj;
+#pragma unroll
+        for (int c = 0; c < S; ++c) cp_async4(dst + c * kLanes, phib + (j * S + c) * F);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) cp_async4(dst + (S + d) * kLanes, vb + (j * 3 + d) * F);
       }
-      if (!active) continue;
+      cp_async_commit();
+    };
+    __syncthreads();                  // the nodes are staged; the previous chunk's readers are done
+#pragma unroll
+    for (int jj = 0; jj < kRing - 1; ++jj) stage(jj);   // in flight while the geometry is built
+    for (int t = threadIdx.x; t < rows * nc; t += blockDim.x)
+      pair_record<RA>(geo + t * W, nodes, i0 + t / nc, j0 + t % nc, N, cutoff, pi_c);
+    __syncthreads();
 
-      for (int c = 0; c < S; ++c) {
-        float wc[kMaxRA];
+    const float* rec0 = geo + warp * kFwdRows * nc * W;
+    for (int jj = 0; jj < nc; ++jj) {
+      stage(jj + kRing - 1);
+      cp_async_wait<kRing - 1>();     // sender jj has landed (each lane reads its own copies)
+      float pay[P];
+      const float* src = ring + (jj % kRing) * P * kLanes;
 #pragma unroll
-        for (int r = 0; r < kMaxRA; ++r)
-          wc[r] = r < RA ? w[((size_t)r * S + c) * F + f] : 0.f;
-        for (int jj = 0; jj < nj; ++jj) {
-          if (pc.on[jj] == 0.f) continue;
-          float filt = 0.f;
+      for (int e = 0; e < P; ++e) pay[e] = src[e * kLanes];
 #pragma unroll
-          for (int r = 0; r < kMaxRA; ++r) filt += pc.k[jj][r] * wc[r];
-          const size_t row = (size_t)b * N + j0 + jj;
-          const float p = phi[(row * S + c) * F + f] * filt;
-          if (c == 1) {
-            acc_s += p;
-          } else if (c == 2) {
-            acc_v[0] += p * pc.unit[jj][0];
-            acc_v[1] += p * pc.unit[jj][1];
-            acc_v[2] += p * pc.unit[jj][2];
-          } else {
-            const float p0 = p * v[(row * 3 + 0) * F + f];
-            const float p1 = p * v[(row * 3 + 1) * F + f];
-            const float p2 = p * v[(row * 3 + 2) * F + f];
-            if (c == 0) {
-              acc_v[0] += p0; acc_v[1] += p1; acc_v[2] += p2;
-            } else {
-              acc_w3[0] += p0; acc_w3[1] += p1; acc_w3[2] += p2;
-            }
-          }
+      for (int k = 0; k < kFwdRows; ++k) {
+        float g[W];
+        load_record(g, rec0 + (k * nc + jj) * W);
+        float filt[S];
+        fold<RA, S>(filt, g, wr);
+        acc_s[k] = fmaf(filt[1], pay[1], acc_s[k]);
+        const float p0 = filt[0] * pay[0], p2 = filt[2] * pay[2];
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          acc_v[k][d] = fmaf(p2, g[RA + d], fmaf(p0, pay[S + d], acc_v[k][d]));
+        if constexpr (S == 4) {
+          const float p3 = filt[3] * pay[3];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) acc_w3[k][d] = fmaf(p3, pay[S + d], acc_w3[k][d]);
         }
       }
     }
-    if (!active) continue;
+  }
+  if (f_out >= F) return;
 
-    const size_t row_i = (size_t)b * N + i;
-    if (S == 4) {
+#pragma unroll
+  for (int k = 0; k < kFwdRows; ++k) {
+    const int i = i0 + warp * kFwdRows + k;
+    if (i >= N) break;
+    const size_t row = (size_t)b * N + i;
+    float o[3] = {acc_v[k][0], acc_v[k][1], acc_v[k][2]};
+    if constexpr (S == 4) {
       // dv_i += v_i x w3_i (the cross product commutes with the sum over j)
-      const float a0 = v[(row_i * 3 + 0) * F + f];
-      const float a1 = v[(row_i * 3 + 1) * F + f];
-      const float a2 = v[(row_i * 3 + 2) * F + f];
-      acc_v[0] += a1 * acc_w3[2] - a2 * acc_w3[1];
-      acc_v[1] += a2 * acc_w3[0] - a0 * acc_w3[2];
-      acc_v[2] += a0 * acc_w3[1] - a1 * acc_w3[0];
+      const float a0 = v[(row * 3 + 0) * F + f];
+      const float a1 = v[(row * 3 + 1) * F + f];
+      const float a2 = v[(row * 3 + 2) * F + f];
+      o[0] += a1 * acc_w3[k][2] - a2 * acc_w3[k][1];
+      o[1] += a2 * acc_w3[k][0] - a0 * acc_w3[k][2];
+      o[2] += a0 * acc_w3[k][1] - a1 * acc_w3[k][0];
     }
-    ds[row_i * F + f] = acc_s;
-    dv[(row_i * 3 + 0) * F + f] = acc_v[0];
-    dv[(row_i * 3 + 1) * F + f] = acc_v[1];
-    dv[(row_i * 3 + 2) * F + f] = acc_v[2];
+    ds[row * F + f] = acc_s[k];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f] = o[d];
   }
 }
 
-__global__ void fused_message_bwd_kernel(
+// Forward for S = 3 and N <= 27, each unordered pair once (the note at the
+// top). Warp g takes the pairs inside node group g and, as rows, the tile
+// between group g and group g+1 mod 3 (with two groups warp 0 takes the
+// 0-1 tile). Grid (F/32, 1, B).
+template <int RA>
+__global__ void __launch_bounds__(kLanes * kSymGroups, 4)
+fused_message_sym_kernel(
+    const float* __restrict__ xyz,    // (B, N, 3)
+    const float* __restrict__ mask,   // (B, N)
+    const float* __restrict__ phi,    // (B, N, 3, F)
+    const float* __restrict__ v,      // (B, N, 3, F)
+    const float* __restrict__ w,      // (RA, 3, F)
+    float* __restrict__ ds,           // (B, N, F)
+    float* __restrict__ dv,           // (B, N, 3, F)
+    int N, int F, float cutoff) {
+  constexpr int S = 3, P = 6, W = record_width(RA);
+  constexpr int G9 = kSymRows, kDiag = G9 * (G9 - 1) / 2, kTile = kDiag + G9 * G9;
+  extern __shared__ float4 smem[];
+
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int groups = blockDim.x / kLanes;
+  const int b = blockIdx.z, g0 = warp * G9;
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float pi_c = kPi / cutoff;
+  // the column group of each warp's off-diagonal tile, or -1
+  auto column_group = [groups](int g) {
+    return groups == 3 ? (g + 1) % 3 : (groups == 2 && g == 0 ? 1 : -1);
+  };
+  float4* nodes = smem;                                // (N): x, y, z, mask
+  float* geo = reinterpret_cast<float*>(smem + N);     // (warp, kTile, W)
+  float* xacc = geo + groups * kTile * W;              // (node, 4, lane)
+  const float* xb = xyz + (size_t)b * N * 3;
+  const float* mb = mask + (size_t)b * N;
+  const float* phib = phi + (size_t)b * N * S * F + f;
+  const float* vb = v + (size_t)b * N * 3 * F + f;
+
+  float wr[RA][S];
+#pragma unroll
+  for (int r = 0; r < RA; ++r)
+#pragma unroll
+    for (int c = 0; c < S; ++c) wr[r][c] = w[((size_t)r * S + c) * F + f];
+  auto load_payload = [&](int n, float (&pay)[P]) {
+#pragma unroll
+    for (int c = 0; c < S; ++c) pay[c] = n < N ? phib[((size_t)n * S + c) * F] : 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) pay[S + d] = n < N ? vb[((size_t)n * 3 + d) * F] : 0.f;
+  };
+  float pa[G9][P], acc[G9][4];        // the group's payloads and sums (ds, dv)
+#pragma unroll
+  for (int a = 0; a < G9; ++a) {
+    load_payload(g0 + a, pa[a]);
+    acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.f;
+  }
+
+  stage_nodes(nodes, xb, mb, N);
+  __syncthreads();
+  // records: per warp the pairs a < b' of its group, then its a x j tile
+  for (int t = threadIdx.x; t < groups * kTile; t += blockDim.x) {
+    const int wg = t / kTile;
+    int e = t % kTile, p, q;
+    if (e < kDiag) {
+      int a = 0;
+      while (e >= G9 - 1 - a) e -= G9 - 1 - a, ++a;
+      p = wg * G9 + a;
+      q = p + 1 + e;
+    } else {
+      const int h = column_group(wg);
+      p = h < 0 ? N : wg * G9 + (e - kDiag) / G9;
+      q = h < 0 ? N : h * G9 + (e - kDiag) % G9;
+    }
+    pair_record<RA>(geo + t * W, nodes, p, q, N, cutoff, pi_c);
+  }
+  __syncthreads();
+
+  // one pair: receiver x gets sender y's payload along +unit, y gets x's
+  // along -unit
+  auto pair = [&](const float* rec, const float (&px)[P], const float (&py)[P],
+                  float (&ax)[4], float (&ay)[4]) {
+    float g[W];
+    load_record(g, rec);
+    float filt[S];
+    fold<RA, S>(filt, g, wr);
+    ax[0] = fmaf(filt[1], py[1], ax[0]);
+    ay[0] = fmaf(filt[1], px[1], ay[0]);
+    const float y0 = filt[0] * py[0], y2 = filt[2] * py[2];
+    const float x0 = filt[0] * px[0], x2 = filt[2] * px[2];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      ax[1 + d] = fmaf(y2, g[RA + d], fmaf(y0, py[S + d], ax[1 + d]));
+      ay[1 + d] = fmaf(-x2, g[RA + d], fmaf(x0, px[S + d], ay[1 + d]));
+    }
+  };
+
+  const float* rec = geo + warp * kTile * W;
+#pragma unroll
+  for (int a = 0; a < G9 - 1; ++a) {
+    if (g0 + a + 1 >= N) break;
+#pragma unroll
+    for (int c = a + 1; c < G9; ++c) {
+      if (g0 + c >= N) break;
+      pair(rec + (a * (2 * G9 - 1 - a) / 2 + c - a - 1) * W, pa[a], pa[c], acc[a], acc[c]);
+    }
+  }
+  const int h = column_group(warp);
+  if (h >= 0) {
+    float pj[P];
+    load_payload(h * G9, pj);
+    for (int jj = 0; jj < G9 && h * G9 + jj < N; ++jj) {
+      float nxt[P];
+      load_payload(h * G9 + jj + 1, nxt);
+      float aj[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int a = 0; a < G9; ++a)
+        pair(rec + (kDiag + a * G9 + jj) * W, pa[a], pj, acc[a], aj);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xacc[((h * G9 + jj) * 4 + e) * kLanes + lane] = aj[e];
+#pragma unroll
+      for (int e = 0; e < P; ++e) pj[e] = nxt[e];
+    }
+  }
+  __syncthreads();
+
+  // the group's sums from the other warp's tile, if one has it as columns
+  const bool receives = groups == 3 || (groups == 2 && warp == 1);
+  if (f_out >= F) return;
+#pragma unroll
+  for (int a = 0; a < G9; ++a) {
+    const int i = g0 + a;
+    if (i >= N) break;
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[e] = acc[a][e] + (receives ? xacc[(i * 4 + e) * kLanes + lane] : 0.f);
+    const size_t row = (size_t)b * N + i;
+    ds[row * F + f] = o[0];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f] = o[1 + d];
+  }
+}
+
+template <int RA, int S>
+__global__ void __launch_bounds__(kLanes * kBwdMaxWarps, S * RA <= 30 ? 4 : 2)
+fused_message_bwd_kernel(
     const float* __restrict__ xyz,    // (B, N, 3)
     const float* __restrict__ mask,   // (B, N)
     const float* __restrict__ phi,    // (B, N, S, F)
@@ -157,112 +472,234 @@ __global__ void fused_message_bwd_kernel(
     const float* __restrict__ gv,     // (B, N, 3, F)
     float* __restrict__ dphi,         // (B, N, S, F)
     float* __restrict__ dv,           // (B, N, 3, F)
-    float* __restrict__ dw_part,      // (B, RA, S, F)
-    int N, int S, int F, int RA, float cutoff) {
-  __shared__ PairChunk pc;
+    float* __restrict__ dw_part,      // (B, node tiles, RA, S, F)
+    int N, int F, float cutoff) {
+  constexpr int W = record_width(RA);
+  extern __shared__ float4 smem[];
 
-  const int b = blockIdx.x;
-  const int f = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = f < F;
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int n_warps = blockDim.x / kLanes, rows = n_warps * kBwdRows;
+  const int b = blockIdx.z, p0 = blockIdx.y * rows;
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const int cols = min(N, kCols);
+  const float pi_c = kPi / cutoff;
+  float4* nodes = smem;                               // (N): x, y, z, mask
+  float* geo = reinterpret_cast<float*>(smem + N);    // (rows, chunk, W)
+  // partner rows, float4 (e, chunk, lane): e = 0 (gs, gv), and for S = 4
+  // e = 1 (gv x v, phi_3 v_0), e = 2 (phi_3 v_1, phi_3 v_2, -, -)
+  float4* part = smem + N + rows * cols * W / 4;
   const float* xb = xyz + (size_t)b * N * 3;
   const float* mb = mask + (size_t)b * N;
-  const int n_chunks = (N + kChunk - 1) / kChunk;
+  const float* phib = phi + (size_t)b * N * S * F + f;
+  const float* vb = v + (size_t)b * N * 3 * F + f;
+  const float* gsb = gs + (size_t)b * N * F + f;
+  const float* gvb = gv + (size_t)b * N * 3 * F + f;
 
-  for (int p = 0; p < N; ++p) {
-    const size_t row_p = (size_t)b * N + p;
-    float vp[3] = {0.f, 0.f, 0.f};
-    if (active) {
+  float wr[RA][S], dw[RA][S];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) vp[d] = v[(row_p * 3 + d) * F + f];
-    }
-    float dvp[3] = {0.f, 0.f, 0.f};
-
+  for (int r = 0; r < RA; ++r)
+#pragma unroll
     for (int c = 0; c < S; ++c) {
-      float wc[kMaxRA];
-#pragma unroll
-      for (int r = 0; r < kMaxRA; ++r)
-        wc[r] = (active && r < RA) ? w[((size_t)r * S + c) * F + f] : 0.f;
-      float G[kMaxRA];        // sum_q K[p,q,r] t_c(q)
-#pragma unroll
-      for (int r = 0; r < kMaxRA; ++r) G[r] = 0.f;
-      float dphi_c = 0.f;
-      float A[3] = {0.f, 0.f, 0.f};    // sum_q filt_c gv_q (c = 0) or Gamma3_q (c = 3)
-      float w3[3] = {0.f, 0.f, 0.f};   // forward w3 at p as the receiver (c = 3)
+      wr[r][c] = w[((size_t)r * S + c) * F + f];
+      dw[r][c] = 0.f;
+    }
+  const int n_chunks = (N + kCols - 1) / kCols;
+  stage_nodes(nodes, xb, mb, N);      // read after the first __syncthreads below
 
-      for (int c0 = 0; c0 < n_chunks; ++c0) {
-        const int q0 = c0 * kChunk;
-        const int nq = min(kChunk, N - q0);
-        if (n_chunks > 1 || c == 0) {
-          __syncthreads();
-          build_pair_chunk(pc, xb, mb, p, q0, nq, RA, cutoff);
-          __syncthreads();
-        }
-        if (!active) continue;
-
-        for (int qq = 0; qq < nq; ++qq) {
-          if (pc.on[qq] == 0.f) continue;
-          float filt = 0.f;
+  constexpr int kSim = kBwdTogether;
+  constexpr int kCross = S == 4 ? kSim : 1;
+  for (int k0 = 0; k0 < kBwdRows; k0 += kSim) {
+    float vp[kSim][3], php[kSim][S], dph[kSim][S], a0[kSim][3], a3[kCross][3], w3[kCross][3];
 #pragma unroll
-          for (int r = 0; r < kMaxRA; ++r) filt += pc.k[qq][r] * wc[r];
-          const size_t row_q = (size_t)b * N + q0 + qq;
-          float t;
-          if (c == 1) {
-            t = gs[row_q * F + f];
-          } else {
-            float g[3];
+    for (int s = 0; s < kSim; ++s) {
+      const int pc = min(p0 + warp * kBwdRows + k0 + s, N - 1);
 #pragma unroll
-            for (int d = 0; d < 3; ++d) g[d] = gv[(row_q * 3 + d) * F + f];
-            if (c == 2) {
-              // unit of the pair (q <- p) is (x_p - x_q) / d = -pc.unit
-              t = -(g[0] * pc.unit[qq][0] + g[1] * pc.unit[qq][1] +
-                    g[2] * pc.unit[qq][2]);
-            } else {
-              if (c == 3) {
-                float u[3];
-#pragma unroll
-                for (int d = 0; d < 3; ++d) u[d] = v[(row_q * 3 + d) * F + f];
-                const float fp = filt * phi[(row_q * S + 3) * F + f];
-                w3[0] += fp * u[0]; w3[1] += fp * u[1]; w3[2] += fp * u[2];
-                // Gamma3_q = gv_q x v_q, the cotangent of w3_q
-                const float c0_ = g[1] * u[2] - g[2] * u[1];
-                const float c1_ = g[2] * u[0] - g[0] * u[2];
-                const float c2_ = g[0] * u[1] - g[1] * u[0];
-                g[0] = c0_; g[1] = c1_; g[2] = c2_;
-              }
-              A[0] += filt * g[0]; A[1] += filt * g[1]; A[2] += filt * g[2];
-              t = g[0] * vp[0] + g[1] * vp[1] + g[2] * vp[2];
-            }
-          }
-          dphi_c += filt * t;
-#pragma unroll
-          for (int r = 0; r < kMaxRA; ++r) G[r] += pc.k[qq][r] * t;
-        }
+      for (int d = 0; d < 3; ++d) {
+        vp[s][d] = vb[((size_t)pc * 3 + d) * F];
+        a0[s][d] = 0.f;
       }
-      if (!active) continue;
-
-      const float phic = phi[(row_p * S + c) * F + f];
-      dphi[(row_p * S + c) * F + f] = dphi_c;
-      if (c == 0 || c == 3) {
-        dvp[0] += phic * A[0]; dvp[1] += phic * A[1]; dvp[2] += phic * A[2];
-      }
-      if (c == 3) {
-        // receiver side of dv_p += v_p x w3_p: d v_p = w3_p x gv_p
-        float g[3];
 #pragma unroll
-        for (int d = 0; d < 3; ++d) g[d] = gv[(row_p * 3 + d) * F + f];
-        dvp[0] += w3[1] * g[2] - w3[2] * g[1];
-        dvp[1] += w3[2] * g[0] - w3[0] * g[2];
-        dvp[2] += w3[0] * g[1] - w3[1] * g[0];
-      }
-      for (int r = 0; r < RA; ++r) {
-        float* out = dw_part + (((size_t)b * RA + r) * S + c) * F + f;
-        *out = (p == 0 ? 0.f : *out) + G[r] * phic;
+      for (int c = 0; c < S; ++c) {
+        php[s][c] = phib[((size_t)pc * S + c) * F];
+        dph[s][c] = 0.f;
       }
     }
-    if (!active) continue;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) dv[(row_p * 3 + d) * F + f] = dvp[d];
+    for (int s = 0; s < kCross; ++s)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) a3[s][d] = w3[s][d] = 0.f;
+
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int q0 = ci * kCols, nc = min(kCols, N - q0);
+      if (n_chunks > 1 || k0 == 0) {
+        __syncthreads();              // the previous chunk's readers are done
+        // partner rows by cp.async, in flight while the geometry is built
+        for (int qq = warp; qq < nc; qq += n_warps) {
+          const size_t q = q0 + qq;
+          float* e0 = reinterpret_cast<float*>(part + qq * kLanes + lane);
+          cp_async4(e0 + 0, gsb + q * F);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) cp_async4(e0 + 1 + d, gvb + (q * 3 + d) * F);
+          if constexpr (S == 4) {     // raw v_q and phi[q, 3]; turned into products below
+            float* e1 = reinterpret_cast<float*>(part + (cols + qq) * kLanes + lane);
+#pragma unroll
+            for (int d = 0; d < 3; ++d) cp_async4(e1 + d, vb + (q * 3 + d) * F);
+            cp_async4(e1 + 3, phib + (q * S + 3) * F);
+          }
+        }
+        cp_async_commit();
+        // every row's geometry once when one chunk holds all partners, else
+        // the rows of these kSim nodes
+        const int kr = n_chunks > 1 ? kSim : kBwdRows;
+        for (int t = threadIdx.x; t < n_warps * kr * nc; t += blockDim.x) {
+          const int rr = t / nc, qq = t % nc;
+          const int sl = n_chunks > 1 ? (rr / kSim) * kBwdRows + k0 + rr % kSim : rr;
+          pair_record<RA>(geo + (sl * nc + qq) * W, nodes, p0 + sl, q0 + qq, N, cutoff, pi_c);
+        }
+        cp_async_wait<0>();
+        if constexpr (S == 4) {       // each thread rewrites the entries it copied
+          for (int qq = warp; qq < nc; qq += n_warps) {
+            const float4 g = part[qq * kLanes + lane];
+            const float4 u = part[(cols + qq) * kLanes + lane];
+            part[(cols + qq) * kLanes + lane] =
+                make_float4(g.z * u.z - g.w * u.y, g.w * u.x - g.y * u.z,
+                            g.y * u.y - g.z * u.x, u.w * u.x);
+            part[(2 * cols + qq) * kLanes + lane] = make_float4(u.w * u.y, u.w * u.z, 0.f, 0.f);
+          }
+        }
+        __syncthreads();
+      }
+      if (p0 + warp * kBwdRows + k0 >= N) continue;
+
+      const float* rec0 = geo + (warp * kBwdRows + k0) * nc * W;
+#pragma unroll 1
+      for (int qq = 0; qq < nc; ++qq) {    // partner q against the kSim nodes
+        const float4 a = part[qq * kLanes + lane];
+        float4 e, h;
+        if constexpr (S == 4) {
+          e = part[(cols + qq) * kLanes + lane];
+          h = part[(2 * cols + qq) * kLanes + lane];
+        }
+#pragma unroll
+        for (int s = 0; s < kSim; ++s) {
+          float g[W];
+          load_record(g, rec0 + (s * nc + qq) * W);
+          float filt[S];
+          fold<RA, S>(filt, g, wr);
+          float t[S];
+          t[1] = a.x;
+          // unit of the pair (q <- p) is (x_p - x_q) / d = -unit in the record
+          t[2] = -(a.y * g[RA] + a.z * g[RA + 1] + a.w * g[RA + 2]);
+          t[0] = a.y * vp[s][0] + a.z * vp[s][1] + a.w * vp[s][2];
+          a0[s][0] = fmaf(filt[0], a.y, a0[s][0]);
+          a0[s][1] = fmaf(filt[0], a.z, a0[s][1]);
+          a0[s][2] = fmaf(filt[0], a.w, a0[s][2]);
+          if constexpr (S == 4) {
+            t[3] = e.x * vp[s][0] + e.y * vp[s][1] + e.z * vp[s][2];
+            a3[s][0] = fmaf(filt[3], e.x, a3[s][0]);
+            a3[s][1] = fmaf(filt[3], e.y, a3[s][1]);
+            a3[s][2] = fmaf(filt[3], e.z, a3[s][2]);
+            w3[s][0] = fmaf(filt[3], e.w, w3[s][0]);
+            w3[s][1] = fmaf(filt[3], h.x, w3[s][1]);
+            w3[s][2] = fmaf(filt[3], h.y, w3[s][2]);
+          }
+#pragma unroll
+          for (int c = 0; c < S; ++c) {
+            dph[s][c] = fmaf(filt[c], t[c], dph[s][c]);
+            const float x = php[s][c] * t[c];
+#pragma unroll
+            for (int r = 0; r < RA; ++r) dw[r][c] = fmaf(g[r], x, dw[r][c]);
+          }
+        }
+      }
+    }
+    if (f_out < F) {
+#pragma unroll
+      for (int s = 0; s < kSim; ++s) {
+        const int p = p0 + warp * kBwdRows + k0 + s;
+        if (p >= N) break;
+        const size_t row = (size_t)b * N + p;
+#pragma unroll
+        for (int c = 0; c < S; ++c) dphi[(row * S + c) * F + f] = dph[s][c];
+        float o[3] = {php[s][0] * a0[s][0], php[s][0] * a0[s][1], php[s][0] * a0[s][2]};
+        if constexpr (S == 4) {
+          // receiver side of dv_p += v_p x w3_p: d v_p = w3_p x gv_p
+          const float h0 = gvb[((size_t)p * 3 + 0) * F], h1 = gvb[((size_t)p * 3 + 1) * F],
+                      h2 = gvb[((size_t)p * 3 + 2) * F];
+          o[0] += php[s][3] * a3[s][0] + (w3[s][1] * h2 - w3[s][2] * h1);
+          o[1] += php[s][3] * a3[s][1] + (w3[s][2] * h0 - w3[s][0] * h2);
+          o[2] += php[s][3] * a3[s][2] + (w3[s][0] * h1 - w3[s][1] * h0);
+        }
+#pragma unroll
+        for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f] = o[d];
+      }
+    }
   }
+
+  // the block's d_w: its warps' sums added in a fixed order, one partial
+  // per (b, node tile, feature)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);    // (warp, RA * S, lane)
+#pragma unroll
+  for (int r = 0; r < RA; ++r)
+#pragma unroll
+    for (int c = 0; c < S; ++c) red[((warp * RA + r) * S + c) * kLanes + lane] = dw[r][c];
+  __syncthreads();
+  float* out = dw_part + ((size_t)b * gridDim.y + blockIdx.y) * RA * S * F;
+  for (int t = threadIdx.x; t < RA * S * kLanes; t += blockDim.x) {
+    const int rc = t / kLanes, ln = t % kLanes, ff = blockIdx.x * kLanes + ln;
+    float acc = 0.f;
+    for (int wi = 0; wi < n_warps; ++wi) acc += red[(wi * RA * S + rc) * kLanes + ln];
+    if (ff < F) out[(size_t)rc * F + ff] = acc;
+  }
+}
+
+// Warps of a block: kFwdRows receivers (forward) and kBwdRows nodes
+// (backward) per warp.
+int fwd_warps(int N) { return std::min(kFwdMaxWarps, (N + kFwdRows - 1) / kFwdRows); }
+int bwd_warps(int N) { return std::min(kBwdMaxWarps, (N + kBwdRows - 1) / kBwdRows); }
+int bwd_tiles(int N) { return (N + bwd_warps(N) * kBwdRows - 1) / (bwd_warps(N) * kBwdRows); }
+
+// Run fn(integral_constant<S>, integral_constant<RA>) for the runtime S and
+// RA; the kernels exist for S in {3, 4} and RA in 2..16.
+template <int S, typename Fn>
+int with_ra(int RA, Fn&& fn) {
+  using SC = std::integral_constant<int, S>;
+  switch (RA) {
+#define CGVAE_RA_CASE(n) \
+  case n:                \
+    return fn(SC{}, std::integral_constant<int, n>{});
+    CGVAE_RA_CASE(2) CGVAE_RA_CASE(3) CGVAE_RA_CASE(4) CGVAE_RA_CASE(5)
+    CGVAE_RA_CASE(6) CGVAE_RA_CASE(7) CGVAE_RA_CASE(8) CGVAE_RA_CASE(9)
+    CGVAE_RA_CASE(10) CGVAE_RA_CASE(11) CGVAE_RA_CASE(12) CGVAE_RA_CASE(13)
+    CGVAE_RA_CASE(14) CGVAE_RA_CASE(15) CGVAE_RA_CASE(16)
+#undef CGVAE_RA_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename Fn>
+int with_shape(int S, int RA, Fn&& fn) {
+  if (S == 3) return with_ra<3>(RA, fn);
+  if (S == 4) return with_ra<4>(RA, fn);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Allow a kernel more than the default 48 KB of dynamic shared memory.
+// ``allowed`` (one slot per device) remembers what was granted, so a launch
+// that needs no more makes no runtime call (as inside a CUDA graph capture).
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, int (&allowed)[kMaxDevices]) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0 || dev >= kMaxDevices) return err != 0 ? err : (int)cudaErrorInvalidDevice;
+  if ((int)bytes <= allowed[dev]) return 0;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bytes);
+  if (err == 0) allowed[dev] = (int)bytes;
+  return err;
 }
 
 }  // namespace
@@ -274,15 +711,47 @@ extern "C" int fused_message_fwd(
     float cutoff, void* stream) {
   using namespace cgvae;
   if (B <= 0 || N <= 0) return 0;
-  const dim3 grid((unsigned)(B * N));
-  fused_message_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)xyz, (const float*)mask, (const float*)phi,
-      (const float*)v, (const float*)w, (float*)ds, (float*)dv,
-      N, S, F, RA, cutoff);
-  return (int)cudaGetLastError();
+  if (S == 3 && N <= kSymRows * kSymGroups) {
+    const int groups = (N + kSymRows - 1) / kSymRows;
+    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), 1u, (unsigned)B);
+    return with_shape(S, RA, [&](auto, auto ra_c) {
+      constexpr int kRA = decltype(ra_c)::value;
+      constexpr int kTile = kSymRows * (kSymRows - 1) / 2 + kSymRows * kSymRows;
+      const size_t smem = sizeof(float4) * N
+                          + sizeof(float) * groups * kTile * record_width(kRA)
+                          + sizeof(float) * N * 4 * kLanes;
+      static int allowed[kMaxDevices] = {};
+      const int err = allow_smem(fused_message_sym_kernel<kRA>, smem, allowed);
+      if (err != 0) return err;
+      fused_message_sym_kernel<kRA><<<grid, groups * kLanes, smem, (cudaStream_t)stream>>>(
+          (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
+          (const float*)w, (float*)ds, (float*)dv, N, F, cutoff);
+      return (int)cudaGetLastError();
+    });
+  }
+  const int warps = fwd_warps(N), rows = warps * kFwdRows;
+  const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)((N + rows - 1) / rows),
+                  (unsigned)B);
+  return with_shape(S, RA, [&](auto s_c, auto ra_c) {
+    constexpr int kS = decltype(s_c)::value, kRA = decltype(ra_c)::value;
+    const size_t smem = sizeof(float4) * N
+                        + sizeof(float) * rows * std::min(N, kCols) * record_width(kRA)
+                        + sizeof(float) * warps * kRing * (kS + 3) * kLanes;
+    static int allowed[kMaxDevices] = {};
+    const int err = allow_smem(fused_message_kernel<kRA, kS>, smem, allowed);
+    if (err != 0) return err;
+    fused_message_kernel<kRA, kS><<<grid, warps * kLanes, smem, (cudaStream_t)stream>>>(
+        (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
+        (const float*)w, (float*)ds, (float*)dv, N, F, cutoff);
+    return (int)cudaGetLastError();
+  });
 }
 
-// dw_part is scratch of B * RA * S * F floats; dw receives its sum over B.
+// Node tiles of the backward grid: dw_part holds B * tiles partial sums.
+extern "C" int fused_message_bwd_tiles(int N) { return N <= 0 ? 1 : cgvae::bwd_tiles(N); }
+
+// dw_part is scratch of B * fused_message_bwd_tiles(N) * RA * S * F floats;
+// dw receives its sum.
 extern "C" int fused_message_bwd(
     const void* xyz, const void* mask, const void* phi, const void* v,
     const void* w, const void* gs, const void* gv, void* dphi, void* dv,
@@ -292,13 +761,25 @@ extern "C" int fused_message_bwd(
   const cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || N <= 0)
     return (int)cudaMemsetAsync(dw, 0, sizeof(float) * RA * S * F, st);
-  const dim3 grid((unsigned)B, (unsigned)((F + kThreads - 1) / kThreads));
-  fused_message_bwd_kernel<<<grid, kThreads, 0, st>>>(
-      (const float*)xyz, (const float*)mask, (const float*)phi,
-      (const float*)v, (const float*)w, (const float*)gs, (const float*)gv,
-      (float*)dphi, (float*)dv, (float*)dw_part, N, S, F, RA, cutoff);
-  const int err = (int)cudaGetLastError();
+  const int warps = bwd_warps(N), tiles = bwd_tiles(N);
+  const int rows = warps * kBwdRows, cols = std::min(N, kCols);
+  const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)tiles, (unsigned)B);
+  const int err = with_shape(S, RA, [&](auto s_c, auto ra_c) {
+    constexpr int kS = decltype(s_c)::value, kRA = decltype(ra_c)::value;
+    const size_t stage = sizeof(float4) * N + sizeof(float) * rows * cols * record_width(kRA)
+                         + sizeof(float4) * (kS == 4 ? 3 : 1) * cols * kLanes;
+    const size_t reduce = sizeof(float) * warps * kRA * kS * kLanes;
+    const size_t smem = stage > reduce ? stage : reduce;
+    static int allowed[kMaxDevices] = {};
+    const int e = allow_smem(fused_message_bwd_kernel<kRA, kS>, smem, allowed);
+    if (e != 0) return e;
+    fused_message_bwd_kernel<kRA, kS><<<grid, warps * kLanes, smem, st>>>(
+        (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
+        (const float*)w, (const float*)gs, (const float*)gv, (float*)dphi, (float*)dv,
+        (float*)dw_part, N, F, cutoff);
+    return (int)cudaGetLastError();
+  });
   if (err != 0) return err;
-  return launch_sum_over_batch((const float*)dw_part, (float*)dw, B,
+  return launch_sum_over_batch((const float*)dw_part, (float*)dw, B * tiles,
                                RA * S * F, st);
 }

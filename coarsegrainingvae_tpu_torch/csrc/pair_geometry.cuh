@@ -1,9 +1,10 @@
-// Pair geometry shared by the fused message kernels, forward and backward,
-// for Hopper (sm_90a).
+// Pair geometry of the fused pseudo kernels, forward and backward, for
+// Hopper (sm_90a), and the second pass of the weight gradients.
 //
-// Every kernel of fused_message.cu and fused_pseudo.cu rebuilds the pair
-// pipeline of the JAX package's _geometry (pallas_pseudo.py:57-73) on chip,
-// one row node p against a chunk of partner nodes q:
+// The kernels of fused_pseudo.cu rebuild the pair pipeline of the JAX
+// package's _geometry (pallas_pseudo.py:57-73) on chip, one row node p
+// against a chunk of partner nodes q (fused_message.cu builds its own
+// per-pair records of the same quantities):
 //
 //   r = x_q - x_p,  d = sqrt(|r|^2 + 1e-3),  unit = r / d
 //   adj = (d < cutoff) * (p != q) * mask_p * mask_q

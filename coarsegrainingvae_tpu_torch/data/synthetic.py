@@ -182,7 +182,7 @@ def relax_frames(
     margin: float = 1.15,
     step: float = 0.2,
     n_iter: int = 300,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> np.ndarray:
     """Steepest-descent on a bond + soft-sphere potential so every frame's
     covalent-distance bond graph equals the intended topology.
@@ -247,7 +247,7 @@ def synthetic_peptide(
     jitter: float = 0.04,
     torsion_diversity: bool = True,
     traj_mode: str = "md",
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Generate (atomic_nums (N,), frames (F,N,3) Angstrom, bonds (Eb,2)).
 
@@ -274,7 +274,8 @@ def synthetic_peptide(
     perturbations of the base conformer (an easy, nearly unimodal ensemble
     for fast-converging smoke tests).
 
-    ``device`` is where relax_frames runs; everything else is numpy.
+    ``device`` is where relax_frames runs (the card unless the caller asks
+    for the CPU); everything else is numpy.
     """
     if name not in _PRESETS:
         raise KeyError(f"unknown synthetic preset {name!r}; have {sorted(_PRESETS)}")

@@ -29,7 +29,7 @@ import torch
 from coarsegrainingvae_tpu_torch.ops import cuda_build
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
-MAX_RBF = 15  # csrc kMaxRA - 1
+MAX_RBF = 15  # the kernels are built for R+1 in 2..16
 
 
 def message_reference(
@@ -119,6 +119,7 @@ _SYMBOLS = {
         + [ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
+    "fused_message_bwd_tiles": ([ctypes.c_int], ctypes.c_int),
 }
 
 
@@ -188,7 +189,9 @@ def fused_message_vjp(
     lib = build()
     d_phi = torch.empty((b, n, s, f), dtype=torch.float32, device=device)
     d_v = torch.empty((b, n, 3, f), dtype=torch.float32, device=device)
-    dw_part = torch.empty((b, r_aug, s, f), dtype=torch.float32, device=device)
+    # one partial d_w per (batch element, node tile of the grid)
+    tiles = lib.fused_message_bwd_tiles(n)
+    dw_part = torch.empty((b * tiles, r_aug, s, f), dtype=torch.float32, device=device)
     d_w = torch.empty((r_aug, s, f), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -141,16 +141,16 @@ def _mean(values: List[torch.Tensor]) -> float:
 
 class Trainer:
     """Train and eval steps, epoch loops and ``fit`` around one model on
-    one device (the model's, unless ``device`` is given)."""
+    one device: the card unless the caller passes ``device="cpu"``. The
+    model is moved there; without a card the default raises."""
 
-    def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig, device=None):
+    def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig, device="cuda"):
         if cfg.train.zeta > 0:
             raise NotImplementedError(
                 "the excluded-volume (steric) loss, zeta > 0, is not ported to "
                 "PyTorch yet; see ROADMAP.md A8"
             )
-        self.device = (torch.device(device) if device is not None
-                       else next(model.parameters()).device)
+        self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.tx = make_optimizer(cfg.train.grad_clip, cfg.train.adam_moment_dtype)

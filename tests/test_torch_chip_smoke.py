@@ -1,0 +1,64 @@
+"""chip_smoke.py on the CPU: its roofline bounds against a hand count, and
+its refusal to run without a card.
+
+The script itself runs only on a GPU; these tests import it as a module
+(it imports torch inside its functions) and check what needs no card.
+"""
+import pytest
+import torch
+
+import chip_smoke
+
+torch.set_num_threads(1)
+
+
+# B 1, N 2, F 1, R 1 (two basis values), both nodes interacting: one
+# unordered pair, 2 ordered ones. Counted by hand from the functions'
+# least arithmetic (FMA = 2 FLOPs): K is symmetric, so the filters (and
+# d_w) are counted once for the unordered pair, whatever kernel runs.
+@pytest.mark.parametrize("kind,s,n_bytes,flops", [
+    # floats: xyz 6 + mask 2; phi 6 + v 6 in, ds 2 + dv 6 out; w 6 -> 34.
+    # per ordered pair: c1 one FMA (2), c0 and c2 a multiply and 3 FMAs (7
+    # each) -> 16, times 2; the filters, 3 x 2 FMAs (12), once
+    ("message", 3, 4 * 34, 2 * 16 + 12),
+    # S = 4: per ordered pair 2 + 3 x 7 -> 23, times 2; the filters 4 x 2
+    # FMAs (16) once; the receiver cross per node, 12, times 2. floats: 8;
+    # phi 8 + v 6 in, 8 out; w 8 -> 38
+    ("message", 4, 4 * 38, 2 * 23 + 16 + 2 * 12),
+    # floats: 8; phi 8 + v 6 + gs 2 + gv 6 in, d_phi 8 + d_v 6 out; w 8 in
+    # and d_w 8 out -> 60.
+    # once: the filters 4 x 2 FMAs (16) and d_w, 4 adds phi_p t(q) +
+    # phi_q t(p) and 4 x 2 FMAs (16) -> 36; per ordered pair: 4 multiplies
+    # phi t, c1 2, c2 dot 5 + 2, c0 dot 5 + 2 + a_0 6, c3 dot 5 + 2 + a_3 6
+    # + w3 6 -> 45, times 2; per node: phi_0 a_0 3, gv x v 9, phi_3 v 3,
+    # phi_3 a_3 6, w3 x gv 9 + 3 -> 33, times 2
+    ("message_vjp", 4, 4 * 60, 36 + 2 * 45 + 2 * 33),
+    # floats: 8; phi 18 + s, sbar 4 + v, vbar 12 in; ds, dsbar 4 + dv, dvbar
+    # 12 out; w 18 -> 76. once 9 x 2 FMAs (36), per ordered pair 64, per
+    # node 57
+    ("pseudo", 9, 4 * 76, 36 + 2 * 64 + 2 * 57),
+])
+def test_kernel_cost_matches_a_hand_count(kind, s, n_bytes, flops):
+    assert chip_smoke.kernel_cost(kind, 1, 2, s, 1, 1, pairs=2) == (n_bytes, flops)
+
+
+def test_bound_takes_the_slower_resource():
+    ms, by, resource = chip_smoke.bound(3.35e9, 1)
+    assert ms == pytest.approx(1.0) and (by, resource) == ("bytes", "HBM")
+    ms, by, resource = chip_smoke.bound(1, 67e9)
+    assert ms == pytest.approx(1.0) and (by, resource) == ("operations", "FP32")
+    # the encoder's message backward at B 128, N 27 (702 ordered pairs
+    # each), F 600, R 8: 133 MB (0.040 ms) and 4.35 GFLOP, 351 unordered
+    # pairs x 111 + 702 x 25 per frame and feature and 3 per node, bound
+    # by the FP32 rate at 0.0649 ms
+    n_bytes, flops = chip_smoke.kernel_cost("message_vjp", 128, 27, 3, 600, 8, 128 * 702)
+    assert flops == 600 * 128 * (351 * 111 + 702 * 25 + 27 * 3)
+    ms, by, _ = chip_smoke.bound(n_bytes, flops)
+    assert by == "operations" and ms == pytest.approx(0.0649, abs=1e-4)
+
+
+def test_smoke_run_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs a machine without one")
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out

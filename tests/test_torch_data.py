@@ -87,7 +87,8 @@ def test_synthetic_dipeptide_matches_jax(dipeptide):
     makes discrete choices from graph_violations, which agree here, so the
     frames agree to the relaxation tolerance."""
     z, frames, bonds = dipeptide
-    tz, tframes, tbonds = tsyn.synthetic_peptide("dipeptide", n_frames=8, seed=0)
+    tz, tframes, tbonds = tsyn.synthetic_peptide("dipeptide", n_frames=8, seed=0,
+                                                    device="cpu")
     np.testing.assert_array_equal(tz, z)
     np.testing.assert_array_equal(tbonds, bonds)
     assert tframes.dtype == np.float32 and tframes.shape == frames.shape

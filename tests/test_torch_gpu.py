@@ -36,13 +36,17 @@ B, F, R, CUT = 3, 24, 6, 9.0
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-def _message_inputs(n, s, seed, device):
+def _message_inputs(n, s, seed, device, f=F, r=R, b=B):
+    """The last node masked in every batch element and, with b > 1, every
+    node of the last batch element."""
     g = torch.Generator().manual_seed(seed)
-    xyz = torch.randn(B, n, 3, generator=g) * 3.0
-    mask = torch.ones(B, n)
+    xyz = torch.randn(b, n, 3, generator=g) * 3.0
+    mask = torch.ones(b, n)
     mask[:, -1] = 0.0
-    args = (xyz, mask, torch.randn(B, n, s, F, generator=g),
-            torch.randn(B, n, 3, F, generator=g), torch.randn(R + 1, s, F, generator=g) * 0.3)
+    if b > 1:
+        mask[-1] = 0.0
+    args = (xyz, mask, torch.randn(b, n, s, f, generator=g),
+            torch.randn(b, n, 3, f, generator=g), torch.randn(r + 1, s, f, generator=g) * 0.3)
     return [a.to(device) for a in args]
 
 
@@ -65,8 +69,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# node counts at the kernels' edges: one node, the encoder's 27 (one tile),
+# one 32-partner chunk exactly and one past it, several chunks and tiles (70),
+# and the chignolin cross decoder's 209
+NODE_COUNTS = [1, 3, 11, 27, 32, 33, 70, 209]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,s", [(3, 3), (11, 3), (27, 4), (70, 3)])   # 70 > one 64-sender chunk
+@pytest.mark.parametrize("n,s", [(n, s) for n in NODE_COUNTS for s in (3, 4)])
 def test_message_kernel_matches_plain_on_card(cuda_device, n, s):
     args = _message_inputs(n, s, 5, cuda_device)
     before = fused_message.launches
@@ -75,6 +85,9 @@ def test_message_kernel_matches_plain_on_card(cuda_device, n, s):
     assert fused_message.launches == before + 1
     for a, b in zip(out, message_reference(*args, CUT, R)):
         torch.testing.assert_close(a, b, **TOL)
+    # masked receivers, the whole last batch element among them, get exact zeros
+    masked = args[1] == 0
+    assert float(out[0][masked].abs().max()) == 0.0 and float(out[1][masked].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
@@ -103,7 +116,7 @@ def _close_rel(out, ref, rtol=1e-4):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [3, 11, 27, 70])      # 70 > one 64-partner chunk
+@pytest.mark.parametrize("n", NODE_COUNTS)
 @pytest.mark.parametrize("s", [3, 4])
 def test_message_vjp_kernel_matches_plain_on_card(cuda_device, n, s):
     args = _message_inputs(n, s, 8, cuda_device)
@@ -114,9 +127,40 @@ def test_message_vjp_kernel_matches_plain_on_card(cuda_device, n, s):
     assert fused_message_vjp.launches == before + 1
     ref = message_vjp_reference(*args, gs, gv, CUT, R)
     _close_rel(out, ref)
-    # the masked last node gets no gradient
-    assert float(out[0][:, -1].abs().max()) == 0.0
-    assert float(out[1][:, -1].abs().max()) == 0.0
+    # masked nodes, the whole last batch element among them, get no gradient
+    masked = args[1] == 0
+    assert float(out[0][masked].abs().max()) == 0.0
+    assert float(out[1][masked].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,r", [(27, 600, 8),    # the encoder's full width
+                                   (27, 40, 8),     # F not a multiple of 32 features
+                                   (33, 70, 1),     # the templated R+1 at its ends
+                                   (27, 24, 15),
+                                   (70, 33, 15)])
+@pytest.mark.parametrize("s", [3, 4])
+def test_message_kernels_at_width_and_basis_edges_on_card(cuda_device, n, f, r, s):
+    args = _message_inputs(n, s, 14, cuda_device, f=f, r=r, b=2)
+    out = fused_message(*args, CUT, r)
+    ref = message_reference(*args, CUT, r)
+    _close_rel(out, ref)
+    gs, gv = _cotangents(ref, 15, cuda_device)
+    _close_rel(fused_message_vjp(*args, gs, gv, CUT, r),
+               message_vjp_reference(*args, gs, gv, CUT, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [27, 70])
+def test_message_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, n):
+    """No atomics and a fixed order of summation: two launches on the same
+    inputs give the same d_w, bit for bit."""
+    args = _message_inputs(n, 3, 16, cuda_device, f=600, r=8, b=16)
+    gs, gv = _cotangents(message_reference(*args, CUT, 8), 17, cuda_device)
+    first = fused_message_vjp(*args, gs, gv, CUT, 8)
+    second = fused_message_vjp(*args, gs, gv, CUT, 8)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -208,7 +252,7 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
-    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=8, seed=0)
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=8, seed=0, device=cuda_device)
     ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
                        bonds, order=2)
     cfg = ExperimentConfig(

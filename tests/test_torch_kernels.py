@@ -206,3 +206,19 @@ def test_wrapper_backward_passes_gradcheck_in_float64():
         a.requires_grad_(True)
     assert torch.autograd.gradcheck(lambda *a: fused_pseudo_message(*pargs[:2], *a, CUT, R),
                                     pargs[2:])
+
+
+@pytest.mark.parametrize("n_rbf", [0, 16])
+def test_message_wrapper_refuses_basis_sizes_without_a_kernel(n_rbf):
+    """The CUDA kernels exist for R+1 in 2..16 (a template parameter); the
+    wrapper's input check refuses any other n_rbf before a build or a
+    launch. The check runs on CPU tensors here as it does on CUDA ones."""
+    from coarsegrainingvae_tpu_torch.ops.fused_message import _check_cuda_inputs
+
+    xyz, mask, phi, v, _ = [torch.as_tensor(a) for a in _message_inputs(4, 3, seed=3)]
+    args = {"xyz": xyz, "mask": mask, "phi": phi, "v": v,
+            "w": torch.zeros(n_rbf + 1, 3, F)}
+    with pytest.raises(ValueError, match="n_rbf"):
+        _check_cuda_inputs(args, n_rbf)
+    args["w"] = torch.zeros(R + 1, 3, F)
+    assert _check_cuda_inputs(args, R) == (B, 4, 3, F)

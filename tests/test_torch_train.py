@@ -129,6 +129,28 @@ def test_steric_loss_is_refused(tiny_model_cfg):
         Trainer(DenseCGVAE(tc.model), tc)
 
 
+def test_trainer_and_synthetic_data_default_to_the_card(tiny_model_cfg):
+    """Trainer and synthetic_peptide run on the card unless the caller
+    passes device="cpu"; with no card their defaults raise instead of
+    quietly running on the CPU."""
+    import inspect
+
+    from coarsegrainingvae_tpu_torch.data import synthetic
+
+    for fn in (Trainer, synthetic.synthetic_peptide, synthetic.relax_frames):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    tc = _torch_cfg(_exp(_model_cfg(tiny_model_cfg, "default")))
+    model = DenseCGVAE(tc.model, generator=torch.Generator().manual_seed(0))
+    if torch.cuda.is_available():
+        assert Trainer(model, tc).device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        Trainer(model, tc)
+    assert next(model.parameters()).device.type == "cpu"
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        synthetic.synthetic_peptide("dipeptide", n_frames=2, seed=0)
+
+
 def test_flatten_batch_matches_jax(small_dataset):
     idx = np.array([3, 1, 4, 1])
     jb = jax_flatten(small_dataset.batch(idx))
@@ -227,7 +249,8 @@ def test_skip_guard_leaves_params_and_moments(small_dataset, tiny_model_cfg):
     the step counter still advances."""
     cfg = _exp(_model_cfg(tiny_model_cfg, "default"), gamma=1e-6, loss_skip_factor=1.0)
     tc = _torch_cfg(cfg)
-    tr = Trainer(DenseCGVAE(tc.model, generator=torch.Generator().manual_seed(0)), tc)
+    tr = Trainer(DenseCGVAE(tc.model, generator=torch.Generator().manual_seed(0)), tc,
+                 device="cpu")
     tds = _port_dataset(small_dataset)
     state = tr.init_state(tds.batch(np.arange(BATCH)))
     before = {k: p.detach().clone() for k, p in state.params.items()}
@@ -246,7 +269,8 @@ def test_fit_runs_two_epochs(small_dataset, tiny_model_cfg, on_device):
     """Two epochs on the device-resident path and on host batches."""
     cfg = _exp(dataclasses.replace(tiny_model_cfg, n_basis=16), lr=3e-3)
     tc = _torch_cfg(cfg)
-    tr = Trainer(DenseCGVAE(tc.model, generator=torch.Generator().manual_seed(0)), tc)
+    tr = Trainer(DenseCGVAE(tc.model, generator=torch.Generator().manual_seed(0)), tc,
+                 device="cpu")
     tds = _port_dataset(small_dataset)
     state = tr.init_state(tds.batch(np.arange(BATCH)))
     rows = []
