@@ -147,8 +147,11 @@ def kernel_cost(kind: str, b: int, n: int, s: int, f: int, n_rbf: int, pairs: in
                  S = 4); per node phi_0 a_0, 3 (+ 30 when S = 4).
     pseudo       (S = 9 channels) per unordered pair the filters; per ordered
                  pair 9 multiplies and 55 aggregate FLOPs; per node 57.
-    pseudo_vjp   per unordered pair the filters and d_w; per ordered pair 161;
-                 per node 75.
+    pseudo_vjp   per unordered pair the filters and d_w; per ordered pair 161
+                 (9 multiplies phi dG, the dG terms 40, d_phi 18, the sender
+                 side g Gamma 44, the forward's sums 43, the dsbar path 7);
+                 per node 88 (s gs 1, the Gammas 33, d_s 1, d_sbar 11, the
+                 three receiver crosses 36, gsb t 6).
     """
     ra, nodes = n_rbf + 1, b * n
     geometry = nodes * 4                        # xyz and mask
@@ -166,7 +169,7 @@ def kernel_cost(kind: str, b: int, n: int, s: int, f: int, n_rbf: int, pairs: in
         per_unordered, per_pair, per_node = filters, 64, 57
     elif kind == "pseudo_vjp":
         node_io, w_io = (9 + 2 + 6 + 8) + (9 + 8), 2 * ra * 9 * f
-        per_unordered, per_pair, per_node = filters + d_w, 161, 75
+        per_unordered, per_pair, per_node = filters + d_w, 161, 88
     else:
         raise ValueError(f"unknown kernel {kind!r}")
     n_bytes = 4 * (geometry + nodes * node_io * f + w_io)
@@ -216,9 +219,11 @@ def check_kernels() -> list:
     f = 600
     # (kernel, (B, N, S, n_rbf), cutoff, label, timed): the shapes the served
     # model (B = 64 samples) and the trained model (B = 128 frames) give each
-    # kernel, the cross variant, N beyond one 32-partner chunk, and the
-    # smallest and largest n_rbf the message kernels take at N = 27 (their
-    # radial sines come from a recurrence whose error grows with the index)
+    # kernel, the cross variant, N beyond one 32-partner chunk, the smallest
+    # and largest n_rbf the kernels take (the message kernels at N = 27, the
+    # pseudo kernels at M = 3 and 6; their radial sines come from a
+    # recurrence whose error grows with the index), and the pseudo kernels'
+    # chunked path (M > 6)
     cases = [
         ("message", (64, 3, 3, 8), 9.5, "prior serve B=64 M=3 S=3", True),
         ("message", (128, 27, 3, 8), 9.5, "encoder train B=128 N=27 S=3", True),
@@ -236,7 +241,11 @@ def check_kernels() -> list:
         ("pseudo_vjp", (128, 3, 9, 8), 8.5, "decoder train B=128 M=3", True),
         ("pseudo_vjp", (64, 6, 9, 8), 8.5, "decoder B=64 M=6", False),
     ] + [(kind, (64, 27, s, r), 9.5, f"B=64 N=27 S={s} n_rbf={r}", False)
-         for kind in ("message", "message_vjp") for s, r in ((3, 1), (3, 15), (4, 1), (4, 15))]
+         for kind in ("message", "message_vjp") for s, r in ((3, 1), (3, 15), (4, 1), (4, 15))
+         ] + [(kind, (64, m, 9, r), 8.5, f"B=64 M={m} n_rbf={r}", False)
+              for kind in ("pseudo", "pseudo_vjp") for m in (3, 6) for r in (1, 15)
+              ] + [(kind, (16, 70, 9, 8), 8.5, "chunked path B=16 M=70", False)
+                   for kind in ("pseudo", "pseudo_vjp")]
     fns = {"message": (mo.fused_message, mo.message_reference),
            "pseudo": (po.fused_pseudo_message, po.pseudo_reference),
            "message_vjp": (mo.fused_message_vjp, mo.message_vjp_reference),

@@ -50,10 +50,11 @@
 // - The block stages its batch element's coordinates and mask, then builds
 //   the geometry of its pairs once, in shared memory: per pair the R+1
 //   values K[r] and the unit vector, padded to a multiple of 4 floats and
-//   read as float4 (12 floats at R+1 = 9). One rsqrtf and one __sincosf per
-//   pair; the radial sines follow by the angle-addition recurrence (relative
-//   error ~3e-6 against the plain version's sin per basis, far inside its
-//   1e-4 gate).
+//   read as float4 (12 floats at R+1 = 9), by pair_geometry.cuh::pair_record,
+//   which the pseudo kernels share. One rsqrtf and one __sincosf per pair;
+//   the radial sines follow by the angle-addition recurrence (relative error
+//   ~3e-6 against the plain version's sin per basis, far inside its 1e-4
+//   gate).
 // - R+1 and S are template parameters (the C entry points switch over R+1
 //   in 2..16 and S in {3, 4}): the basis loops unroll with no zero padding
 //   and w[:, :, f] lives in registers.
@@ -95,7 +96,6 @@
 //   node beyond the 9-node group's, more than a thread holds.
 
 #include <algorithm>
-#include <type_traits>
 
 #include "pair_geometry.cuh"
 
@@ -112,10 +112,6 @@ constexpr int kBwdTogether = 3;   // of which a warp takes this many at once
 constexpr int kBwdMaxWarps = 3;
 constexpr int kSymRows = 9;       // nodes per warp group (symmetric forward)
 constexpr int kSymGroups = 3;     // so it covers N <= 27
-constexpr int kMaxDevices = 64;
-
-// floats per pair record: K[0..RA-1], unit[0..2], padded to a multiple of 4
-__host__ __device__ constexpr int record_width(int RA) { return (RA + 3 + 3) / 4 * 4; }
 
 // 4-byte asynchronous copy global -> shared (cp.async), its group commit
 // and the wait until at most n groups are in flight.
@@ -133,58 +129,6 @@ __device__ __forceinline__ void stage_nodes(float4* __restrict__ nodes,
                                             const float* __restrict__ mb, int N) {
   for (int n = threadIdx.x; n < N; n += blockDim.x)
     nodes[n] = make_float4(xb[n * 3 + 0], xb[n * 3 + 1], xb[n * 3 + 2], mb[n]);
-}
-
-// The geometry record of row node p against partner q (zeros when either
-// lies past N): K[r] for the pair, then unit = (x_q - x_p) / d. nodes holds
-// (x, y, z, mask); pi_c = pi / cutoff.
-template <int RA>
-__device__ __forceinline__ void pair_record(float* __restrict__ rec,
-                                            const float4* __restrict__ nodes,
-                                            int p, int q, int N, float cutoff, float pi_c) {
-  constexpr int W = record_width(RA);
-  float out[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) out[k] = 0.f;
-  if (p < N && q < N) {
-    const float4 a = nodes[p], c = nodes[q];
-    const float r0 = c.x - a.x, r1 = c.y - a.y, r2 = c.z - a.z;
-    const float d2 = r0 * r0 + r1 * r1 + r2 * r2 + kEps;
-    const float inv_d = rsqrtf(d2);
-    const float d = d2 * inv_d;
-    out[RA + 0] = r0 * inv_d;
-    out[RA + 1] = r1 * inv_d;
-    out[RA + 2] = r2 * inv_d;
-    if (d < cutoff && p != q) {
-      float s1, c1;                       // sin and cos of pi d / cutoff
-      __sincosf(pi_c * d, &s1, &c1);    // |error| < 4e-7 for arguments in [0, pi)
-      const float ae = a.w * c.w * (0.5f * (c1 + 1.f));
-      const float ae_d = ae * inv_d;
-      float sk = s1, ck = c1;             // sin and cos of (k + 1) pi d / cutoff
-#pragma unroll
-      for (int k = 0; k < RA - 1; ++k) {
-        out[k] = ae_d * sk;
-        const float sn = sk * c1 + ck * s1;
-        ck = ck * c1 - sk * s1;
-        sk = sn;
-      }
-      out[RA - 1] = ae;
-    }
-  }
-  float4* r4 = reinterpret_cast<float4*>(rec);
-#pragma unroll
-  for (int k = 0; k < W / 4; ++k)
-    r4[k] = make_float4(out[4 * k], out[4 * k + 1], out[4 * k + 2], out[4 * k + 3]);
-}
-
-template <int W>
-__device__ __forceinline__ void load_record(float (&g)[W], const float* rec) {
-  const float4* r4 = reinterpret_cast<const float4*>(rec);
-#pragma unroll
-  for (int k = 0; k < W / 4; ++k) {
-    const float4 t = r4[k];
-    g[4 * k] = t.x; g[4 * k + 1] = t.y; g[4 * k + 2] = t.z; g[4 * k + 3] = t.w;
-  }
 }
 
 // filt[c] = sum_r K[r] w[r][c]
@@ -663,43 +607,13 @@ int bwd_tiles(int N) { return (N + bwd_warps(N) * kBwdRows - 1) / (bwd_warps(N) 
 
 // Run fn(integral_constant<S>, integral_constant<RA>) for the runtime S and
 // RA; the kernels exist for S in {3, 4} and RA in 2..16.
-template <int S, typename Fn>
-int with_ra(int RA, Fn&& fn) {
-  using SC = std::integral_constant<int, S>;
-  switch (RA) {
-#define CGVAE_RA_CASE(n) \
-  case n:                \
-    return fn(SC{}, std::integral_constant<int, n>{});
-    CGVAE_RA_CASE(2) CGVAE_RA_CASE(3) CGVAE_RA_CASE(4) CGVAE_RA_CASE(5)
-    CGVAE_RA_CASE(6) CGVAE_RA_CASE(7) CGVAE_RA_CASE(8) CGVAE_RA_CASE(9)
-    CGVAE_RA_CASE(10) CGVAE_RA_CASE(11) CGVAE_RA_CASE(12) CGVAE_RA_CASE(13)
-    CGVAE_RA_CASE(14) CGVAE_RA_CASE(15) CGVAE_RA_CASE(16)
-#undef CGVAE_RA_CASE
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 template <typename Fn>
 int with_shape(int S, int RA, Fn&& fn) {
-  if (S == 3) return with_ra<3>(RA, fn);
-  if (S == 4) return with_ra<4>(RA, fn);
+  if (S == 3)
+    return with_ra(RA, [&](auto ra_c) { return fn(std::integral_constant<int, 3>{}, ra_c); });
+  if (S == 4)
+    return with_ra(RA, [&](auto ra_c) { return fn(std::integral_constant<int, 4>{}, ra_c); });
   return (int)cudaErrorInvalidValue;
-}
-
-// Allow a kernel more than the default 48 KB of dynamic shared memory.
-// ``allowed`` (one slot per device) remembers what was granted, so a launch
-// that needs no more makes no runtime call (as inside a CUDA graph capture).
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes, int (&allowed)[kMaxDevices]) {
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err != 0 || dev >= kMaxDevices) return err != 0 ? err : (int)cudaErrorInvalidDevice;
-  if ((int)bytes <= allowed[dev]) return 0;
-  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)bytes);
-  if (err == 0) allowed[dev] = (int)bytes;
-  return err;
 }
 
 }  // namespace

@@ -15,51 +15,88 @@
 //   dvbar_i = a5_i + sbar_i * a6_i + v_i x a7_i + vbar_i x a8_i
 //   a_ch,i  = sum_j g_ch x_ch,j,  x = v for ch 2, 6, 7 and vbar for 3, 4, 5, 8
 //
-// with the geometry of pair_geometry.cuh.
+// with the geometry of pair_geometry.cuh (one record per unordered pair:
+// K and adj are symmetric, unit is antisymmetric). The backward takes gs,
+// gsb (B,M,F) and gv, gvb (B,M,3,F) and writes d_phi (B,M,9,F), d_s, d_sbar
+// (B,M,F), d_v, d_vbar (B,M,3,F) and d_w (R+1,9,F) summed over the batch; xyz
+// and mask get no gradient (the JAX contract, pallas_pseudo.py:27-31). The
+// receiver cotangents of the sums a_ch are Gamma_2 = gv, Gamma_3 = gv x v,
+// Gamma_4 = sbar gv, Gamma_5 = gvb, Gamma_6 = sbar gvb, Gamma_7 = gvb x v,
+// Gamma_8 = gvb x vbar (pallas_pseudo.py:237-245). For receiver i and sender
+// j the cotangent of g_ch[i,j] is
 //
-// Forward. What bounds it on this card: the decoder graph has M = 3 beads
-// (6 for chignolin) and F = 600; at batch 64 one call reads and writes
-// ~11.7 MB (~3.5 us at 3.35 TB/s) and does ~0.1 GFLOP, so it is launch- and
-// latency-bound: 192 blocks of 4 warps leave most of the 132 SMs idle.
-// Design: one block per (batch element, receiver bead), threads striding
-// over F (coalesced loads along F); the senders' K, unit and adj are built
-// once into shared memory (in chunks of 64 senders, so M is arbitrary); each
-// thread walks the nine channels, keeping one channel's w[:, ch, f] column
-// in registers, and accumulates the eight sender sums in registers. The
-// gates and the three cross products are linear in those sums and are
-// applied once at the end.
+//   dG_0 = s_i gs_i,  dG_1 = gv_i . unit_ij,  dG_ch = Gamma_ch(i) . x_ch,j
+//   d_phi[j,ch] += filt_ch dG_ch[i,j],  d_x_ch,j += filt_ch phi[j,ch] Gamma_ch(i)
+//   d_w[r,ch]    = sum_b sum_{i<j} K[i,j,r] (phi[j,ch] dG_ch[i,j] + phi[i,ch] dG_ch[j,i])
 //
-// Backward. Given gs, gsb (B,M,F) and gv, gvb (B,M,3,F) it writes d_phi
-// (B,M,9,F), d_s, d_sbar (B,M,F), d_v, d_vbar (B,M,3,F) and d_w (R+1,9,F)
-// summed over the batch; xyz and mask get no gradient (the JAX contract,
-// pallas_pseudo.py:27-31). The receiver cotangents of the sums a_ch are
-// Gamma_2 = gv, Gamma_3 = gv x v, Gamma_4 = sbar gv, Gamma_5 = gvb,
-// Gamma_6 = sbar gvb, Gamma_7 = gvb x v, Gamma_8 = gvb x vbar
-// (pallas_pseudo.py:237-245). With node p as the sender of the pair
-// (q <- p), the cotangent of g_ch[q,p] is
+// and node i as a receiver adds d_s_i = s0_i gs_i, d_sbar_i = a4_i . gv_i +
+// a6_i . gvb_i, d_v_i += a3_i x gv_i + a7_i x gvb_i + gsb_i t_i and
+// d_vbar_i += a8_i x gvb_i, with s0, t and a_ch recomputed as in the forward,
+// and the dsbar path d_vbar_j += sum_i adj_ij gsb_i v_i.
 //
-//   dG_0 = s_q gs_q,  dG_1 = gv_q . unit_qp,  dG_ch = Gamma_ch(q) . x_ch,p
-//   d_phi[p,ch] = sum_q filt_ch[p,q] dG_ch(q)
-//   d_x_ch,p   += phi[p,ch] sum_q filt_ch Gamma_ch(q)       (sender side)
-//   d_w[r,ch]   = sum_b sum_p phi[p,ch] sum_q K[p,q,r] dG_ch(q)
+// What bounds them on this card (chip_smoke.py::kernel_cost, the least
+// work of each function). At the decoder's shapes (M = 3 beads, F = 600,
+// R+1 = 9) both are bound by bytes: the forward reads 17 and writes 8 floats
+// per node and feature (23.2 MB at B 128, 6.9 us at 3.35 TB/s; 11.7 MB,
+// 3.5 us, at B 64) against 0.05 GFLOP; the backward reads 25 and writes 17
+// (39.1 MB at B 128, 11.7 us) against 0.09 GFLOP. A frame is 3 nodes and 3
+// pairs, so each thread's work per frame is short, and what the kernels
+// reach is set by per-block latency (loads, geometry, a launch of ~3 us in
+// a CUDA graph) more than by either rate.
 //
-// and p as a receiver adds d_s_p = s0_p gs_p, d_sbar_p = a4_p . gv_p +
-// a6_p . gvb_p, d_v_p += a3_p x gv_p + a7_p x gvb_p + gsb_p t_p and
-// d_vbar_p += a8_p x gvb_p, with s0, t and a_ch recomputed as in the
-// forward, and the dsbar path d_vbar_p += sum_q adj_qp gsb_q v_q. K and adj
-// are symmetric, so one geometry row per node p serves both roles. As in
-// fused_message.cu, d_w takes two passes: one partial per batch element
-// (B x (R+1) x 9 x F floats, 24.9 MB at B = 128, F = 600), then
-// sum_over_batch in a fixed order; no atomics, deterministic. Design: one
-// block per (batch element, chunk of 128 features); each thread owns one
-// feature column and walks the beads p, the nine channels and the partners
-// q, keeping the (R+1) per-basis sums of one (p, ch) in registers. At M = 3
-// the pair loop is short and the kernel is bound by latency and by the
-// 9 x (R+1) read-modify-writes of its partial per bead.
-//
-// The TPU kernels' batch tiling, their VMEM budget (_tile_b_budget) and the
-// Mosaic bead padding (_pad_beads) are not carried over: nothing on this
-// card calls for them.
+// Design, M <= kRegMax = 6 (the register path; the dipeptide's 3 beads and
+// chignolin's 6):
+// - A block owns 32 features, one per lane, and a group of frames; each of
+//   its 4 warps takes one frame at a time. Every per-node read and write is
+//   one coalesced 128-byte line. The block stages w[:, :, its 32 features]
+//   in shared memory once and every frame of the group reads it from there.
+// - Per frame the warp builds each unordered pair's record once
+//   (pair_geometry.cuh::pair_record, one lane per pair) in its shared
+//   memory; the lanes read them as broadcasts. A thread loads every input of
+//   its frame, phi included, before the channel walk, so a warp has a
+//   frame's lines (51 in the forward, 75 in the backward at M = 3) in flight
+//   together.
+// - One thread holds every node of its frame (R+1 and the node bound MC in
+//   {3, 6} are template parameters; M < MC is predicated). It walks the nine
+//   channels; per channel each unordered pair's filter is folded once, R+1
+//   FMAs, and serves both directions (channel 1 takes -unit for the reverse
+//   one). The gates and crosses of a channel are linear in its sums and are
+//   applied once per node at the channel's end, so nothing of a channel
+//   outlives it but the outputs.
+// - Backward: the same walk, with the forward's sums recomputed. d_w's
+//   chain for a pair is one (R+1)-long FMA chain on phi[j] dG[i,j] +
+//   phi[i] dG[j,i]. Each thread adds its frame's d_w for a channel into its
+//   own column in shared memory; at the end the block adds its four warps'
+//   columns in a fixed order and writes one partial per (frame group,
+//   feature), once. sum_over_batch adds the partials in a fixed order: no
+//   atomics, d_w is deterministic. fused_pseudo_bwd_partials(B, M) says how
+//   many partials the scratch holds.
+// Design, M > kRegMax (the chunked path): one block per (batch element,
+//   receiver) in the forward and per (batch element, 128 features) in the
+//   backward, threads striding over F, partners in chunks of 64 records in
+//   shared memory; the backward keeps one d_w partial per batch element.
+// Measured (scripts/kernel_ab.py against the previous design, one block per
+//   (frame, receiver) or per (frame, 128 features) with threads striding
+//   over F and the basis padded to 16; one H100 80GB HBM3 at 700 W; PERF.md
+//   has the runs): forward 0.069 -> 0.014 ms at B 128
+//   and 0.065 -> 0.010 ms at B 64, backward 0.238 -> 0.035 ms at B 128, M 3.
+//   ptxas at R+1 = 9: forward <9,3> 107 registers, backward <9,3> 165, no
+//   spills. Tried and not kept: one frame per warp at B 128, twice the
+//   blocks and the partials (forward 0.0177 against 0.0149 ms, backward
+//   0.0463 against 0.0381, measured before phi was loaded up front), and
+//   issuing a frame's loads before the staging of w and the geometry (no
+//   gain measured).
+// Left out, and why:
+// - Tensor cores: a contraction depth of M = 3 leaves them nothing.
+// - M = 6 (chignolin) runs the register path at 255 registers in the
+//   backward, two blocks per SM, 0.09-0.12 ms at B 64: it holds six nodes'
+//   inputs and sums; a layout of its own waits for a benchmark cell at
+//   M 6.
+// - The TPU kernels' batch tiling, their VMEM budget (_tile_b_budget) and
+//   the Mosaic bead padding (_pad_beads): nothing on this card calls for
+//   them.
+
+#include <algorithm>
 
 #include "pair_geometry.cuh"
 
@@ -67,11 +104,73 @@ namespace cgvae {
 namespace {
 
 constexpr int kCh = 9;
+constexpr int kLanes = 32;          // features per block, one per lane (register path)
+constexpr int kWarps = 4;           // warps per block, one frame each at a time
+constexpr int kRegMax = 6;          // the register path takes M <= kRegMax
+constexpr int kChunk = 64;          // chunked path: partners per shared-memory chunk
+constexpr int kChunkThreads = 128;  // chunked path: threads per block, striding over F
 
 // channels whose sender payload is v (the rest of 2..8 carry vbar)
-__device__ inline bool carries_v(int ch) { return ch == 2 || ch == 6 || ch == 7; }
+__host__ __device__ constexpr bool carries_v(int ch) { return ch == 2 || ch == 6 || ch == 7; }
 
-__global__ void fused_pseudo_kernel(
+// c += a x b
+__device__ __forceinline__ void add_cross(float* c, const float* a, const float* b) {
+  c[0] += a[1] * b[2] - a[2] * b[1];
+  c[1] += a[2] * b[0] - a[0] * b[2];
+  c[2] += a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// ---------------------------------------------------------------------------
+// Register path, M <= kRegMax
+
+// unordered pairs (a < c) of MC nodes, in the order a = 0, 1, ...
+__host__ __device__ constexpr int n_pairs(int MC) { return MC * (MC - 1) / 2; }
+__host__ __device__ constexpr int pair_index(int MC, int a, int c) {
+  return a * (2 * MC - 1 - a) / 2 + c - a - 1;
+}
+
+// One warp's frame in shared memory: the nodes and the pair records.
+template <int RA, int MC>
+struct FrameGeo {
+  alignas(16) float rec[n_pairs(MC)][record_width(RA)];
+  float4 nodes[MC];
+  float adj[n_pairs(MC)];
+};
+
+// The warp builds its frame's records, one lane per unordered pair.
+template <int RA, int MC>
+__device__ __forceinline__ void build_frame(FrameGeo<RA, MC>& geo, const float* xb,
+                                            const float* mb, int M, int lane,
+                                            float cutoff, float pi_c) {
+  __syncwarp();                       // the warp's reads of the previous frame are done
+  if (lane < M)
+    geo.nodes[lane] = make_float4(xb[lane * 3 + 0], xb[lane * 3 + 1], xb[lane * 3 + 2], mb[lane]);
+  __syncwarp();
+  if (lane < n_pairs(MC)) {
+    int a = 0, e = lane;
+    while (e >= MC - 1 - a) e -= MC - 1 - a, ++a;
+    geo.adj[lane] = pair_record<RA>(geo.rec[lane], geo.nodes, a, a + 1 + e, M, cutoff, pi_c);
+  }
+  __syncwarp();
+}
+
+// Stage w[:, :, the block's 32 features] as (RA * 9, lane); the idle lanes of
+// the last tile repeat F - 1.
+template <int RA>
+__device__ __forceinline__ void stage_w(float* ws, const float* __restrict__ w, int F) {
+  for (int t = threadIdx.x; t < RA * kCh * kLanes; t += blockDim.x)
+    ws[t] = w[(size_t)(t / kLanes) * F + min((int)blockIdx.x * kLanes + t % kLanes, F - 1)];
+}
+
+// Grid (F / 32, frame groups); frame group y holds frames y * 4 fpw ..
+// y * 4 fpw + 4 fpw - 1, warp k of the block takes every 4th of them.
+template <int RA, int MC>
+__global__ void __launch_bounds__(kLanes * kWarps, MC <= 3 ? 4 : 3)
+fused_pseudo_kernel(
     const float* __restrict__ xyz,    // (B, M, 3)
     const float* __restrict__ mask,   // (B, M)
     const float* __restrict__ phi,    // (B, M, 9, F)
@@ -84,14 +183,392 @@ __global__ void fused_pseudo_kernel(
     float* __restrict__ dsbar,        // (B, M, F)
     float* __restrict__ dv,           // (B, M, 3, F)
     float* __restrict__ dvbar,        // (B, M, 3, F)
-    int M, int F, int RA, float cutoff) {
-  __shared__ PairChunk pc;
+    int B, int M, int F, int fpw, float cutoff) {
+  constexpr int W = record_width(RA);
+  __shared__ float ws[RA * kCh * kLanes];
+  __shared__ FrameGeo<RA, MC> frames[kWarps];
+
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float pi_c = kPi / cutoff;
+  FrameGeo<RA, MC>& geo = frames[warp];
+  stage_w<RA>(ws, w, F);
+  __syncthreads();
+
+  for (int k = 0; k < fpw; ++k) {
+    const int b = (blockIdx.y * fpw + k) * kWarps + warp;
+    if (b >= B) break;
+    build_frame<RA, MC>(geo, xyz + (size_t)b * M * 3, mask + (size_t)b * M, M, lane, cutoff, pi_c);
+    const size_t n0 = (size_t)b * M;
+
+    // the frame's payloads: x[0] = v, x[1] = vbar
+    float sv[MC], sb[MC], x[2][MC][3];
+    float o_ds[MC], o_dsb[MC], o_dv[MC][3], o_dvb[MC][3];
+#pragma unroll
+    for (int a = 0; a < MC; ++a) {
+      const bool on = a < M;
+      sv[a] = on ? s[(n0 + a) * F + f] : 0.f;
+      sb[a] = on ? sbar[(n0 + a) * F + f] : 0.f;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        x[0][a][d] = on ? v[((n0 + a) * 3 + d) * F + f] : 0.f;
+        x[1][a][d] = on ? vbar[((n0 + a) * 3 + d) * F + f] : 0.f;
+        o_dv[a][d] = o_dvb[a][d] = 0.f;
+      }
+      o_ds[a] = o_dsb[a] = 0.f;
+    }
+    float phv[kCh][MC];               // every phi of the frame, loaded up front
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch)
+#pragma unroll
+      for (int a = 0; a < MC; ++a) phv[ch][a] = a < M ? phi[((n0 + a) * kCh + ch) * F + f] : 0.f;
+    // dsbar_a = v_a . sum_c adj vbar_c, both directions of each pair
+#pragma unroll
+    for (int a = 0; a < MC - 1; ++a)
+#pragma unroll
+      for (int c = a + 1; c < MC; ++c) {
+        if (c >= M) break;
+        const float adj = geo.adj[pair_index(MC, a, c)];
+        o_dsb[a] = fmaf(adj, dot3(x[0][a], x[1][c]), o_dsb[a]);
+        o_dsb[c] = fmaf(adj, dot3(x[0][c], x[1][a]), o_dsb[c]);
+      }
+
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      float wc[RA], ph[MC], acc[MC][3];
+#pragma unroll
+      for (int r = 0; r < RA; ++r) wc[r] = ws[(r * kCh + ch) * kLanes + lane];
+#pragma unroll
+      for (int a = 0; a < MC; ++a) {
+        ph[a] = phv[ch][a];
+        acc[a][0] = acc[a][1] = acc[a][2] = 0.f;
+      }
+#pragma unroll
+      for (int a = 0; a < MC - 1; ++a)
+#pragma unroll
+        for (int c = a + 1; c < MC; ++c) {
+          if (c >= M) break;
+          float g[W];
+          load_record(g, geo.rec[pair_index(MC, a, c)]);
+          float filt = 0.f;
+#pragma unroll
+          for (int r = 0; r < RA; ++r) filt = fmaf(g[r], wc[r], filt);
+          const float ga = filt * ph[c], gc = filt * ph[a];  // receiver a, receiver c
+          if (ch == 0) {
+            acc[a][0] += ga;
+            acc[c][0] += gc;
+          } else if (ch == 1) {               // unit_ca = -unit_ac
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              acc[a][d] = fmaf(ga, g[RA + d], acc[a][d]);
+              acc[c][d] = fmaf(-gc, g[RA + d], acc[c][d]);
+            }
+          } else {
+            const int xi = carries_v(ch) ? 0 : 1;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              acc[a][d] = fmaf(ga, x[xi][c][d], acc[a][d]);
+              acc[c][d] = fmaf(gc, x[xi][a][d], acc[c][d]);
+            }
+          }
+        }
+      // the channel's gate, once per node
+#pragma unroll
+      for (int a = 0; a < MC; ++a) {
+        float* A = acc[a];
+        switch (ch) {
+          case 0: o_ds[a] = sv[a] * A[0]; break;
+          case 1:
+          case 2: o_dv[a][0] += A[0]; o_dv[a][1] += A[1]; o_dv[a][2] += A[2]; break;
+          case 3: add_cross(o_dv[a], x[0][a], A); break;
+          case 4: for (int d = 0; d < 3; ++d) o_dv[a][d] = fmaf(sb[a], A[d], o_dv[a][d]); break;
+          case 5: o_dvb[a][0] += A[0]; o_dvb[a][1] += A[1]; o_dvb[a][2] += A[2]; break;
+          case 6: for (int d = 0; d < 3; ++d) o_dvb[a][d] = fmaf(sb[a], A[d], o_dvb[a][d]); break;
+          case 7: add_cross(o_dvb[a], x[0][a], A); break;
+          default: add_cross(o_dvb[a], x[1][a], A); break;
+        }
+      }
+    }
+
+    if (f_out < F) {
+#pragma unroll
+      for (int a = 0; a < MC; ++a) {
+        if (a >= M) break;
+        ds[(n0 + a) * F + f] = o_ds[a];
+        dsbar[(n0 + a) * F + f] = o_dsb[a];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          dv[((n0 + a) * 3 + d) * F + f] = o_dv[a][d];
+          dvbar[((n0 + a) * 3 + d) * F + f] = o_dvb[a][d];
+        }
+      }
+    }
+  }
+}
+
+// Dynamic shared memory: w as (RA * 9, lane), then each thread's d_w column,
+// (RA * 9, thread).
+template <int RA, int MC>
+__global__ void __launch_bounds__(kLanes * kWarps, MC <= 3 ? 3 : 2)
+fused_pseudo_bwd_kernel(
+    const float* __restrict__ xyz,    // (B, M, 3)
+    const float* __restrict__ mask,   // (B, M)
+    const float* __restrict__ phi,    // (B, M, 9, F)
+    const float* __restrict__ s,      // (B, M, F)
+    const float* __restrict__ sbar,   // (B, M, F)
+    const float* __restrict__ v,      // (B, M, 3, F)
+    const float* __restrict__ vbar,   // (B, M, 3, F)
+    const float* __restrict__ w,      // (RA, 9, F)
+    const float* __restrict__ gs,     // (B, M, F)
+    const float* __restrict__ gsb,    // (B, M, F)
+    const float* __restrict__ gv,     // (B, M, 3, F)
+    const float* __restrict__ gvb,    // (B, M, 3, F)
+    float* __restrict__ dphi,         // (B, M, 9, F)
+    float* __restrict__ d_s,          // (B, M, F)
+    float* __restrict__ d_sbar,       // (B, M, F)
+    float* __restrict__ d_v,          // (B, M, 3, F)
+    float* __restrict__ d_vbar,       // (B, M, 3, F)
+    float* __restrict__ dw_part,      // (frame groups, RA, 9, F)
+    int B, int M, int F, int fpw, float cutoff) {
+  constexpr int W = record_width(RA);
+  constexpr int kThreads = kLanes * kWarps;
+  extern __shared__ float4 smem[];
+  __shared__ FrameGeo<RA, MC> frames[kWarps];
+
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float pi_c = kPi / cutoff;
+  float* ws = reinterpret_cast<float*>(smem);
+  float* dws = ws + RA * kCh * kLanes + threadIdx.x;   // this thread's column, stride kThreads
+  FrameGeo<RA, MC>& geo = frames[warp];
+  stage_w<RA>(ws, w, F);
+#pragma unroll
+  for (int rc = 0; rc < RA * kCh; ++rc) dws[rc * kThreads] = 0.f;
+  __syncthreads();
+
+  for (int k = 0; k < fpw; ++k) {
+    const int b = (blockIdx.y * fpw + k) * kWarps + warp;
+    if (b >= B) break;
+    build_frame<RA, MC>(geo, xyz + (size_t)b * M * 3, mask + (size_t)b * M, M, lane, cutoff, pi_c);
+    const size_t n0 = (size_t)b * M;
+
+    // the frame's inputs: x[0] = v, x[1] = vbar; sig = s gs (dG_0)
+    float x[2][MC][3], gvv[MC][3], gvbv[MC][3], sb[MC], sig[MC], gsv[MC], gsbv[MC];
+    // the sums: dx[0] = d_v, dx[1] = d_vbar
+    float dx[2][MC][3], dsb[MC];
+#pragma unroll
+    for (int a = 0; a < MC; ++a) {
+      const bool on = a < M;
+      const size_t n = n0 + a;
+      sb[a] = on ? sbar[n * F + f] : 0.f;
+      gsv[a] = on ? gs[n * F + f] : 0.f;
+      gsbv[a] = on ? gsb[n * F + f] : 0.f;
+      sig[a] = on ? s[n * F + f] * gsv[a] : 0.f;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        x[0][a][d] = on ? v[(n * 3 + d) * F + f] : 0.f;
+        x[1][a][d] = on ? vbar[(n * 3 + d) * F + f] : 0.f;
+        gvv[a][d] = on ? gv[(n * 3 + d) * F + f] : 0.f;
+        gvbv[a][d] = on ? gvb[(n * 3 + d) * F + f] : 0.f;
+        dx[0][a][d] = dx[1][a][d] = 0.f;
+      }
+      dsb[a] = 0.f;
+    }
+    float phv[kCh][MC];               // every phi of the frame, loaded up front
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch)
+#pragma unroll
+      for (int a = 0; a < MC; ++a) phv[ch][a] = a < M ? phi[((n0 + a) * kCh + ch) * F + f] : 0.f;
+    // the dsbar path: d_v_a += gsb_a adj vbar_c, d_vbar_c += adj gsb_a v_a,
+    // both directions of each pair
+#pragma unroll
+    for (int a = 0; a < MC - 1; ++a)
+#pragma unroll
+      for (int c = a + 1; c < MC; ++c) {
+        if (c >= M) break;
+        const float adj = geo.adj[pair_index(MC, a, c)];
+        const float ga = adj * gsbv[a], gc = adj * gsbv[c];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          dx[0][a][d] = fmaf(ga, x[1][c][d], dx[0][a][d]);
+          dx[0][c][d] = fmaf(gc, x[1][a][d], dx[0][c][d]);
+          dx[1][a][d] = fmaf(gc, x[0][c][d], dx[1][a][d]);
+          dx[1][c][d] = fmaf(ga, x[0][a][d], dx[1][c][d]);
+        }
+      }
+
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      const int xi = carries_v(ch) ? 0 : 1;
+      float wc[RA], ph[MC], gam[MC][3];
+      // fa: the forward's sum at each receiver (s0 in fa[.][0] for ch 0);
+      // bx: sum_i filt Gamma_ch(i) at each sender; dph: d_phi[., ch]
+      float fa[MC][3], bx[MC][3], dph[MC], dwc[RA];
+#pragma unroll
+      for (int r = 0; r < RA; ++r) {
+        wc[r] = ws[(r * kCh + ch) * kLanes + lane];
+        dwc[r] = 0.f;
+      }
+#pragma unroll
+      for (int a = 0; a < MC; ++a) {
+        ph[a] = phv[ch][a];
+        dph[a] = 0.f;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) fa[a][d] = bx[a][d] = 0.f;
+        switch (ch) {                   // Gamma_ch(a)
+          case 2: case 5: {
+            const float* g = ch == 2 ? gvv[a] : gvbv[a];
+            gam[a][0] = g[0]; gam[a][1] = g[1]; gam[a][2] = g[2];
+            break;
+          }
+          case 4: case 6: {
+            const float* g = ch == 4 ? gvv[a] : gvbv[a];
+            for (int d = 0; d < 3; ++d) gam[a][d] = sb[a] * g[d];
+            break;
+          }
+          case 3: case 7: case 8: {
+            const float* g = ch == 3 ? gvv[a] : gvbv[a];
+            const float* u = ch == 8 ? x[1][a] : x[0][a];
+            gam[a][0] = gam[a][1] = gam[a][2] = 0.f;
+            add_cross(gam[a], g, u);
+            break;
+          }
+          default: gam[a][0] = gam[a][1] = gam[a][2] = 0.f; break;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < MC - 1; ++a)
+#pragma unroll
+        for (int c = a + 1; c < MC; ++c) {
+          if (c >= M) break;
+          float g[W];
+          load_record(g, geo.rec[pair_index(MC, a, c)]);
+          float filt = 0.f;
+#pragma unroll
+          for (int r = 0; r < RA; ++r) filt = fmaf(g[r], wc[r], filt);
+          float dac, dca;                 // dG[a, c] (receiver a), dG[c, a]
+          if (ch == 0) {
+            dac = sig[a];
+            dca = sig[c];
+            fa[a][0] = fmaf(filt, ph[c], fa[a][0]);
+            fa[c][0] = fmaf(filt, ph[a], fa[c][0]);
+          } else if (ch == 1) {           // unit_ca = -unit_ac
+            dac = dot3(gvv[a], g + RA);
+            dca = -dot3(gvv[c], g + RA);
+          } else {
+            dac = dot3(gam[a], x[xi][c]);
+            dca = dot3(gam[c], x[xi][a]);
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              bx[c][d] = fmaf(filt, gam[a][d], bx[c][d]);
+              bx[a][d] = fmaf(filt, gam[c][d], bx[a][d]);
+            }
+            if (ch != 2 && ch != 5) {     // the forward's a_ch, needed by a gate
+              const float ga = filt * ph[c], gc = filt * ph[a];
+#pragma unroll
+              for (int d = 0; d < 3; ++d) {
+                fa[a][d] = fmaf(ga, x[xi][c][d], fa[a][d]);
+                fa[c][d] = fmaf(gc, x[xi][a][d], fa[c][d]);
+              }
+            }
+          }
+          dph[c] = fmaf(filt, dac, dph[c]);
+          dph[a] = fmaf(filt, dca, dph[a]);
+          const float X = fmaf(ph[c], dac, ph[a] * dca);
+#pragma unroll
+          for (int r = 0; r < RA; ++r) dwc[r] = fmaf(g[r], X, dwc[r]);
+        }
+      // per node: d_phi, the sender side and the receiver gates
+#pragma unroll
+      for (int a = 0; a < MC; ++a) {
+        if (a >= M) break;
+        if (f_out < F) dphi[((n0 + a) * kCh + ch) * F + f] = dph[a];
+        if (ch >= 2)
+#pragma unroll
+          for (int d = 0; d < 3; ++d) dx[xi][a][d] = fmaf(ph[a], bx[a][d], dx[xi][a][d]);
+        switch (ch) {
+          case 0: if (f_out < F) d_s[(n0 + a) * F + f] = fa[a][0] * gsv[a]; break;
+          case 3: add_cross(dx[0][a], fa[a], gvv[a]); break;
+          case 4: dsb[a] += dot3(fa[a], gvv[a]); break;
+          case 6: dsb[a] += dot3(fa[a], gvbv[a]); break;
+          case 7: add_cross(dx[0][a], fa[a], gvbv[a]); break;
+          case 8: add_cross(dx[1][a], fa[a], gvbv[a]); break;
+          default: break;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RA; ++r) dws[(r * kCh + ch) * kThreads] += dwc[r];
+    }
+
+    if (f_out < F) {
+#pragma unroll
+      for (int a = 0; a < MC; ++a) {
+        if (a >= M) break;
+        d_sbar[(n0 + a) * F + f] = dsb[a];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          d_v[((n0 + a) * 3 + d) * F + f] = dx[0][a][d];
+          d_vbar[((n0 + a) * 3 + d) * F + f] = dx[1][a][d];
+        }
+      }
+    }
+  }
+
+  // the block's d_w: its warps' columns added in a fixed order, one partial
+  // per (frame group, feature)
+  __syncthreads();
+  const float* cols = ws + RA * kCh * kLanes;
+  float* out = dw_part + (size_t)blockIdx.y * RA * kCh * F;
+  for (int t = threadIdx.x; t < RA * kCh * kLanes; t += kThreads) {
+    const int rc = t / kLanes, ln = t % kLanes, ff = blockIdx.x * kLanes + ln;
+    float acc = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) acc += cols[rc * kThreads + wi * kLanes + ln];
+    if (ff < F) out[(size_t)rc * F + ff] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Chunked path, M > kRegMax. Dynamic shared memory: the frame's nodes
+// (x, y, z, mask), then one chunk's records and adjacency.
+
+__device__ __forceinline__ void stage_frame(float4* nodes, const float* __restrict__ xb,
+                                            const float* __restrict__ mb, int M) {
+  for (int n = threadIdx.x; n < M; n += blockDim.x)
+    nodes[n] = make_float4(xb[n * 3 + 0], xb[n * 3 + 1], xb[n * 3 + 2], mb[n]);
+}
+
+template <int RA>
+__device__ __forceinline__ void build_chunk(float* rec, float* adj, const float4* nodes,
+                                            int p, int q0, int nq, int M, float cutoff,
+                                            float pi_c) {
+  for (int qq = threadIdx.x; qq < nq; qq += blockDim.x)
+    adj[qq] = pair_record<RA>(rec + qq * record_width(RA), nodes, p, q0 + qq, M, cutoff, pi_c);
+}
+
+// One block per (batch element, receiver i), threads striding over F.
+template <int RA>
+__global__ void __launch_bounds__(kChunkThreads)
+fused_pseudo_chunk_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ mask,
+    const float* __restrict__ phi, const float* __restrict__ s,
+    const float* __restrict__ sbar, const float* __restrict__ v,
+    const float* __restrict__ vbar, const float* __restrict__ w,
+    float* __restrict__ ds, float* __restrict__ dsbar, float* __restrict__ dv,
+    float* __restrict__ dvbar, int M, int F, float cutoff) {
+  constexpr int W = record_width(RA);
+  extern __shared__ float4 smem[];
+  float4* nodes = smem;
+  float* rec = reinterpret_cast<float*>(smem + M);
+  float* adj = rec + kChunk * W;
 
   const int b = blockIdx.x / M;
   const int i = blockIdx.x % M;
-  const float* xb = xyz + (size_t)b * M * 3;
-  const float* mb = mask + (size_t)b * M;
+  const float pi_c = kPi / cutoff;
   const int n_chunks = (M + kChunk - 1) / kChunk;
+  stage_frame(nodes, xyz + (size_t)b * M * 3, mask + (size_t)b * M, M);
 
   for (int f0 = 0; f0 < F; f0 += blockDim.x) {
     const int f = f0 + threadIdx.x;
@@ -111,46 +588,45 @@ __global__ void fused_pseudo_kernel(
       const int nj = min(kChunk, M - j0);
       if (n_chunks > 1 || f0 == 0) {
         __syncthreads();
-        build_pair_chunk(pc, xb, mb, i, j0, nj, RA, cutoff);
+        build_chunk<RA>(rec, adj, nodes, i, j0, nj, M, cutoff, pi_c);
         __syncthreads();
       }
       if (!active) continue;
 
-      // dsbar: plain adjacency-weighted sum of the senders' vbar
       for (int jj = 0; jj < nj; ++jj) {
         const size_t row = (size_t)b * M + j0 + jj;
-        const float a = pc.adj[jj];
+        const float a = adj[jj];
         t[0] += a * vbar[(row * 3 + 0) * F + f];
         t[1] += a * vbar[(row * 3 + 1) * F + f];
         t[2] += a * vbar[(row * 3 + 2) * F + f];
       }
 
       for (int ch = 0; ch < kCh; ++ch) {
-        float wc[kMaxRA];
+        float wc[RA];
 #pragma unroll
-        for (int r = 0; r < kMaxRA; ++r)
-          wc[r] = r < RA ? w[((size_t)r * kCh + ch) * F + f] : 0.f;
+        for (int r = 0; r < RA; ++r) wc[r] = w[((size_t)r * kCh + ch) * F + f];
         for (int jj = 0; jj < nj; ++jj) {
-          if (pc.on[jj] == 0.f) continue;
+          const float* g = rec + jj * W;
+          if (g[RA - 1] == 0.f) continue;       // adj * env == 0: no contribution
           float filt = 0.f;
 #pragma unroll
-          for (int r = 0; r < kMaxRA; ++r) filt += pc.k[jj][r] * wc[r];
+          for (int r = 0; r < RA; ++r) filt = fmaf(g[r], wc[r], filt);
           const size_t row = (size_t)b * M + j0 + jj;
-          const float g = filt * phi[(row * kCh + ch) * F + f];
+          const float gg = filt * phi[(row * kCh + ch) * F + f];
           if (ch == 0) {
-            s0 += g;
+            s0 += gg;
             continue;
           }
           if (ch == 1) {
-            dvd[0] += g * pc.unit[jj][0];
-            dvd[1] += g * pc.unit[jj][1];
-            dvd[2] += g * pc.unit[jj][2];
+            dvd[0] += gg * g[RA + 0];
+            dvd[1] += gg * g[RA + 1];
+            dvd[2] += gg * g[RA + 2];
             continue;
           }
           const float* x = carries_v(ch) ? v : vbar;
-          const float x0 = g * x[(row * 3 + 0) * F + f];
-          const float x1 = g * x[(row * 3 + 1) * F + f];
-          const float x2 = g * x[(row * 3 + 2) * F + f];
+          const float x0 = gg * x[(row * 3 + 0) * F + f];
+          const float x1 = gg * x[(row * 3 + 1) * F + f];
+          const float x2 = gg * x[(row * 3 + 2) * F + f];
           switch (ch) {
             case 2: dvd[0] += x0; dvd[1] += x1; dvd[2] += x2; break;
             case 3: a3[0] += x0; a3[1] += x1; a3[2] += x2; break;
@@ -188,41 +664,34 @@ __global__ void fused_pseudo_kernel(
   }
 }
 
-// c += a x b
-__device__ inline void add_cross(float* c, const float* a, const float* b) {
-  c[0] += a[1] * b[2] - a[2] * b[1];
-  c[1] += a[2] * b[0] - a[0] * b[2];
-  c[2] += a[0] * b[1] - a[1] * b[0];
-}
-
-__global__ void fused_pseudo_bwd_kernel(
-    const float* __restrict__ xyz,    // (B, M, 3)
-    const float* __restrict__ mask,   // (B, M)
-    const float* __restrict__ phi,    // (B, M, 9, F)
-    const float* __restrict__ s,      // (B, M, F)
-    const float* __restrict__ sbar,   // (B, M, F)
-    const float* __restrict__ v,      // (B, M, 3, F)
-    const float* __restrict__ vbar,   // (B, M, 3, F)
-    const float* __restrict__ w,      // (RA, 9, F)
-    const float* __restrict__ gs,     // (B, M, F)
-    const float* __restrict__ gsb,    // (B, M, F)
-    const float* __restrict__ gv,     // (B, M, 3, F)
-    const float* __restrict__ gvb,    // (B, M, 3, F)
-    float* __restrict__ dphi,         // (B, M, 9, F)
-    float* __restrict__ d_s,          // (B, M, F)
-    float* __restrict__ d_sbar,       // (B, M, F)
-    float* __restrict__ d_v,          // (B, M, 3, F)
-    float* __restrict__ d_vbar,       // (B, M, 3, F)
+// One block per (batch element, 128 features); each thread owns one feature
+// column and walks the nodes p, the nine channels and the partners q. Its
+// batch element's d_w partial is dw_part[b], accumulated over p.
+template <int RA>
+__global__ void __launch_bounds__(kChunkThreads)
+fused_pseudo_bwd_chunk_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ mask,
+    const float* __restrict__ phi, const float* __restrict__ s,
+    const float* __restrict__ sbar, const float* __restrict__ v,
+    const float* __restrict__ vbar, const float* __restrict__ w,
+    const float* __restrict__ gs, const float* __restrict__ gsb,
+    const float* __restrict__ gv, const float* __restrict__ gvb,
+    float* __restrict__ dphi, float* __restrict__ d_s, float* __restrict__ d_sbar,
+    float* __restrict__ d_v, float* __restrict__ d_vbar,
     float* __restrict__ dw_part,      // (B, RA, 9, F)
-    int M, int F, int RA, float cutoff) {
-  __shared__ PairChunk pc;
+    int M, int F, float cutoff) {
+  constexpr int W = record_width(RA);
+  extern __shared__ float4 smem[];
+  float4* nodes = smem;
+  float* rec = reinterpret_cast<float*>(smem + M);
+  float* adjs = rec + kChunk * W;
 
   const int b = blockIdx.x;
   const int f = blockIdx.y * blockDim.x + threadIdx.x;
   const bool active = f < F;
-  const float* xb = xyz + (size_t)b * M * 3;
-  const float* mb = mask + (size_t)b * M;
+  const float pi_c = kPi / cutoff;
   const int n_chunks = (M + kChunk - 1) / kChunk;
+  stage_frame(nodes, xyz + (size_t)b * M * 3, mask + (size_t)b * M, M);
 
   for (int p = 0; p < M; ++p) {
     const size_t row_p = (size_t)b * M + p;
@@ -241,13 +710,12 @@ __global__ void fused_pseudo_bwd_kernel(
     float dsbp = 0.f;
 
     for (int ch = 0; ch < kCh; ++ch) {
-      float wc[kMaxRA];
+      float wc[RA], G[RA];             // G[r] = sum_q K[p,q,r] dG_ch(q)
 #pragma unroll
-      for (int r = 0; r < kMaxRA; ++r)
-        wc[r] = (active && r < RA) ? w[((size_t)r * kCh + ch) * F + f] : 0.f;
-      float G[kMaxRA];        // sum_q K[p,q,r] dG_ch(q)
-#pragma unroll
-      for (int r = 0; r < kMaxRA; ++r) G[r] = 0.f;
+      for (int r = 0; r < RA; ++r) {
+        wc[r] = active ? w[((size_t)r * kCh + ch) * F + f] : 0.f;
+        G[r] = 0.f;
+      }
       float dphi_c = 0.f;
       float bx[3] = {0.f, 0.f, 0.f};   // sum_q filt Gamma_ch(q)
       float fw[3] = {0.f, 0.f, 0.f};   // forward a_ch at p (or t_p, ch 0)
@@ -258,16 +726,17 @@ __global__ void fused_pseudo_bwd_kernel(
         const int nq = min(kChunk, M - q0);
         if (n_chunks > 1 || ch == 0) {
           __syncthreads();
-          build_pair_chunk(pc, xb, mb, p, q0, nq, RA, cutoff);
+          build_chunk<RA>(rec, adjs, nodes, p, q0, nq, M, cutoff, pi_c);
           __syncthreads();
         }
         if (!active) continue;
 
         for (int qq = 0; qq < nq; ++qq) {
           const size_t row_q = (size_t)b * M + q0 + qq;
-          if (ch == 0 && pc.adj[qq] != 0.f) {
+          const float* g = rec + qq * W;
+          if (ch == 0 && adjs[qq] != 0.f) {
             // dsbar path, both roles: t_p and d_vbar_p += adj gsb_q v_q
-            const float a = pc.adj[qq];
+            const float a = adjs[qq];
             const float ag = a * gsb[row_q * F + f];
 #pragma unroll
             for (int d = 0; d < 3; ++d) {
@@ -275,23 +744,22 @@ __global__ void fused_pseudo_bwd_kernel(
               dvbp[d] += ag * v[(row_q * 3 + d) * F + f];
             }
           }
-          if (pc.on[qq] == 0.f) continue;
+          if (g[RA - 1] == 0.f) continue;
           float filt = 0.f;
 #pragma unroll
-          for (int r = 0; r < kMaxRA; ++r) filt += pc.k[qq][r] * wc[r];
+          for (int r = 0; r < RA; ++r) filt = fmaf(g[r], wc[r], filt);
           float dG;
           if (ch == 0) {
             dG = s[row_q * F + f] * gs[row_q * F + f];
             s0 += filt * phi[(row_q * kCh) * F + f];
           } else if (ch == 1) {
-            // unit of the pair (q <- p) is (x_p - x_q) / d = -pc.unit
+            // unit of the pair (q <- p) is (x_p - x_q) / d = -unit in the record
             dG = 0.f;
 #pragma unroll
-            for (int d = 0; d < 3; ++d) dG -= gv[(row_q * 3 + d) * F + f] * pc.unit[qq][d];
+            for (int d = 0; d < 3; ++d) dG -= gv[(row_q * 3 + d) * F + f] * g[RA + d];
           } else {
             // Gamma_ch(q), the cotangent of a_ch at q
-            const bool vb_side = ch >= 5;             // from gvb, else gv
-            const float* gsrc = vb_side ? gvb : gv;
+            const float* gsrc = ch >= 5 ? gvb : gv;
             float gam[3];
 #pragma unroll
             for (int d = 0; d < 3; ++d) gam[d] = gsrc[(row_q * 3 + d) * F + f];
@@ -319,13 +787,14 @@ __global__ void fused_pseudo_bwd_kernel(
           }
           dphi_c += filt * dG;
 #pragma unroll
-          for (int r = 0; r < kMaxRA; ++r) G[r] += pc.k[qq][r] * dG;
+          for (int r = 0; r < RA; ++r) G[r] = fmaf(g[r], dG, G[r]);
         }
       }
       if (!active) continue;
 
       const float phic = phi[(row_p * kCh + ch) * F + f];
       dphi[(row_p * kCh + ch) * F + f] = dphi_c;
+#pragma unroll
       for (int r = 0; r < RA; ++r) {
         float* out = dw_part + (((size_t)b * RA + r) * kCh + ch) * F + f;
         *out = (p == 0 ? 0.f : *out) + G[r] * phic;
@@ -359,6 +828,18 @@ __global__ void fused_pseudo_bwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+
+// Frames per warp of the register path: one at batch 64 and below, so the
+// grid fills the card; more above it, for fewer d_w partials.
+int frames_per_warp(int B) { return std::max(1, std::min(8, B / 64)); }
+int frame_groups(int B) { return (B + kWarps * frames_per_warp(B) - 1) / (kWarps * frames_per_warp(B)); }
+
+// Dynamic shared memory of the chunked path.
+size_t chunk_smem(int M, int RA) {
+  return sizeof(float4) * M + sizeof(float) * kChunk * (record_width(RA) + 1);
+}
+
 }  // namespace
 }  // namespace cgvae
 
@@ -369,16 +850,45 @@ extern "C" int fused_pseudo_fwd(
     int RA, float cutoff, void* stream) {
   using namespace cgvae;
   if (B <= 0 || M <= 0) return 0;
-  const dim3 grid((unsigned)(B * M));
-  fused_pseudo_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)xyz, (const float*)mask, (const float*)phi,
-      (const float*)s, (const float*)sbar, (const float*)v,
-      (const float*)vbar, (const float*)w, (float*)ds, (float*)dsbar,
-      (float*)dv, (float*)dvbar, M, F, RA, cutoff);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  auto args = [&](auto kernel) {
+    return [=](dim3 grid, dim3 block, size_t smem, auto... tail) {
+      kernel<<<grid, block, smem, st>>>(
+          (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)s,
+          (const float*)sbar, (const float*)v, (const float*)vbar, (const float*)w,
+          (float*)ds, (float*)dsbar, (float*)dv, (float*)dvbar, tail...);
+      return (int)cudaGetLastError();
+    };
+  };
+  return with_ra(RA, [&](auto ra_c) {
+    constexpr int kRA = decltype(ra_c)::value;
+    if (M <= kRegMax) {
+      const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)frame_groups(B));
+      const int fpw = frames_per_warp(B);
+      if (M <= 3)
+        return args(fused_pseudo_kernel<kRA, 3>)(grid, kLanes * kWarps, 0, B, M, F, fpw, cutoff);
+      return args(fused_pseudo_kernel<kRA, kRegMax>)(grid, kLanes * kWarps, 0, B, M, F, fpw,
+                                                     cutoff);
+    }
+    const size_t smem = chunk_smem(M, kRA);
+    static int allowed[kMaxDevices] = {};
+    const int err = allow_smem(fused_pseudo_chunk_kernel<kRA>, smem, allowed);
+    if (err != 0) return err;
+    return args(fused_pseudo_chunk_kernel<kRA>)(dim3((unsigned)(B * M)), kChunkThreads, smem,
+                                                M, F, cutoff);
+  });
 }
 
-// dw_part is scratch of B * RA * 9 * F floats; dw receives its sum over B.
+// d_w partials that fused_pseudo_bwd leaves in its scratch: one per frame
+// group on the register path, one per batch element on the chunked path.
+extern "C" int fused_pseudo_bwd_partials(int B, int M) {
+  using namespace cgvae;
+  if (B <= 0 || M <= 0) return 1;
+  return M <= kRegMax ? frame_groups(B) : B;
+}
+
+// dw_part is scratch of fused_pseudo_bwd_partials(B, M) * RA * 9 * F
+// floats; dw receives its sum.
 extern "C" int fused_pseudo_bwd(
     const void* xyz, const void* mask, const void* phi, const void* s,
     const void* sbar, const void* v, const void* vbar, const void* w,
@@ -390,16 +900,40 @@ extern "C" int fused_pseudo_bwd(
   const cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || M <= 0)
     return (int)cudaMemsetAsync(dw, 0, sizeof(float) * RA * kCh * F, st);
-  const dim3 grid((unsigned)B, (unsigned)((F + kThreads - 1) / kThreads));
-  fused_pseudo_bwd_kernel<<<grid, kThreads, 0, st>>>(
-      (const float*)xyz, (const float*)mask, (const float*)phi,
-      (const float*)s, (const float*)sbar, (const float*)v,
-      (const float*)vbar, (const float*)w, (const float*)gs,
-      (const float*)gsb, (const float*)gv, (const float*)gvb, (float*)dphi,
-      (float*)d_s, (float*)d_sbar, (float*)d_v, (float*)d_vbar,
-      (float*)dw_part, M, F, RA, cutoff);
-  const int err = (int)cudaGetLastError();
+  auto args = [&](auto kernel) {
+    return [=](dim3 grid, dim3 block, size_t smem, auto... tail) {
+      kernel<<<grid, block, smem, st>>>(
+          (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)s,
+          (const float*)sbar, (const float*)v, (const float*)vbar, (const float*)w,
+          (const float*)gs, (const float*)gsb, (const float*)gv, (const float*)gvb,
+          (float*)dphi, (float*)d_s, (float*)d_sbar, (float*)d_v, (float*)d_vbar,
+          (float*)dw_part, tail...);
+      return (int)cudaGetLastError();
+    };
+  };
+  const int err = with_ra(RA, [&](auto ra_c) {
+    constexpr int kRA = decltype(ra_c)::value;
+    if (M <= kRegMax) {
+      const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)frame_groups(B));
+      const int fpw = frames_per_warp(B);
+      const size_t smem = sizeof(float) * kRA * kCh * (kLanes + kLanes * kWarps);
+      auto launch = [&](auto kernel, int (&allowed)[kMaxDevices]) {
+        const int e = allow_smem(kernel, smem, allowed);
+        if (e != 0) return e;
+        return args(kernel)(grid, kLanes * kWarps, smem, B, M, F, fpw, cutoff);
+      };
+      static int allowed3[kMaxDevices] = {}, allowed6[kMaxDevices] = {};
+      if (M <= 3) return launch(fused_pseudo_bwd_kernel<kRA, 3>, allowed3);
+      return launch(fused_pseudo_bwd_kernel<kRA, kRegMax>, allowed6);
+    }
+    const size_t smem = chunk_smem(M, kRA);
+    static int allowed[kMaxDevices] = {};
+    const int e = allow_smem(fused_pseudo_bwd_chunk_kernel<kRA>, smem, allowed);
+    if (e != 0) return e;
+    const dim3 grid((unsigned)B, (unsigned)((F + kChunkThreads - 1) / kChunkThreads));
+    return args(fused_pseudo_bwd_chunk_kernel<kRA>)(grid, kChunkThreads, smem, M, F, cutoff);
+  });
   if (err != 0) return err;
-  return launch_sum_over_batch((const float*)dw_part, (float*)dw, B,
-                               RA * kCh * F, st);
+  return launch_sum_over_batch((const float*)dw_part, (float*)dw,
+                               fused_pseudo_bwd_partials(B, M), RA * kCh * F, st);
 }

@@ -1,75 +1,129 @@
-// Pair geometry of the fused pseudo kernels, forward and backward, for
-// Hopper (sm_90a), and the second pass of the weight gradients.
+// Pair geometry of the fused message and pseudo kernels, forward and
+// backward, for Hopper (sm_90a), and the second pass of the weight
+// gradients.
 //
-// The kernels of fused_pseudo.cu rebuild the pair pipeline of the JAX
-// package's _geometry (pallas_pseudo.py:57-73) on chip, one row node p
-// against a chunk of partner nodes q (fused_message.cu builds its own
-// per-pair records of the same quantities):
+// Every kernel of fused_message.cu and fused_pseudo.cu rebuilds the pair
+// pipeline of the JAX package's _geometry (pallas_pseudo.py:57-73) on chip,
+// one record per pair (row node p, partner q):
 //
 //   r = x_q - x_p,  d = sqrt(|r|^2 + 1e-3),  unit = r / d
 //   adj = (d < cutoff) * (p != q) * mask_p * mask_q
 //   K[r] = adj * env(d) * [rbf_1..R(d), 1]_r
 //
-// K and adj are symmetric in (p, q) and unit is antisymmetric, so the
-// backward kernels use the same rows for a node in either role.
+// K and adj are symmetric in (p, q) and unit is antisymmetric, so one record
+// serves a pair in either direction.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace cgvae {
 namespace {
 
-constexpr int kMaxRA = 16;      // n_rbf + 1 <= 16 (checked by the wrappers)
-constexpr int kChunk = 64;      // partner nodes per shared-memory chunk
-constexpr int kThreads = 128;   // threads per block, striding over F
 constexpr float kEps = 1e-3f;
 constexpr float kPi = 3.14159265358979323846f;
+constexpr int kMaxDevices = 64;
 
-// One chunk of partners q0 .. q0 + nq - 1 of row node p, in shared memory.
-struct PairChunk {
-  float k[kChunk][kMaxRA];  // K[r]; rows r >= RA are zero
-  float unit[kChunk][3];    // (x_q - x_p) / d
-  float adj[kChunk];        // 0/1 cutoff adjacency
-  float on[kChunk];         // adj * env != 0: the pair contributes
-};
+// floats per pair record: K[0..RA-1], unit[0..2], padded to a multiple of 4
+__host__ __device__ constexpr int record_width(int RA) { return (RA + 3 + 3) / 4 * 4; }
 
-// The block's threads fill the chunk; callers bracket the call with
-// __syncthreads(). xb and mb are one batch element's coordinates and mask.
-__device__ inline void build_pair_chunk(PairChunk& c, const float* xb,
-                                        const float* mb, int p, int q0,
-                                        int nq, int RA, float cutoff) {
-  const float xp0 = xb[p * 3 + 0], xp1 = xb[p * 3 + 1], xp2 = xb[p * 3 + 2];
-  const float mp = mb[p];
-  const int n_rbf = RA - 1;
-  for (int qq = threadIdx.x; qq < nq; qq += blockDim.x) {
-    const int q = q0 + qq;
-    const float r0 = xb[q * 3 + 0] - xp0;
-    const float r1 = xb[q * 3 + 1] - xp1;
-    const float r2 = xb[q * 3 + 2] - xp2;
-    const float d = sqrtf(r0 * r0 + r1 * r1 + r2 * r2 + kEps);
-    c.unit[qq][0] = r0 / d;
-    c.unit[qq][1] = r1 / d;
-    c.unit[qq][2] = r2 / d;
-    const float adj = (d < cutoff ? 1.f : 0.f) * (q != p ? 1.f : 0.f) * mp * mb[q];
-    const float env = d >= cutoff ? 0.f : 0.5f * (cosf(kPi * d / cutoff) + 1.f);
-    const float ae = adj * env;
-    for (int r = 0; r < n_rbf; ++r) {
-      const float coef = (float)(r + 1) * kPi / cutoff;
-      float rbf = d == 0.f ? coef : sinf(coef * d) / d;
-      if (d >= cutoff) rbf = 0.f;
-      c.k[qq][r] = ae * rbf;
+// The record of row node p against partner q (zeros when either lies past
+// N): K[r] for the pair, then unit = (x_q - x_p) / d, written as float4.
+// Returns the plain adjacency adj. nodes holds (x, y, z, mask); pi_c =
+// pi / cutoff. One rsqrtf and one __sincosf per pair; the radial sines
+// follow by the angle-addition recurrence (relative error ~3e-6 against the
+// plain version's sin per basis function).
+template <int RA>
+__device__ __forceinline__ float pair_record(float* __restrict__ rec,
+                                             const float4* __restrict__ nodes,
+                                             int p, int q, int N, float cutoff, float pi_c) {
+  constexpr int W = record_width(RA);
+  float out[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) out[k] = 0.f;
+  float adj = 0.f;
+  if (p < N && q < N) {
+    const float4 a = nodes[p], c = nodes[q];
+    const float r0 = c.x - a.x, r1 = c.y - a.y, r2 = c.z - a.z;
+    const float d2 = r0 * r0 + r1 * r1 + r2 * r2 + kEps;
+    const float inv_d = rsqrtf(d2);
+    const float d = d2 * inv_d;
+    out[RA + 0] = r0 * inv_d;
+    out[RA + 1] = r1 * inv_d;
+    out[RA + 2] = r2 * inv_d;
+    if (d < cutoff && p != q) {
+      float s1, c1;                       // sin and cos of pi d / cutoff
+      __sincosf(pi_c * d, &s1, &c1);    // |error| < 4e-7 for arguments in [0, pi)
+      adj = a.w * c.w;
+      const float ae = adj * (0.5f * (c1 + 1.f));
+      const float ae_d = ae * inv_d;
+      float sk = s1, ck = c1;             // sin and cos of (k + 1) pi d / cutoff
+#pragma unroll
+      for (int k = 0; k < RA - 1; ++k) {
+        out[k] = ae_d * sk;
+        const float sn = sk * c1 + ck * s1;
+        ck = ck * c1 - sk * s1;
+        sk = sn;
+      }
+      out[RA - 1] = ae;
     }
-    c.k[qq][n_rbf] = ae;
-    for (int r = RA; r < kMaxRA; ++r) c.k[qq][r] = 0.f;
-    c.adj[qq] = adj;
-    c.on[qq] = ae != 0.f ? 1.f : 0.f;
+  }
+  float4* r4 = reinterpret_cast<float4*>(rec);
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k)
+    r4[k] = make_float4(out[4 * k], out[4 * k + 1], out[4 * k + 2], out[4 * k + 3]);
+  return adj;
+}
+
+template <int W>
+__device__ __forceinline__ void load_record(float (&g)[W], const float* rec) {
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k) {
+    const float4 t = r4[k];
+    g[4 * k] = t.x; g[4 * k + 1] = t.y; g[4 * k + 2] = t.z; g[4 * k + 3] = t.w;
   }
 }
 
-// out[i] = sum_b part[b * n + i]: the second pass of a weight gradient that
-// the backward kernels leave as one partial sum per batch element. A fixed
-// order of summation, so the result is deterministic.
+// Run fn(integral_constant<RA>) for the runtime RA; the kernels exist for RA
+// (n_rbf + 1) in 2..16.
+template <typename Fn>
+int with_ra(int RA, Fn&& fn) {
+  switch (RA) {
+#define CGVAE_RA_CASE(n) \
+  case n:                \
+    return fn(std::integral_constant<int, n>{});
+    CGVAE_RA_CASE(2) CGVAE_RA_CASE(3) CGVAE_RA_CASE(4) CGVAE_RA_CASE(5)
+    CGVAE_RA_CASE(6) CGVAE_RA_CASE(7) CGVAE_RA_CASE(8) CGVAE_RA_CASE(9)
+    CGVAE_RA_CASE(10) CGVAE_RA_CASE(11) CGVAE_RA_CASE(12) CGVAE_RA_CASE(13)
+    CGVAE_RA_CASE(14) CGVAE_RA_CASE(15) CGVAE_RA_CASE(16)
+#undef CGVAE_RA_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Allow a kernel more than the default 48 KB of dynamic shared memory.
+// ``allowed`` (one slot per device) remembers what was granted, so a launch
+// that needs no more makes no runtime call (as inside a CUDA graph capture).
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, int (&allowed)[kMaxDevices]) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0 || dev >= kMaxDevices) return err != 0 ? err : (int)cudaErrorInvalidDevice;
+  if ((int)bytes <= allowed[dev]) return 0;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bytes);
+  if (err == 0) allowed[dev] = (int)bytes;
+  return err;
+}
+
+// out[i] = sum_k part[k * n + i]: the second pass of a weight gradient that
+// the backward kernels leave as partial sums (per batch element, node tile
+// or frame group). A fixed order of summation, so the result is
+// deterministic.
 __global__ void sum_over_batch(const float* __restrict__ part,
                                float* __restrict__ out, int B, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;

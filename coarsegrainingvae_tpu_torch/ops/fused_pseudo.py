@@ -137,6 +137,7 @@ _SYMBOLS = {
         + [ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
+    "fused_pseudo_bwd_partials": ([ctypes.c_int] * 2, ctypes.c_int),
 }
 
 
@@ -216,7 +217,9 @@ def fused_pseudo_vjp(
     d_sbar = torch.empty_like(d_s)
     d_v = torch.empty((b, m, 3, f), dtype=torch.float32, device=device)
     d_vbar = torch.empty_like(d_v)
-    dw_part = torch.empty((b, r_aug, 9, f), dtype=torch.float32, device=device)
+    # one partial d_w per frame group (M <= 6) or batch element (M > 6)
+    parts = lib.fused_pseudo_bwd_partials(b, m)
+    dw_part = torch.empty((parts, r_aug, 9, f), dtype=torch.float32, device=device)
     d_w = torch.empty((r_aug, 9, f), dtype=torch.float32, device=device)
     outs = (d_phi, d_s, d_sbar, d_v, d_vbar, dw_part, d_w)
     with torch.cuda.device(device):

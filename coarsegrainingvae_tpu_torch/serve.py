@@ -24,11 +24,13 @@ from coarsegrainingvae_tpu_torch.data.topology import channel_index_from_mapping
 
 class Backmapper:
     """CG -> all-atom generator around a DenseCGVAE whose parameters are
-    already loaded. The model is moved to ``device`` and put in eval mode."""
+    already loaded. The model is moved to ``device`` (the card unless the
+    caller passes ``device="cpu"``; without a card the default raises) and
+    put in eval mode."""
 
     def __init__(self, model: torch.nn.Module, mapping: np.ndarray,
                  atomic_nums: np.ndarray, cfg: ExperimentConfig,
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device] = "cuda"):
         if cfg.model.h_project or cfg.model.h_project_eval:
             raise NotImplementedError(
                 "serving with H bond-length projection is not ported to "

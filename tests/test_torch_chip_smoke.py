@@ -37,6 +37,22 @@ torch.set_num_threads(1)
     # 12 out; w 18 -> 76. once 9 x 2 FMAs (36), per ordered pair 64, per
     # node 57
     ("pseudo", 9, 4 * 76, 36 + 2 * 64 + 2 * 57),
+    # floats: 8; in phi 18 + s, sbar 4 + v, vbar 12 + w 18, cotangents gs,
+    # gsb 4 + gv, gvb 12; out d_phi 18 + d_s, d_sbar 4 + d_v, d_vbar 12 +
+    # d_w 18 -> 128.
+    # once: the filters 9 x 2 FMAs (36) and d_w, 9 adds phi_p dG(q, p) +
+    # phi_q dG(p, q) and 9 x 2 FMAs (36) -> 81. Per ordered pair (receiver
+    # i, sender j): 9 multiplies phi_j dG; dG_1 = gv_i . unit 5 and dG_2..8
+    # = Gamma_i . x_j 7 x 5 (dG_0 = s_i gs_i is per node) -> 40; d_phi_j +=
+    # filt dG, 9 FMAs (18); sender side d_x_j += g Gamma_i, 7 x 3 FMAs, g =
+    # filt phi_j shared with the forward's sums but for channels 2 and 5
+    # (2 multiplies) -> 44; the forward's sums s0 one FMA (2), a_3,4,6,7,8
+    # a multiply and 3 FMAs each (35), t 3 FMAs (6) -> 43; the dsbar path
+    # d_vbar_j += adj gsb_i v_i, a multiply and 3 FMAs (7) -> 161, times 2.
+    # Per node: s gs 1; Gamma_3,7,8 crosses 3 x 9 and Gamma_4,6 3 x 3 -> 33;
+    # d_s 1; d_sbar two dots 11; d_v += a_3 x gv + a_7 x gvb and d_vbar +=
+    # a_8 x gvb, 3 x 12; d_v += gsb t 6 -> 88, times 2
+    ("pseudo_vjp", 9, 4 * 128, 81 + 2 * 161 + 2 * 88),
 ])
 def test_kernel_cost_matches_a_hand_count(kind, s, n_bytes, flops):
     assert chip_smoke.kernel_cost(kind, 1, 2, s, 1, 1, pairs=2) == (n_bytes, flops)

@@ -50,14 +50,18 @@ def _message_inputs(n, s, seed, device, f=F, r=R, b=B):
     return [a.to(device) for a in args]
 
 
-def _pseudo_inputs(m, seed, device):
+def _pseudo_inputs(m, seed, device, f=F, r=R, b=B):
+    """The last node masked in every batch element and, with b > 1, every
+    node of the last batch element."""
     g = torch.Generator().manual_seed(seed)
-    mask = torch.ones(B, m)
+    mask = torch.ones(b, m)
     mask[:, -1] = 0.0
-    args = (torch.randn(B, m, 3, generator=g) * 3.0, mask,
-            torch.randn(B, m, 9, F, generator=g), torch.randn(B, m, F, generator=g),
-            torch.randn(B, m, F, generator=g), torch.randn(B, m, 3, F, generator=g),
-            torch.randn(B, m, 3, F, generator=g), torch.randn(R + 1, 9, F, generator=g) * 0.3)
+    if b > 1:
+        mask[-1] = 0.0
+    args = (torch.randn(b, m, 3, generator=g) * 3.0, mask,
+            torch.randn(b, m, 9, f, generator=g), torch.randn(b, m, f, generator=g),
+            torch.randn(b, m, f, generator=g), torch.randn(b, m, 3, f, generator=g),
+            torch.randn(b, m, 3, f, generator=g), torch.randn(r + 1, 9, f, generator=g) * 0.3)
     return [a.to(device) for a in args]
 
 
@@ -67,6 +71,14 @@ def cuda_device():
         pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a "
                     "and have no CPU or interpret mode")
     return torch.device("cuda")
+
+
+def _close_rel(out, ref, rtol=1e-4):
+    """max |kernel - plain| <= rtol * max |plain|, per output (f32, another
+    order of summation; d_w also sums over the batch in another order)."""
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= rtol * float(b.abs().max())
 
 
 # node counts at the kernels' edges: one node, the encoder's 27 (one tile),
@@ -90,29 +102,33 @@ def test_message_kernel_matches_plain_on_card(cuda_device, n, s):
     assert float(out[0][masked].abs().max()) == 0.0 and float(out[1][masked].abs().max()) == 0.0
 
 
+# (M, F, n_rbf) of the pseudo kernels: M from one bead through the register
+# path's bound of 6 (3 and 6 instantiated, 2 and 4 predicated) to its first
+# chunked M, 7, and past one 64-partner chunk, 70; the decoder's width; F not
+# a multiple of 32; the templated R+1 at its ends
+PSEUDO_CASES = ([(m, F, R) for m in (1, 2, 3, 4, 6, 7, 70)]
+                + [(3, 600, 8), (6, 600, 8), (3, 40, 1), (6, 40, 15), (7, 40, 15), (70, 40, 1)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [3, 6, 70])     # 70 > one 64-sender chunk
-def test_pseudo_kernel_matches_plain_on_card(cuda_device, m):
-    args = _pseudo_inputs(m, 6, cuda_device)
+@pytest.mark.parametrize("m,f,r", PSEUDO_CASES)
+def test_pseudo_kernel_matches_plain_on_card(cuda_device, m, f, r):
+    args = _pseudo_inputs(m, 6, cuda_device, f=f, r=r)
     before = fused_pseudo_message.launches
-    out = fused_pseudo_message(*args, CUT, R)
+    out = fused_pseudo_message(*args, CUT, r)
     torch.cuda.synchronize()
     assert fused_pseudo_message.launches == before + 1
-    for a, b in zip(out, pseudo_reference(*args, CUT, R)):
+    for a, b in zip(out, pseudo_reference(*args, CUT, r)):
         torch.testing.assert_close(a, b, **TOL)
+    # masked receivers, the whole last batch element among them, get exact zeros
+    masked = args[1] == 0
+    for t in out:
+        assert float(t[masked].abs().max()) == 0.0
 
 
 def _cotangents(like, seed, device):
     g = torch.Generator().manual_seed(seed)
     return [torch.randn(t.shape, generator=g).to(device) for t in like]
-
-
-def _close_rel(out, ref, rtol=1e-4):
-    """max |kernel - plain| <= rtol * max |plain|, per output (f32, another
-    order of summation; d_w also sums over the batch in another order)."""
-    for a, b in zip(out, ref):
-        assert a.shape == b.shape
-        assert float((a - b).abs().max()) <= rtol * float(b.abs().max())
 
 
 @pytest.mark.gpu
@@ -164,17 +180,35 @@ def test_message_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [3, 6, 70])     # 70 > one 64-partner chunk
-def test_pseudo_vjp_kernel_matches_plain_on_card(cuda_device, m):
-    args = _pseudo_inputs(m, 10, cuda_device)
-    cts = _cotangents(pseudo_reference(*args, CUT, R), 11, cuda_device)
+@pytest.mark.parametrize("m,f,r", PSEUDO_CASES)
+def test_pseudo_vjp_kernel_matches_plain_on_card(cuda_device, m, f, r):
+    args = _pseudo_inputs(m, 10, cuda_device, f=f, r=r)
+    cts = _cotangents(pseudo_reference(*args, CUT, r), 11, cuda_device)
     before = fused_pseudo_vjp.launches
-    out = fused_pseudo_vjp(*args, *cts, CUT, R)
+    out = fused_pseudo_vjp(*args, *cts, CUT, r)
     torch.cuda.synchronize()
     assert fused_pseudo_vjp.launches == before + 1
-    _close_rel(out, pseudo_vjp_reference(*args, *cts, CUT, R))
+    _close_rel(out, pseudo_vjp_reference(*args, *cts, CUT, r))
+    # masked nodes, the whole last batch element among them, get no gradient
+    masked = args[1] == 0
     for grad in out[:5]:
-        assert float(grad[:, -1].abs().max()) == 0.0
+        assert float(grad[masked].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,b", [(3, 128), (6, 64), (70, 8)])
+def test_pseudo_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, m, b):
+    """No atomics and a fixed order of summation (one partial per frame
+    group, or per batch element past M 6): two launches on the same inputs
+    give the same d_w, bit for bit."""
+    args = _pseudo_inputs(m, 18, cuda_device, f=600, r=8, b=b)
+    g = torch.Generator().manual_seed(19)
+    cts = [torch.randn(t.shape, generator=g).to(cuda_device)
+           for t in (args[3], args[4], args[5], args[6])]
+    first = fused_pseudo_vjp(*args, *cts, CUT, 8)
+    second = fused_pseudo_vjp(*args, *cts, CUT, 8)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -208,17 +208,30 @@ def test_wrapper_backward_passes_gradcheck_in_float64():
                                     pargs[2:])
 
 
-@pytest.mark.parametrize("n_rbf", [0, 16])
-def test_message_wrapper_refuses_basis_sizes_without_a_kernel(n_rbf):
-    """The CUDA kernels exist for R+1 in 2..16 (a template parameter); the
-    wrapper's input check refuses any other n_rbf before a build or a
-    launch. The check runs on CPU tensors here as it does on CUDA ones."""
-    from coarsegrainingvae_tpu_torch.ops.fused_message import _check_cuda_inputs
+# the message cases keep the ids they had before the pseudo cases joined
+@pytest.mark.parametrize("wrapper,n_rbf", [
+    pytest.param("message", 0, id="0"), pytest.param("message", 16, id="16"),
+    pytest.param("pseudo", 0, id="pseudo-0"), pytest.param("pseudo", 16, id="pseudo-16")])
+def test_message_wrapper_refuses_basis_sizes_without_a_kernel(wrapper, n_rbf):
+    """The CUDA kernels, message and pseudo, exist for R+1 in 2..16 (a
+    template parameter); each wrapper's input check refuses any other n_rbf
+    before a build or a launch. The check runs on CPU tensors here as it
+    does on CUDA ones."""
+    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
+    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
 
-    xyz, mask, phi, v, _ = [torch.as_tensor(a) for a in _message_inputs(4, 3, seed=3)]
-    args = {"xyz": xyz, "mask": mask, "phi": phi, "v": v,
-            "w": torch.zeros(n_rbf + 1, 3, F)}
+    if wrapper == "message":
+        check, s = mo._check_cuda_inputs, 3
+        xyz, mask, phi, v, _ = [torch.as_tensor(a) for a in _message_inputs(4, 3, seed=3)]
+        args = {"xyz": xyz, "mask": mask, "phi": phi, "v": v}
+        want = (B, 4, 3, F)
+    else:
+        check, s = po._check_cuda_inputs, 9
+        names = ("xyz", "mask", "phi", "s", "sbar", "v", "vbar")
+        args = dict(zip(names, [torch.as_tensor(a) for a in _pseudo_inputs(4, seed=3)[:7]]))
+        want = (B, 4, F)
+    args["w"] = torch.zeros(n_rbf + 1, s, F)
     with pytest.raises(ValueError, match="n_rbf"):
-        _check_cuda_inputs(args, n_rbf)
-    args["w"] = torch.zeros(R + 1, 3, F)
-    assert _check_cuda_inputs(args, R) == (B, 4, 3, F)
+        check(args, n_rbf)
+    args["w"] = torch.zeros(R + 1, s, F)
+    assert check(args, R) == want

@@ -90,3 +90,21 @@ def test_unported_serving_paths_raise(served):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Backmapper(served["port"].model, served["mapping"], np.ones(served["n_atoms"]),
                    proj, device="cpu")
+
+
+def test_backmapper_defaults_to_the_card(served):
+    """Backmapper runs on the card unless the caller passes device="cpu";
+    with no card its default raises instead of quietly serving on the
+    CPU."""
+    import inspect
+
+    assert inspect.signature(Backmapper).parameters["device"].default == "cuda"
+    cfg = served["cfg"]
+    model = TorchModel(cfg.model)
+    if torch.cuda.is_available():
+        bm = Backmapper(model, served["mapping"], np.ones(served["n_atoms"]), cfg)
+        assert bm.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        Backmapper(model, served["mapping"], np.ones(served["n_atoms"]), cfg)
+    assert next(model.parameters()).device.type == "cpu"
