@@ -15,25 +15,36 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   card (bench.py's recipe: Adam with bf16 moments, lr 3.2e-4, beta 0.05,
   gamma 25, clip 0.01), 100 steps then 100 timed steps, a profiled window,
   one f32 step held against the same step on the CPU, and a 2-epoch
-  ``Trainer.fit``.
+  ``Trainer.fit``;
+- cv: the k-fold workflow, ``cli.run_cgvae.main`` (the README's pseudo
+  recipe at batch 128 on 640 synthetic frames, 2 of 5 folds, 2 epochs,
+  16 x 16 samples, graph metrics), checked artifact by artifact; then
+  ``Backmapper.from_run`` of fold 0 against the model the fold trained,
+  a resumed fold 0 (``--resume`` to 3 epochs, the restored state held bit
+  for bit to the saved one) and one epoch of the default cross decoder.
 
 Every phase raises on failure; there is no CPU fallback. Output, in order:
 the card's name and power limit (nvidia-smi), the build with each main-path
 kernel's ptxas registers and spills, each kernel against its plain version
 (with, at the main path's shapes, its time and the plain version's from CUDA
 graph replays, and its roofline bound from ``kernel_cost``), the serve and
-train checks and timings, one JSON line with one entry per kernel and timed
-shape, and last one JSON line ``{"ok": true, "device": {...}}``. The
-profile's table goes to ``chiprun_out/train_profile.txt``. Needs one CUDA
-device; imports nothing of JAX.
+train checks and timings, the cv phase's checks and its wall time by part,
+one JSON line with one entry per kernel and timed shape, and last one JSON
+line ``{"ok": true, "device": {...}}``. The profile's table goes to
+``chiprun_out/train_profile.txt``, the cv phase's data to
+``chiprun_out/cv_data/`` and its runs to ``build/cv_smoke/``. Needs one
+CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -50,7 +61,18 @@ TRAIN_RTOL = 1e-4
 N_REQUESTS, FRAMES_PER_REQUEST, N_SAMPLES = 4, 4, 64
 ENCODER_LAYERS, PRIOR_LAYERS, DECODER_LAYERS = 4, 4, 5
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS, PROFILE_STEPS = 128, 256, 100, 5
+# the cv phase: the README quickstart's pseudo recipe at bench.py's width and
+# batch (cg_method newman: cgae waits for ROADMAP.md A11), cut in depth
+CV_WIDTH = ["-n_basis", "600", "-n_rbf", "8", "-enc_nconv", "4", "-dec_nconv", "5",
+            "-batch_size", "128"]
+CV_RECIPE = ["-dataset", "dipeptide", "-n_cgs", "3", "-atom_cutoff", "8.5",
+             "-cg_cutoff", "9.5", "-edgeorder", "2", "-lr", "8e-5", "-beta", "0.05",
+             "-gamma", "25", "--graph_eval"]
+CV_FRAMES, CV_SPLITS, CV_FOLDS, CV_EPOCHS, CV_ENSEMBLE, CV_EVALS = 640, 5, 2, 2, 16, 16
+# from_run vs the in-memory model: the same kernels and weights
+FROM_RUN_RTOL = 1e-6
 OUT_DIR = Path("chiprun_out")
+CV_DIR = Path("build") / "cv_smoke"
 
 
 def card_line() -> str:
@@ -239,6 +261,16 @@ def check_kernels() -> list:
         ("message_vjp", (16, 70, 3, 8), 9.5, "three partner chunks B=16 N=70 S=3", False),
         ("message_vjp", (16, 70, 4, 8), 9.5, "three partner chunks B=16 N=70 S=4", False),
         ("pseudo_vjp", (128, 3, 9, 8), 8.5, "decoder train B=128 M=3", True),
+        # the cv phase's new shapes: the cross decoder trains the message
+        # kernels at S 4, M 3; sample_ensemble reconstructs one frame at a
+        # time (B 1) and generates n_ensemble samples (B 16)
+        ("message", (128, 3, 4, 8), 8.5, "cross decoder train B=128 M=3 S=4", True),
+        ("message_vjp", (128, 3, 4, 8), 8.5, "cross decoder train B=128 M=3 S=4", True),
+        ("message", (1, 27, 3, 8), 9.5, "encoder eval B=1 N=27 S=3", True),
+        ("message", (1, 3, 3, 8), 9.5, "prior eval B=1 M=3 S=3", True),
+        ("pseudo", (1, 3, 9, 8), 8.5, "decoder eval B=1 M=3", True),
+        ("message", (16, 3, 3, 8), 9.5, "prior sample B=16 M=3 S=3", True),
+        ("pseudo", (16, 3, 9, 8), 8.5, "decoder sample B=16 M=3", True),
         ("pseudo_vjp", (64, 6, 9, 8), 8.5, "decoder B=64 M=6", False),
     ] + [(kind, (64, 27, s, r), 9.5, f"B=64 N=27 S={s} n_rbf={r}", False)
          for kind in ("message", "message_vjp") for s, r in ((3, 1), (3, 15), (4, 1), (4, 15))
@@ -601,6 +633,278 @@ def train() -> dict:
     return {"train": launches, "fit": fit_launches}
 
 
+class PartTimes:
+    """Wall seconds and calls per part of the cv phase: each (owner,
+    attribute, label) is wrapped with a timer on entry and restored on
+    exit. Every timed part ends in a host read of device results, so the
+    host clock covers its device work."""
+
+    def __init__(self, parts):
+        self.parts = parts
+        self.seconds, self.calls = defaultdict(float), defaultdict(int)
+        self._saved = []
+
+    def _timed(self, fn, label):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[label] += time.perf_counter() - t
+                self.calls[label] += 1
+        return timed
+
+    def __enter__(self):
+        for owner, attr, label in self.parts:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, self._timed(fn, label))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved.clear()
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {v:.3f} s ({self.calls[k]}x)" for k, v in self.seconds.items())
+
+
+def cv_expected_launches(width: list, n_frames: int, folds: int, epochs: int, evals: int,
+                         dec_type: str) -> dict:
+    """Kernel launches of ``run_cgvae`` over its first ``folds`` folds of
+    CV_SPLITS: per fold, ``epochs`` x (train steps + val steps) model
+    forwards and train steps backwards, ``reconstruct_all``'s batches, and
+    per evaluated frame one reconstruction (B 1) and one generation (prior
+    and decoder only). Each forward runs enc_nconv encoder and enc_nconv
+    prior message layers and dec_nconv decoder layers (pseudo kernels, or
+    message kernels for the cross decoder)."""
+    import numpy as np
+
+    arg = dict(zip(width[::2], width[1::2]))
+    bs, enc, dec = int(arg["-batch_size"]), int(arg["-enc_nconv"]), int(arg["-dec_nconv"])
+    out = dict.fromkeys(("fused_message", "fused_message_vjp", "fused_pseudo_message",
+                         "fused_pseudo_vjp"), 0)
+    for test in np.array_split(np.arange(n_frames), CV_SPLITS)[:folds]:
+        n_full = n_frames - len(test)
+        n_val = max(int(n_full * 0.1), 1)
+        steps, val_steps = max((n_full - n_val) // bs, 1), max(n_val // bs, 1)
+        n_eval = min(evals, len(test))
+        forwards = epochs * (steps + val_steps) + -(-len(test) // bs) + n_eval
+        backwards = epochs * steps
+        out["fused_message"] += 2 * enc * forwards + enc * n_eval
+        out["fused_message_vjp"] += 2 * enc * backwards
+        dec_fwd, dec_bwd = ("fused_message", "fused_message_vjp") if dec_type == "cross" else (
+            "fused_pseudo_message", "fused_pseudo_vjp")
+        out[dec_fwd] += dec * (forwards + n_eval)
+        out[dec_bwd] += dec * backwards
+    return out
+
+
+def check_cv_run(run: Path, n_folds: int, n_epochs: int) -> list:
+    """The run's cv_stats.csv (header CV_STAT_FIELDS, finite rows) and every
+    artifact of each fold; returns the rows."""
+    import csv
+    import math
+
+    from coarsegrainingvae_tpu_torch.cli.run_cgvae import CV_STAT_FIELDS
+    from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+
+    with open(run / "cv_stats.csv", newline="") as f:
+        reader = csv.reader(f)
+        header, rows = next(reader), list(reader)
+    if header != CV_STAT_FIELDS:
+        raise RuntimeError(f"cv_stats.csv header {header} != CV_STAT_FIELDS")
+    if len(rows) != n_folds:
+        raise RuntimeError(f"cv_stats.csv has {len(rows)} rows, expected {n_folds}")
+    # sample RMSDs average over valid samples only; NaN when none is valid
+    may_be_nan = {"sample_all_rmsd", "sample_heavy_rmsd"}
+    bad = [(row[0], k) for row in rows for k, v in zip(header, row)
+           if not math.isfinite(float(v)) and k not in may_be_nan]
+    if bad:
+        raise RuntimeError(f"cv_stats.csv has values that are not finite: {bad}")
+    names = ["mapping.json", "train_log.csv", "test_recon.xyz", "test_samples.xyz"] + [
+        f"rotate_{k}.xyz" for k in ("ensemble", "data", "recon", "cg")]
+    for row in rows:
+        fold = run / f"fold{row[0]}"
+        missing = [n for n in names if not (fold / n).is_file()]
+        if missing or (fold / "FAILED.txt").exists():
+            raise RuntimeError(f"{fold}: missing {missing} or FAILED.txt present")
+        if CheckpointManager(str(fold / "ckpt")).latest_step() != n_epochs - 1:
+            raise RuntimeError(f"{fold}: no checkpoint of epoch {n_epochs - 1}")
+        with open(fold / "train_log.csv") as f:
+            if len(f.read().splitlines()) != 1 + n_epochs:
+                raise RuntimeError(f"{fold}/train_log.csv does not have {n_epochs} rows")
+    for name in ("modelparams.json",) + (("cv_stats_summary.json",) if n_folds > 1 else ()):
+        if not (run / name).is_file():
+            raise RuntimeError(f"{run}: missing {name}")
+    return rows
+
+
+def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) -> dict:
+    """The k-fold workflow through ``cli.run_cgvae``: the main run (counted
+    as path ``cv``), ``Backmapper.from_run``, a resumed fold and a fold of
+    the cross decoder (path ``cv_cross``). Raises on any failed check.
+    The chip smoke run calls it on the card at full width; the CPU and a
+    small width rehearse its control flow (the kernels count no launches
+    there)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli import run_cgvae
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+    from coarsegrainingvae_tpu_torch.data.dataset import _segment_mean_np
+    from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.eval import sampling
+    from coarsegrainingvae_tpu_torch.serve import Backmapper
+    from coarsegrainingvae_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    shutil.rmtree(CV_DIR, ignore_errors=True)
+    data = OUT_DIR / "cv_data"
+    data.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=n_frames, seed=0, device=device)
+    save_npz_traj(str(data / "dipeptide.npz"), z, frames, bonds)
+    os.environ["COARSEGRAININGVAE_DATA"] = str(data)
+    print(f"cv data: {n_frames} synthetic dipeptide frames relaxed on {device} and written to "
+          f"{data / 'dipeptide.npz'} in {time.perf_counter() - t:.3f} s", flush=True)
+
+    trained = []
+
+    class RecordingTrainer(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trained.append(self)
+
+    parts = [(run_cgvae, "load_frames", "load_frames"),
+             (run_cgvae, "build_fold_mapping", "mapping"),
+             (run_cgvae, "build_dataset", "datasets"),
+             (Trainer, "fit", "fit"),
+             (CheckpointManager, "save", "checkpoint save"),
+             (CheckpointManager, "restore", "checkpoint restore"),
+             (run_cgvae, "reconstruct_all", "reconstruct_all"),
+             (run_cgvae, "sample_ensemble", "sample_ensemble"),
+             (sampling, "evaluate_samples", "metrics (inside both)"),
+             (run_cgvae, "write_xyz", "xyz dumps"),
+             (run_cgvae, "save_grid_snapshots", "movies")]
+    depth = ["-ndata", str(n_frames), "-nsplits", str(CV_SPLITS), "-n_ensemble",
+             str(CV_ENSEMBLE), "-nevals", str(CV_EVALS), "--device", device]
+    main_args = CV_RECIPE + width + depth + [
+        "-logdir", str(CV_DIR / "run"), "--dec_type", "pseudo", "-max_folds", str(CV_FOLDS),
+        "-nepochs", str(CV_EPOCHS)]
+    run_cgvae.Trainer = RecordingTrainer
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        with PartTimes(parts) as times:
+            rows = run_cgvae.main(main_args)
+        wall = time.perf_counter() - t
+        launches = read_counts()
+    finally:
+        run_cgvae.Trainer = Trainer
+    (run,) = [p for p in CV_DIR.iterdir() if p.name.startswith("run")]
+    check_cv_run(run, CV_FOLDS, CV_EPOCHS)
+    if len(rows) != CV_FOLDS:
+        raise RuntimeError(f"run_cgvae returned {len(rows)} rows, expected {CV_FOLDS}")
+    expect = cv_expected_launches(width, n_frames, CV_FOLDS, CV_EPOCHS, CV_EVALS, "pseudo")
+    print(f"cv run: {CV_FOLDS} folds x {CV_EPOCHS} epochs in {wall:.3f} s; fold wall_s "
+          f"{[round(r['wall_s'], 3) for r in rows]}; test recon RMSD "
+          f"{[round(r['test_all_recon_rmsd'], 4) for r in rows]} A; sample heavy valid "
+          f"{[r['sample_heavy_valid_ratio'] for r in rows]}; launches {launches} "
+          f"(expected {expect})", flush=True)
+    if device == "cuda" and launches != expect:
+        raise RuntimeError(f"cv kernel launches {launches}, expected {expect}")
+    epoch_s = []
+    for k in range(CV_FOLDS):
+        with open(run / f"fold{k}" / "train_log.csv") as f:
+            epoch_s.append([round(float(line.split(",")[-1]), 3)
+                            for line in f.read().splitlines()[1:]])
+    ckpt_mb = os.path.getsize(run / "fold0" / "ckpt" / str(CV_EPOCHS - 1) / STATE_FILE) / 1e6
+    print(f"cv wall time by part (both folds): {times.line()}; fit epochs {epoch_s} s; "
+          f"checkpoints written {times.calls['checkpoint save']} x {ckpt_mb:.1f} MB", flush=True)
+
+    # from_run: fold 0 read back from disk against the model the fold trained
+    t = time.perf_counter()
+    bm = Backmapper.from_run(str(run / "modelparams.json"), str(run / "fold0"), device=device)
+    load_s = time.perf_counter() - t
+    cfg = ExperimentConfig.load(str(run / "modelparams.json"))
+    mapping = np.asarray(json.loads((run / "fold0" / "mapping.json").read_text()))
+    ref_bm = Backmapper(trained[0].model, mapping, z, cfg, device=device)
+    cg = _segment_mean_np(frames[:4], mapping, 3)
+    got = bm.backmap(cg, n_samples=CV_ENSEMBLE, seed=3)
+    want = ref_bm.backmap(cg, n_samples=CV_ENSEMBLE, seed=3)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"cv from_run: fold 0 loaded in {load_s:.3f} s; backmap of 4 frames x "
+          f"{CV_ENSEMBLE} samples vs the in-memory model: max|err|/max|ref| {rel:.3e} "
+          f"(tolerance {FROM_RUN_RTOL:g})", flush=True)
+    if not (got.shape == want.shape and np.isfinite(got).all() and rel <= FROM_RUN_RTOL):
+        raise RuntimeError("Backmapper.from_run disagrees with the model the fold trained")
+
+    # resume fold 0 to CV_EPOCHS + 1 epochs: the restored state against the file
+    restored = []
+    original_restore = CheckpointManager.restore
+
+    def recording_restore(self, template, step=None):
+        t = time.perf_counter()
+        state, meta, step = original_restore(self, template, step)
+        if state.step.device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        restored.append((self.directory, step, {k: p.detach().cpu().clone()
+                                                for k, p in state.params.items()},
+                         state.opt_state.mu.cpu(), state.opt_state.nu.cpu(), seconds))
+        return state, meta, step
+
+    resume_cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, nepochs=CV_EPOCHS + 1))
+    CheckpointManager.restore = recording_restore
+    try:
+        t = time.perf_counter()
+        resumed = run_cgvae.run_cv(resume_cfg, n_ensemble=CV_ENSEMBLE, nevals=CV_EVALS,
+                                   graph_eval=True, resume=True, max_folds=1, device=device)
+        resume_s = time.perf_counter() - t
+    finally:
+        CheckpointManager.restore = original_restore
+    if len(restored) != 1 or restored[0][1] != CV_EPOCHS - 1:
+        raise RuntimeError(f"resume restored {[(d, s) for d, s, *_ in restored]}")
+    directory, step, params, mu, nu, restore_s = restored[0]
+    saved = torch.load(Path(directory) / str(step) / STATE_FILE, weights_only=True)
+    same = (set(params) == set(saved["params"])
+            and all(torch.equal(params[k], saved["params"][k]) for k in params)
+            and torch.equal(mu, saved["opt_state"]["mu"])
+            and torch.equal(nu, saved["opt_state"]["nu"]))
+    with open(run / "fold0" / "train_log.csv") as f:
+        log_epochs = [int(line.split(",")[0]) for line in f.read().splitlines()[1:]]
+    print(f"cv resume: fold 0 restored epoch {step} in {restore_s:.3f} s (parameters, mu, nu "
+          f"bit-identical to the file: {same}), ran epoch {resumed[0]['epoch'] if resumed else None} in "
+          f"{resume_s:.3f} s; train_log epochs {log_epochs}", flush=True)
+    continued = [r["epoch"] for r in resumed] == [CV_EPOCHS]
+    if not (same and continued and log_epochs == list(range(CV_EPOCHS + 1))):
+        raise RuntimeError("the resumed fold did not continue from its checkpoint")
+
+    # one fold, one epoch, of the CLI's default decoder (cross)
+    cross_args = CV_RECIPE + width + depth + [
+        "-logdir", str(CV_DIR / "cross"), "-max_folds", "1", "-nepochs", "1"]
+    reset_counts()
+    t = time.perf_counter()
+    cross_rows = run_cgvae.main(cross_args)
+    cross_s = time.perf_counter() - t
+    cross_launches = read_counts()
+    (cross_run,) = list(CV_DIR.glob("cross*"))
+    check_cv_run(cross_run, 1, 1)
+    expect = cv_expected_launches(width, n_frames, 1, 1, CV_EVALS, "cross")
+    print(f"cv cross decoder: 1 fold x 1 epoch in {cross_s:.3f} s, test recon RMSD "
+          f"{cross_rows[0]['test_all_recon_rmsd']:.4f} A, launches {cross_launches} "
+          f"(expected {expect})", flush=True)
+    if device == "cuda" and cross_launches != expect:
+        raise RuntimeError(f"cross kernel launches {cross_launches}, expected {expect}")
+    return {"cv": launches, "cv_cross": cross_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -634,6 +938,7 @@ def main() -> int:
     timed = check_kernels()
     paths = {"serve": serve()}
     paths.update(train())
+    paths.update(cv())
 
     source = "coarsegrainingvae_tpu_torch/csrc/"
     rows = {"message": ("fused_message", "fused_message.cu", "pallas_message.py:126"),

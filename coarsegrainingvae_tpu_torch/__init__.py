@@ -7,5 +7,8 @@ CUDA kernels for Hopper (``csrc/``), built with nvcc on first use on a CUDA
 device. It trains and serves the dense CGVAE: ``train.trainer.Trainer``
 over ``data.dataset.build_dataset`` / ``data.device.DeviceDataset``,
 ``models.dense_cgvae.DenseCGVAE`` and ``serve.Backmapper.backmap``;
+``cli.run_cgvae`` runs the k-fold CV workflow (checkpoints in
+``train.checkpoint``, evaluation in ``eval``), ``cli.postanalysis`` and
+``serve.Backmapper.from_run`` read a fold back, and
 ``convert.convert_flax_params`` loads a JAX model's parameters.
 """

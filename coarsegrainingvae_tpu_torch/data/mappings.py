@@ -390,6 +390,6 @@ def get_mapping(
     if method == "cgae":
         raise NotImplementedError(
             "the cgae mapping (a learned autoencoder) is not ported to "
-            "PyTorch yet; see ROADMAP.md"
+            "PyTorch yet; see ROADMAP.md A11"
         )
     raise ValueError(f"mapping method {method!r} not handled here")

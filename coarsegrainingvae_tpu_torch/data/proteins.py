@@ -1,0 +1,130 @@
+"""Trajectory loading: dataset registry, npz cache and the gated MD-library
+path (port of ``coarsegrainingvae_tpu.data.proteins``).
+
+The registry PROTEINFILES (datasets.py:24-40 of the original code) points at
+DESRES/mdshare trajectory files loaded through mdtraj. Loading resolves in
+order:
+
+1. a packed ``.npz`` cache (``{name}.npz`` with z/xyz/bonds arrays) under
+   ``COARSEGRAININGVAE_DATA`` or ``./data``;
+2. mdtraj, if importable, for the registry's raw trajectory formats;
+3. the synthetic stand-in ensembles (``data/synthetic.py``), cached under
+   the same key as the JAX package's.
+
+``traj_npz_from_pdb_frames`` waits for ``data/sidechain.py`` (ROADMAP.md
+A10).
+"""
+from __future__ import annotations
+
+import glob
+import os
+import tempfile
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from coarsegrainingvae_tpu_torch.data.synthetic import SYNTH_VERSION, synthetic_peptide
+
+# name -> (traj glob, topology file); mirrors PROTEINFILES (datasets.py:24-40)
+PROTEINFILES = {
+    "covid": {"traj_paths": "DESRES-Trajectory_spike/*.dcd",
+              "pdb_path": "DESRES_spike.pdb"},
+    "chignolin": {"traj_paths": "filtered/*.xtc",
+                  "pdb_path": "filtered/filtered.pdb"},
+    "dipeptide": {"traj_paths": "alanine-dipeptide-*-250ns-nowater.xtc",
+                  "pdb_path": "alanine-dipeptide-nowater.pdb"},
+    "pentapeptide": {"traj_paths": "pentapeptide-*-500ns-impl-solv.xtc",
+                     "pdb_path": "pentapeptide-impl-solv.pdb"},
+}
+
+ATOMIC_NUM = {"H": 1, "C": 6, "N": 7, "O": 8, "S": 16}  # datasets.py:22
+
+
+def data_root() -> str:
+    return os.environ.get("COARSEGRAININGVAE_DATA", "./data")
+
+
+def save_npz_traj(path: str, z: np.ndarray, xyz: np.ndarray, bonds: np.ndarray) -> None:
+    np.savez_compressed(path, z=z.astype(np.int32), xyz=xyz.astype(np.float32),
+                        bonds=bonds.astype(np.int32))
+
+
+def load_npz_traj(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    with np.load(path) as f:
+        return f["z"], f["xyz"], f["bonds"]
+
+
+def _load_mdtraj(name: str, ndata: int):
+    """Raw trajectory path via mdtraj (load_protein_traj,
+    datasets.py:170-187). Returns None when mdtraj is unavailable."""
+    try:
+        import mdtraj as md
+    except ImportError:
+        return None
+    entry = PROTEINFILES.get(name)
+    if entry is None:
+        return None
+    root = data_root()
+    files = sorted(glob.glob(os.path.join(root, entry["traj_paths"])))[:200]
+    top = os.path.join(root, entry["pdb_path"])
+    if not files or not os.path.exists(top):
+        return None
+    traj = md.join([md.load(f, top=top) for f in files])
+    traj = traj.atom_slice(traj.top.select("protein"))
+    z = np.array([ATOMIC_NUM[a.element.symbol] for a in traj.top.atoms], np.int32)
+    xyz = traj.xyz[:ndata] * 10.0  # nm -> Angstrom (datasets.py:436)
+    bonds = np.array([[b[0].index, b[1].index] for b in traj.top.bonds], np.int32)
+    return z, xyz.astype(np.float32), bonds
+
+
+def load_frames(
+    name: str, ndata: int, seed: int = 123, shuffle: bool = True,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(z, frames (ndata, N, 3), bonds). Resolution order: npz cache ->
+    mdtraj -> synthetic stand-in (module docstring). ``device`` is where the
+    synthetic frames are relaxed (the card unless the caller passes
+    ``"cpu"``); the other two branches do not read it."""
+    cache = os.path.join(data_root(), f"{name}.npz")
+    if os.path.exists(cache):
+        z, xyz, bonds = load_npz_traj(cache)
+    else:
+        loaded = _load_mdtraj(name, max(ndata * 2, ndata))
+        if loaded is not None:
+            z, xyz, bonds = loaded
+        else:
+            # synthetic generation relaxes every frame against covalent
+            # cutoffs -- cache per (generator version, name, ndata, seed) so
+            # repeat runs skip it and generator changes invalidate
+            cdir = os.path.join(tempfile.gettempdir(), "cgvae_synth_cache")
+            cpath = os.path.join(cdir, f"v{SYNTH_VERSION}_{name}_{ndata}_{seed}.npz")
+            if os.path.exists(cpath):
+                with np.load(cpath) as d:
+                    z, xyz, bonds = d["z"], d["xyz"], d["bonds"]
+            else:
+                z, xyz, bonds = synthetic_peptide(name, n_frames=ndata, seed=seed,
+                                                  device=device)
+                os.makedirs(cdir, exist_ok=True)
+                tmp = cpath + ".tmp.npz"
+                np.savez_compressed(tmp, z=z, xyz=xyz, bonds=bonds)
+                os.replace(tmp, cpath)
+
+    if shuffle:
+        # shuffle_traj (scripts/utils.py:17-20)
+        order = np.random.default_rng(seed).permutation(xyz.shape[0])
+        xyz = xyz[order]
+    return z, xyz[:ndata], bonds
+
+
+def load_traj_atom_names(name: str):
+    """Per-atom names from a trajectory npz cache, when present; None
+    otherwise. Lets minimal/alpha site selection use the exact reference
+    selections instead of the bond-graph derivation."""
+    cache = os.path.join(data_root(), f"{name}.npz")
+    if not os.path.exists(cache):
+        return None
+    with np.load(cache) as f:
+        if "atom_names" not in f:
+            return None
+        return [str(s) for s in f["atom_names"]]

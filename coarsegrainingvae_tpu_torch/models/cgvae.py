@@ -1,10 +1,10 @@
 """Model outputs and the flat graph the loss reads (port of part of
 ``coarsegrainingvae_tpu.models.cgvae``).
 
-``VAEOutput``, ``FlatGraph`` and ``flatten_batch`` are ported; the sparse
-``CGequiVAE`` is listed in ROADMAP.md. ``FlatGraph`` carries only the
-fields the loss reads; the flattened radius graphs wait for the sparse
-model.
+``VAEOutput``, ``FlatGraph``, ``flatten_batch`` and
+``build_flagship_model`` are ported; the sparse ``CGequiVAE`` is listed in
+ROADMAP.md (A9). ``FlatGraph`` carries only the fields the loss reads; the
+flattened radius graphs wait for the sparse model.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from coarsegrainingvae_tpu_torch.config import ModelConfig
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch, flatten_ids
 
 
@@ -51,3 +52,22 @@ class VAEOutput:
     prior_sigma: Optional[torch.Tensor]
     xyz: torch.Tensor
     xyz_recon: torch.Tensor
+
+
+def build_flagship_model(cfg: ModelConfig, force_sparse: bool = False,
+                         generator: Optional[torch.Generator] = None):
+    """The one place that picks the model class for a config, used by the
+    training CLI and by checkpoint reloading (``cli/postanalysis.py``,
+    ``Backmapper.from_run``), which must rebuild the parameters the run
+    trained. The JAX package picks the sparse ``CGequiVAE`` for
+    ``force_sparse``, ``cfg.sparse`` and the pseudo2/en/inv decoders; the
+    port has only the dense model, so those raise. Parameters are drawn on
+    the CPU from ``generator``."""
+    if force_sparse or cfg.sparse or cfg.dec_type in ("pseudo2", "en", "inv"):
+        raise NotImplementedError(
+            f"the sparse CGequiVAE (sparse={force_sparse or cfg.sparse}, "
+            f"dec_type={cfg.dec_type!r}) is not ported to PyTorch yet; see "
+            "ROADMAP.md A9")
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+
+    return DenseCGVAE(cfg, generator=generator)

@@ -1,10 +1,12 @@
 """Inference/serving: backmap CG coordinates to all-atom ensembles (port of
 ``coarsegrainingvae_tpu.serve``).
 
-    model = DenseCGVAE(cfg.model)
-    model.load_state_dict(convert_flax_params(params_numpy, cfg.model))
-    bm = Backmapper(model, mapping, atomic_nums, cfg, device="cuda")
+    bm = Backmapper.from_run("run/modelparams.json", "run/fold0")
     ensemble = bm.backmap(cg_xyz, n_samples=16, seed=0)   # (16, N, 3)
+
+reads a fold that ``cli.run_cgvae`` trained; a model whose parameters are
+already loaded (e.g. ``convert.convert_flax_params`` of a JAX model's) is
+served with ``Backmapper(model, mapping, atomic_nums, cfg)``.
 
 Generation needs only CG geometry (prior -> decode -> channel lift); atom
 coordinates are not required. On a CUDA device every message layer is one
@@ -12,6 +14,8 @@ launch of a hand-written kernel.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Union
 
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 from coarsegrainingvae_tpu_torch.config import ExperimentConfig
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.data.topology import channel_index_from_mapping
+from coarsegrainingvae_tpu_torch.utils.rng import generator
 
 
 class Backmapper:
@@ -45,12 +50,24 @@ class Backmapper:
         self.channel_idx = channel_index_from_mapping(self.mapping).astype(np.int64)
 
     @classmethod
-    def from_run(cls, modelparams: str, fold_dir: str, sparse: bool = False):
-        raise NotImplementedError(
-            "Backmapper.from_run reads orbax checkpoints, which the PyTorch "
-            "port cannot read yet; convert the parameters with "
-            "convert.convert_flax_params instead (see ROADMAP.md)"
-        )
+    def from_run(cls, modelparams: str, fold_dir: str, sparse: bool = False,
+                 device: Union[str, torch.device] = "cuda") -> "Backmapper":
+        """Rebuild the model of a CV fold and load its latest checkpoint's
+        parameters (``cli.run_cgvae`` writes ``modelparams.json`` and, per
+        fold, ``mapping.json`` and ``ckpt/``). The atomic numbers come from
+        the run's dataset, as in the JAX package."""
+        from coarsegrainingvae_tpu_torch.data.proteins import load_frames
+        from coarsegrainingvae_tpu_torch.models.cgvae import build_flagship_model
+        from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+
+        cfg = ExperimentConfig.load(modelparams)
+        with open(os.path.join(fold_dir, "mapping.json")) as f:
+            mapping = np.asarray(json.load(f), np.int64)
+        z, _, _ = load_frames(cfg.data.dataset, 8, seed=cfg.data.seed, device=device)
+        model = build_flagship_model(cfg.model, force_sparse=sparse)
+        payload, _, _ = CheckpointManager(os.path.join(fold_dir, "ckpt")).read()
+        model.load_state_dict(payload["params"])
+        return cls(model, mapping, z, cfg, device=device)
 
     def _make_batch(self, cg_xyz: np.ndarray) -> CGBatch:
         """CG-only batch on the device (atom coordinates zero; generation
@@ -91,9 +108,7 @@ class Backmapper:
         with torch.inference_mode():
             for k, frame in enumerate(frames):
                 batch = self._make_batch(np.repeat(frame[None], n_samples, axis=0))
-                frame_seed = int(np.random.SeedSequence([seed, k]).generate_state(1)[0])
-                gen = torch.Generator(device=self.device).manual_seed(frame_seed)
-                xyz = self.model.generate(batch, generator=gen)
+                xyz = self.model.generate(batch, generator=generator(self.device, seed, k))
                 outs.append(xyz.reshape(n_samples, self.n_atoms, 3).cpu().numpy())
         out = np.stack(outs)
         return out[0] if single else out

@@ -15,10 +15,15 @@ holds references to them. The skip-batch guard stays on the device: a
 rejected batch gives a zero update and leaves the moments and their step
 count unchanged, chosen with ``torch.where`` and no host synchronisation.
 
-Not ported yet (ROADMAP.md): checkpoints (A7), the excluded-volume loss and
-its zeta_warmup ramp (A8; ``zeta > 0`` raises), the epoch-as-one-program scan
-and the streamed epoch (the device path here is a Python loop over index
-batches), and the multi-device meshes.
+``fit`` saves and resumes through ``train.checkpoint.CheckpointManager``.
+Each epoch draws its noise from generators seeded from (seed, epoch), the
+stand-in for the JAX package's ``fold_in(base_rng, epoch)``, so a resumed
+run draws at epoch e what an uninterrupted one draws there.
+
+Not ported yet (ROADMAP.md): the excluded-volume loss and its zeta_warmup
+ramp (A8; ``zeta > 0`` raises), the epoch-as-one-program scan and the
+streamed epoch (the device path here is a Python loop over index batches),
+and the multi-device meshes.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_b
 from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch
 from coarsegrainingvae_tpu_torch.train.controller import EarlyStopping, LowessPlateauController
 from coarsegrainingvae_tpu_torch.train.losses import vae_loss
+from coarsegrainingvae_tpu_torch.utils.rng import generator as derived_generator
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -246,6 +252,20 @@ class Trainer:
             _, metrics = self._loss_fn(batch, generator)
         return metrics
 
+    def reconstruct(self, batch: CGBatch, generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """(B*N, 3) reconstruction of ``batch`` through the posterior, on
+        the device."""
+        with torch.inference_mode():
+            return self.model(batch.to(self.device), generator=generator).xyz_recon
+
+    def generate(self, batch: CGBatch, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """(B*N, 3) coordinates drawn from the prior given the CG geometry
+        of ``batch``, on the device."""
+        with torch.inference_mode():
+            return self.model.generate(batch.to(self.device), generator=generator)
+
     # ------------------------------------------------------------- epochs
     def _run_batches(self, state: TrainState, batches: Iterable[CGBatch],
                      generator: Optional[torch.Generator], train: bool
@@ -299,19 +319,27 @@ class Trainer:
         """Training run with the LOWESS plateau LR and early stopping;
         returns (final state, per-epoch history rows). on_device=True holds
         both splits on the device (DeviceDataset); False streams host
-        batches. Checkpoints are not ported yet (ROADMAP.md A7)."""
-        if ckpt is not None or resume:
-            raise NotImplementedError(
-                "checkpoints are not ported to PyTorch yet; see ROADMAP.md A7")
+        batches.
+
+        ckpt: an optional ``train.checkpoint.CheckpointManager``. The full
+        train state is saved when the run stops, on the final epoch and
+        every ``cfg.train.checkpoint_every`` epochs; resume=True restarts
+        from its latest checkpoint (parameters copied into the model,
+        moments, step, lr, controller and early-stop counters, history) at
+        the next epoch. Epoch e draws its noise from generators seeded from
+        (seed, e), as the JAX package folds e into its key; the shuffle
+        order restarts from ``default_rng(seed)`` in every call, as the JAX
+        package's does."""
         tc = self.cfg.train
+        seed = self.cfg.data.seed
         controller = LowessPlateauController(
             lr=tc.lr, factor=tc.lr_factor, patience=tc.lr_patience,
             min_lr=tc.min_lr, frac=tc.lowess_frac,
         )
         stopper = EarlyStopping(patience=tc.patience)
-        shuffle_rng = np.random.default_rng(self.cfg.data.seed)
-        generator = torch.Generator(device=self.device).manual_seed(self.cfg.data.seed)
+        shuffle_rng = np.random.default_rng(seed)
         history = []
+        start_epoch = 0
         n_epochs = nepochs if nepochs is not None else tc.nepochs
         # hold the plateau controller and the stopper while the lr warmup
         # ramps: the tracked loss moves because the objective moves
@@ -323,16 +351,26 @@ class Trainer:
             dds_train = DeviceDataset.from_dataset(trainset, self.device)
             dds_val = DeviceDataset.from_dataset(valset, self.device)
 
-        for epoch in range(n_epochs):
+        if resume and ckpt is not None and ckpt.latest_step() is not None:
+            state, meta, _ = ckpt.restore(state)
+            start_epoch = int(meta.get("epoch", -1)) + 1
+            controller.load_state(meta.get("controller", {}))
+            stopper.load_state(meta.get("stopper", {}))
+            history = meta.get("history", [])
+            state = self.set_lr(state, controller.lr)
+
+        for epoch in range(start_epoch, n_epochs):
             t0 = time.time()
+            train_gen = derived_generator(self.device, seed, epoch)
+            val_gen = derived_generator(self.device, seed, epoch, 999)
             if dds_train is not None:
                 state, train_m = self.run_epoch_device(
-                    state, dds_train, generator, shuffle_rng=shuffle_rng)
-                _, val_m = self.run_epoch_device(state, dds_val, generator, train=False)
+                    state, dds_train, train_gen, shuffle_rng=shuffle_rng)
+                _, val_m = self.run_epoch_device(state, dds_val, val_gen, train=False)
             else:
                 state, train_m = self.run_epoch(
-                    state, trainset, generator, shuffle_rng=shuffle_rng)
-                _, val_m = self.run_epoch(state, valset, generator, train=False)
+                    state, trainset, train_gen, shuffle_rng=shuffle_rng)
+                _, val_m = self.run_epoch(state, valset, val_gen, train=False)
             if epoch >= warm_epochs:
                 smoothed = controller.step(val_m["loss"])
             else:
@@ -363,6 +401,20 @@ class Trainer:
             if epoch >= warm_epochs:
                 stopper(smoothed)
             # NaN abort (run_ala.py:278-281)
-            if controller.converged or stopper.early_stop or not np.isfinite(val_m["recon"]):
+            stop = (controller.converged or stopper.early_stop
+                    or not np.isfinite(val_m["recon"]))
+            # save on stop, on the periodic schedule and always on the final
+            # epoch, so a run that spends its epoch budget can be restored
+            if ckpt is not None and (
+                stop or epoch + 1 == n_epochs
+                or (tc.checkpoint_every > 0 and (epoch + 1) % tc.checkpoint_every == 0)
+            ):
+                ckpt.save(epoch, state, metadata={
+                    "epoch": epoch,
+                    "controller": controller.save_state(),
+                    "stopper": stopper.save_state(),
+                    "history": history,
+                })
+            if stop:
                 break
         return state, history

@@ -1,5 +1,6 @@
-"""chip_smoke.py on the CPU: its roofline bounds against a hand count, and
-its refusal to run without a card.
+"""chip_smoke.py on the CPU: its roofline bounds against a hand count, its
+cv phase rehearsed at a small width (the launch counts it expects against
+the plain versions' calls), and its refusal to run without a card.
 
 The script itself runs only on a GPU; these tests import it as a module
 (it imports torch inside its functions) and check what needs no card.
@@ -78,3 +79,37 @@ def test_smoke_run_needs_a_card(capsys):
         pytest.skip("a CUDA device is present; the refusal needs a machine without one")
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_cv_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
+    """The cv phase's control flow and checks at a small width on the CPU.
+    The kernels launch nothing there, so each plain version's calls are
+    counted in their place (a CUDA launch happens exactly where the wrapper
+    would call them) and held to ``cv_expected_launches``."""
+    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
+    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+
+    calls = dict.fromkeys(("fused_message", "fused_message_vjp", "fused_pseudo_message",
+                           "fused_pseudo_vjp"), 0)
+    for mod, attr, name in ((mo, "message_reference", "fused_message"),
+                            (mo, "message_vjp_reference", "fused_message_vjp"),
+                            (po, "pseudo_reference", "fused_pseudo_message"),
+                            (po, "pseudo_vjp_reference", "fused_pseudo_vjp")):
+        def counted(*args, _fn=getattr(mod, attr), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(mod, attr, counted)
+    monkeypatch.setattr(chip_smoke, "reset_counts", lambda: calls.update(dict.fromkeys(calls, 0)))
+    monkeypatch.setattr(chip_smoke, "read_counts", lambda: dict(calls))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))  # restored after
+    width = ["-n_basis", "16", "-n_rbf", "4", "-enc_nconv", "2", "-dec_nconv", "3",
+             "-batch_size", "16"]
+    paths = chip_smoke.cv(device="cpu", width=width, n_frames=90)
+    assert paths["cv"] == chip_smoke.cv_expected_launches(
+        width, 90, chip_smoke.CV_FOLDS, chip_smoke.CV_EPOCHS, chip_smoke.CV_EVALS, "pseudo")
+    assert paths["cv_cross"] == chip_smoke.cv_expected_launches(
+        width, 90, 1, 1, chip_smoke.CV_EVALS, "cross")
+    assert min(paths["cv"].values()) > 0 and paths["cv_cross"]["fused_pseudo_message"] == 0
+    assert (tmp_path / "chiprun_out" / "cv_data" / "dipeptide.npz").is_file()

@@ -318,3 +318,122 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for name, want in state_cpu.params.items():
         got = state.params[name].detach().cpu()
         assert float((got - want.detach()).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+# the cv workflow's new kernel shapes: sample_ensemble reconstructs one frame
+# at a time (B 1: the encoder at N 27, the prior and decoder at M 3) and
+# generates n_ensemble samples (B 16); the cross decoder trains the message
+# kernels at S 4, M 3
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,n,s", [
+    ("message", 1, 27, 3), ("message", 1, 3, 3), ("message", 16, 3, 3),
+    ("message", 128, 3, 4), ("message_vjp", 128, 3, 4), ("message_vjp", 1, 27, 3),
+    ("pseudo", 1, 3, 9), ("pseudo", 16, 3, 9)])
+def test_kernels_at_the_cv_shapes_on_card(cuda_device, kind, b, n, s):
+    if kind == "pseudo":
+        args = _pseudo_inputs(n, 3, cuda_device, f=600, r=8, b=b)
+        out, ref = fused_pseudo_message(*args, CUT, 8), pseudo_reference(*args, CUT, 8)
+    else:
+        args = _message_inputs(n, s, 4, cuda_device, f=600, r=8, b=b)
+        if kind == "message":
+            out, ref = fused_message(*args, CUT, 8), message_reference(*args, CUT, 8)
+        else:
+            cts = _cotangents(message_reference(*args, CUT, 8), 5, cuda_device)
+            out = fused_message_vjp(*args, *cts, CUT, 8)
+            ref = message_vjp_reference(*args, *cts, CUT, 8)
+    torch.cuda.synchronize()
+    _close_rel(out, ref)
+
+
+def _tiny_train_cfg(dec_type="pseudo"):
+    from coarsegrainingvae_tpu_torch.config import DataConfig, ExperimentConfig, TrainConfig
+
+    return ExperimentConfig(
+        model=ModelConfig(n_cgs=3, n_basis=F, n_rbf=R, enc_nconv=2, dec_nconv=2,
+                          dec_type=dec_type, breaksym=True),
+        data=DataConfig(batch_size=8),
+        train=TrainConfig(lr=3e-4, gamma=25.0, adam_moment_dtype="bfloat16"))
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A state saved from CUDA tensors restores bit for bit on the card, and
+    on the CPU through map_location."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=16, seed=0, device=cuda_device)
+    ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
+                       bonds, order=2)
+    cfg = _tiny_train_cfg()
+    tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                 device=cuda_device)
+    state = tr.init_state(ds.batch(np.arange(8)))
+    for lo in (0, 8):
+        state, _ = tr.train_step(state, ds.batch(np.arange(lo, lo + 8)).to(cuda_device))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(5, state, metadata={"epoch": 5})
+    for device in (cuda_device, torch.device("cpu")):
+        other = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(3)),
+                        cfg, device=device)
+        restored, meta, step = mgr.restore(other.init_state(ds.batch(np.arange(8))))
+        assert step == 5 and meta == {"epoch": 5}
+        for name, p in state.params.items():
+            got = restored.params[name]
+            assert got.device.type == device.type and got is dict(
+                other.model.named_parameters())[name]
+            assert torch.equal(got.detach().cpu(), p.detach().cpu())
+        for field in ("count", "mu", "nu"):
+            assert torch.equal(getattr(restored.opt_state, field).cpu(),
+                               getattr(state.opt_state, field).cpu())
+        assert torch.equal(restored.step.cpu(), state.step.cpu())
+    payload = torch.load(tmp_path / "5" / STATE_FILE, map_location="cpu", weights_only=True)
+    assert torch.equal(payload["opt_state"]["mu"], state.opt_state.mu.cpu())
+
+
+@pytest.mark.gpu
+def test_from_run_on_card_serves_the_trained_model(cuda_device, tmp_path, monkeypatch):
+    """A tiny CV run on the card; Backmapper.from_run of fold 0 serves what
+    a Backmapper around the model the fold trained serves."""
+    import json
+
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.cli import run_cgvae
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+    from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.serve import Backmapper
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=48, seed=0, device=cuda_device)
+    save_npz_traj(str(tmp_path / "dipeptide.npz"), z, frames, bonds)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path))
+    trained = []
+
+    class Recording(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trained.append(self)
+
+    monkeypatch.setattr(run_cgvae, "Trainer", Recording)
+    rows = run_cgvae.main(["-logdir", str(tmp_path / "run"), "-n_basis", "16", "-n_rbf", "4",
+                           "-enc_nconv", "1", "-dec_nconv", "2", "-ndata", "48", "-nepochs", "2",
+                           "-batch_size", "16", "-nsplits", "2", "-max_folds", "1",
+                           "-n_ensemble", "2", "-nevals", "2", "--dec_type", "pseudo"])
+    assert len(rows) == 1 and np.isfinite(rows[0]["test_all_recon_rmsd"])
+    (run,) = [p for p in tmp_path.iterdir() if p.name.startswith("run")]
+    bm = Backmapper.from_run(str(run / "modelparams.json"), str(run / "fold0"))
+    assert bm.device.type == "cuda"
+    mapping = json.loads((run / "fold0" / "mapping.json").read_text())
+    ref = Backmapper(trained[0].model, mapping, z,
+                     ExperimentConfig.load(str(run / "modelparams.json")), device=cuda_device)
+    cg = np.random.default_rng(0).normal(size=(3, 3, 3)).astype(np.float32) * 3.0
+    got, want = bm.backmap(cg, n_samples=4, seed=1), ref.backmap(cg, n_samples=4, seed=1)
+    assert np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-6 * float(np.abs(want).max())

@@ -1,6 +1,7 @@
 """Serving: the port's Backmapper against the JAX Backmapper on the same
 converted parameters and the same prior noise."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -82,9 +83,33 @@ def test_backmap_is_a_seeded_ensemble_on_the_cg_frame(served):
     assert np.abs(ens - bm.backmap(cg, n_samples=4, seed=2)).max() > 1e-5
 
 
-def test_unported_serving_paths_raise(served):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Backmapper.from_run("modelparams.json", "fold0")
+def test_unported_serving_paths_raise(served, tmp_path, monkeypatch):
+    """from_run serves a fold's checkpoint (the sparse model it cannot build
+    raises, and so does a fold without a checkpoint); H bond-length
+    projection still raises."""
+    from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    port = served["port"]
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path))
+    save_npz_traj(str(tmp_path / "dipeptide.npz"), port.z,
+                  np.zeros((8, served["n_atoms"], 3)), np.zeros((0, 2)))
+    served["cfg"].save(str(tmp_path / "modelparams.json"))
+    fold = tmp_path / "fold0"
+    fold.mkdir()
+    (fold / "mapping.json").write_text(json.dumps([int(k) for k in served["mapping"]]))
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        Backmapper.from_run(str(tmp_path / "modelparams.json"), str(fold), device="cpu")
+    state = Trainer(port.model, served["cfg"], device="cpu").init_state(
+        port._make_batch(served["cg"][0]))
+    CheckpointManager(str(fold / "ckpt")).save(0, state)
+    bm = Backmapper.from_run(str(tmp_path / "modelparams.json"), str(fold), device="cpu")
+    np.testing.assert_array_equal(bm.backmap(served["cg"][:2], n_samples=3, seed=2),
+                                  port.backmap(served["cg"][:2], n_samples=3, seed=2))
+    with pytest.raises(NotImplementedError, match="A9"):
+        Backmapper.from_run(str(tmp_path / "modelparams.json"), str(fold), sparse=True,
+                            device="cpu")
     cfg = served["cfg"]
     proj = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, h_project_eval=True))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

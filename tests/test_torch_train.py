@@ -9,6 +9,7 @@ backward, in interpret mode. The port runs its kernels' plain versions and
 their plain VJPs (the tensors are on the CPU).
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -265,8 +266,9 @@ def test_skip_guard_leaves_params_and_moments(small_dataset, tiny_model_cfg):
 
 
 @pytest.mark.parametrize("on_device", [True, False])
-def test_fit_runs_two_epochs(small_dataset, tiny_model_cfg, on_device):
-    """Two epochs on the device-resident path and on host batches."""
+def test_fit_runs_two_epochs(small_dataset, tiny_model_cfg, on_device, tmp_path):
+    """Two epochs on the device-resident path and on host batches; with a
+    checkpoint manager, fit saves the final epoch."""
     cfg = _exp(dataclasses.replace(tiny_model_cfg, n_basis=16), lr=3e-3)
     tc = _torch_cfg(cfg)
     tr = Trainer(DenseCGVAE(tc.model, generator=torch.Generator().manual_seed(0)), tc,
@@ -280,5 +282,10 @@ def test_fit_runs_two_epochs(small_dataset, tiny_model_cfg, on_device):
     for r in hist:
         assert all(np.isfinite(v) for v in r.values())
     assert int(state.step) == 2 * (24 // BATCH)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tr.fit(state, tds, tds, nepochs=1, ckpt=object())
+    from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(str(tmp_path))
+    state, hist = tr.fit(state, tds.subset(np.arange(24)), tds.subset(np.arange(24, 32)),
+                         nepochs=1, ckpt=mgr, on_device=on_device)
+    _, meta, step = mgr.read()
+    assert step == 0 and meta["epoch"] == 0 and meta["history"] == json.loads(json.dumps(hist))
