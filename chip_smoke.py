@@ -16,22 +16,32 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   gamma 25, clip 0.01), 100 steps then 100 timed steps, a profiled window,
   one f32 step held against the same step on the CPU, and a 2-epoch
   ``Trainer.fit``;
-- cv: the k-fold workflow, ``cli.run_cgvae.main`` (the README's pseudo
-  recipe at batch 128 on 640 synthetic frames, 2 of 5 folds, 2 epochs,
-  16 x 16 samples, graph metrics), checked artifact by artifact; then
-  ``Backmapper.from_run`` of fold 0 against the model the fold trained,
-  a resumed fold 0 (``--resume`` to 3 epochs, the restored state held bit
-  for bit to the saved one) and one epoch of the default cross decoder.
+- captured: the epoch as one program (``Trainer.run_epoch_scan``): an
+  eager and a captured epoch from the same state held bit for bit, then
+  ms/step, device busy and launches of the eager epoch against the
+  replayed one over 100 steps at batch 128 and 32;
+- cgae: ``learn_map``'s 1,500 steps on the card against the CPU from the
+  same numpy draws, then ``get_mapping("cgae")`` on the card, timed;
+- cv: the k-fold workflow, ``cli.run_cgvae.main`` (the README quickstart's
+  recipe, cgae mapping and pseudo decoder, at batch 128 on 640 synthetic
+  frames, 2 of 5 folds, 2 epochs, 16 x 16 samples, graph metrics), checked
+  artifact by artifact; then ``Backmapper.from_run`` of fold 0 against the
+  model the fold trained, a resumed fold 0 (``--resume`` to 3 epochs, the
+  restored state held bit for bit to the saved one) and one epoch of the
+  default cross decoder.
 
 Every phase raises on failure; there is no CPU fallback. Output, in order:
 the card's name and power limit (nvidia-smi), the build with each main-path
 kernel's ptxas registers and spills, each kernel against its plain version
 (with, at the main path's shapes, its time and the plain version's from CUDA
-graph replays, and its roofline bound from ``kernel_cost``), the serve and
-train checks and timings, the cv phase's checks and its wall time by part,
+graph replays, and its roofline bound from ``kernel_cost``; the wide kernels,
+R+1 > 16, at n_rbf 16, 20 and the largest each takes), the serve, train,
+captured and cgae checks and timings, the cv phase's checks and its wall
+time by part,
 one JSON line with one entry per kernel and timed shape, and last one JSON
-line ``{"ok": true, "device": {...}}``. The profile's table goes to
-``chiprun_out/train_profile.txt``, the cv phase's data to
+line ``{"ok": true, "device": {...}}``. The profiles' tables go to
+``chiprun_out/train_profile.txt`` and ``captured_profile_b{128,32}.txt``, the
+cv phase's data to
 ``chiprun_out/cv_data/`` and its runs to ``build/cv_smoke/``. Needs one
 CUDA device; imports nothing of JAX.
 """
@@ -61,11 +71,20 @@ TRAIN_RTOL = 1e-4
 N_REQUESTS, FRAMES_PER_REQUEST, N_SAMPLES = 4, 4, 64
 ENCODER_LAYERS, PRIOR_LAYERS, DECODER_LAYERS = 4, 4, 5
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS, PROFILE_STEPS = 128, 256, 100, 5
-# the cv phase: the README quickstart's pseudo recipe at bench.py's width and
-# batch (cg_method newman: cgae waits for ROADMAP.md A11), cut in depth
+# the wide kernels' timed basis size (R+1 = 21 > 16)
+WIDE_RBF = 20
+# the captured phase: bench.py's batch and the README quickstart's, an
+# epoch of CAPTURE_STEPS steps timed eager and captured
+CAPTURE_BATCHES, CAPTURE_STEPS = (128, 32), 100
+# the cgae phase: learn_map's 1,500 steps on 640 frames; card vs CPU on the
+# same draws, the final logits within 1e-3 of their range (f32 in another
+# summation order, through 1,500 Adam steps that scale each update to ~lr)
+CGAE_FRAMES, CGAE_STEPS, CGAE_LOGIT_ATOL = 640, 1500, 1e-3
+# the cv phase: the README quickstart's recipe (cgae mapping, pseudo
+# decoder) at bench.py's width and batch, cut in depth
 CV_WIDTH = ["-n_basis", "600", "-n_rbf", "8", "-enc_nconv", "4", "-dec_nconv", "5",
             "-batch_size", "128"]
-CV_RECIPE = ["-dataset", "dipeptide", "-n_cgs", "3", "-atom_cutoff", "8.5",
+CV_RECIPE = ["-dataset", "dipeptide", "-cg_method", "cgae", "-n_cgs", "3", "-atom_cutoff", "8.5",
              "-cg_cutoff", "9.5", "-edgeorder", "2", "-lr", "8e-5", "-beta", "0.05",
              "-gamma", "25", "--graph_eval"]
 CV_FRAMES, CV_SPLITS, CV_FOLDS, CV_EPOCHS, CV_ENSEMBLE, CV_EVALS = 640, 5, 2, 2, 16, 16
@@ -123,11 +142,11 @@ def ptxas_summary(log: str) -> dict:
 
 
 def print_ptxas(label: str, log: str, ra: int = 9) -> None:
-    """The ptxas lines of the main path's instantiations: the message
+    """The ptxas lines of the main path's instantiations (the templated
     kernels exist for every R+1 in 2..16, the first template argument,
-    mangled ``ILi<R+1>E``."""
+    mangled ``ILi<R+1>E``) and of the wide kernels (R+1 > 16)."""
     for kernel, line in ptxas_summary(log).items():
-        if "ILi" not in kernel or f"ILi{ra}E" in kernel:
+        if "ILi" not in kernel or f"ILi{ra}E" in kernel or "wide" in kernel:
             print(f"  ptxas {label} {kernel}: {line}", flush=True)
 
 
@@ -278,6 +297,20 @@ def check_kernels() -> list:
               for kind in ("pseudo", "pseudo_vjp") for m in (3, 6) for r in (1, 15)
               ] + [(kind, (16, 70, 9, 8), 8.5, "chunked path B=16 M=70", False)
                    for kind in ("pseudo", "pseudo_vjp")]
+    # the wide kernels (R+1 > 16): n_rbf 16, 20 and the largest each takes,
+    # timed at n_rbf 20 at the training shapes
+    cases += [(kind, (b, 27, s, r), 9.5, f"wide B={b} N=27 S={s} n_rbf={r}", False)
+              for kind in ("message", "message_vjp") for s in (3, 4)
+              for b, r in ((64, 16), (64, 20), (16, mo.MAX_RBF))]
+    cases += [(kind, (b, m, 9, r), 8.5, f"wide B={b} M={m} n_rbf={r}", False)
+              for kind in ("pseudo", "pseudo_vjp") for m in (3, 6)
+              for b, r in ((64, 16), (64, 20), (16, po.MAX_RBF))]
+    cases += [(kind, (128, n, s, WIDE_RBF), cut, f"wide {label} n_rbf={WIDE_RBF}", True)
+              for kind, n, s, cut, label in (
+                  ("message", 27, 3, 9.5, "encoder train B=128 N=27 S=3"),
+                  ("message_vjp", 27, 3, 9.5, "encoder train B=128 N=27 S=3"),
+                  ("pseudo", 3, 9, 8.5, "decoder train B=128 M=3"),
+                  ("pseudo_vjp", 3, 9, 8.5, "decoder train B=128 M=3"))]
     fns = {"message": (mo.fused_message, mo.message_reference),
            "pseudo": (po.fused_pseudo_message, po.pseudo_reference),
            "message_vjp": (mo.fused_message_vjp, mo.message_vjp_reference),
@@ -633,6 +666,203 @@ def train() -> dict:
     return {"train": launches, "fit": fit_launches}
 
 
+def train_cfg(batch_size: int, **model_kw):
+    """bench.py::dipeptide_config(batch_size) at the port's full width."""
+    from coarsegrainingvae_tpu_torch.config import DataConfig, ExperimentConfig, TrainConfig
+
+    return ExperimentConfig(
+        model=dipeptide_model_cfg(**model_kw), data=DataConfig(batch_size=batch_size),
+        train=TrainConfig(lr=1.6e-4 * (batch_size / 64), beta=0.05, gamma=25.0,
+                          grad_clip=0.01, adam_moment_dtype="bfloat16"))
+
+
+def captured() -> dict:
+    """The epoch as one program (``Trainer.run_epoch_scan``): one epoch of
+    the static step run eagerly and one replayed from its CUDA graph, from
+    the same parameters, moments and generator state, held bit for bit
+    (one step, then CAPTURE_STEPS); then ms/step of the eager epoch
+    (``run_epoch_device``, the step in a Python loop) against the captured
+    one at batch 128 and 32, their device busy time per step and their
+    launches. Raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
+    from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+    from torch.profiler import ProfilerActivity, profile
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=TRAIN_FRAMES, seed=0, device="cuda")
+    ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, atom_cutoff=8.5,
+                       cg_cutoff=9.5, atomic_nums=z, bonds=bonds, order=2, rotate=True)
+
+    def dataset(n):                   # n frames, the 256 repeated
+        return DeviceDataset.from_dataset(ds.subset(np.resize(np.arange(len(ds)), n)), "cuda")
+
+    per_step = {"fused_message": ENCODER_LAYERS + PRIOR_LAYERS,
+                "fused_message_vjp": ENCODER_LAYERS + PRIOR_LAYERS,
+                "fused_pseudo_message": DECODER_LAYERS, "fused_pseudo_vjp": DECODER_LAYERS}
+    total = dict.fromkeys(per_step, 0)
+    for bs in CAPTURE_BATCHES:
+        tr = Trainer(DenseCGVAE(train_cfg(bs).model, generator=torch.Generator().manual_seed(0)),
+                     train_cfg(bs), device="cuda")
+        state = tr.init_state(ds.batch(np.arange(bs)))
+        dds_long = dataset(bs * CAPTURE_STEPS)
+
+        def tensors(st):
+            return (*st.params.values(), st.opt_state.count, st.opt_state.mu, st.opt_state.nu,
+                    st.step)
+
+        if bs == CAPTURE_BATCHES[0]:
+            # eager vs captured from the same state, one step and one epoch
+            start = [t.detach().clone() for t in tensors(state)]
+            for n_steps, dds in ((1, dataset(bs)), (CAPTURE_STEPS, dds_long)):
+                batches = epoch_index_batches(dds.n_frames, bs, np.random.default_rng(1))
+                runs = []
+                for capture in (False, True):
+                    with torch.no_grad():
+                        for t, v in zip(tensors(state), start):
+                            t.copy_(v)
+                    gen = torch.Generator(device="cuda").manual_seed(11)
+                    st, _ = tr._run_program(state, dds, batches, gen, True, capture)
+                    prog = tr._programs[(id(dds), True)]
+                    runs.append((prog.metrics[:n_steps].clone(),
+                                 [t.detach().clone() for t in tensors(st)], gen.get_state()))
+                (m_e, p_e, g_e), (m_c, p_c, g_c) = runs
+                exact = (torch.equal(m_e, m_c) and torch.equal(g_e, g_c)
+                         and all(torch.equal(a, b) for a, b in zip(p_e, p_c)))
+                rel = max(((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)
+                           ).item() for a, b in zip(p_c, p_e))
+                loss_rel = ((m_c[:, 0] - m_e[:, 0]).abs().max() / m_e[:, 0].abs().max()).item()
+                print(f"captured vs eager, {n_steps} step(s) at batch {bs} from the same state and "
+                      f"generator: bit for bit {exact}; parameters and moments max|err|/max|ref| "
+                      f"{rel:.3e}, losses {loss_rel:.3e}", flush=True)
+                if not exact and not (n_steps == 1 and rel <= TRAIN_RTOL):
+                    raise RuntimeError("the captured epoch disagrees with the eager one")
+            with torch.no_grad():
+                for t, v in zip(tensors(state), start):
+                    t.copy_(v)
+            del start
+
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        rng = np.random.default_rng(2)
+        timings = {}
+        for kind in ("eager", "captured", "eager", "captured"):
+            if kind == "captured" and (id(dds_long), True) not in tr._programs:
+                state, _ = tr.run_epoch_scan(state, dds_long, gen, shuffle_rng=rng)  # capture
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "eager":
+                state, m = tr.run_epoch_device(state, dds_long, gen, shuffle_rng=rng)
+            else:
+                state, m = tr.run_epoch_scan(state, dds_long, gen, shuffle_rng=rng)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            launches = read_counts()
+            expect = {k: v * CAPTURE_STEPS for k, v in per_step.items()}
+            if launches != expect or m["n_steps"] != CAPTURE_STEPS or not np.isfinite(m["loss"]):
+                raise RuntimeError(f"{kind} epoch at batch {bs}: launches {launches} (expected "
+                                   f"{expect}), n_steps {m['n_steps']}, loss {m['loss']}")
+            if kind == "captured":
+                for k in total:
+                    total[k] += launches[k]
+            timings.setdefault(kind, []).append(dt / CAPTURE_STEPS * 1e3)
+        dds_prof = dataset(bs * PROFILE_STEPS)
+        state, _ = tr.run_epoch_scan(state, dds_prof, gen)      # capture outside the window
+        busy = {}
+        for kind in ("eager", "captured"):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if kind == "eager":
+                    state, _ = tr.run_epoch_device(state, dds_prof, gen)
+                else:
+                    state, _ = tr.run_epoch_scan(state, dds_prof, gen)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            busy[kind] = device_profile(prof, wall_ms, PROFILE_STEPS)
+            busy[kind]["wall_ms"] = wall_ms / PROFILE_STEPS
+            if kind == "captured":
+                (OUT_DIR / f"captured_profile_b{bs}.txt").write_text(
+                    prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        tr.release_graphs()
+        for kind in ("eager", "captured"):
+            ms = timings[kind]
+            p = busy[kind]
+            print(f"{kind} epoch, batch {bs}, {CAPTURE_STEPS} steps: "
+                  f"{', '.join(f'{x:.3f}' for x in ms)} ms/step, "
+                  f"{', '.join(f'{bs * 1e3 / x:.1f}' for x in ms)} samples/s; profiled "
+                  f"{PROFILE_STEPS} steps {p['wall_ms']:.3f} ms/step, device busy "
+                  f"{p['busy_ms'] / PROFILE_STEPS:.3f} ms/step ({100 * p['busy_share']:.1f} %), "
+                  f"{p['device_events_per_step']:.0f} device events and "
+                  f"{p['host_launch_calls_per_step']:.0f} host launch calls per step; launches "
+                  f"{per_step} per step", flush=True)
+        for name, ms_step, n in busy["captured"]["top"]:
+            print(f"  captured b{bs} device {ms_step:.3f} ms/step, {n}/step: {name}", flush=True)
+        del tr, state, dds_long, dds_prof
+        torch.cuda.empty_cache()
+    return total
+
+
+def cgae_phase(device: str = "cuda", n_frames: int = CGAE_FRAMES,
+               n_steps: int = CGAE_STEPS) -> None:
+    """``learn_map_core`` on ``device`` and on the CPU from the same
+    initial parameters, batch indices and noise, drawn with numpy: the same
+    mapping, the final logits within CGAE_LOGIT_ATOL of their range; then
+    the production ``get_mapping("cgae")`` on ``device`` for the dipeptide,
+    timed, with every bead populated. Raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.data.mappings import get_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.models import cgae
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=n_frames, seed=0, device=device)
+    data = cgae.centred_frames(frames)
+    f, n, k = data.shape[0], data.shape[1], 3
+    b = min(32, f)
+    rng = np.random.default_rng(0)
+    logits0 = (rng.normal(size=(n, k)) * 0.1).astype(np.float32)
+    decode0 = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
+    idx = rng.integers(0, f, size=(n_steps, b))
+    u = rng.uniform(1e-10, 1.0, size=(n_steps, b, n, k)).astype(np.float32)
+    out = {}
+    for dev in (device, "cpu"):
+        def put(a, dtype=torch.float32):
+            return torch.as_tensor(a, dtype=dtype).to(dev)
+
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _ = cgae.learn_map_core(put(data), put(logits0), put(decode0),
+                                        zip(put(idx, torch.long), put(u)))
+        logits = logits.cpu()
+        out[dev] = (logits, time.perf_counter() - t)
+    (got, got_s), (want, want_s) = out[device], out["cpu"]
+    err = (got - want).abs().max().item() / (want.max() - want.min()).item()
+    same = np.array_equal(cgae.hard_mapping(got), cgae.hard_mapping(want))
+    print(f"cgae learn_map, {n_steps} steps on {n_frames} frames from numpy draws: {device} "
+          f"{got_s:.3f} s, cpu {want_s:.3f} s; equal mapping {same}; logits max|err| / their "
+          f"range {err:.3e} (tolerance {CGAE_LOGIT_ATOL:g})", flush=True)
+    if not (same and err <= CGAE_LOGIT_ATOL):
+        raise RuntimeError("learn_map on the card disagrees with the CPU")
+    with PartTimes([(cgae, "learn_map", "learn_map")]) as times:
+        t = time.perf_counter()
+        mapping = get_mapping("cgae", k, z.shape[0], bonds=bonds, frames=frames, seed=0,
+                              device=device)
+        wall = time.perf_counter() - t
+    sizes = np.bincount(mapping, minlength=k)
+    print(f"cgae get_mapping on {device}: {wall:.3f} s ({times.line()}), beads "
+          f"{sizes.tolist()} atoms", flush=True)
+    if mapping.shape != (z.shape[0],) or not (sizes > 0).all() or sizes.size != k:
+        raise RuntimeError(f"cgae mapping does not populate {k} beads: {sizes}")
+
+
 class PartTimes:
     """Wall seconds and calls per part of the cv phase: each (owner,
     attribute, label) is wrapped with a timer on entry and restored on
@@ -759,6 +989,7 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
     from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
     from coarsegrainingvae_tpu_torch.eval import sampling
+    from coarsegrainingvae_tpu_torch.models import cgae
     from coarsegrainingvae_tpu_torch.serve import Backmapper
     from coarsegrainingvae_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
@@ -782,6 +1013,7 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
 
     parts = [(run_cgvae, "load_frames", "load_frames"),
              (run_cgvae, "build_fold_mapping", "mapping"),
+             (cgae, "learn_map", "learn_map (inside mapping)"),
              (run_cgvae, "build_dataset", "datasets"),
              (Trainer, "fit", "fit"),
              (CheckpointManager, "save", "checkpoint save"),
@@ -856,7 +1088,8 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
         seconds = time.perf_counter() - t
         restored.append((self.directory, step, {k: p.detach().cpu().clone()
                                                 for k, p in state.params.items()},
-                         state.opt_state.mu.cpu(), state.opt_state.nu.cpu(), seconds))
+                         state.opt_state.mu.cpu().clone(), state.opt_state.nu.cpu().clone(),
+                         seconds))
         return state, meta, step
 
     resume_cfg = dataclasses.replace(
@@ -938,6 +1171,9 @@ def main() -> int:
     timed = check_kernels()
     paths = {"serve": serve()}
     paths.update(train())
+    reset_counts()
+    paths["captured"] = captured()
+    cgae_phase()
     paths.update(cv())
 
     source = "coarsegrainingvae_tpu_torch/csrc/"

@@ -16,9 +16,9 @@ Usage:  python -m coarsegrainingvae_tpu_torch.cli.run_cgvae -dataset dipeptide \
 The same flags and defaults as the JAX CLI, plus ``--device`` (default
 ``cuda``: the run needs a card unless the caller asks for the CPU).
 ``--message_impl``/``--pseudo_impl`` are stored in ``modelparams.json`` and
-have no effect: the port always runs its CUDA kernels. ``--sparse``, the
-pseudo2/en/inv decoders, ``-zeta > 0``, ``-cg_method cgae`` and the H
-projections raise (ROADMAP.md A9, A8, A11).
+have no effect: the port always runs its CUDA kernels. ``-cg_method cgae``
+learns each fold's mapping on ``--device``. ``--sparse``, the pseudo2/en/inv
+decoders, ``-zeta > 0`` and the H projections raise (ROADMAP.md A9, A8).
 """
 from __future__ import annotations
 
@@ -206,8 +206,9 @@ def params_to_config(a: argparse.Namespace) -> ExperimentConfig:
     )
 
 
-def build_fold_mapping(cfg: ExperimentConfig, z, frames, bonds, seed: int):
-    """Mapping with the degeneracy retry loop (run_ala.py:170-174)."""
+def build_fold_mapping(cfg: ExperimentConfig, z, frames, bonds, seed: int, device="cuda"):
+    """Mapping with the degeneracy retry loop (run_ala.py:170-174); cgae
+    learns it on ``device``."""
     n_atoms = z.shape[0]
     for attempt in range(20):
         mapping = get_mapping(
@@ -215,7 +216,7 @@ def build_fold_mapping(cfg: ExperimentConfig, z, frames, bonds, seed: int):
             frames=frames, mapshuffle=cfg.data.mapshuffle,
             site_index=(None if cfg.data.site_index is None
                         else np.asarray(cfg.data.site_index, np.int64)),
-            seed=seed + attempt, z=z,
+            seed=seed + attempt, z=z, device=device,
         )
         if np.unique(mapping).size == cfg.model.n_cgs:
             return mapping
@@ -269,7 +270,7 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
         os.makedirs(split_dir, exist_ok=True)
 
         mapping = build_fold_mapping(cfg, z, frames[train_idx], bonds,
-                                     seed=cfg.data.seed + fold)
+                                     seed=cfg.data.seed + fold, device=device)
         with open(os.path.join(split_dir, "mapping.json"), "w") as f:
             json.dump([int(x) for x in mapping], f)
 

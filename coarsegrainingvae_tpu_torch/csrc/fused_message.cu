@@ -58,6 +58,13 @@
 // - R+1 and S are template parameters (the C entry points switch over R+1
 //   in 2..16 and S in {3, 4}): the basis loops unroll with no zero padding
 //   and w[:, :, f] lives in registers.
+// - R+1 > 16 (the wide kernels, fused_message_wide_kernel and
+//   fused_message_bwd_wide_kernel): R+1 is a runtime value, and w, the
+//   pair's basis and the backward's d_w sums sit in shared memory, one
+//   column per lane (pair_geometry.cuh::wide_pair). One warp per (32
+//   features, batch element) walks every ordered pair; simple and correct,
+//   not tuned. Shared memory bounds it: the backward at S = 4 holds
+//   9 (R+1) floats per lane, so R+1 <= 201 in the 227 KB of one block.
 // Forward, S = 3 and N <= 27 (the encoder and the prior; fused_message_sym_
 //   kernel): K is symmetric and unit antisymmetric, so each unordered pair's
 //   folded filter serves both directions: 3 (R+1) + 18 FMAs per pair instead
@@ -599,6 +606,164 @@ fused_message_bwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Wide basis, RA > kTemplateMaxRA (pair_geometry.cuh): one warp per (32
+// features, batch element), each lane one feature walking every pair. Its
+// shared memory holds the lane's columns of w (RA, S) and of the pair's basis
+// (RA), and in the backward of its d_w sums (RA, S); each lane reads and
+// writes only its own column, so no barrier is needed.
+
+size_t wide_fwd_smem(int S, int RA) { return sizeof(float) * kLanes * RA * (S + 1); }
+size_t wide_bwd_smem(int S, int RA) { return sizeof(float) * kLanes * RA * (2 * S + 1); }
+
+template <int S>
+__global__ void __launch_bounds__(kLanes)
+fused_message_wide_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ mask,
+    const float* __restrict__ phi, const float* __restrict__ v,
+    const float* __restrict__ w, float* __restrict__ ds, float* __restrict__ dv,
+    int N, int F, int RA, float cutoff) {
+  extern __shared__ float wide_smem[];
+  const int lane = threadIdx.x, b = blockIdx.y;
+  const int f_out = blockIdx.x * kLanes + lane;
+  if (f_out >= F) return;
+  float* wcol = wide_smem + lane;                     // (RA, S, lane)
+  float* kcol = wide_smem + kLanes * RA * S + lane;   // (RA, lane)
+  for (int e = 0; e < RA * S; ++e) wcol[e * kLanes] = w[(size_t)e * F + f_out];
+  const float* xb = xyz + (size_t)b * N * 3;
+  const float* mb = mask + (size_t)b * N;
+  const float* phib = phi + (size_t)b * N * S * F + f_out;
+  const float* vb = v + (size_t)b * N * 3 * F + f_out;
+
+  for (int i = 0; i < N; ++i) {
+    float acc_s = 0.f, acc_v[3] = {0.f, 0.f, 0.f}, acc_w3[3] = {0.f, 0.f, 0.f};
+    for (int j = 0; j < N; ++j) {
+      const WidePair pr = wide_pair(kcol, kLanes, xb, mb, i, j, RA, cutoff);
+      if (pr.ke == 0.f) continue;
+      float filt[S];
+#pragma unroll
+      for (int c = 0; c < S; ++c) filt[c] = wide_fold(kcol, wcol, c, S, RA, kLanes);
+      float vj[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) vj[d] = vb[((size_t)j * 3 + d) * F];
+      acc_s = fmaf(filt[1], phib[((size_t)j * S + 1) * F], acc_s);
+      const float p0 = filt[0] * phib[((size_t)j * S) * F];
+      const float p2 = filt[2] * phib[((size_t)j * S + 2) * F];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) acc_v[d] = fmaf(p2, pr.unit[d], fmaf(p0, vj[d], acc_v[d]));
+      if constexpr (S == 4) {
+        const float p3 = filt[3] * phib[((size_t)j * S + 3) * F];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc_w3[d] = fmaf(p3, vj[d], acc_w3[d]);
+      }
+    }
+    const size_t row = (size_t)b * N + i;
+    if constexpr (S == 4) {
+      const float* vi = vb + (size_t)i * 3 * F;
+      const float a0 = vi[0], a1 = vi[F], a2 = vi[2 * F];
+      acc_v[0] += a1 * acc_w3[2] - a2 * acc_w3[1];
+      acc_v[1] += a2 * acc_w3[0] - a0 * acc_w3[2];
+      acc_v[2] += a0 * acc_w3[1] - a1 * acc_w3[0];
+    }
+    ds[row * F + f_out] = acc_s;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f_out] = acc_v[d];
+  }
+}
+
+// One d_w partial per batch element: dw_part[b] (RA, S, F).
+template <int S>
+__global__ void __launch_bounds__(kLanes)
+fused_message_bwd_wide_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ mask,
+    const float* __restrict__ phi, const float* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ gs,
+    const float* __restrict__ gv, float* __restrict__ dphi, float* __restrict__ dv,
+    float* __restrict__ dw_part, int N, int F, int RA, float cutoff) {
+  extern __shared__ float wide_smem[];
+  const int lane = threadIdx.x, b = blockIdx.y;
+  const int f_out = blockIdx.x * kLanes + lane;
+  if (f_out >= F) return;
+  float* wcol = wide_smem + lane;                         // (RA, S, lane)
+  float* dwcol = wide_smem + kLanes * RA * S + lane;      // (RA, S, lane)
+  float* kcol = wide_smem + 2 * kLanes * RA * S + lane;   // (RA, lane)
+  for (int e = 0; e < RA * S; ++e) {
+    wcol[e * kLanes] = w[(size_t)e * F + f_out];
+    dwcol[e * kLanes] = 0.f;
+  }
+  const float* xb = xyz + (size_t)b * N * 3;
+  const float* mb = mask + (size_t)b * N;
+  const float* phib = phi + (size_t)b * N * S * F + f_out;
+  const float* vb = v + (size_t)b * N * 3 * F + f_out;
+  const float* gsb = gs + (size_t)b * N * F + f_out;
+  const float* gvb = gv + (size_t)b * N * 3 * F + f_out;
+
+  for (int p = 0; p < N; ++p) {
+    float vp[3], php[S], dph[S], a0[3] = {0.f, 0.f, 0.f}, a3[3] = {0.f, 0.f, 0.f},
+          w3[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int d = 0; d < 3; ++d) vp[d] = vb[((size_t)p * 3 + d) * F];
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      php[c] = phib[((size_t)p * S + c) * F];
+      dph[c] = 0.f;
+    }
+    for (int q = 0; q < N; ++q) {
+      const WidePair pr = wide_pair(kcol, kLanes, xb, mb, p, q, RA, cutoff);
+      if (pr.ke == 0.f) continue;
+      float gq[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) gq[d] = gvb[((size_t)q * 3 + d) * F];
+      float filt[S], t[S];
+#pragma unroll
+      for (int c = 0; c < S; ++c) filt[c] = wide_fold(kcol, wcol, c, S, RA, kLanes);
+      t[1] = gsb[(size_t)q * F];
+      // unit of the pair (q <- p) is (x_p - x_q) / d = -unit of the record
+      t[2] = -(gq[0] * pr.unit[0] + gq[1] * pr.unit[1] + gq[2] * pr.unit[2]);
+      t[0] = gq[0] * vp[0] + gq[1] * vp[1] + gq[2] * vp[2];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) a0[d] = fmaf(filt[0], gq[d], a0[d]);
+      if constexpr (S == 4) {
+        float vq[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) vq[d] = vb[((size_t)q * 3 + d) * F];
+        const float e[3] = {gq[1] * vq[2] - gq[2] * vq[1], gq[2] * vq[0] - gq[0] * vq[2],
+                            gq[0] * vq[1] - gq[1] * vq[0]};     // gv_q x v_q
+        const float ph3 = phib[((size_t)q * S + 3) * F];
+        t[3] = e[0] * vp[0] + e[1] * vp[1] + e[2] * vp[2];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          a3[d] = fmaf(filt[3], e[d], a3[d]);
+          w3[d] = fmaf(filt[3], ph3 * vq[d], w3[d]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        dph[c] = fmaf(filt[c], t[c], dph[c]);
+        const float x = php[c] * t[c];
+        for (int r = 0; r < RA; ++r)
+          dwcol[(r * S + c) * kLanes] = fmaf(kcol[r * kLanes], x, dwcol[(r * S + c) * kLanes]);
+      }
+    }
+    const size_t row = (size_t)b * N + p;
+#pragma unroll
+    for (int c = 0; c < S; ++c) dphi[(row * S + c) * F + f_out] = dph[c];
+    float o[3] = {php[0] * a0[0], php[0] * a0[1], php[0] * a0[2]};
+    if constexpr (S == 4) {
+      // receiver side of dv_p += v_p x w3_p: d v_p = w3_p x gv_p
+      const float h0 = gvb[((size_t)p * 3 + 0) * F], h1 = gvb[((size_t)p * 3 + 1) * F],
+                  h2 = gvb[((size_t)p * 3 + 2) * F];
+      o[0] += php[3] * a3[0] + (w3[1] * h2 - w3[2] * h1);
+      o[1] += php[3] * a3[1] + (w3[2] * h0 - w3[0] * h2);
+      o[2] += php[3] * a3[2] + (w3[0] * h1 - w3[1] * h0);
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f_out] = o[d];
+  }
+  float* out = dw_part + (size_t)b * RA * S * F + f_out;
+  for (int e = 0; e < RA * S; ++e) out[(size_t)e * F] = dwcol[e * kLanes];
+}
+
 // Warps of a block: kFwdRows receivers (forward) and kBwdRows nodes
 // (backward) per warp.
 int fwd_warps(int N) { return std::min(kFwdMaxWarps, (N + kFwdRows - 1) / kFwdRows); }
@@ -625,6 +790,22 @@ extern "C" int fused_message_fwd(
     float cutoff, void* stream) {
   using namespace cgvae;
   if (B <= 0 || N <= 0) return 0;
+  if (RA > kTemplateMaxRA) {
+    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)B);
+    const size_t smem = wide_fwd_smem(S, RA);
+    auto launch = [&](auto kernel, int (&allowed)[kMaxDevices]) {
+      const int err = allow_smem(kernel, smem, allowed);
+      if (err != 0) return err;
+      kernel<<<grid, kLanes, smem, (cudaStream_t)stream>>>(
+          (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
+          (const float*)w, (float*)ds, (float*)dv, N, F, RA, cutoff);
+      return (int)cudaGetLastError();
+    };
+    static int allowed3[kMaxDevices] = {}, allowed4[kMaxDevices] = {};
+    if (S == 3) return launch(fused_message_wide_kernel<3>, allowed3);
+    if (S == 4) return launch(fused_message_wide_kernel<4>, allowed4);
+    return (int)cudaErrorInvalidValue;
+  }
   if (S == 3 && N <= kSymRows * kSymGroups) {
     const int groups = (N + kSymRows - 1) / kSymRows;
     const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), 1u, (unsigned)B);
@@ -675,6 +856,25 @@ extern "C" int fused_message_bwd(
   const cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || N <= 0)
     return (int)cudaMemsetAsync(dw, 0, sizeof(float) * RA * S * F, st);
+  if (RA > kTemplateMaxRA) {        // one partial per batch element, B <= B * tiles
+    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)B);
+    const size_t smem = wide_bwd_smem(S, RA);
+    auto launch = [&](auto kernel, int (&allowed)[kMaxDevices]) {
+      const int e = allow_smem(kernel, smem, allowed);
+      if (e != 0) return e;
+      kernel<<<grid, kLanes, smem, st>>>(
+          (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
+          (const float*)w, (const float*)gs, (const float*)gv, (float*)dphi, (float*)dv,
+          (float*)dw_part, N, F, RA, cutoff);
+      return (int)cudaGetLastError();
+    };
+    static int allowed3[kMaxDevices] = {}, allowed4[kMaxDevices] = {};
+    const int err = S == 3 ? launch(fused_message_bwd_wide_kernel<3>, allowed3)
+                  : S == 4 ? launch(fused_message_bwd_wide_kernel<4>, allowed4)
+                           : (int)cudaErrorInvalidValue;
+    if (err != 0) return err;
+    return launch_sum_over_batch((const float*)dw_part, (float*)dw, B, RA * S * F, st);
+  }
   const int warps = bwd_warps(N), tiles = bwd_tiles(N);
   const int rows = warps * kBwdRows, cols = std::min(N, kCols);
   const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)tiles, (unsigned)B);

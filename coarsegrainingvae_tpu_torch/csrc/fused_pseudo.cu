@@ -75,6 +75,12 @@
 //   receiver) in the forward and per (batch element, 128 features) in the
 //   backward, threads striding over F, partners in chunks of 64 records in
 //   shared memory; the backward keeps one d_w partial per batch element.
+// Design, R+1 > 16 (the wide kernels): R+1 is a runtime value; w, the pair's
+//   basis and the backward's d_w sums sit in shared memory, one column per
+//   lane (pair_geometry.cuh::wide_pair), and one warp walks every ordered
+//   pair of its batch elements. Simple and correct, not tuned. Shared memory
+//   bounds it: the backward holds 19 (R+1) floats per lane, so R+1 <= 95 in
+//   the 227 KB of one block.
 // Measured (scripts/kernel_ab.py against the previous design, one block per
 //   (frame, receiver) or per (frame, 128 features) with threads striding
 //   over F and the basis padded to 16; one H100 80GB HBM3 at 700 W; PERF.md
@@ -829,6 +835,239 @@ fused_pseudo_bwd_chunk_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// Wide basis, RA > kTemplateMaxRA (pair_geometry.cuh): one warp per (32
+// features, batch element) in the forward and per (32 features, group of
+// batch elements) in the backward, each lane one feature walking every
+// ordered pair. Shared memory holds the lane's columns of w (RA, 9) and of
+// the pair's basis (RA), and in the backward of its d_w sums (RA, 9); each
+// lane reads and writes only its own column, so no barrier is needed.
+
+size_t wide_fwd_smem(int RA) { return sizeof(float) * kLanes * RA * (kCh + 1); }
+size_t wide_bwd_smem(int RA) { return sizeof(float) * kLanes * RA * (2 * kCh + 1); }
+
+__global__ void __launch_bounds__(kLanes)
+fused_pseudo_wide_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ mask,
+    const float* __restrict__ phi, const float* __restrict__ s,
+    const float* __restrict__ sbar, const float* __restrict__ v,
+    const float* __restrict__ vbar, const float* __restrict__ w,
+    float* __restrict__ ds, float* __restrict__ dsbar, float* __restrict__ dv,
+    float* __restrict__ dvbar, int M, int F, int RA, float cutoff) {
+  extern __shared__ float wide_smem[];
+  const int lane = threadIdx.x, b = blockIdx.y;
+  const int f = blockIdx.x * kLanes + lane;
+  if (f >= F) return;
+  float* wcol = wide_smem + lane;                       // (RA, 9, lane)
+  float* kcol = wide_smem + kLanes * RA * kCh + lane;   // (RA, lane)
+  for (int e = 0; e < RA * kCh; ++e) wcol[e * kLanes] = w[(size_t)e * F + f];
+  const float* xb = xyz + (size_t)b * M * 3;
+  const float* mb = mask + (size_t)b * M;
+
+  for (int i = 0; i < M; ++i) {
+    // as fused_pseudo_chunk_kernel: s0; t = sum adj vbar; dv direct (g1 unit
+    // + g2 v); a3, a4 (dv gates); dvbar direct (g5 vbar); a6, a7, a8
+    float s0 = 0.f, t[3] = {0.f, 0.f, 0.f}, dvd[3] = {0.f, 0.f, 0.f};
+    float a3[3] = {0.f, 0.f, 0.f}, a4[3] = {0.f, 0.f, 0.f}, dvbd[3] = {0.f, 0.f, 0.f};
+    float a6[3] = {0.f, 0.f, 0.f}, a7[3] = {0.f, 0.f, 0.f}, a8[3] = {0.f, 0.f, 0.f};
+    for (int j = 0; j < M; ++j) {
+      const WidePair pr = wide_pair(kcol, kLanes, xb, mb, i, j, RA, cutoff);
+      const size_t row = (size_t)b * M + j;
+      float vj[3], vbj[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        vj[d] = v[(row * 3 + d) * F + f];
+        vbj[d] = vbar[(row * 3 + d) * F + f];
+        t[d] += pr.adj * vbj[d];
+      }
+      if (pr.ke == 0.f) continue;
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) {
+        const float gg = wide_fold(kcol, wcol, ch, kCh, RA, kLanes) * phi[(row * kCh + ch) * F + f];
+        if (ch == 0) {
+          s0 += gg;
+          continue;
+        }
+        if (ch == 1) {
+#pragma unroll
+          for (int d = 0; d < 3; ++d) dvd[d] += gg * pr.unit[d];
+          continue;
+        }
+        const float* x = carries_v(ch) ? vj : vbj;
+        float* acc = ch == 2 ? dvd : ch == 3 ? a3 : ch == 4 ? a4 : ch == 5 ? dvbd
+                   : ch == 6 ? a6 : ch == 7 ? a7 : a8;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[d] += gg * x[d];
+      }
+    }
+    const size_t row_i = (size_t)b * M + i;
+    const float si = s[row_i * F + f], gi = sbar[row_i * F + f];
+    float vi[3], vbi[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      vi[d] = v[(row_i * 3 + d) * F + f];
+      vbi[d] = vbar[(row_i * 3 + d) * F + f];
+    }
+    ds[row_i * F + f] = si * s0;
+    dsbar[row_i * F + f] = vi[0] * t[0] + vi[1] * t[1] + vi[2] * t[2];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int p = (d + 1) % 3, q = (d + 2) % 3;  // (a x b)_d = a_p b_q - a_q b_p
+      dv[(row_i * 3 + d) * F + f] = dvd[d] + (vi[p] * a3[q] - vi[q] * a3[p]) + gi * a4[d];
+      dvbar[(row_i * 3 + d) * F + f] = dvbd[d] + gi * a6[d] + (vi[p] * a7[q] - vi[q] * a7[p]) +
+                                       (vbi[p] * a8[q] - vbi[q] * a8[p]);
+    }
+  }
+}
+
+// The walk of fused_pseudo_bwd_chunk_kernel with the partners outside the
+// channels: per node p and partner q the basis once, then the nine channels.
+// Block (x, g) takes batch elements g, g + G, ... (G = gridDim.y) and writes
+// d_w partial g.
+__global__ void __launch_bounds__(kLanes)
+fused_pseudo_bwd_wide_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ mask,
+    const float* __restrict__ phi, const float* __restrict__ s,
+    const float* __restrict__ sbar, const float* __restrict__ v,
+    const float* __restrict__ vbar, const float* __restrict__ w,
+    const float* __restrict__ gs, const float* __restrict__ gsb,
+    const float* __restrict__ gv, const float* __restrict__ gvb,
+    float* __restrict__ dphi, float* __restrict__ d_s, float* __restrict__ d_sbar,
+    float* __restrict__ d_v, float* __restrict__ d_vbar,
+    float* __restrict__ dw_part,      // (G, RA, 9, F)
+    int B, int M, int F, int RA, float cutoff) {
+  extern __shared__ float wide_smem[];
+  const int lane = threadIdx.x, g = blockIdx.y, G = gridDim.y;
+  const int f = blockIdx.x * kLanes + lane;
+  if (f >= F) return;
+  float* wcol = wide_smem + lane;                           // (RA, 9, lane)
+  float* dwcol = wide_smem + kLanes * RA * kCh + lane;      // (RA, 9, lane)
+  float* kcol = wide_smem + 2 * kLanes * RA * kCh + lane;   // (RA, lane)
+  for (int e = 0; e < RA * kCh; ++e) {
+    wcol[e * kLanes] = w[(size_t)e * F + f];
+    dwcol[e * kLanes] = 0.f;
+  }
+
+  for (int b = g; b < B; b += G) {
+    const float* xb = xyz + (size_t)b * M * 3;
+    const float* mb = mask + (size_t)b * M;
+    for (int p = 0; p < M; ++p) {
+      const size_t row_p = (size_t)b * M + p;
+      float vp[3], vbp[3], gvp[3], gvbp[3], php[kCh];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        vp[d] = v[(row_p * 3 + d) * F + f];
+        vbp[d] = vbar[(row_p * 3 + d) * F + f];
+        gvp[d] = gv[(row_p * 3 + d) * F + f];
+        gvbp[d] = gvb[(row_p * 3 + d) * F + f];
+      }
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) php[ch] = phi[(row_p * kCh + ch) * F + f];
+      // per channel: d_phi's sum, sum_q filt Gamma_ch(q) (bx), and the
+      // forward's a_ch at p (fw; t_p for channel 0)
+      float dphi_c[kCh], bx[kCh][3], fw[kCh][3];
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) {
+        dphi_c[ch] = 0.f;
+        bx[ch][0] = bx[ch][1] = bx[ch][2] = 0.f;
+        fw[ch][0] = fw[ch][1] = fw[ch][2] = 0.f;
+      }
+      float s0 = 0.f, dvp[3] = {0.f, 0.f, 0.f}, dvbp[3] = {0.f, 0.f, 0.f};
+
+      for (int q = 0; q < M; ++q) {
+        const WidePair pr = wide_pair(kcol, kLanes, xb, mb, p, q, RA, cutoff);
+        const size_t row_q = (size_t)b * M + q;
+        float vq[3], vbq[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          vq[d] = v[(row_q * 3 + d) * F + f];
+          vbq[d] = vbar[(row_q * 3 + d) * F + f];
+        }
+        if (pr.adj != 0.f) {
+          // dsbar path, both roles: t_p and d_vbar_p += adj gsb_q v_q
+          const float ag = pr.adj * gsb[row_q * F + f];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            fw[0][d] += pr.adj * vbq[d];
+            dvbp[d] += ag * vq[d];
+          }
+        }
+        if (pr.ke == 0.f) continue;
+        float gvq[3], gvbq[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          gvq[d] = gv[(row_q * 3 + d) * F + f];
+          gvbq[d] = gvb[(row_q * 3 + d) * F + f];
+        }
+        const float sbq = sbar[row_q * F + f];
+#pragma unroll
+        for (int ch = 0; ch < kCh; ++ch) {
+          const float filt = wide_fold(kcol, wcol, ch, kCh, RA, kLanes);
+          float dG;
+          if (ch == 0) {
+            dG = s[row_q * F + f] * gs[row_q * F + f];
+            s0 += filt * phi[(row_q * kCh) * F + f];
+          } else if (ch == 1) {
+            // unit of the pair (q <- p) is (x_p - x_q) / d = -unit of the record
+            dG = -(gvq[0] * pr.unit[0] + gvq[1] * pr.unit[1] + gvq[2] * pr.unit[2]);
+          } else {
+            // Gamma_ch(q), the cotangent of a_ch at q
+            const float* gsrc = ch >= 5 ? gvbq : gvq;
+            float gam[3] = {gsrc[0], gsrc[1], gsrc[2]};
+            if (ch == 4 || ch == 6) {
+              gam[0] *= sbq; gam[1] *= sbq; gam[2] *= sbq;
+            } else if (ch == 3 || ch == 7 || ch == 8) {
+              float c[3] = {0.f, 0.f, 0.f};
+              add_cross(c, gam, ch == 8 ? vbq : vq);  // Gamma = g x v (x vbar for 8)
+              gam[0] = c[0]; gam[1] = c[1]; gam[2] = c[2];
+            }
+            dG = dot3(gam, carries_v(ch) ? vp : vbp);
+#pragma unroll
+            for (int d = 0; d < 3; ++d) bx[ch][d] += filt * gam[d];
+            if (ch != 2 && ch != 5) {
+              // forward a_ch at p as the receiver
+              const float fp = filt * phi[(row_q * kCh + ch) * F + f];
+              const float* x = carries_v(ch) ? vq : vbq;
+#pragma unroll
+              for (int d = 0; d < 3; ++d) fw[ch][d] += fp * x[d];
+            }
+          }
+          dphi_c[ch] += filt * dG;
+          const float x = dG * php[ch];
+          for (int r = 0; r < RA; ++r)
+            dwcol[(r * kCh + ch) * kLanes] =
+                fmaf(kcol[r * kLanes], x, dwcol[(r * kCh + ch) * kLanes]);
+        }
+      }
+
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) {
+        dphi[(row_p * kCh + ch) * F + f] = dphi_c[ch];
+        if (ch >= 2) {
+          float* dx = carries_v(ch) ? dvp : dvbp;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) dx[d] += php[ch] * bx[ch][d];
+        }
+      }
+      const float gsbp = gsb[row_p * F + f];
+      d_s[row_p * F + f] = s0 * gs[row_p * F + f];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dvp[d] += gsbp * fw[0][d];
+      add_cross(dvp, fw[3], gvp);
+      add_cross(dvp, fw[7], gvbp);
+      add_cross(dvbp, fw[8], gvbp);
+      d_sbar[row_p * F + f] = dot3(fw[4], gvp) + dot3(fw[6], gvbp);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        d_v[(row_p * 3 + d) * F + f] = dvp[d];
+        d_vbar[(row_p * 3 + d) * F + f] = dvbp[d];
+      }
+    }
+  }
+  float* out = dw_part + (size_t)g * RA * kCh * F + f;
+  for (int e = 0; e < RA * kCh; ++e) out[(size_t)e * F] = dwcol[e * kLanes];
+}
+
+// ---------------------------------------------------------------------------
 
 // Frames per warp of the register path: one at batch 64 and below, so the
 // grid fills the card; more above it, for fewer d_w partials.
@@ -860,6 +1099,14 @@ extern "C" int fused_pseudo_fwd(
       return (int)cudaGetLastError();
     };
   };
+  if (RA > kTemplateMaxRA) {
+    const size_t smem = wide_fwd_smem(RA);
+    static int allowed[kMaxDevices] = {};
+    const int err = allow_smem(fused_pseudo_wide_kernel, smem, allowed);
+    if (err != 0) return err;
+    return args(fused_pseudo_wide_kernel)(
+        dim3((unsigned)((F + kLanes - 1) / kLanes), (unsigned)B), kLanes, smem, M, F, RA, cutoff);
+  }
   return with_ra(RA, [&](auto ra_c) {
     constexpr int kRA = decltype(ra_c)::value;
     if (M <= kRegMax) {
@@ -911,6 +1158,18 @@ extern "C" int fused_pseudo_bwd(
       return (int)cudaGetLastError();
     };
   };
+  const int parts = fused_pseudo_bwd_partials(B, M);
+  if (RA > kTemplateMaxRA) {        // one d_w partial per group of batch elements
+    const size_t smem = wide_bwd_smem(RA);
+    static int allowed[kMaxDevices] = {};
+    const int e = allow_smem(fused_pseudo_bwd_wide_kernel, smem, allowed);
+    if (e != 0) return e;
+    const int err = args(fused_pseudo_bwd_wide_kernel)(
+        dim3((unsigned)((F + kLanes - 1) / kLanes), (unsigned)parts), kLanes, smem,
+        B, M, F, RA, cutoff);
+    if (err != 0) return err;
+    return launch_sum_over_batch((const float*)dw_part, (float*)dw, parts, RA * kCh * F, st);
+  }
   const int err = with_ra(RA, [&](auto ra_c) {
     constexpr int kRA = decltype(ra_c)::value;
     if (M <= kRegMax) {

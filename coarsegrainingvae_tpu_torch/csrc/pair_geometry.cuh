@@ -87,8 +87,65 @@ __device__ __forceinline__ void load_record(float (&g)[W], const float* rec) {
   }
 }
 
-// Run fn(integral_constant<RA>) for the runtime RA; the kernels exist for RA
-// (n_rbf + 1) in 2..16.
+// ---------------------------------------------------------------------------
+// The wide-basis path, RA > kTemplateMaxRA. RA is a runtime value there, so a
+// block keeps the filter weights of its 32 features, and each thread the
+// basis of its current pair, in shared memory, one column per lane, not in
+// register arrays. Each basis function is its own sin with every rounding as
+// in the plain version (ops/geometry.py::pair_filter_basis: no contraction
+// into FMAs, IEEE sqrt and division), so that a basis of a hundred functions
+// and more stays inside the 1e-4 gate, where the recurrence of pair_record
+// would not. Its bound is the shared memory of one block; the wrappers name
+// it (ops/fused_message.py, ops/fused_pseudo.py).
+
+constexpr int kTemplateMaxRA = 16;
+
+struct WidePair {
+  float adj;       // the plain adjacency
+  float ke;        // adj * env(d): 0 when the pair contributes no filter
+  float unit[3];   // (x_q - x_p) / d
+};
+
+// The pair (p, q) of one batch element (xb (N, 3), mb (N)); when ke != 0 the
+// basis K[r], r < RA, goes to kcol[r * stride].
+__device__ __forceinline__ WidePair wide_pair(float* kcol, int stride, const float* xb,
+                                              const float* mb, int p, int q, int RA,
+                                              float cutoff) {
+  WidePair out;
+  const float r0 = __fsub_rn(xb[q * 3 + 0], xb[p * 3 + 0]);
+  const float r1 = __fsub_rn(xb[q * 3 + 1], xb[p * 3 + 1]);
+  const float r2 = __fsub_rn(xb[q * 3 + 2], xb[p * 3 + 2]);
+  const float d2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r0, r0), __fmul_rn(r1, r1)),
+                                       __fmul_rn(r2, r2)), kEps);
+  const float d = __fsqrt_rn(d2);
+  out.unit[0] = __fdiv_rn(r0, d);
+  out.unit[1] = __fdiv_rn(r1, d);
+  out.unit[2] = __fdiv_rn(r2, d);
+  out.adj = (d < cutoff && p != q) ? __fmul_rn(mb[p], mb[q]) : 0.f;
+  out.ke = 0.f;
+  if (out.adj != 0.f) {
+    const float env = __fmul_rn(0.5f, __fadd_rn(cosf(__fdiv_rn(__fmul_rn(kPi, d), cutoff)), 1.f));
+    out.ke = __fmul_rn(out.adj, env);
+    for (int r = 0; r < RA - 1; ++r) {
+      const float coef = __fdiv_rn(__fmul_rn((float)(r + 1), kPi), cutoff);
+      kcol[r * stride] = __fmul_rn(out.ke, __fdiv_rn(sinf(__fmul_rn(coef, d)), d));
+    }
+    kcol[(RA - 1) * stride] = out.ke;
+  }
+  return out;
+}
+
+// filt = sum_r K[r] w[r][c] for the lane's columns: kcol (RA, stride),
+// wcol (RA, S, stride).
+__device__ __forceinline__ float wide_fold(const float* kcol, const float* wcol, int c,
+                                           int S, int RA, int stride) {
+  float acc = 0.f;
+  for (int r = 0; r < RA; ++r) acc = fmaf(kcol[r * stride], wcol[(r * S + c) * stride], acc);
+  return acc;
+}
+
+// Run fn(integral_constant<RA>) for the runtime RA; the templated kernels
+// exist for RA (n_rbf + 1) in 2..kTemplateMaxRA.
 template <typename Fn>
 int with_ra(int RA, Fn&& fn) {
   switch (RA) {

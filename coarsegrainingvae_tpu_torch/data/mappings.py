@@ -13,8 +13,9 @@ dispatch (get_cg_and_xyz, datasets.py:252-342 of the original code):
                        embedding (fast, deterministic alternative to newman)
   minimal / alpha   -- mdtraj atom-index selections; available when mdtraj is
                        installed (gated)
-  cgae              -- learned gumbel-softmax autoencoder; not ported yet
-                       (ROADMAP.md), get_mapping("cgae") raises
+  cgae              -- learned gumbel-softmax autoencoder (models/cgae.py),
+                       trained on ``device``, retried with fresh seeds and
+                       repaired (repair_mapping) when beads stay empty
 """
 from __future__ import annotations
 
@@ -331,6 +332,45 @@ def nearest_site_mapping(
     return mapping
 
 
+def repair_mapping(
+    mapping: np.ndarray, frames: np.ndarray, n_cgs: int
+) -> np.ndarray:
+    """Fill empty CG beads by splitting the largest populated beads.
+
+    learn_map rarely populates every bead once n_cgs is large (many
+    assignment columns never win an argmax), where the original code's
+    unbounded retry (run_ala.py:170-174) never ends. For each empty bead,
+    take the currently largest bead, find its atom farthest from the bead
+    centroid (on the first frame), and move that atom plus every bead-mate
+    closer to it than to the centroid into the empty bead: a farthest-point
+    bipartition that populates the bead and lowers the worst-case
+    atoms-per-bead. Deterministic; O(n_empty * N).
+    """
+    mapping = np.asarray(mapping).astype(np.int32).copy()
+    xyz = np.asarray(frames, np.float32)[0]
+    sizes = np.bincount(mapping, minlength=n_cgs)
+    for empty in np.where(sizes == 0)[0]:
+        donor = int(sizes.argmax())
+        members = np.where(mapping == donor)[0]
+        if members.size < 2:  # nothing left to split (n_cgs > n_atoms)
+            raise RuntimeError(
+                f"cannot repair mapping: {n_cgs} beads for {mapping.size} atoms"
+            )
+        centroid = xyz[members].mean(axis=0)
+        d_cen = np.linalg.norm(xyz[members] - centroid, axis=-1)
+        far = xyz[members[d_cen.argmax()]]
+        d_far = np.linalg.norm(xyz[members] - far, axis=-1)
+        moved = members[d_far < d_cen]
+        if moved.size == 0:  # degenerate geometry (all members coincide)
+            moved = members[d_cen.argmax(): d_cen.argmax() + 1]
+        elif moved.size == members.size:  # keep the donor populated
+            moved = np.delete(moved, d_cen.argmin())
+        mapping[moved] = empty
+        sizes[donor] -= moved.size
+        sizes[empty] += moved.size
+    return mapping
+
+
 def get_mapping(
     method: str,
     n_cgs: int,
@@ -343,9 +383,11 @@ def get_mapping(
     seed: int = 0,
     z: Optional[np.ndarray] = None,
     atom_names: Optional[list] = None,
+    device="cuda",
 ) -> np.ndarray:
-    """Dispatch mirroring get_cg_and_xyz (datasets.py:252-342). The 'cgae'
-    method trains a model and is not ported yet (ROADMAP.md)."""
+    """Dispatch mirroring get_cg_and_xyz (datasets.py:252-342). Only 'cgae',
+    which trains a model, reads ``device`` (the card unless the caller
+    passes "cpu")."""
     if method == "random":
         return random_mapping(n_cgs, n_atoms, seed)
     if method == "seqpartition":
@@ -388,8 +430,22 @@ def get_mapping(
                 site_index = np.linspace(0, n_atoms - 1, n_cgs).astype(np.int64)
         return nearest_site_mapping(frames, np.asarray(site_index))
     if method == "cgae":
-        raise NotImplementedError(
-            "the cgae mapping (a learned autoencoder) is not ported to "
-            "PyTorch yet; see ROADMAP.md A11"
-        )
+        # learned mapping autoencoder; retry with fresh seeds until every bead
+        # is populated (the degeneracy retry of run_ala.py:170-174), then repair
+        from coarsegrainingvae_tpu_torch.models import cgae
+
+        assert frames is not None
+        best, best_empty = None, n_cgs + 1
+        for attempt in range(10):
+            mapping = cgae.learn_map(frames, n_cgs, seed=seed + attempt, device=device)
+            n_empty = n_cgs - np.unique(mapping).size
+            if n_empty == 0:
+                return mapping
+            if n_empty < best_empty:
+                best, best_empty = mapping, n_empty
+            if attempt >= 2 and best_empty > max(1, n_cgs // 100):
+                # hundreds of beads: an argmax assignment essentially never
+                # populates every bead, so go straight to the repair
+                break
+        return repair_mapping(best, frames, n_cgs)
     raise ValueError(f"mapping method {method!r} not handled here")

@@ -29,7 +29,13 @@ import torch
 from coarsegrainingvae_tpu_torch.ops import cuda_build
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
-MAX_RBF = 15  # the kernels are built for R+1 in 2..16
+# dynamic shared memory one block may take on the H100 (sm_90: 227 KB)
+SMEM_PER_BLOCK = 227 * 1024
+# the kernels are built for R+1 in 2..16; past it the wide kernels keep, per
+# lane of a 32-feature block, w (R+1, S), the pair's basis (R+1) and the
+# backward's d_w sums (R+1, S) in shared memory, so the backward at S = 4
+# sets the bound (csrc/fused_message.cu)
+MAX_RBF = SMEM_PER_BLOCK // (4 * 32 * (2 * 4 + 1)) - 1
 
 
 def message_reference(
@@ -137,7 +143,10 @@ def _check_cuda_inputs(args: dict, n_rbf: int) -> Tuple[int, int, int, int]:
     if s not in (3, 4):
         raise ValueError(f"phi must have S = 3 or 4 channels, got {s}")
     if not 1 <= n_rbf <= MAX_RBF:
-        raise ValueError(f"n_rbf must be in [1, {MAX_RBF}], got {n_rbf}")
+        raise ValueError(
+            f"n_rbf must be in [1, {MAX_RBF}], got {n_rbf}: past R+1 = 16 the "
+            f"message kernels hold w and d_w in the {SMEM_PER_BLOCK // 1024} KB of "
+            f"shared memory of one block")
     expected = {"xyz": (b, n, 3), "mask": (b, n), "v": (b, n, 3, f),
                 "w": (n_rbf + 1, s, f), "gs": (b, n, f), "gv": (b, n, 3, f)}
     for name, t in args.items():

@@ -30,8 +30,13 @@ from typing import Tuple
 import torch
 
 from coarsegrainingvae_tpu_torch.ops import cuda_build
-from coarsegrainingvae_tpu_torch.ops.fused_message import MAX_RBF
+from coarsegrainingvae_tpu_torch.ops.fused_message import SMEM_PER_BLOCK
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
+
+# past R+1 = 16 the wide kernels keep, per lane, w (R+1, 9), the pair's basis
+# (R+1) and the backward's d_w sums (R+1, 9) in shared memory
+# (csrc/fused_pseudo.cu); the backward sets the bound
+MAX_RBF = SMEM_PER_BLOCK // (4 * 32 * (2 * 9 + 1)) - 1
 
 # the sender payload of channels 2..8 (pallas_pseudo.py:54)
 _CARRIES_V = {2: True, 3: False, 4: False, 5: False, 6: True, 7: True, 8: False}
@@ -152,7 +157,10 @@ def _check_cuda_inputs(args: dict, n_rbf: int) -> Tuple[int, int, int]:
     cuda_build.check_inputs(args, args["xyz"].device)
     b, m, _, f = args["phi"].shape
     if not 1 <= n_rbf <= MAX_RBF:
-        raise ValueError(f"n_rbf must be in [1, {MAX_RBF}], got {n_rbf}")
+        raise ValueError(
+            f"n_rbf must be in [1, {MAX_RBF}], got {n_rbf}: past R+1 = 16 the "
+            f"pseudo kernels hold w and d_w in the {SMEM_PER_BLOCK // 1024} KB of "
+            f"shared memory of one block")
     node, vec = (b, m, f), (b, m, 3, f)
     expected = {"xyz": (b, m, 3), "mask": (b, m), "phi": (b, m, 9, f),
                 "s": node, "sbar": node, "v": vec, "vbar": vec,

@@ -3,8 +3,7 @@
 
 The step is the JAX package's: forward, ``vae_loss``, backward, the
 skip-batch guard, a global-norm clip, then Adam with an injected learning
-rate (utils.py:145-156 of the original code). PyTorch runs it eagerly, so
-nothing is compiled and nothing is baked in: beta, gamma and the skip
+rate (utils.py:145-156 of the original code). Beta, gamma and the skip
 threshold are read from ``Trainer.cfg`` at every step. On a CUDA device
 every message layer runs a hand-written kernel forward and backward
 (``ops.fused_message``, ``ops.fused_pseudo``).
@@ -15,15 +14,24 @@ holds references to them. The skip-batch guard stays on the device: a
 rejected batch gives a zero update and leaves the moments and their step
 count unchanged, chosen with ``torch.where`` and no host synchronisation.
 
+The device-resident epoch (``run_epoch_scan``, ``run_epoch_scan_eval``,
+``run_epoch_streamed``; the JAX package's epoch as one ``lax.scan``) runs a
+step written against static buffers (``_EpochProgram``): it gathers its
+batch from a device index table at a device step counter and writes the
+optimizer state and its metrics into tensors whose addresses never change.
+On a CUDA device one train step and one eval step are captured as CUDA
+graphs and replayed S times per epoch, with no Python per step; a capture
+that fails raises. On the CPU the same step runs in a Python loop. ``fit``
+takes that path for data held on the device and frees the graphs when it
+returns; ``train_step`` / ``eval_step`` stay the eager API.
+
 ``fit`` saves and resumes through ``train.checkpoint.CheckpointManager``.
 Each epoch draws its noise from generators seeded from (seed, epoch), the
 stand-in for the JAX package's ``fold_in(base_rng, epoch)``, so a resumed
 run draws at epoch e what an uninterrupted one draws there.
 
 Not ported yet (ROADMAP.md): the excluded-volume loss and its zeta_warmup
-ramp (A8; ``zeta > 0`` raises), the epoch-as-one-program scan and the
-streamed epoch (the device path here is a Python loop over index batches),
-and the multi-device meshes.
+ramp (A8; ``zeta > 0`` raises) and the multi-device meshes.
 """
 from __future__ import annotations
 
@@ -145,6 +153,159 @@ def _mean(values: List[torch.Tensor]) -> float:
     return float(np.mean(torch.stack(values).float().cpu().numpy()))
 
 
+# eager steps on a side stream before a capture: the lazy set-up (kernel
+# builds and their shared-memory limits, cuBLAS handles and workspaces,
+# autograd's device threads) happens there, not inside the capture
+WARMUP_STEPS = 3
+
+
+def _step_tensors(state: TrainState) -> tuple:
+    """The tensors a train step replaces: the moments, their count, the step."""
+    return (state.opt_state.count, state.opt_state.mu, state.opt_state.nu, state.step)
+
+
+def _kernel_counters() -> tuple:
+    """The kernel wrappers whose ``launches`` attributes count launches."""
+    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
+    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+
+    return (mo.fused_message, mo.fused_message_vjp, po.fused_pseudo_message,
+            po.fused_pseudo_vjp)
+
+
+class _EpochProgram:
+    """One train or eval step over one DeviceDataset, written against
+    static buffers: the (S_max, B) index table, the step counter, the
+    (S_max, k) metrics buffer and, for training, the optimizer state, step
+    and lr of ``state``, all updated in place. On a CUDA device the step is
+    captured once as a CUDA graph and replayed; its noise comes from a
+    generator registered with the graph, loaded from the caller's before
+    the replays and copied back after them."""
+
+    def __init__(self, trainer: "Trainer", dds: DeviceDataset, train: bool, max_steps: int):
+        device = trainer.device
+        self.trainer, self.dds, self.train = trainer, dds, train
+        self.table = torch.zeros((max_steps, trainer.cfg.data.batch_size), dtype=torch.long,
+                                 device=device)
+        self.counter = torch.zeros((), dtype=torch.long, device=device)
+        self.keys: Optional[List[str]] = None
+        self.metrics: Optional[torch.Tensor] = None
+        self.state: Optional[TrainState] = None
+        self.graph = None
+        self.graph_generator: Optional[torch.Generator] = None
+        self.launches: Optional[List[int]] = None     # per replay, counted at capture
+        self._generator: Optional[torch.Generator] = None
+
+    def step(self) -> None:
+        """One step at row ``counter`` of the table; no host synchronisation."""
+        idx = self.table.index_select(0, self.counter.view(1)).view(-1)
+        batch = self.dds.gather(idx)
+        tr = self.trainer
+        if self.train:
+            new, metrics = tr.train_step(self.state, batch, self._generator)
+            with torch.no_grad():
+                for static, value in zip(_step_tensors(self.state), _step_tensors(new)):
+                    static.copy_(value)
+        else:
+            metrics = tr.eval_step(batch, self._generator)
+        with torch.no_grad():
+            if self.metrics is None:
+                self.keys = list(metrics)
+                self.metrics = torch.zeros((self.table.shape[0], len(self.keys)),
+                                           dtype=torch.float32, device=tr.device)
+            row = torch.stack([metrics[k].float() for k in self.keys])
+            self.metrics.index_copy_(0, self.counter.view(1), row.view(1, -1))
+            self.counter.add_(1)
+
+    def _adopt(self, state: TrainState) -> None:
+        """Make ``state``'s optimizer tensors the static ones, or copy them in."""
+        if self.state is None:
+            self.state = state
+            return
+        with torch.no_grad():
+            for a, b in zip((*_step_tensors(self.state), self.state.lr),
+                            (*_step_tensors(state), state.lr)):
+                if a is not b:
+                    a.copy_(b)
+
+    def _capture(self, source: torch.Generator) -> None:
+        """Warm up on a side stream, capture one step, then undo the
+        warm-up: parameters, moments and step as they were, the kernels'
+        launch counts as they were. A replay adds the counts of the capture
+        to them."""
+        device = self.trainer.device
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError("this PyTorch lacks CUDAGraph.register_generator_state; the "
+                               "captured epoch needs a generator registered with its graph")
+        gen = torch.Generator(device=device)
+        gen.set_state(source.get_state())
+        self._generator = gen
+        counters = _kernel_counters()
+        before = [fn.launches for fn in counters]
+        changed = (*self.state.params.values(), *_step_tensors(self.state)) if self.train else ()
+        saved = [t.detach().clone() for t in changed]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self.counter.zero_()
+                self.step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.counter.zero_()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(gen)
+        counts = [fn.launches for fn in counters]
+        with torch.cuda.graph(graph):
+            self.step()
+        self.launches = [fn.launches - c for fn, c in zip(counters, counts)]
+        for fn, n in zip(counters, before):
+            fn.launches = n
+        with torch.no_grad():
+            for t, v in zip(changed, saved):
+                t.copy_(v)
+        self.graph, self.graph_generator = graph, gen
+
+    def run(self, state: Optional[TrainState], batches: np.ndarray,
+            generator: Optional[torch.Generator], capture: bool) -> Dict[str, float]:
+        """S steps over ``batches`` (S, B): replays of the captured step when
+        ``capture``, else the step in a Python loop. Returns the metrics'
+        epoch means, read back once."""
+        n_steps = batches.shape[0]
+        if n_steps > self.table.shape[0]:
+            raise ValueError(f"{n_steps} steps, the program holds {self.table.shape[0]}")
+        if self.train:
+            self._adopt(state)
+        self.table[:n_steps].copy_(torch.as_tensor(batches, dtype=torch.long))
+        self.counter.zero_()
+        if not capture:
+            self._generator = generator
+            for _ in range(n_steps):
+                self.step()
+        else:
+            device = self.trainer.device
+            source = generator if generator is not None else \
+                torch.cuda.default_generators[device.index or 0]
+            if self.graph is None:
+                self._capture(source)
+            self.graph_generator.set_state(source.get_state())
+            counters = _kernel_counters()
+            for _ in range(n_steps):
+                self.graph.replay()
+                for fn, n in zip(counters, self.launches):
+                    fn.launches += n
+            source.set_state(self.graph_generator.get_state())
+        host = self.metrics[:n_steps].cpu().numpy()
+        out = {k: float(np.mean(np.ascontiguousarray(host[:, j])))
+               for j, k in enumerate(self.keys)}
+        out["n_steps"] = n_steps
+        return out
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.graph_generator = None
+
+
 class Trainer:
     """Train and eval steps, epoch loops and ``fit`` around one model on
     one device: the card unless the caller passes ``device="cpu"``. The
@@ -160,6 +321,10 @@ class Trainer:
         self.model = model.to(self.device)
         self.cfg = cfg
         self.tx = make_optimizer(cfg.train.grad_clip, cfg.train.adam_moment_dtype)
+        # static-buffer epoch programs by (DeviceDataset, train), and the two
+        # chunk buffers of run_epoch_streamed; release_graphs frees them
+        self._programs: Dict[Tuple[int, bool], _EpochProgram] = {}
+        self._stream_buffers = None
 
     # ------------------------------------------------------------------ init
     def init_state(self, batch: CGBatch) -> TrainState:
@@ -184,8 +349,11 @@ class Trainer:
         )
 
     def set_lr(self, state: TrainState, lr: float) -> TrainState:
-        return dataclasses.replace(
-            state, lr=torch.tensor(lr, dtype=torch.float32, device=self.device))
+        """Write ``lr`` into the state's device scalar, in place: a captured
+        step reads it at that address."""
+        with torch.no_grad():
+            state.lr.fill_(lr)
+        return state
 
     # ----------------------------------------------------------------- steps
     def _loss_fn(self, batch: CGBatch, generator=None):
@@ -298,6 +466,122 @@ class Trainer:
         idx = torch.as_tensor(batches, dtype=torch.long).to(self.device)
         return self._run_batches(state, (dds.gather(i) for i in idx), generator, train)
 
+    # ------------------------------------------- the epoch as one program
+    def _run_program(self, state: Optional[TrainState], dds: DeviceDataset,
+                     batches: np.ndarray, generator: Optional[torch.Generator],
+                     train: bool, capture: bool) -> Tuple[Optional[TrainState], Dict[str, float]]:
+        key = (id(dds), train)
+        prog = self._programs.get(key)
+        if prog is None:
+            max_steps = max(batches.shape[0], dds.xyz.shape[0] // self.cfg.data.batch_size)
+            prog = self._programs[key] = _EpochProgram(self, dds, train, max_steps)
+        out = prog.run(state, batches, generator, capture)
+        return (prog.state if train else state), out
+
+    def run_epoch_scan(
+        self, state: TrainState, dds: DeviceDataset,
+        generator: Optional[torch.Generator] = None,
+        shuffle_rng: Optional[np.random.Generator] = None,
+    ) -> Tuple[TrainState, Dict[str, float]]:
+        """Train one epoch over a DeviceDataset as one program: on a CUDA
+        device, replays of the captured step (captured at the first call
+        for this dataset); on the CPU the same static step in a loop. The
+        returned state's optimizer tensors are the program's static ones,
+        updated in place by later epochs."""
+        batches = epoch_index_batches(dds.n_frames, self.cfg.data.batch_size, shuffle_rng)
+        return self._run_program(state, dds, batches, generator, True,
+                                 self.device.type == "cuda")
+
+    def run_epoch_scan_eval(self, params, dds: DeviceDataset,
+                            generator: Optional[torch.Generator] = None) -> Dict[str, float]:
+        """Evaluate one epoch over a DeviceDataset as one program (the
+        val set cycled to whole batches). ``params`` is kept for the JAX
+        package's signature: the model evaluates its own parameters, which
+        ``state.params`` holds."""
+        batches = epoch_index_batches(dds.n_frames, self.cfg.data.batch_size, None)
+        return self._run_program(None, dds, batches, generator, False,
+                                 self.device.type == "cuda")[1]
+
+    def run_epoch_streamed(
+        self, state: TrainState, dataset: CGDatasetArrays,
+        generator: Optional[torch.Generator], chunk_frames: int,
+        shuffle_rng: Optional[np.random.Generator] = None,
+    ) -> Tuple[TrainState, Dict[str, float]]:
+        """Epoch over a dataset too large for device memory: the frames go
+        to the device in chunks, each trained as one program, chunk c
+        drawing from a generator seeded from (the generator's seed, c) as
+        the JAX package folds c into its key. Two static chunk buffers
+        alternate; on a CUDA device the next chunk's copy runs from pinned
+        memory on a side stream while this chunk's steps replay, and the
+        replays wait for its event. chunk_frames should be a multiple of
+        the batch size; a tail chunk cycles as usual."""
+        bs = self.cfg.data.batch_size
+        order = np.arange(len(dataset))
+        if shuffle_rng is not None:
+            shuffle_rng.shuffle(order)
+        chunks = [order[lo:lo + chunk_frames] for lo in range(0, len(order), chunk_frames)
+                  if len(order) - lo >= bs or lo == 0]
+        seed = generator.initial_seed() if generator is not None else torch.initial_seed()
+        cap = max(len(c) for c in chunks)
+        if self._stream_buffers is None or self._stream_buffers[0] is not dataset \
+                or self._stream_buffers[1] < cap:
+            self._stream_buffers = (dataset, cap, [
+                DeviceDataset.from_dataset(dataset.subset(order[:cap]), self.device)
+                for _ in range(2)])
+        buffers = self._stream_buffers[2]
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        ready: List[Optional[torch.cuda.Event]] = [None, None]
+        pinned = []                  # host copies kept alive until their copy ends
+
+        def fill(c: int) -> None:
+            buf, idx = buffers[c % 2], chunks[c]
+            host = [torch.from_numpy(np.ascontiguousarray(a[idx], dtype=np.float32))
+                    for a in (dataset.xyz, dataset.cg_xyz)]
+            if cuda:
+                host = [h.pin_memory() for h in host]
+                pinned.append(host)
+                # the replays that read this buffer (chunk c - 2) come first
+                copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(copy_stream):
+                    buf.xyz[:len(idx)].copy_(host[0], non_blocking=True)
+                    buf.cg_xyz[:len(idx)].copy_(host[1], non_blocking=True)
+                    ready[c % 2] = torch.cuda.Event()
+                    ready[c % 2].record(copy_stream)
+            else:
+                buf.xyz[:len(idx)].copy_(host[0])
+                buf.cg_xyz[:len(idx)].copy_(host[1])
+            buf.n_frames = len(idx)
+
+        agg: Dict[str, list] = {}
+        n_steps = 0
+        fill(0)
+        for c in range(len(chunks)):
+            if c + 1 < len(chunks):
+                fill(c + 1)          # enqueued before this chunk's steps
+            if cuda:
+                torch.cuda.current_stream(self.device).wait_event(ready[c % 2])
+            state, m = self.run_epoch_scan(state, buffers[c % 2],
+                                           derived_generator(self.device, seed, c))
+            steps = m.pop("n_steps")
+            n_steps += steps
+            for k, v in m.items():
+                agg.setdefault(k, []).append((v, steps))
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        out = {k: float(sum(v * w for v, w in vs) / sum(w for _, w in vs))
+               for k, vs in agg.items()}
+        out["n_steps"] = n_steps
+        return state, out
+
+    def release_graphs(self) -> None:
+        """Free the captured graphs, their memory pools and the chunk
+        buffers; the next epoch program captures anew."""
+        for prog in self._programs.values():
+            prog.release()
+        self._programs.clear()
+        self._stream_buffers = None
+
     def run_epoch(
         self, state: TrainState, dataset: CGDatasetArrays,
         generator: Optional[torch.Generator] = None, train: bool = True,
@@ -318,8 +602,11 @@ class Trainer:
     ) -> Tuple[TrainState, list]:
         """Training run with the LOWESS plateau LR and early stopping;
         returns (final state, per-epoch history rows). on_device=True holds
-        both splits on the device (DeviceDataset); False streams host
-        batches.
+        both splits on the device (DeviceDataset) and runs each epoch as one
+        program (``run_epoch_scan``, ``run_epoch_scan_eval``: on a CUDA
+        device replays of a captured step, freed when fit returns); False,
+        or a dataset with per-frame aux edges, streams host batches
+        through the eager step.
 
         ckpt: an optional ``train.checkpoint.CheckpointManager``. The full
         train state is saved when the run stops, on the final epoch and
@@ -359,62 +646,65 @@ class Trainer:
             history = meta.get("history", [])
             state = self.set_lr(state, controller.lr)
 
-        for epoch in range(start_epoch, n_epochs):
-            t0 = time.time()
-            train_gen = derived_generator(self.device, seed, epoch)
-            val_gen = derived_generator(self.device, seed, epoch, 999)
-            if dds_train is not None:
-                state, train_m = self.run_epoch_device(
-                    state, dds_train, train_gen, shuffle_rng=shuffle_rng)
-                _, val_m = self.run_epoch_device(state, dds_val, val_gen, train=False)
-            else:
-                state, train_m = self.run_epoch(
-                    state, trainset, train_gen, shuffle_rng=shuffle_rng)
-                _, val_m = self.run_epoch(state, valset, val_gen, train=False)
-            if epoch >= warm_epochs:
-                smoothed = controller.step(val_m["loss"])
-            else:
-                smoothed = val_m["loss"]
-            state = self.set_lr(state, controller.lr)
-            # the effective end-of-epoch LR during an lr_warmup ramp
-            lr_eff = controller.lr
-            if tc.lr_warmup > 0:
-                lr_eff *= min(((epoch + 1) * steps_per_epoch) / tc.lr_warmup, 1.0)
-            row = {
-                "epoch": epoch,
-                "lr": lr_eff,
-                "train_loss": train_m["loss"],
-                "val_loss": val_m["loss"],
-                "train_recon": train_m["recon"],
-                "val_recon": val_m["recon"],
-                "train_KL": train_m["kl"],
-                "val_KL": val_m["kl"],
-                "train_graph": train_m["graph"],
-                "val_graph": val_m["graph"],
-                "val_loss_smoothed": smoothed,
-                "epoch_time_s": time.time() - t0,
-            }
-            history.append(row)
-            if log_fn is not None:
-                log_fn(row)
-
-            if epoch >= warm_epochs:
-                stopper(smoothed)
-            # NaN abort (run_ala.py:278-281)
-            stop = (controller.converged or stopper.early_stop
-                    or not np.isfinite(val_m["recon"]))
-            # save on stop, on the periodic schedule and always on the final
-            # epoch, so a run that spends its epoch budget can be restored
-            if ckpt is not None and (
-                stop or epoch + 1 == n_epochs
-                or (tc.checkpoint_every > 0 and (epoch + 1) % tc.checkpoint_every == 0)
-            ):
-                ckpt.save(epoch, state, metadata={
+        try:
+            for epoch in range(start_epoch, n_epochs):
+                t0 = time.time()
+                train_gen = derived_generator(self.device, seed, epoch)
+                val_gen = derived_generator(self.device, seed, epoch, 999)
+                if dds_train is not None:
+                    state, train_m = self.run_epoch_scan(
+                        state, dds_train, train_gen, shuffle_rng=shuffle_rng)
+                    val_m = self.run_epoch_scan_eval(state.params, dds_val, val_gen)
+                else:
+                    state, train_m = self.run_epoch(
+                        state, trainset, train_gen, shuffle_rng=shuffle_rng)
+                    _, val_m = self.run_epoch(state, valset, val_gen, train=False)
+                if epoch >= warm_epochs:
+                    smoothed = controller.step(val_m["loss"])
+                else:
+                    smoothed = val_m["loss"]
+                state = self.set_lr(state, controller.lr)
+                # the effective end-of-epoch LR during an lr_warmup ramp
+                lr_eff = controller.lr
+                if tc.lr_warmup > 0:
+                    lr_eff *= min(((epoch + 1) * steps_per_epoch) / tc.lr_warmup, 1.0)
+                row = {
                     "epoch": epoch,
-                    "controller": controller.save_state(),
-                    "stopper": stopper.save_state(),
-                    "history": history,
-                })
-            if stop:
-                break
+                    "lr": lr_eff,
+                    "train_loss": train_m["loss"],
+                    "val_loss": val_m["loss"],
+                    "train_recon": train_m["recon"],
+                    "val_recon": val_m["recon"],
+                    "train_KL": train_m["kl"],
+                    "val_KL": val_m["kl"],
+                    "train_graph": train_m["graph"],
+                    "val_graph": val_m["graph"],
+                    "val_loss_smoothed": smoothed,
+                    "epoch_time_s": time.time() - t0,
+                }
+                history.append(row)
+                if log_fn is not None:
+                    log_fn(row)
+
+                if epoch >= warm_epochs:
+                    stopper(smoothed)
+                # NaN abort (run_ala.py:278-281)
+                stop = (controller.converged or stopper.early_stop
+                        or not np.isfinite(val_m["recon"]))
+                # save on stop, on the periodic schedule and always on the final
+                # epoch, so a run that spends its epoch budget can be restored
+                if ckpt is not None and (
+                    stop or epoch + 1 == n_epochs
+                    or (tc.checkpoint_every > 0 and (epoch + 1) % tc.checkpoint_every == 0)
+                ):
+                    ckpt.save(epoch, state, metadata={
+                        "epoch": epoch,
+                        "controller": controller.save_state(),
+                        "stopper": stopper.save_state(),
+                        "history": history,
+                    })
+                if stop:
+                    break
+        finally:
+            self.release_graphs()
         return state, history

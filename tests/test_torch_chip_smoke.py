@@ -113,3 +113,20 @@ def test_cv_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
         width, 90, 1, 1, chip_smoke.CV_EVALS, "cross")
     assert min(paths["cv"].values()) > 0 and paths["cv_cross"]["fused_pseudo_message"] == 0
     assert (tmp_path / "chiprun_out" / "cv_data" / "dipeptide.npz").is_file()
+
+
+def test_cgae_phase_rehearses_on_the_cpu(monkeypatch):
+    """The cgae phase's checks at a small depth on the CPU (both runs of the
+    learn_map core on the CPU there: the same draws give the same logits)."""
+    import coarsegrainingvae_tpu_torch.models.cgae as cgae
+
+    calls = []
+    real = cgae.learn_map
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("device"))
+        return real(*args, **dict(kwargs, n_steps=60))
+
+    monkeypatch.setattr(cgae, "learn_map", counted)
+    chip_smoke.cgae_phase(device="cpu", n_frames=48, n_steps=60)
+    assert calls and set(calls) == {"cpu"}

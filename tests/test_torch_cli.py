@@ -240,8 +240,7 @@ def test_sparse_only_models_raise(dec_type, sparse, force):
     assert isinstance(build_flagship_model(tcfg.ModelConfig(n_basis=8)), DenseCGVAE)
 
 
-@pytest.mark.parametrize("extra,match", [(["--sparse"], "A9"), (["-zeta", "1.0"], "A8"),
-                                         (["-cg_method", "cgae"], "A11")])
+@pytest.mark.parametrize("extra,match", [(["--sparse"], "A9"), (["-zeta", "1.0"], "A8")])
 def test_unported_options_raise(runs, tmp_path, monkeypatch, extra, match):
     monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(runs["data"]))
     with pytest.raises(NotImplementedError, match=match):

@@ -63,12 +63,6 @@ def test_mappings_match(dipeptide, method):
         jmap.newman_mapping(bonds, z.shape[0], 4, mapshuffle=0.2, seed=3))
 
 
-def test_cgae_mapping_is_not_ported(dipeptide):
-    z, frames, bonds = dipeptide
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmap.get_mapping("cgae", 3, z.shape[0], frames=frames)
-
-
 def test_relax_frames_matches_jax(dipeptide):
     z, frames, bonds = dipeptide
     rng = np.random.default_rng(0)

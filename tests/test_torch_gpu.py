@@ -437,3 +437,178 @@ def test_from_run_on_card_serves_the_trained_model(cuda_device, tmp_path, monkey
     got, want = bm.backmap(cg, n_samples=4, seed=1), ref.backmap(cg, n_samples=4, seed=1)
     assert np.isfinite(got).all()
     assert float(np.abs(got - want).max()) <= 1e-6 * float(np.abs(want).max())
+
+
+# the wide kernels (R+1 > 16, pair_geometry.cuh): n_rbf 16 and 20 and the
+# largest each wrapper takes, at the encoder's N 27 (S 3 and 4) and the
+# decoder's M 3 and 6
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [16, 20, "max"])
+@pytest.mark.parametrize("n,s", [(27, 3), (27, 4)])
+def test_wide_message_kernels_match_plain_on_card(cuda_device, n, s, r):
+    from coarsegrainingvae_tpu_torch.ops.fused_message import MAX_RBF
+
+    r = MAX_RBF if r == "max" else r
+    args = _message_inputs(n, s, 20, cuda_device, f=40, r=r)
+    ref = message_reference(*args, CUT, r)
+    _close_rel(fused_message(*args, CUT, r), ref)
+    gs, gv = _cotangents(ref, 21, cuda_device)
+    _close_rel(fused_message_vjp(*args, gs, gv, CUT, r),
+               message_vjp_reference(*args, gs, gv, CUT, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [16, 20, "max"])
+@pytest.mark.parametrize("m", [3, 6])
+def test_wide_pseudo_kernels_match_plain_on_card(cuda_device, m, r):
+    from coarsegrainingvae_tpu_torch.ops.fused_pseudo import MAX_RBF
+
+    r = MAX_RBF if r == "max" else r
+    args = _pseudo_inputs(m, 22, cuda_device, f=40, r=r, b=8)
+    ref = pseudo_reference(*args, CUT, r)
+    _close_rel(fused_pseudo_message(*args, CUT, r), ref)
+    cts = _cotangents(ref, 23, cuda_device)
+    _close_rel(fused_pseudo_vjp(*args, *cts, CUT, r), pseudo_vjp_reference(*args, *cts, CUT, r))
+
+
+@pytest.mark.gpu
+def test_wrappers_name_the_wide_bound_on_card(cuda_device):
+    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
+    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+
+    args = _message_inputs(5, 3, 7, cuda_device, r=mo.MAX_RBF + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_message(*args, CUT, mo.MAX_RBF + 1)
+    args = _pseudo_inputs(3, 7, cuda_device, r=po.MAX_RBF + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_pseudo_message(*args, CUT, po.MAX_RBF + 1)
+
+
+def _epoch_setup(cuda_device, n_frames=32, det=False):
+    """A small trainer on the card and a DeviceDataset of n_frames."""
+    import dataclasses
+
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
+    from coarsegrainingvae_tpu_torch.data.device import DeviceDataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=n_frames, seed=0,
+                                         device=cuda_device)
+    ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
+                       bonds, order=2)
+    cfg = _tiny_train_cfg()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, det=det))
+    tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                 device=cuda_device)
+    return tr, tr.init_state(ds.batch(np.arange(8))), DeviceDataset.from_dataset(ds, cuda_device)
+
+
+def _tensors(state):
+    return (*state.params.values(), state.opt_state.count, state.opt_state.mu,
+            state.opt_state.nu, state.step)
+
+
+@pytest.mark.gpu
+def test_captured_epoch_equals_eager_on_card(cuda_device):
+    """run_epoch_scan's replays against the same static step run eagerly,
+    from the same state and generator, with the model's noise on: metrics,
+    parameters, moments and the generator's state bit for bit."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.device import epoch_index_batches
+
+    tr, state, dds = _epoch_setup(cuda_device)
+    start = [t.detach().clone() for t in _tensors(state)]
+    batches = epoch_index_batches(dds.n_frames, 8, np.random.default_rng(0))
+    runs = []
+    for capture in (False, True):
+        with torch.no_grad():
+            for t, v in zip(_tensors(state), start):
+                t.copy_(v)
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        st, m = tr._run_program(state, dds, batches, gen, True, capture)
+        runs.append((m, [t.detach().clone() for t in _tensors(st)], gen.get_state()))
+    tr.release_graphs()
+    (m_e, p_e, g_e), (m_c, p_c, g_c) = runs
+    assert m_e == m_c and torch.equal(g_e, g_c)
+    for a, b in zip(p_e, p_c):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_registered_generator_streams_per_epoch_on_card(cuda_device):
+    """Each captured epoch draws from the generator it is given: epochs
+    seeded a, b, a replay what eager epochs seeded a, b, a draw, and the
+    given generator ends where the eager one does."""
+    import numpy as np
+
+    tr, state, dds = _epoch_setup(cuda_device)
+    start = [t.detach().clone() for t in _tensors(state)]
+    out = {}
+    for scan in (True, False):
+        with torch.no_grad():
+            for t, v in zip(_tensors(state), start):
+                t.copy_(v)
+        rows = []
+        for seed in (1, 2, 1):
+            gen = torch.Generator(device=cuda_device).manual_seed(seed)
+            if scan:
+                state, m = tr.run_epoch_scan(state, dds, gen, np.random.default_rng(seed))
+            else:
+                state, m = tr.run_epoch_device(state, dds, gen, shuffle_rng=np.random.default_rng(seed))
+            rows.append((m, gen.get_state()))
+        out[scan] = rows
+    tr.release_graphs()
+    for (m_s, g_s), (m_d, g_d) in zip(out[True], out[False]):
+        assert m_s == m_d and torch.equal(g_s, g_d)
+
+
+@pytest.mark.gpu
+def test_replays_count_their_launches_on_card(cuda_device):
+    """A replay runs no Python; each credits the launches its capture
+    counted: 2 + 2 message forwards and backwards and 2 pseudo ones per
+    train step, 2 + 2 and 2 forwards per eval step. The warm-up and the
+    capture itself count none."""
+    counters = (fused_message, fused_message_vjp, fused_pseudo_message, fused_pseudo_vjp)
+    tr, state, dds = _epoch_setup(cuda_device)
+    before = [fn.launches for fn in counters]
+    state, m = tr.run_epoch_scan(state, dds, torch.Generator(device=cuda_device).manual_seed(0))
+    mid = [fn.launches for fn in counters]
+    tr.run_epoch_scan_eval(state.params, dds, torch.Generator(device=cuda_device).manual_seed(1))
+    after = [fn.launches for fn in counters]
+    tr.release_graphs()
+    steps = m["n_steps"]
+    assert [b - a for a, b in zip(before, mid)] == [4 * steps, 4 * steps, 2 * steps, 2 * steps]
+    assert [b - a for a, b in zip(mid, after)] == [4 * steps, 0, 2 * steps, 0]
+
+
+@pytest.mark.gpu
+def test_learn_map_on_card_matches_cpu(cuda_device):
+    """learn_map's core on the card and on the CPU from the same draws: the
+    same mapping, logits within 1e-3 of their range."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.models import cgae
+
+    rng = np.random.default_rng(0)
+    data = cgae.centred_frames(rng.normal(size=(64, 12, 3)).astype(np.float32) * 3)
+    logits0 = (rng.normal(size=(12, 3)) * 0.1).astype(np.float32)
+    decode0 = (rng.normal(size=(12, 3)) / np.sqrt(3)).astype(np.float32)
+    idx = rng.integers(0, 64, size=(300, 32))
+    u = rng.uniform(1e-10, 1.0, size=(300, 32, 12, 3)).astype(np.float32)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        logits, _ = cgae.learn_map_core(
+            torch.as_tensor(data).to(dev), torch.as_tensor(logits0).to(dev),
+            torch.as_tensor(decode0).to(dev),
+            zip(torch.as_tensor(idx).to(dev), torch.as_tensor(u).to(dev)))
+        out.append(logits.cpu())
+    got, want = out
+    np.testing.assert_array_equal(cgae.hard_mapping(got), cgae.hard_mapping(want))
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.max() - want.min())
+    mapping = cgae.learn_map(data, 3, n_steps=100, seed=0, device=cuda_device)
+    assert mapping.shape == (12,) and mapping[0] == 0

@@ -214,12 +214,15 @@ def test_wrapper_backward_passes_gradcheck_in_float64():
     pytest.param("pseudo", 0, id="pseudo-0"), pytest.param("pseudo", 16, id="pseudo-16")])
 def test_message_wrapper_refuses_basis_sizes_without_a_kernel(wrapper, n_rbf):
     """The CUDA kernels, message and pseudo, exist for R+1 in 2..16 (a
-    template parameter); each wrapper's input check refuses any other n_rbf
-    before a build or a launch. The check runs on CPU tensors here as it
+    template parameter) and, past 16, as the wide kernels up to the bound
+    that one block's shared memory sets (``MAX_RBF``); each wrapper's input
+    check refuses n_rbf 0 and n_rbf past the bound before a build or a
+    launch, and takes n_rbf 16. The check runs on CPU tensors here as it
     does on CUDA ones."""
     from coarsegrainingvae_tpu_torch.ops import fused_message as mo
     from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
 
+    bound = mo.MAX_RBF if wrapper == "message" else po.MAX_RBF
     if wrapper == "message":
         check, s = mo._check_cuda_inputs, 3
         xyz, mask, phi, v, _ = [torch.as_tensor(a) for a in _message_inputs(4, 3, seed=3)]
@@ -230,8 +233,10 @@ def test_message_wrapper_refuses_basis_sizes_without_a_kernel(wrapper, n_rbf):
         names = ("xyz", "mask", "phi", "s", "sbar", "v", "vbar")
         args = dict(zip(names, [torch.as_tensor(a) for a in _pseudo_inputs(4, seed=3)[:7]]))
         want = (B, 4, F)
-    args["w"] = torch.zeros(n_rbf + 1, s, F)
+    refused = n_rbf if n_rbf == 0 else bound + 1
+    args["w"] = torch.zeros(refused + 1, s, F)
     with pytest.raises(ValueError, match="n_rbf"):
-        check(args, n_rbf)
-    args["w"] = torch.zeros(R + 1, s, F)
-    assert check(args, R) == want
+        check(args, refused)
+    for taken in (R, n_rbf) if n_rbf else (R,):
+        args["w"] = torch.zeros(taken + 1, s, F)
+        assert check(args, taken) == want
