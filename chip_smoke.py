@@ -28,20 +28,36 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   artifact by artifact; then ``Backmapper.from_run`` of fold 0 against the
   model the fold trained, a resumed fold 0 (``--resume`` to 3 epochs, the
   restored state held bit for bit to the saved one) and one epoch of the
-  default cross decoder.
+  default cross decoder;
+- steric: the committed ``examples/results/steric_ab`` recipes. The
+  ``dip_full_c6_hprojecteval`` step (zeta 100, h_project_eval, zeta_warmup
+  cut to 50): one f32 step card vs CPU mid-ramp, an eager and a captured
+  epoch bit for bit across the ramp's end, ms/step captured at batch 128
+  and 32 beside the captured phase's zeta-0 step; then ``run_cgvae`` with
+  the ``dip_full_z100`` flags plus ``--h_project_eval`` and the
+  ``chig_full_z200w`` recipe (chignolin, 209 atoms, 6 beads, cross decoder
+  dec 9, n_rbf 10, batch 16), one fold each cut in depth, read back by
+  ``from_run``;
+- sparse: the sparse ``CGequiVAE`` at the same width, pseudo then pseudo2
+  decoder: one f32 step card vs CPU, an eager and a captured epoch bit for
+  bit, ms/step, device busy and peak memory captured at batch 128 and 32
+  beside the dense model's, no kernel launched; then ``run_cgvae --sparse``
+  cut in depth and ``from_run(sparse=True)``.
 
 Every phase raises on failure; there is no CPU fallback. Output, in order:
 the card's name and power limit (nvidia-smi), the build with each main-path
 kernel's ptxas registers and spills, each kernel against its plain version
 (with, at the main path's shapes, its time and the plain version's from CUDA
 graph replays, and its roofline bound from ``kernel_cost``; the wide kernels,
-R+1 > 16, at n_rbf 16, 20 and the largest each takes), the serve, train,
-captured and cgae checks and timings, the cv phase's checks and its wall
-time by part,
+R+1 > 16, at n_rbf 16, 20 and the largest each takes; the chignolin
+recipe's shapes), the serve, train, captured and cgae checks and timings,
+the cv phase's checks and its wall time by part, the steric and sparse
+phases' checks and timings,
 one JSON line with one entry per kernel and timed shape, and last one JSON
 line ``{"ok": true, "device": {...}}``. The profiles' tables go to
-``chiprun_out/train_profile.txt`` and ``captured_profile_b{128,32}.txt``, the
-cv phase's data to
+``chiprun_out/train_profile.txt``, ``captured_profile_b{128,32}.txt`` and
+``sparse_{pseudo,pseudo2}_profile_b{128,32}.txt``, the cv and steric phases'
+data to
 ``chiprun_out/cv_data/`` and its runs to ``build/cv_smoke/``. Needs one
 CUDA device; imports nothing of JAX.
 """
@@ -92,6 +108,16 @@ CV_FRAMES, CV_SPLITS, CV_FOLDS, CV_EPOCHS, CV_ENSEMBLE, CV_EVALS = 640, 5, 2, 2,
 FROM_RUN_RTOL = 1e-6
 OUT_DIR = Path("chiprun_out")
 CV_DIR = Path("build") / "cv_smoke"
+# the steric recipes (examples/results/steric_ab): the dipeptide's step at
+# zeta 100 with zeta_warmup cut from 500 to STERIC_WARMUP, so that a
+# CAPTURE_STEPS-step epoch crosses the ramp's end; the chignolin recipe's
+# batch and basis
+STERIC_RECIPES = Path(__file__).resolve().parent / "examples" / "results" / "steric_ab"
+STERIC_WARMUP = 50
+CHIG_BATCH, CHIG_RBF, CHIG_FRAMES, CHIG_EVALS = 16, 10, 160, 4
+# the sparse phase: eager vs captured, and each timed epoch, over
+# SPARSE_STEPS steps (its step is ~10x the dense one's and device-bound)
+SPARSE_STEPS = 20
 
 
 def card_line() -> str:
@@ -311,6 +337,17 @@ def check_kernels() -> list:
                   ("message_vjp", 27, 3, 9.5, "encoder train B=128 N=27 S=3"),
                   ("pseudo", 3, 9, 8.5, "decoder train B=128 M=3"),
                   ("pseudo_vjp", 3, 9, 8.5, "decoder train B=128 M=3"))]
+    # the chignolin recipe's shapes (chig_full_z200w: batch 16, n_rbf 10):
+    # the encoder at N 209 under the CG cutoff 25, the prior at M 6 and the
+    # cross decoder at M 6, S 4 under the atom cutoff 12; the pseudo kernels
+    # at the same M, B and n_rbf, which no chignolin recipe runs
+    cases += [(kind, (CHIG_BATCH, n, s, CHIG_RBF), cut, f"chignolin {label}", True)
+              for base, n, s, cut, label in (
+                  ("message", 209, 3, 25.0, "encoder train B=16 N=209 S=3 n_rbf=10"),
+                  ("message", 6, 3, 25.0, "prior train B=16 M=6 S=3 n_rbf=10"),
+                  ("message", 6, 4, 12.0, "cross decoder train B=16 M=6 S=4 n_rbf=10"),
+                  ("pseudo", 6, 9, 12.0, "pseudo size B=16 M=6 n_rbf=10"))
+              for kind in (base, base + "_vjp")]
     fns = {"message": (mo.fused_message, mo.message_reference),
            "pseudo": (po.fused_pseudo_message, po.pseudo_reference),
            "message_vjp": (mo.fused_message_vjp, mo.message_vjp_reference),
@@ -366,9 +403,9 @@ def dipeptide_model_cfg(**kw):
     """bench.py::dipeptide_config's model, at the port's full width."""
     from coarsegrainingvae_tpu_torch.config import ModelConfig
 
-    return ModelConfig(n_cgs=3, n_basis=600, n_rbf=8, atom_cutoff=8.5, cg_cutoff=9.5,
-                       enc_nconv=4, dec_nconv=5, activation="swish", dec_type="pseudo",
-                       breaksym=True, **kw)
+    return ModelConfig(**{**dict(n_cgs=3, n_basis=600, n_rbf=8, atom_cutoff=8.5, cg_cutoff=9.5,
+                                 enc_nconv=4, dec_nconv=5, activation="swish",
+                                 dec_type="pseudo", breaksym=True), **kw})
 
 
 def serve() -> dict:
@@ -494,14 +531,17 @@ def device_profile(prof, wall_ms: float, steps: int) -> dict:
             "top": [(name[:70], us / 1e3 / steps, n // steps) for name, (us, n) in top]}
 
 
-def f32_step_card_vs_cpu(ds) -> tuple:
+def f32_step_card_vs_cpu(ds, cfg=None, build=None, tables=None, at_step: int = 0) -> tuple:
     """One f32 train step at full width (batch 8) on the card and on the
     CPU from the same parameters: (worst max|err|/max|ref| over every
     gradient, the same over every updated parameter). The reference update
     is the CPU's optimizer applied to the card's gradient: Adam's first
     step maps g to g / (|g| + 1e-8), which turns rounding-level gradient
     differences of entries near zero into update differences up to lr, so
-    the gradients are compared first and the update on its own."""
+    the gradients are compared first and the update on its own. ``cfg``
+    defaults to bench.py's recipe at f32, ``build`` to the dense model;
+    ``tables`` are steric tables, and ``at_step`` the step counter both
+    states start from (where a warm-up ramp stands)."""
     import numpy as np
     import torch
 
@@ -509,17 +549,21 @@ def f32_step_card_vs_cpu(ds) -> tuple:
     from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
-    cfg = ExperimentConfig(
-        model=dipeptide_model_cfg(compute_dtype="float32", det=True),
-        data=DataConfig(batch_size=8),
-        train=TrainConfig(lr=3.2e-4, beta=0.05, gamma=25.0, grad_clip=0.01,
-                          adam_moment_dtype="bfloat16"))
+    if cfg is None:
+        cfg = ExperimentConfig(
+            model=dipeptide_model_cfg(compute_dtype="float32", det=True),
+            data=DataConfig(batch_size=8),
+            train=TrainConfig(lr=3.2e-4, beta=0.05, gamma=25.0, grad_clip=0.01,
+                              adam_moment_dtype="bfloat16"))
+    build = build or DenseCGVAE
     batch = ds.batch(np.arange(8))
     steps = {}
     for device in ("cuda", "cpu"):
-        tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(1)), cfg,
-                     device=device)
+        tr = Trainer(build(cfg.model, generator=torch.Generator().manual_seed(1)), cfg,
+                     device=device, steric_tables=tables)
         state = tr.init_state(batch)
+        with torch.no_grad():
+            state.step.fill_(at_step)
         loss, _, grads = tr.loss_and_grads(state, batch.to(device))
         steps[device] = (tr, state, loss, grads)
     tr, state, loss, grads = steps["cuda"]
@@ -676,136 +720,186 @@ def train_cfg(batch_size: int, **model_kw):
                           grad_clip=0.01, adam_moment_dtype="bfloat16"))
 
 
-def captured() -> dict:
-    """The epoch as one program (``Trainer.run_epoch_scan``): one epoch of
-    the static step run eagerly and one replayed from its CUDA graph, from
-    the same parameters, moments and generator state, held bit for bit
-    (one step, then CAPTURE_STEPS); then ms/step of the eager epoch
-    (``run_epoch_device``, the step in a Python loop) against the captured
-    one at batch 128 and 32, their device busy time per step and their
-    launches. Raises on any failed check."""
+def dipeptide_device_data():
+    """bench.py's 256 dipeptide frames (newman mapping) and a maker of
+    DeviceDatasets of n frames, the 256 repeated."""
     import numpy as np
-    import torch
 
     from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
-    from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
+    from coarsegrainingvae_tpu_torch.data.device import DeviceDataset
     from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
-    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
-    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
-    from torch.profiler import ProfilerActivity, profile
 
     z, frames, bonds = synthetic_peptide("dipeptide", n_frames=TRAIN_FRAMES, seed=0, device="cuda")
     ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, atom_cutoff=8.5,
                        cg_cutoff=9.5, atomic_nums=z, bonds=bonds, order=2, rotate=True)
 
-    def dataset(n):                   # n frames, the 256 repeated
+    def dataset(n):
         return DeviceDataset.from_dataset(ds.subset(np.resize(np.arange(len(ds)), n)), "cuda")
 
-    per_step = {"fused_message": ENCODER_LAYERS + PRIOR_LAYERS,
-                "fused_message_vjp": ENCODER_LAYERS + PRIOR_LAYERS,
-                "fused_pseudo_message": DECODER_LAYERS, "fused_pseudo_vjp": DECODER_LAYERS}
-    total = dict.fromkeys(per_step, 0)
+    return ds, dataset, z, bonds
+
+
+def state_tensors(st) -> tuple:
+    return (*st.params.values(), st.opt_state.count, st.opt_state.mu, st.opt_state.nu, st.step)
+
+
+def eager_equals_captured(tr, state, cases, bs: int, label: str) -> None:
+    """For each (n_steps, DeviceDataset): one epoch of the static step run
+    eagerly and one replayed from its CUDA graph, from the same parameters,
+    moments and generator state, held bit for bit (after one step, a
+    difference within TRAIN_RTOL is tolerated); the state is restored
+    after. Raises if they differ."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.data.device import epoch_index_batches
+
+    start = [t.detach().clone() for t in state_tensors(state)]
+    for n_steps, dds in cases:
+        batches = epoch_index_batches(dds.n_frames, bs, np.random.default_rng(1))
+        runs = []
+        for capture in (False, True):
+            with torch.no_grad():
+                for t, v in zip(state_tensors(state), start):
+                    t.copy_(v)
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            st, _ = tr._run_program(state, dds, batches, gen, True, capture)
+            prog = tr._programs[(id(dds), True)]
+            runs.append((prog.metrics[:n_steps].clone(),
+                         [t.detach().clone() for t in state_tensors(st)], gen.get_state()))
+        (m_e, p_e, g_e), (m_c, p_c, g_c) = runs
+        exact = (torch.equal(m_e, m_c) and torch.equal(g_e, g_c)
+                 and all(torch.equal(a, b) for a, b in zip(p_e, p_c)))
+        rel = max(((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)
+                   ).item() for a, b in zip(p_c, p_e))
+        loss_rel = ((m_c[:, 0] - m_e[:, 0]).abs().max() / m_e[:, 0].abs().max()).item()
+        print(f"{label}captured vs eager, {n_steps} step(s) at batch {bs} from the same state "
+              f"and generator: bit for bit {exact}; parameters and moments max|err|/max|ref| "
+              f"{rel:.3e}, losses {loss_rel:.3e}", flush=True)
+        if not exact and not (n_steps == 1 and rel <= TRAIN_RTOL):
+            raise RuntimeError(f"{label}the captured epoch disagrees with the eager one")
+    with torch.no_grad():
+        for t, v in zip(state_tensors(state), start):
+            t.copy_(v)
+    tr.release_graphs()
+
+
+def timed_epochs(tr, state, dds, dds_prof, bs: int, per_step: dict, label: str,
+                 kinds=("eager", "captured", "eager", "captured"), profile_name=None):
+    """Epochs over ``dds`` (n_frames / bs steps) of each of ``kinds`` in turn (eager:
+    ``run_epoch_device``; captured: ``run_epoch_scan``, captured before the
+    first timed one), each held to ``per_step`` launches per step; then a
+    profiled PROFILE_STEPS-step epoch of each kind. Prints one line per
+    kind with ms/step, samples/s, device busy and the peak memory allocated
+    over the epochs. Returns (state, {kind: [ms/step]}, captured launches,
+    peak GB)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = dds.n_frames // bs
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rng = np.random.default_rng(2)
+    timings, total = {}, dict.fromkeys(per_step, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for kind in kinds:
+        if kind == "captured" and (id(dds), True) not in tr._programs:
+            state, _ = tr.run_epoch_scan(state, dds, gen, shuffle_rng=rng)  # capture
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "eager":
+            state, m = tr.run_epoch_device(state, dds, gen, shuffle_rng=rng)
+        else:
+            state, m = tr.run_epoch_scan(state, dds, gen, shuffle_rng=rng)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = read_counts()
+        expect = {k: v * steps for k, v in per_step.items()}
+        if launches != expect or m["n_steps"] != steps or not np.isfinite(m["loss"]):
+            raise RuntimeError(f"{label}{kind} epoch at batch {bs}: launches {launches} "
+                               f"(expected {expect}), n_steps {m['n_steps']}, loss {m['loss']}")
+        if kind == "captured":
+            for k in total:
+                total[k] += launches[k]
+        timings.setdefault(kind, []).append(dt / steps * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, _ = tr.run_epoch_scan(state, dds_prof, gen)      # capture outside the window
+    busy = {}
+    for kind in dict.fromkeys(kinds):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "eager":
+                state, _ = tr.run_epoch_device(state, dds_prof, gen)
+            else:
+                state, _ = tr.run_epoch_scan(state, dds_prof, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        busy[kind] = device_profile(prof, wall_ms, PROFILE_STEPS)
+        busy[kind]["wall_ms"] = wall_ms / PROFILE_STEPS
+        if kind == "captured" and profile_name:
+            (OUT_DIR / profile_name).write_text(
+                prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    tr.release_graphs()
+    for kind in busy:
+        ms = timings[kind]
+        p = busy[kind]
+        print(f"{label}{kind} epoch, batch {bs}, {steps} steps: "
+              f"{', '.join(f'{x:.3f}' for x in ms)} ms/step, "
+              f"{', '.join(f'{bs * 1e3 / x:.1f}' for x in ms)} samples/s; profiled "
+              f"{PROFILE_STEPS} steps {p['wall_ms']:.3f} ms/step, device busy "
+              f"{p['busy_ms'] / PROFILE_STEPS:.3f} ms/step ({100 * p['busy_share']:.1f} %), "
+              f"{p['device_events_per_step']:.0f} device events and "
+              f"{p['host_launch_calls_per_step']:.0f} host launch calls per step; launches "
+              f"{per_step} per step; peak allocated {peak_gb:.3f} GB", flush=True)
+    if "captured" in busy:
+        for name, ms_step, n in busy["captured"]["top"]:
+            print(f"  {label}captured b{bs} device {ms_step:.3f} ms/step, {n}/step: {name}",
+                  flush=True)
+    return state, timings, total, peak_gb
+
+
+DENSE_PER_STEP = {"fused_message": ENCODER_LAYERS + PRIOR_LAYERS,
+                  "fused_message_vjp": ENCODER_LAYERS + PRIOR_LAYERS,
+                  "fused_pseudo_message": DECODER_LAYERS, "fused_pseudo_vjp": DECODER_LAYERS}
+
+
+def captured() -> tuple:
+    """The epoch as one program (``Trainer.run_epoch_scan``): one epoch of
+    the static step run eagerly and one replayed from its CUDA graph, from
+    the same parameters, moments and generator state, held bit for bit
+    (one step, then CAPTURE_STEPS); then ms/step of the eager epoch
+    (``run_epoch_device``, the step in a Python loop) against the captured
+    one at batch 128 and 32, their device busy time per step, launches and
+    peak memory. Raises on any failed check. Returns (the captured epochs'
+    launches, {batch: (captured ms/step runs, peak GB)})."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    ds, dataset, _, _ = dipeptide_device_data()
+    total = dict.fromkeys(DENSE_PER_STEP, 0)
+    summary = {}
     for bs in CAPTURE_BATCHES:
         tr = Trainer(DenseCGVAE(train_cfg(bs).model, generator=torch.Generator().manual_seed(0)),
                      train_cfg(bs), device="cuda")
         state = tr.init_state(ds.batch(np.arange(bs)))
         dds_long = dataset(bs * CAPTURE_STEPS)
-
-        def tensors(st):
-            return (*st.params.values(), st.opt_state.count, st.opt_state.mu, st.opt_state.nu,
-                    st.step)
-
         if bs == CAPTURE_BATCHES[0]:
-            # eager vs captured from the same state, one step and one epoch
-            start = [t.detach().clone() for t in tensors(state)]
-            for n_steps, dds in ((1, dataset(bs)), (CAPTURE_STEPS, dds_long)):
-                batches = epoch_index_batches(dds.n_frames, bs, np.random.default_rng(1))
-                runs = []
-                for capture in (False, True):
-                    with torch.no_grad():
-                        for t, v in zip(tensors(state), start):
-                            t.copy_(v)
-                    gen = torch.Generator(device="cuda").manual_seed(11)
-                    st, _ = tr._run_program(state, dds, batches, gen, True, capture)
-                    prog = tr._programs[(id(dds), True)]
-                    runs.append((prog.metrics[:n_steps].clone(),
-                                 [t.detach().clone() for t in tensors(st)], gen.get_state()))
-                (m_e, p_e, g_e), (m_c, p_c, g_c) = runs
-                exact = (torch.equal(m_e, m_c) and torch.equal(g_e, g_c)
-                         and all(torch.equal(a, b) for a, b in zip(p_e, p_c)))
-                rel = max(((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)
-                           ).item() for a, b in zip(p_c, p_e))
-                loss_rel = ((m_c[:, 0] - m_e[:, 0]).abs().max() / m_e[:, 0].abs().max()).item()
-                print(f"captured vs eager, {n_steps} step(s) at batch {bs} from the same state and "
-                      f"generator: bit for bit {exact}; parameters and moments max|err|/max|ref| "
-                      f"{rel:.3e}, losses {loss_rel:.3e}", flush=True)
-                if not exact and not (n_steps == 1 and rel <= TRAIN_RTOL):
-                    raise RuntimeError("the captured epoch disagrees with the eager one")
-            with torch.no_grad():
-                for t, v in zip(tensors(state), start):
-                    t.copy_(v)
-            del start
-
-        gen = torch.Generator(device="cuda").manual_seed(12)
-        rng = np.random.default_rng(2)
-        timings = {}
-        for kind in ("eager", "captured", "eager", "captured"):
-            if kind == "captured" and (id(dds_long), True) not in tr._programs:
-                state, _ = tr.run_epoch_scan(state, dds_long, gen, shuffle_rng=rng)  # capture
-            reset_counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if kind == "eager":
-                state, m = tr.run_epoch_device(state, dds_long, gen, shuffle_rng=rng)
-            else:
-                state, m = tr.run_epoch_scan(state, dds_long, gen, shuffle_rng=rng)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-            launches = read_counts()
-            expect = {k: v * CAPTURE_STEPS for k, v in per_step.items()}
-            if launches != expect or m["n_steps"] != CAPTURE_STEPS or not np.isfinite(m["loss"]):
-                raise RuntimeError(f"{kind} epoch at batch {bs}: launches {launches} (expected "
-                                   f"{expect}), n_steps {m['n_steps']}, loss {m['loss']}")
-            if kind == "captured":
-                for k in total:
-                    total[k] += launches[k]
-            timings.setdefault(kind, []).append(dt / CAPTURE_STEPS * 1e3)
-        dds_prof = dataset(bs * PROFILE_STEPS)
-        state, _ = tr.run_epoch_scan(state, dds_prof, gen)      # capture outside the window
-        busy = {}
-        for kind in ("eager", "captured"):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                if kind == "eager":
-                    state, _ = tr.run_epoch_device(state, dds_prof, gen)
-                else:
-                    state, _ = tr.run_epoch_scan(state, dds_prof, gen)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t) * 1e3
-            busy[kind] = device_profile(prof, wall_ms, PROFILE_STEPS)
-            busy[kind]["wall_ms"] = wall_ms / PROFILE_STEPS
-            if kind == "captured":
-                (OUT_DIR / f"captured_profile_b{bs}.txt").write_text(
-                    prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-        tr.release_graphs()
-        for kind in ("eager", "captured"):
-            ms = timings[kind]
-            p = busy[kind]
-            print(f"{kind} epoch, batch {bs}, {CAPTURE_STEPS} steps: "
-                  f"{', '.join(f'{x:.3f}' for x in ms)} ms/step, "
-                  f"{', '.join(f'{bs * 1e3 / x:.1f}' for x in ms)} samples/s; profiled "
-                  f"{PROFILE_STEPS} steps {p['wall_ms']:.3f} ms/step, device busy "
-                  f"{p['busy_ms'] / PROFILE_STEPS:.3f} ms/step ({100 * p['busy_share']:.1f} %), "
-                  f"{p['device_events_per_step']:.0f} device events and "
-                  f"{p['host_launch_calls_per_step']:.0f} host launch calls per step; launches "
-                  f"{per_step} per step", flush=True)
-        for name, ms_step, n in busy["captured"]["top"]:
-            print(f"  captured b{bs} device {ms_step:.3f} ms/step, {n}/step: {name}", flush=True)
-        del tr, state, dds_long, dds_prof
+            eager_equals_captured(tr, state, ((1, dataset(bs)), (CAPTURE_STEPS, dds_long)), bs, "")
+        state, timings, launches, peak = timed_epochs(
+            tr, state, dds_long, dataset(bs * PROFILE_STEPS), bs, DENSE_PER_STEP, "",
+            profile_name=f"captured_profile_b{bs}.txt")
+        for k in total:
+            total[k] += launches[k]
+        summary[bs] = (timings["captured"], peak)
+        del tr, state, dds_long
         torch.cuda.empty_cache()
-    return total
+    return total, summary
 
 
 def cgae_phase(device: str = "cuda", n_frames: int = CGAE_FRAMES,
@@ -980,17 +1074,14 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
     there)."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from coarsegrainingvae_tpu_torch.cli import run_cgvae
     from coarsegrainingvae_tpu_torch.config import ExperimentConfig
-    from coarsegrainingvae_tpu_torch.data.dataset import _segment_mean_np
     from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
     from coarsegrainingvae_tpu_torch.eval import sampling
     from coarsegrainingvae_tpu_torch.models import cgae
-    from coarsegrainingvae_tpu_torch.serve import Backmapper
     from coarsegrainingvae_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
@@ -1060,21 +1151,13 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
           f"checkpoints written {times.calls['checkpoint save']} x {ckpt_mb:.1f} MB", flush=True)
 
     # from_run: fold 0 read back from disk against the model the fold trained
-    t = time.perf_counter()
-    bm = Backmapper.from_run(str(run / "modelparams.json"), str(run / "fold0"), device=device)
-    load_s = time.perf_counter() - t
-    cfg = ExperimentConfig.load(str(run / "modelparams.json"))
-    mapping = np.asarray(json.loads((run / "fold0" / "mapping.json").read_text()))
-    ref_bm = Backmapper(trained[0].model, mapping, z, cfg, device=device)
-    cg = _segment_mean_np(frames[:4], mapping, 3)
-    got = bm.backmap(cg, n_samples=CV_ENSEMBLE, seed=3)
-    want = ref_bm.backmap(cg, n_samples=CV_ENSEMBLE, seed=3)
-    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    rel, load_s = fold_from_run(run, trained[0], device)
     print(f"cv from_run: fold 0 loaded in {load_s:.3f} s; backmap of 4 frames x "
           f"{CV_ENSEMBLE} samples vs the in-memory model: max|err|/max|ref| {rel:.3e} "
           f"(tolerance {FROM_RUN_RTOL:g})", flush=True)
-    if not (got.shape == want.shape and np.isfinite(got).all() and rel <= FROM_RUN_RTOL):
+    if not rel <= FROM_RUN_RTOL:
         raise RuntimeError("Backmapper.from_run disagrees with the model the fold trained")
+    cfg = ExperimentConfig.load(str(run / "modelparams.json"))
 
     # resume fold 0 to CV_EPOCHS + 1 epochs: the restored state against the file
     restored = []
@@ -1138,6 +1221,265 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
     return {"cv": launches, "cv_cross": cross_launches}
 
 
+def recipe_flags(name: str) -> list:
+    """run_cgvae flags of a committed recipe (``<name>_modelparams.json``):
+    its model, data and train fields, depth flags left to the caller."""
+    cfg = json.loads((STERIC_RECIPES / f"{name}_modelparams.json").read_text())
+    m, d, t = cfg["model"], cfg["data"], cfg["train"]
+    flags = ["-n_cgs", m["n_cgs"], "-n_basis", m["n_basis"], "-n_rbf", m["n_rbf"],
+             "-atom_cutoff", m["atom_cutoff"], "-cg_cutoff", m["cg_cutoff"],
+             "-enc_nconv", m["enc_nconv"], "-dec_nconv", m["dec_nconv"],
+             "-activation", m["activation"], "--dec_type", m["dec_type"],
+             "-dataset", d["dataset"], "-batch_size", d["batch_size"],
+             "-cg_method", d["cg_method"], "-edgeorder", d["edgeorder"],
+             "-nsplits", d["nsplits"], "-seed", d["seed"], "-lr", t["lr"], "-beta", t["beta"],
+             "-gamma", t["gamma"], "-zeta", t["zeta"], "-steric_margin", t["steric_margin"],
+             "-zeta_warmup", t["zeta_warmup"], "-patience", t["patience"],
+             "-factor", t["lr_factor"], "-lr_patience", t["lr_patience"],
+             "-min_lr", t["min_lr"], "-loss_skip_factor", t["loss_skip_factor"],
+             "--adam_dtype", t["adam_moment_dtype"]]
+    flags = [str(v) for v in flags]
+    for flag, on in (("--h_project_eval", m.get("h_project_eval")),
+                     ("--h_project", m.get("h_project")), ("--det", m.get("det")),
+                     ("--steric_data_margin", t.get("steric_data_margin"))):
+        if on:
+            flags.append(flag)
+    return flags
+
+
+def recipe_cfg(name: str, batch_size: int, **train_kw):
+    """A committed recipe's ExperimentConfig at ``batch_size``, with
+    ``train_kw`` replaced."""
+    import dataclasses
+
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.load(str(STERIC_RECIPES / f"{name}_modelparams.json"))
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=batch_size),
+        train=dataclasses.replace(cfg.train, **train_kw))
+
+
+def fold_from_run(run: Path, trained, device: str, sparse: bool = False) -> tuple:
+    """``Backmapper.from_run`` of fold 0 against the in-memory model the
+    fold trained, with the bonds and reference frame from_run reads: (max
+    |err| / max |ref| of 4 frames x CV_ENSEMBLE samples, seconds to load)."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+    from coarsegrainingvae_tpu_torch.data.dataset import _segment_mean_np
+    from coarsegrainingvae_tpu_torch.serve import Backmapper
+
+    t = time.perf_counter()
+    bm = Backmapper.from_run(str(run / "modelparams.json"), str(run / "fold0"), sparse=sparse,
+                             device=device)
+    load_s = time.perf_counter() - t
+    cfg = ExperimentConfig.load(str(run / "modelparams.json"))
+    mapping = np.asarray(json.loads((run / "fold0" / "mapping.json").read_text()))
+    ref = Backmapper(trained.model, mapping, bm.z, cfg, device=device, bonds=bm.bonds,
+                     ref_xyz=bm.ref_xyz)
+    cg = _segment_mean_np(np.repeat(bm.ref_xyz[None], 4, 0)
+                          + np.random.default_rng(0).normal(size=(4,) + bm.ref_xyz.shape) * 0.2,
+                          mapping, cfg.model.n_cgs)
+    got = bm.backmap(cg, n_samples=CV_ENSEMBLE, seed=3)
+    want = ref.backmap(cg, n_samples=CV_ENSEMBLE, seed=3)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise RuntimeError(f"from_run served {got.shape}, want {want.shape}, or not finite")
+    return float(np.abs(got - want).max() / np.abs(want).max()), load_s
+
+
+def cli_fold(args: list, label: str, dec_type: str, width: list, n_frames: int,
+             evals: int, epochs: int, sparse: bool = False, device: str = "cuda") -> dict:
+    """One fold of ``run_cgvae.main(args)`` on ``device``, its artifacts
+    checked, its launches against ``cv_expected_launches`` on the card (all
+    0 for the sparse model, which runs no kernel), and fold 0 served by
+    ``from_run`` with 0 difference from the model it trained. Returns the
+    launches. The CPU and a small width rehearse its control flow."""
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli import run_cgvae
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    trained = []
+
+    class RecordingTrainer(Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            trained.append(self)
+
+    logdir = CV_DIR / label
+    run_cgvae.Trainer = RecordingTrainer
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        rows = run_cgvae.main(args + ["-logdir", str(logdir), "-max_folds", "1",
+                                      "-nepochs", str(epochs), "--device", device])
+        wall = time.perf_counter() - t
+        launches = read_counts()
+    finally:
+        run_cgvae.Trainer = Trainer
+    (run,) = list(CV_DIR.glob(f"{label}*"))
+    check_cv_run(run, 1, epochs)
+    expect = (dict.fromkeys(launches, 0) if sparse else
+              cv_expected_launches(width, n_frames, 1, epochs, evals, dec_type))
+    (tr,) = trained
+    rel, _ = fold_from_run(run, tr, device, sparse=sparse)
+    print(f"{label}: run_cgvae 1 fold x {epochs} epochs in {wall:.3f} s ({type(tr.model).__name__}"
+          f", steric tables {tr.steric_tables is not None}); test recon RMSD "
+          f"{rows[0]['test_all_recon_rmsd']:.4f} A, sample heavy valid "
+          f"{rows[0]['sample_heavy_valid_ratio']}; launches {launches} (expected {expect}); "
+          f"from_run vs the in-memory model max|err|/max|ref| {rel:.3e}", flush=True)
+    if device == "cuda" and launches != expect:
+        raise RuntimeError(f"{label} kernel launches {launches}, expected {expect}")
+    if rel != 0.0:
+        raise RuntimeError(f"{label}: from_run disagrees with the model the fold trained")
+    del trained, tr
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def steric(dense: dict) -> dict:
+    """The steric recipes. The dip_full_c6_hprojecteval step (zeta 100,
+    h_project_eval; zeta_warmup cut to STERIC_WARMUP): one f32 step card vs
+    CPU mid-ramp, an eager and a captured epoch across the ramp's end bit
+    for bit, ms/step captured at batch 128 and 32 beside the zeta-0 step
+    of the captured phase; then run_cgvae with the dip_full_z100 flags
+    plus --h_project_eval, and the chig_full_z200w recipe at full width,
+    each one fold cut in depth, read back by from_run. Raises on any
+    failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.train.losses import build_steric_tables
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    name = "dip_full_c6_hprojecteval"
+    ds, dataset, z, bonds = dipeptide_device_data()
+    base = recipe_cfg(name, 8)
+    tables = build_steric_tables(z, bonds, margin=base.train.steric_margin)
+    print(f"steric: recipe {name} (zeta {base.train.zeta}, h_project_eval "
+          f"{base.model.h_project_eval}), zeta_warmup cut from {base.train.zeta_warmup} to "
+          f"{STERIC_WARMUP} so that a {CAPTURE_STEPS}-step epoch crosses the ramp's end; "
+          f"{int(tables[1].sum())} nonbonded pairs in the tables", flush=True)
+    cfg32 = recipe_cfg(name, 8, zeta_warmup=STERIC_WARMUP)
+    cfg32 = dataclasses.replace(cfg32, model=dataclasses.replace(
+        cfg32.model, compute_dtype="float32", det=True))
+    grad_err, param_err = f32_step_card_vs_cpu(ds, cfg32, tables=tables,
+                                               at_step=STERIC_WARMUP // 2)
+    print(f"steric f32 step card vs CPU (batch 8, ramp at 0.5): every gradient "
+          f"max|err|/max|ref| {grad_err:.3e}, every updated parameter {param_err:.3e} "
+          f"(tolerance {TRAIN_RTOL:g})", flush=True)
+    if not max(grad_err, param_err) <= TRAIN_RTOL:
+        raise RuntimeError("the f32 steric step on the card disagrees with the CPU")
+
+    total = dict.fromkeys(DENSE_PER_STEP, 0)
+    for bs in CAPTURE_BATCHES:
+        cfg = recipe_cfg(name, bs, zeta_warmup=STERIC_WARMUP)
+        tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                     device="cuda", steric_tables=tables)
+        state = tr.init_state(ds.batch(np.arange(bs)))
+        dds_long = dataset(bs * CAPTURE_STEPS)
+        if bs == CAPTURE_BATCHES[0]:
+            eager_equals_captured(tr, state, ((CAPTURE_STEPS, dds_long),), bs, "steric ")
+        state, timings, launches, peak = timed_epochs(
+            tr, state, dds_long, dataset(bs * PROFILE_STEPS), bs, DENSE_PER_STEP, "steric ",
+            kinds=("captured", "captured"))
+        zeta0, zeta0_peak = dense[bs]
+        print(f"steric vs zeta 0, batch {bs}, captured: {', '.join(f'{x:.3f}' for x in timings['captured'])}"
+              f" vs {', '.join(f'{x:.3f}' for x in zeta0)} ms/step (the captured phase, this "
+              f"call); peak allocated {peak:.3f} vs {zeta0_peak:.3f} GB", flush=True)
+        for k in total:
+            total[k] += launches[k]
+        del tr, state, dds_long
+        torch.cuda.empty_cache()
+
+    # the recipes through the CLI, cut in depth: the CV phase's dipeptide
+    # frames, and chignolin frames relaxed on the card
+    depth = ["-ndata", str(CV_FRAMES), "-n_ensemble", str(CV_ENSEMBLE), "-nevals",
+             str(CV_EVALS), "--graph_eval"]
+    dip = recipe_flags("dip_full_z100") + ["--h_project_eval"]
+    out = {"steric": total,
+           "steric_cv": cli_fold(dip + depth, "steric_dip", "pseudo", dip, CV_FRAMES,
+                                 CV_EVALS, CV_EPOCHS)}
+    t = time.perf_counter()
+    zc, frames, bonds_c = synthetic_peptide("chignolin", n_frames=CHIG_FRAMES, seed=0,
+                                            device="cuda")
+    save_npz_traj(str(OUT_DIR / "cv_data" / "chignolin.npz"), zc, frames, bonds_c)
+    print(f"chignolin data: {CHIG_FRAMES} synthetic frames of {zc.shape[0]} atoms relaxed on "
+          f"the card in {time.perf_counter() - t:.3f} s", flush=True)
+    chig = recipe_flags("chig_full_z200w")
+    out["chig"] = cli_fold(chig + ["-ndata", str(CHIG_FRAMES), "-n_ensemble", "4", "-nevals",
+                                   str(CHIG_EVALS), "--graph_eval"],
+                           "chig", "cross", chig, CHIG_FRAMES, CHIG_EVALS, 2)
+    return out
+
+
+def sparse(dense: dict) -> dict:
+    """The sparse CGequiVAE at bench.py's width, pseudo decoder then
+    pseudo2: one f32 step card vs CPU, an eager and a captured epoch bit
+    for bit, ms/step, device busy and peak memory captured at batch 128 and
+    32 beside the dense model's (the captured phase, this call), no kernel
+    launched; then run_cgvae --sparse cut in depth and from_run(sparse=True).
+    Raises on any failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.models.cgvae import CGequiVAE
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    ds, dataset, _, _ = dipeptide_device_data()
+    none = dict.fromkeys(DENSE_PER_STEP, 0)
+    total = dict(none)
+    for dec_type in ("pseudo", "pseudo2"):
+        cfg32 = train_cfg(8, dec_type=dec_type, sparse=True, compute_dtype="float32", det=True)
+        cfg32 = dataclasses.replace(cfg32, train=dataclasses.replace(cfg32.train, lr=3.2e-4))
+        grad_err, param_err = f32_step_card_vs_cpu(ds, cfg32, build=CGequiVAE)
+        print(f"sparse {dec_type} f32 step card vs CPU (batch 8): every gradient "
+              f"max|err|/max|ref| {grad_err:.3e}, every updated parameter {param_err:.3e} "
+              f"(tolerance {TRAIN_RTOL:g})", flush=True)
+        if not max(grad_err, param_err) <= TRAIN_RTOL:
+            raise RuntimeError(f"the f32 sparse {dec_type} step on the card disagrees with the CPU")
+        for bs in CAPTURE_BATCHES:
+            cfg = train_cfg(bs, dec_type=dec_type, sparse=True)
+            tr = Trainer(CGequiVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                         device="cuda")
+            state = tr.init_state(ds.batch(np.arange(bs)))
+            if bs == CAPTURE_BATCHES[0]:
+                n_params = sum(p.numel() for p in state.params.values())
+                print(f"sparse {dec_type}: {n_params} parameters; atom edges per batch "
+                      f"{int(ds.nbr_mask[:bs].sum())}, CG edges {int(ds.cg_nbr_mask[:bs].sum())}",
+                      flush=True)
+                eager_equals_captured(tr, state, ((1, dataset(bs)), (SPARSE_STEPS, dataset(
+                    bs * SPARSE_STEPS))), bs, f"sparse {dec_type} ")
+            state, timings, launches, peak = timed_epochs(
+                tr, state, dataset(bs * SPARSE_STEPS), dataset(bs * PROFILE_STEPS), bs, none,
+                f"sparse {dec_type} ", kinds=("captured", "captured"),
+                profile_name=f"sparse_{dec_type}_profile_b{bs}.txt")
+            for k in total:
+                total[k] += launches[k]
+            dense_ms, dense_peak = dense[bs]
+            print(f"sparse {dec_type} vs dense, batch {bs}, captured: "
+                  f"{', '.join(f'{x:.3f}' for x in timings['captured'])} vs "
+                  f"{', '.join(f'{x:.3f}' for x in dense_ms)} ms/step; peak allocated "
+                  f"{peak:.3f} vs {dense_peak:.3f} GB", flush=True)
+            del tr, state
+            torch.cuda.empty_cache()
+    args = CV_RECIPE + CV_WIDTH + ["-ndata", str(CV_FRAMES), "-nsplits", str(CV_SPLITS),
+                                   "-n_ensemble", str(CV_ENSEMBLE), "-nevals", str(CV_EVALS),
+                                   "--dec_type", "pseudo", "--sparse"]
+    return {"sparse": total,
+            "sparse_cv": cli_fold(args, "sparse_cv", "pseudo", CV_WIDTH, CV_FRAMES, CV_EVALS,
+                                  CV_EPOCHS, sparse=True)}
+
+
 def main() -> int:
     try:
         import torch
@@ -1172,9 +1514,11 @@ def main() -> int:
     paths = {"serve": serve()}
     paths.update(train())
     reset_counts()
-    paths["captured"] = captured()
+    paths["captured"], dense = captured()
     cgae_phase()
     paths.update(cv())
+    paths.update(steric(dense))
+    paths.update(sparse(dense))
 
     source = "coarsegrainingvae_tpu_torch/csrc/"
     rows = {"message": ("fused_message", "fused_message.cu", "pallas_message.py:126"),

@@ -16,9 +16,12 @@ Usage:  python -m coarsegrainingvae_tpu_torch.cli.run_cgvae -dataset dipeptide \
 The same flags and defaults as the JAX CLI, plus ``--device`` (default
 ``cuda``: the run needs a card unless the caller asks for the CPU).
 ``--message_impl``/``--pseudo_impl`` are stored in ``modelparams.json`` and
-have no effect: the port always runs its CUDA kernels. ``-cg_method cgae``
-learns each fold's mapping on ``--device``. ``--sparse``, the pseudo2/en/inv
-decoders, ``-zeta > 0`` and the H projections raise (ROADMAP.md A9, A8).
+have no effect: the port's dense model always runs its CUDA kernels.
+``-cg_method cgae`` learns each fold's mapping on ``--device``. ``--sparse``
+and the pseudo2/en/inv decoders train the sparse ``CGequiVAE``; ``-zeta``
+(with ``-zeta_warmup`` and ``--steric_data_margin``) builds each fold's
+excluded-volume tables before its trainer; ``--h_project`` and
+``--h_project_eval`` project the hydrogens, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -42,8 +45,9 @@ from coarsegrainingvae_tpu_torch.data.mappings import get_mapping
 from coarsegrainingvae_tpu_torch.data.proteins import load_frames
 from coarsegrainingvae_tpu_torch.eval.analysis import get_cv_stats
 from coarsegrainingvae_tpu_torch.eval.sampling import reconstruct_all, sample_ensemble
-from coarsegrainingvae_tpu_torch.models.cgvae import build_flagship_model
+from coarsegrainingvae_tpu_torch.models.cgvae import CGequiVAE, build_flagship_model
 from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+from coarsegrainingvae_tpu_torch.train.losses import build_steric_tables
 from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 from coarsegrainingvae_tpu_torch.utils.logging import CSVLogger, annotate_job
 from coarsegrainingvae_tpu_torch.utils.rng import fold_in
@@ -93,8 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "scale the default rejects every update -- raise it "
                         "(the NaN/inf gradient guards stay active regardless)")
     p.add_argument("-zeta", type=float, default=0.0,
-                   help="excluded-volume hinge weight (not ported yet: > 0 "
-                        "raises; ROADMAP.md A8)")
+                   help="excluded-volume hinge weight on nonbonded pair "
+                        "distances (0 = the original loss)")
     p.add_argument("-steric_margin", type=float, default=0.3,
                    help="safety margin (A) above the covalent-validity "
                         "cutoff for the -zeta hinge")
@@ -147,15 +151,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the JAX package's pseudo formulation; stored, no "
                         "effect in the port")
     p.add_argument("--sparse", action="store_true", default=False,
-                   help="the segment-sum formulation (not ported yet: "
-                        "raises; ROADMAP.md A9)")
+                   help="use the segment-sum formulation (CGequiVAE) instead "
+                        "of the dense-regime flagship")
     p.add_argument("--degree_norm", action="store_true", default=False,
                    help="rsqrt(degree) message scaling for high-degree graphs")
     p.add_argument("--h_project", action="store_true", default=False,
                    help="snap each hydrogen onto its covalent bond length "
-                        "(not ported yet: raises)")
+                        "along the decoded direction")
     p.add_argument("--h_project_eval", action="store_true", default=False,
-                   help="eval-only h_project (not ported yet: raises)")
+                   help="eval-only h_project: the original training dynamics, "
+                        "projected reconstruct/generate outputs")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default: the card; pass "
                         "cpu to run the kernels' plain versions on the CPU)")
@@ -295,7 +300,15 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
         model = build_flagship_model(
             cfg.model, force_sparse=sparse,
             generator=torch.Generator().manual_seed(cfg.data.seed))
-        trainer = Trainer(model, cfg, device=device)
+        if isinstance(model, CGequiVAE) and not (sparse or cfg.model.sparse) and fold == 0:
+            print(f"dec_type={cfg.model.dec_type}: using the sparse "
+                  "(segment-sum) formulation")
+        steric = None
+        if cfg.train.zeta > 0.0:
+            steric = build_steric_tables(
+                z, bonds, margin=cfg.train.steric_margin,
+                frames=frames[train_idx] if cfg.train.steric_data_margin else None)
+        trainer = Trainer(model, cfg, device=device, steric_tables=steric)
         state = trainer.init_state(ds_tr.batch(np.arange(min(cfg.data.batch_size, len(ds_tr)))))
         ckpt = CheckpointManager(os.path.join(split_dir, "ckpt"))
         train_logger = CSVLogger(os.path.join(split_dir, "train_log.csv"))

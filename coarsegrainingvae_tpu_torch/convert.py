@@ -1,7 +1,8 @@
-"""Convert the JAX package's DenseCGVAE parameters into the port's state_dict.
+"""Convert the JAX package's DenseCGVAE or CGequiVAE parameters into the
+port's state_dict.
 
     state = convert_flax_params(jax.device_get(params), cfg.model)
-    model = DenseCGVAE(cfg.model)
+    model = build_flagship_model(cfg.model)
     model.load_state_dict(state)
 
 ``params`` is the flax ``params`` collection as a nested dict of numpy
@@ -23,7 +24,16 @@ both JAX trees: the ``pseudo_impl="pallas"`` tree (Dense_0, Dense_1,
 filter_w) and the default stacked/einsum tree, whose DistanceEmbed kernel
 (R, 9F) and bias (9F) become filter_w = [kernel.reshape(R, 9, F);
 bias.reshape(1, 9, F)] -- the same function, since the envelope multiplies
-both. Every flax leaf must be consumed; a leftover or missing one raises.
+both.
+
+The sparse ``CGequiVAE`` (a tree with ``encoder``, ``prior_net`` and
+``dec``) maps module for module: ``EquiMessageBlock_i`` ->
+``encoder.msgs.i`` (its ``InvariantMessage_0`` -> ``.inv``, whose
+``DistanceEmbed_0`` -> ``.embed``), ``ContractiveMessageBlock_i`` ->
+``encoder.contract.i``, the decoder's message blocks -> ``dec.msgs.i``
+(pseudo2's ``mix_dv``/``mix_dvbar`` as they are), ``UpdateBlock_i`` ->
+``dec.updates.i``, the MLP heads and ``euclidean``. Every flax leaf must be
+consumed; a leftover or missing one raises.
 """
 from __future__ import annotations
 
@@ -72,19 +82,25 @@ class _Tree:
                 yield prefix + (k,)
 
 
+_SPARSE_DEC_BLOCKS = {"pseudo": "EquiMessagePseudo", "pseudo2": "EquiMessagePseudo2",
+                      "cross": "EquiMessageCross", "painn": "EquiMessageBlock",
+                      "en": "ENMessageBlock", "inv": "InvMessageBlock"}
+
+
 def convert_flax_params(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (flax DenseCGVAE params) -> the port's
-    DenseCGVAE state_dict."""
+    """Nested dict of numpy arrays (flax DenseCGVAE or CGequiVAE params) ->
+    the port's state_dict of the same model."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     tree = _Tree(params)
     out: Dict[str, torch.Tensor] = {}
+    if "encoder" in params:
+        _sparse(tree, cfg, out)
+        _check_consumed(tree)
+        return out
 
     def dense(dst: str, *src: str, bias: bool = True) -> None:
-        # modules.Dense wraps one nn.Dense, named Dense_0
-        out[f"{dst}.weight"] = _tensor(tree.leaf(*src, "Dense_0", "kernel").T)
-        if bias:
-            out[f"{dst}.bias"] = _tensor(tree.leaf(*src, "Dense_0", "bias"))
+        _dense(tree, out, dst, *src, bias=bias)
 
     def factored(dst: str, src: str) -> None:
         dense(f"{dst}.phi_in", src, "Dense_0")
@@ -133,10 +149,66 @@ def convert_flax_params(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
         dense(f"dec_updates.{i}.update.gate", *upd, "Dense_2")
         dense(f"dec_updates.{i}.update.split", *upd, "Dense_3")
 
+    _check_consumed(tree)
+    return out
+
+
+def _dense(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str,
+           bias: bool = True) -> None:
+    """modules.Dense wraps one nn.Dense, named Dense_0."""
+    out[f"{dst}.weight"] = _tensor(tree.leaf(*src, "Dense_0", "kernel").T)
+    if bias:
+        out[f"{dst}.bias"] = _tensor(tree.leaf(*src, "Dense_0", "bias"))
+
+
+def _sparse(tree: _Tree, cfg: ModelConfig, out: Dict[str, torch.Tensor]) -> None:
+    def dense(dst, *src, bias=True):
+        _dense(tree, out, dst, *src, bias=bias)
+
+    def inv(dst, *src):
+        src = src + ("InvariantMessage_0",)
+        dense(f"{dst}.inv.phi_in", *src, "Dense_0")
+        dense(f"{dst}.inv.phi_out", *src, "Dense_1")
+        dense(f"{dst}.inv.embed.dense", *src, "DistanceEmbed_0", "Dense_0")
+
+    def mlp(dst, *src):
+        for layer in range(2):
+            dense(f"{dst}.layers.{layer}", *src, f"Dense_{layer}")
+
+    for part in ("encoder", "prior_net"):
+        out[f"{part}.embed.weight"] = _tensor(
+            tree.leaf(part, "EmbeddingZeroPad_0", "Embed_0", "embedding"))
+        for i in range(cfg.enc_nconv):
+            inv(f"{part}.msgs.{i}", part, f"EquiMessageBlock_{i}")
+    for i in range(cfg.enc_nconv):
+        con = ("encoder", f"ContractiveMessageBlock_{i}")
+        dense(f"encoder.contract.{i}.phi_in", *con, "Dense_0")
+        dense(f"encoder.contract.{i}.phi_out", *con, "Dense_1")
+        dense(f"encoder.contract.{i}.embed.dense", *con, "DistanceEmbed_0", "Dense_0")
+    mlp("prior_net.mu", "prior_net", "MLP_0")
+    mlp("prior_net.logvar", "prior_net", "MLP_1")
+    mlp("atom_munet", "atom_munet")
+    mlp("atom_sigmanet", "atom_sigmanet")
+    block = _SPARSE_DEC_BLOCKS[cfg.dec_type]
+    for i in range(cfg.dec_nconv):
+        inv(f"dec.msgs.{i}", "dec", f"{block}_{i}")
+        if cfg.dec_type == "pseudo2":
+            for name in ("mix_dv", "mix_dvbar"):
+                out[f"dec.msgs.{i}.{name}"] = _tensor(tree.leaf("dec", f"{block}_{i}", name))
+        if cfg.dec_type != "en":
+            upd = ("dec", f"UpdateBlock_{i}")
+            dense(f"dec.updates.{i}.u", *upd, "Dense_0", bias=False)
+            dense(f"dec.updates.{i}.v", *upd, "Dense_1", bias=False)
+            dense(f"dec.updates.{i}.gate", *upd, "Dense_2")
+            dense(f"dec.updates.{i}.split", *upd, "Dense_3")
+    if not cfg.equivariant:
+        dense("euclidean", "euclidean")
+
+
+def _check_consumed(tree: _Tree) -> None:
     unused = [p for p in tree.all_leaves() if p not in tree.used]
     if unused:
         raise ValueError(
             "flax params not mapped onto the port: "
             + ", ".join("/".join(p) for p in unused[:8])
         )
-    return out

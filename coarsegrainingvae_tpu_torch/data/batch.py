@@ -1,11 +1,12 @@
 """Fixed-shape padded batches (port of ``coarsegrainingvae_tpu.data.batch``).
 
-Only the fields the dense model and the loss read are carried; the radius
-graphs of the JAX ``CGBatch`` (nbrs, cg_nbrs) wait for the sparse model
-(ROADMAP.md). Index conventions are the JAX package's: ``mapping[b, i]`` is
-the CG bead of atom i, ``channel_idx[b, i]`` its per-bead channel, and
-``bonds[b]`` the local (per-sample) graph-loss edges. Serving builds batches
-without bonds; generation never reads them.
+The fields of the JAX ``CGBatch``. Index conventions are the JAX package's:
+``mapping[b, i]`` is the CG bead of atom i, ``channel_idx[b, i]`` its
+per-bead channel, ``bonds[b]`` the local (per-sample) graph-loss edges, and
+``nbrs`` / ``cg_nbrs`` the directed, receiver-sorted radius graphs of the
+atoms and the beads, which only the sparse model reads (the dense model
+rebuilds its graphs inside the message kernels). A batch may leave the
+graphs, or the bonds, None where nothing reads them.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ class CGBatch:
     channel_idx: torch.Tensor  # (B, N) int64
     bonds: Optional[torch.Tensor] = None      # (B, Eb, 2) int64
     bond_mask: Optional[torch.Tensor] = None  # (B, Eb) bool
+    nbrs: Optional[torch.Tensor] = None         # (B, E, 2) int64, receiver-sorted
+    nbr_mask: Optional[torch.Tensor] = None     # (B, E) bool
+    cg_nbrs: Optional[torch.Tensor] = None      # (B, Ec, 2) int64, receiver-sorted
+    cg_nbr_mask: Optional[torch.Tensor] = None  # (B, Ec) bool
 
     def to(self, device: Union[str, torch.device]) -> "CGBatch":
         def move(t):

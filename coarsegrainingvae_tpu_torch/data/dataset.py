@@ -94,6 +94,10 @@ class CGDatasetArrays:
             channel_idx=tile(self.channel_idx),
             bonds=bonds,
             bond_mask=bond_mask,
+            nbrs=torch.as_tensor(self.nbrs[idx], dtype=torch.long),
+            nbr_mask=torch.as_tensor(self.nbr_mask[idx]),
+            cg_nbrs=torch.as_tensor(self.cg_nbrs[idx], dtype=torch.long),
+            cg_nbr_mask=torch.as_tensor(self.cg_nbr_mask[idx]),
         )
 
     def iter_batches(

@@ -3,9 +3,9 @@
 For single-topology datasets that fit in device memory, every frame lives on
 the device once and a training batch is gathered there from a (B,) index
 tensor: no host work per step. Per-topology arrays (z, mapping, channel
-index, bonds) are stored once and broadcast to the batch. The radius graphs
-(nbrs, cg_nbrs) are not carried: the dense model rebuilds its graphs inside
-the message kernels.
+index, bonds) are stored once and broadcast to the batch; the per-frame
+radius graphs (nbrs, cg_nbrs), which the sparse model reads, are gathered
+with the frames.
 """
 from __future__ import annotations
 
@@ -28,6 +28,10 @@ class DeviceDataset:
     mapping: torch.Tensor      # (N,) int64
     channel_idx: torch.Tensor  # (N,) int64
     bonds: torch.Tensor        # (Eb, 2) int64
+    nbrs: torch.Tensor         # (F, E, 2) int64
+    nbr_mask: torch.Tensor     # (F, E) bool
+    cg_nbrs: torch.Tensor      # (F, Ec, 2) int64
+    cg_nbr_mask: torch.Tensor  # (F, Ec) bool
     n_frames: int
 
     @classmethod
@@ -48,6 +52,10 @@ class DeviceDataset:
             mapping=put(ds.mapping, torch.long),
             channel_idx=put(ds.channel_idx, torch.long),
             bonds=put(ds.bonds, torch.long),
+            nbrs=put(ds.nbrs, torch.long),
+            nbr_mask=put(ds.nbr_mask, torch.bool),
+            cg_nbrs=put(ds.cg_nbrs, torch.long),
+            cg_nbr_mask=put(ds.cg_nbr_mask, torch.bool),
             n_frames=len(ds),
         )
 
@@ -71,6 +79,10 @@ class DeviceDataset:
             channel_idx=tile(self.channel_idx),
             bonds=tile(self.bonds),
             bond_mask=torch.ones((b, self.bonds.shape[0]), dtype=torch.bool, device=device),
+            nbrs=self.nbrs.index_select(0, idx),
+            nbr_mask=self.nbr_mask.index_select(0, idx),
+            cg_nbrs=self.cg_nbrs.index_select(0, idx),
+            cg_nbr_mask=self.cg_nbr_mask.index_select(0, idx),
         )
 
 

@@ -1,25 +1,49 @@
-"""Model outputs and the flat graph the loss reads (port of part of
-``coarsegrainingvae_tpu.models.cgvae``).
+"""The sparse CGequiVAE, the flat graph, the H bond-length projection and
+the model switch (port of ``coarsegrainingvae_tpu.models.cgvae``).
 
-``VAEOutput``, ``FlatGraph``, ``flatten_batch`` and
-``build_flagship_model`` are ported; the sparse ``CGequiVAE`` is listed in
-ROADMAP.md (A9). ``FlatGraph`` carries only the fields the loss reads; the
-flattened radius graphs wait for the sparse model.
+A ``CGBatch`` is flattened into one graph (per-sample ids plus arithmetic
+offsets, no host work) and every aggregation is a masked segment sum over a
+receiver-sorted edge list (``ops/segment.py``, a CSR reduction with the
+same bits on every call). The per-bead channel lift reads the precomputed
+``channel_idx``. ``build_flagship_model`` picks this model or the dense
+``DenseCGVAE`` exactly as the JAX package does.
+
+The sparse path runs no hand-written kernel: the JAX package computes it
+with ``jax.ops.segment_sum``, not with a Pallas kernel. Its noise comes
+from an explicit generator, or ``eps=`` injected as in ``DenseCGVAE``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 from coarsegrainingvae_tpu_torch.config import ModelConfig
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch, flatten_ids
+from coarsegrainingvae_tpu_torch.models.conv import (
+    ContractiveMessageBlock,
+    ENMessageBlock,
+    EquiMessageBlock,
+    EquiMessageCross,
+    EquiMessagePseudo,
+    EquiMessagePseudo2,
+    InvMessageBlock,
+    UpdateBlock,
+)
+from coarsegrainingvae_tpu_torch.models.modules import MLP, Dense, EmbeddingZeroPad
+from coarsegrainingvae_tpu_torch.ops.geometry import edge_vectors
+from coarsegrainingvae_tpu_torch.ops.segment import segment_mean
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass
 class FlatGraph:
-    """A CGBatch flattened to one global graph."""
+    """A CGBatch flattened to one global graph. The loss reads the first
+    six fields; the sparse model also the bead arrays and the radius
+    graphs, which a batch without graphs leaves None."""
 
     z: torch.Tensor          # (BN,)
     xyz: torch.Tensor        # (BN, 3)
@@ -27,17 +51,44 @@ class FlatGraph:
     cg_mask: torch.Tensor    # (BM,)
     bonds: torch.Tensor      # (BEb, 2) global atom ids
     bond_mask: torch.Tensor  # (BEb,)
+    cg_z: Optional[torch.Tensor] = None         # (BM,)
+    cg_xyz: Optional[torch.Tensor] = None       # (BM, 3)
+    mapping: Optional[torch.Tensor] = None      # (BN,) global bead ids
+    channel_idx: Optional[torch.Tensor] = None  # (BN,)
+    nbrs: Optional[torch.Tensor] = None         # (BE, 2) global, receiver-sorted
+    nbr_mask: Optional[torch.Tensor] = None
+    cg_nbrs: Optional[torch.Tensor] = None      # (BEc, 2) global, receiver-sorted
+    cg_nbr_mask: Optional[torch.Tensor] = None
+    num_nodes: int = 0
+    num_cg: int = 0
 
 
 def flatten_batch(batch: CGBatch) -> FlatGraph:
-    n = batch.z.shape[1]
+    b, n = batch.z.shape
+    m = batch.cg_z.shape[1]
+
+    def flat(t, stride=None):
+        if t is None:
+            return None
+        return flatten_ids(t, stride) if stride is not None else t.reshape(-1)
+
     return FlatGraph(
         z=batch.z.reshape(-1),
         xyz=batch.xyz.reshape(-1, 3),
         atom_mask=batch.atom_mask.reshape(-1),
         cg_mask=batch.cg_mask.reshape(-1),
-        bonds=flatten_ids(batch.bonds, n),
-        bond_mask=batch.bond_mask.reshape(-1),
+        bonds=flat(batch.bonds, n),
+        bond_mask=flat(batch.bond_mask),
+        cg_z=batch.cg_z.reshape(-1),
+        cg_xyz=batch.cg_xyz.reshape(-1, 3),
+        mapping=flatten_ids(batch.mapping, m),
+        channel_idx=batch.channel_idx.reshape(-1),
+        nbrs=flat(batch.nbrs, n),
+        nbr_mask=flat(batch.nbr_mask),
+        cg_nbrs=flat(batch.cg_nbrs, m),
+        cg_nbr_mask=flat(batch.cg_nbr_mask),
+        num_nodes=b * n,
+        num_cg=b * m,
     )
 
 
@@ -54,20 +105,323 @@ class VAEOutput:
     xyz_recon: torch.Tensor
 
 
+def project_h_bonds(xyz_recon: torch.Tensor, z: torch.Tensor, xyz_true: torch.Tensor,
+                    bonds: torch.Tensor, bond_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Snap every hydrogen onto its covalent bond length along the decoded
+    direction (models/cgvae.py:103-154 of the JAX package; differentiable
+    almost everywhere). ``bonds`` is the graph-loss edge list, possibly
+    directed and expanded to 1-3 pairs: each hydrogen keeps only its
+    nearest heavy partner in the true geometry (a scatter-min over the
+    hydrogens), and duplicate directed edges, which give the same target,
+    are averaged with two index-adds. Those sums are order-independent:
+    every selected edge of one hydrogen adds the same bits, the others add
+    zero, so an atomic accumulator passes through the same values in any
+    order. All arrays are flat (B*N, ...), bonds global ids."""
+    a, b = bonds[:, 0], bonds[:, 1]
+    za, zb = z[a], z[b]
+    is_ha = (za == 1) & (zb != 1)
+    is_hb = (zb == 1) & (za != 1)
+    h_idx = torch.where(is_ha, a, b)
+    p_idx = torch.where(is_ha, b, a)
+    rest = torch.sqrt(torch.sum((xyz_true[h_idx] - xyz_true[p_idx]) ** 2, -1) + 1e-12)
+    sel0 = is_ha | is_hb
+    if bond_mask is not None:
+        sel0 = sel0 & (bond_mask > 0)
+    inf = torch.full_like(rest, float("inf"))
+    min_rest = torch.full((xyz_recon.shape[0],), float("inf"), dtype=rest.dtype,
+                          device=rest.device).scatter_reduce(
+        0, h_idx, torch.where(sel0, rest, inf), "amin")
+    sel = sel0 & (rest <= min_rest[h_idx] + 1e-6)
+    d = xyz_recon[h_idx] - xyz_recon[p_idx]
+    norm = torch.sqrt(torch.sum(d * d, -1) + 1e-12)
+    target = xyz_recon[p_idx] + d * (rest / norm)[:, None]
+    selw = sel.to(xyz_recon.dtype)
+    acc = torch.zeros_like(xyz_recon).index_add(0, h_idx, target * selw[:, None])
+    cnt = torch.zeros(xyz_recon.shape[0], dtype=xyz_recon.dtype,
+                      device=xyz_recon.device).index_add(0, h_idx, selw)
+    proj = acc / torch.clamp(cnt, min=1.0)[:, None]
+    return torch.where((cnt > 0.0)[:, None], proj, xyz_recon)
+
+
+def project_batch_h_bonds(xyz_recon: torch.Tensor, batch: CGBatch) -> torch.Tensor:
+    """``project_h_bonds`` of flat (B*N, 3) coordinates with the bond
+    lengths of ``batch``'s atom coordinates."""
+    g = flatten_batch(batch)
+    return project_h_bonds(xyz_recon, g.z, g.xyz, g.bonds, g.bond_mask)
+
+
+def draw_eps(like: torch.Tensor, generator, eps) -> torch.Tensor:
+    """Standard normal noise shaped like ``like``: drawn from ``generator``
+    on its device, or ``eps`` given by the caller."""
+    if eps is None:
+        return torch.randn(like.shape, generator=generator, device=like.device,
+                           dtype=like.dtype)
+    return eps.to(device=like.device, dtype=like.dtype).reshape(like.shape)
+
+
+class EquiEncoder(nn.Module):
+    """Atom-graph PaiNN encoder with a per-layer atom -> bead contraction
+    (cgvae.py:194-331 of the original code). ``cutoff`` is the CG cutoff,
+    which the original code wires into the atom graph's edge filters."""
+
+    def __init__(self, n_conv, feat_dim, n_rbf, activation, cutoff, contract_cutoff=20.0,
+                 degree_norm=False, dtype=torch.float32, generator=None):
+        super().__init__()
+        f, g = feat_dim, generator
+        self.feat_dim = f
+        self.embed = EmbeddingZeroPad(100, f, g)
+        self.msgs = nn.ModuleList(
+            EquiMessageBlock(f, activation, n_rbf, cutoff, degree_norm, dtype=dtype,
+                             generator=g) for _ in range(n_conv))
+        self.contract = nn.ModuleList(
+            ContractiveMessageBlock(f, activation, n_rbf, contract_cutoff, dtype, g)
+            for _ in range(n_conv))
+
+    def forward(self, g: FlatGraph) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self.embed(g.z)
+        v = torch.zeros((g.num_nodes, 3, self.feat_dim), dtype=h.dtype, device=h.device)
+        r_ij = edge_vectors(g.xyz, g.nbrs)
+        r_iI = g.xyz - g.cg_xyz[g.mapping]
+        H = torch.zeros((g.num_cg, self.feat_dim), dtype=h.dtype, device=h.device)
+        V = torch.zeros((g.num_cg, 3, self.feat_dim), dtype=h.dtype, device=h.device)
+        for i, (msg, contract) in enumerate(zip(self.msgs, self.contract)):
+            ds, dv = msg(h, v, r_ij, g.nbrs, g.nbr_mask)
+            h = h + ds
+            v = v + dv
+            if i == 0:
+                H = segment_mean(h, g.mapping, g.num_cg, g.atom_mask)
+                V = segment_mean(v, g.mapping, g.num_cg, g.atom_mask)
+            dH, dV = contract(h, v, r_iI, g.mapping, g.num_cg, g.atom_mask)
+            H = H + dH
+            V = V + dV
+        return H, h
+
+
+class CGprior(nn.Module):
+    """Conditional prior p(z | CG geometry) (cgvae.py:334-403): PaiNN
+    layers on the CG graph from a bead-index embedding of ``vocab`` rows,
+    then the mu and sigma heads."""
+
+    def __init__(self, n_conv, feat_dim, n_rbf, activation, cutoff, degree_norm=False,
+                 vocab=100, dtype=torch.float32, generator=None):
+        super().__init__()
+        f, g = feat_dim, generator
+        self.feat_dim = f
+        self.embed = EmbeddingZeroPad(vocab, f, g)
+        self.msgs = nn.ModuleList(
+            EquiMessageBlock(f, activation, n_rbf, cutoff, degree_norm, dtype=dtype,
+                             generator=g) for _ in range(n_conv))
+        self.mu = MLP(f, [f, f], activation="Tanh", dtype=dtype, generator=g)
+        self.logvar = MLP(f, [f, f], activation="Tanh", dtype=dtype, generator=g)
+
+    def forward(self, g: FlatGraph) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self.embed(g.cg_z)
+        v = torch.zeros((g.num_cg, 3, self.feat_dim), dtype=h.dtype, device=h.device)
+        r_ij = edge_vectors(g.cg_xyz, g.cg_nbrs)
+        for msg in self.msgs:
+            ds, dv = msg(h, v, r_ij, g.cg_nbrs, g.cg_nbr_mask)
+            h = h + ds
+            v = v + dv
+        logvar = torch.clamp(self.logvar(h), -30.0, 30.0)
+        return self.mu(h), 1e-9 + torch.exp(logvar / 2.0)
+
+
+class _CGDecoder(nn.Module):
+    """A decoder over the CG graph: ``num_conv`` message blocks, each
+    followed by an UpdateBlock when ``updates``."""
+
+    def __init__(self, feat_dim, activation, msgs, updates: bool, dtype, generator):
+        super().__init__()
+        self.feat_dim = feat_dim
+        self.msgs = nn.ModuleList(msgs)
+        self.updates = nn.ModuleList(
+            UpdateBlock(feat_dim, activation, dtype, generator) for _ in self.msgs
+        ) if updates else None
+
+    def _zeros(self, S):
+        return torch.zeros((S.shape[0], 3, self.feat_dim), dtype=S.dtype, device=S.device)
+
+    def _update(self, i, H, V):
+        if self.updates is None:
+            return H, V
+        dH, dV = self.updates[i](H, V)
+        return H + dH, V + dV
+
+
+class EquivariantDecoder(_CGDecoder):
+    """(EquiMessageCross | EquiMessageBlock) + UpdateBlock per layer
+    (cgvae.py:129-191)."""
+
+    def __init__(self, feat_dim, n_rbf, cutoff, num_conv, activation, cross=True,
+                 degree_norm=False, dtype=torch.float32, generator=None):
+        block = EquiMessageCross if cross else EquiMessageBlock
+        super().__init__(feat_dim, activation, [
+            block(feat_dim, activation, n_rbf, cutoff, degree_norm, dtype=dtype,
+                  generator=generator) for _ in range(num_conv)], True, dtype, generator)
+
+    def forward(self, g: FlatGraph, S: torch.Tensor):
+        H, V = S, self._zeros(S)
+        r_ij = edge_vectors(g.cg_xyz, g.cg_nbrs)
+        for i, msg in enumerate(self.msgs):
+            dH, dV = msg(H, V, r_ij, g.cg_nbrs, g.cg_nbr_mask)
+            H, V = self._update(i, H + dH, V + dV)
+        return H, V
+
+
+class EquivariantPseudoDecoder(_CGDecoder):
+    """Chirality-aware decoder (cgvae.py:52-125): EquiMessagePseudo (9-way)
+    or EquiMessagePseudo2 (``variant="pseudo2"``) + UpdateBlock; breaksym
+    seeds the pseudoscalar channel at 1."""
+
+    def __init__(self, feat_dim, n_rbf, cutoff, num_conv, activation, breaksym=False,
+                 variant="pseudo", dtype=torch.float32, generator=None):
+        block = EquiMessagePseudo2 if variant == "pseudo2" else EquiMessagePseudo
+        super().__init__(feat_dim, activation, [
+            block(feat_dim, activation, n_rbf, cutoff, dtype=dtype, generator=generator)
+            for _ in range(num_conv)], True, dtype, generator)
+        self.breaksym = breaksym
+
+    def forward(self, g: FlatGraph, S: torch.Tensor):
+        V = self._zeros(S)
+        Vbar = torch.zeros_like(V)
+        Sbar = torch.ones_like(S) if self.breaksym else torch.zeros_like(S)
+        r_ij = edge_vectors(g.cg_xyz, g.cg_nbrs)
+        for i, msg in enumerate(self.msgs):
+            dS, dSbar, dV, dVbar = msg(S, Sbar, V, Vbar, r_ij, g.cg_nbrs, g.cg_nbr_mask)
+            Sbar, Vbar = Sbar + dSbar, Vbar + dVbar
+            S, V = self._update(i, S + dS, V + dV)
+        return S, V
+
+
+class ENDecoder(_CGDecoder):
+    """Plain EGNN decoder over the CG graph (cgvae.py:8-48), no updates."""
+
+    def __init__(self, feat_dim, n_rbf, cutoff, num_conv, activation,
+                 dtype=torch.float32, generator=None):
+        super().__init__(feat_dim, activation, [
+            ENMessageBlock(feat_dim, activation, n_rbf, cutoff, dtype=dtype,
+                           generator=generator) for _ in range(num_conv)],
+            False, dtype, generator)
+
+    def forward(self, g: FlatGraph, S: torch.Tensor):
+        H, V = S, self._zeros(S)
+        r_ij = edge_vectors(g.cg_xyz, g.cg_nbrs)
+        for msg in self.msgs:
+            dH, dV = msg(H, V, r_ij, g.cg_nbrs, g.cg_nbr_mask)
+            H, V = H + dH, V + dV
+        return H, V
+
+
+class InvariantDecoder(_CGDecoder):
+    """Invariant-message decoder, the --invariantdec ablation
+    (InvMessageBlock + UpdateBlock; conv.py:132-163)."""
+
+    def __init__(self, feat_dim, n_rbf, cutoff, num_conv, activation,
+                 dtype=torch.float32, generator=None):
+        super().__init__(feat_dim, activation, [
+            InvMessageBlock(feat_dim, activation, n_rbf, cutoff, dtype=dtype,
+                            generator=generator) for _ in range(num_conv)],
+            True, dtype, generator)
+
+    def forward(self, g: FlatGraph, S: torch.Tensor):
+        H, V = S, self._zeros(S)
+        r_ij = edge_vectors(g.cg_xyz, g.cg_nbrs)
+        for i, msg in enumerate(self.msgs):
+            dH, V = msg(H, V, r_ij, g.cg_nbrs, g.cg_nbr_mask)
+            H, V = self._update(i, H + dH, V)
+        return H, V
+
+
+def lift_channels(cg_v: torch.Tensor, g: FlatGraph, offset: bool = True) -> torch.Tensor:
+    """Per-bead vector channels (BM, 3, F) -> per-atom positions: atom i
+    reads channel channel_idx[i] of its bead, then the centre-of-mass
+    constraint and the bead anchor (cgvae.py:462-484)."""
+    xyz_rel = cg_v[g.mapping, :, g.channel_idx]                  # (BN, 3)
+    if offset:
+        offsets = segment_mean(xyz_rel, g.mapping, g.num_cg, g.atom_mask)
+        xyz_rel = xyz_rel - offsets[g.mapping]
+    return xyz_rel + g.cg_xyz[g.mapping]
+
+
+class CGequiVAE(nn.Module):
+    """The sparse VAE (cgvae.py:406-513 of the original code): encode ->
+    prior -> mu/sigma heads -> reparametrize -> decode -> channel lift.
+
+    Parameters are drawn on the CPU from ``generator``; move the model with
+    ``.to(device)``. ``forward`` and ``generate`` take the same arguments
+    as ``DenseCGVAE``'s and return flat (B*M, F) statistics and (B*N, 3)
+    coordinates.
+    """
+
+    def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = c = cfg
+        f, g = c.n_basis, generator
+        dtype = _DTYPES[c.compute_dtype]
+        self.encoder = EquiEncoder(c.enc_nconv, f, c.n_rbf, c.activation, c.cg_cutoff,
+                                   c.contract_cutoff, c.degree_norm, dtype, g)
+        self.prior_net = CGprior(c.enc_nconv, f, c.n_rbf, c.activation, c.cg_cutoff,
+                                 c.degree_norm, max(100, c.n_cgs), dtype, g)
+        if c.dec_type in ("pseudo", "pseudo2"):
+            self.dec = EquivariantPseudoDecoder(f, c.n_rbf, c.atom_cutoff, c.dec_nconv,
+                                                c.activation, c.breaksym, c.dec_type, dtype, g)
+        elif c.dec_type in ("cross", "painn"):
+            self.dec = EquivariantDecoder(f, c.n_rbf, c.atom_cutoff, c.dec_nconv, c.activation,
+                                          c.dec_type == "cross", c.degree_norm, dtype, g)
+        elif c.dec_type == "en":
+            self.dec = ENDecoder(f, c.n_rbf, c.atom_cutoff, c.dec_nconv, c.activation, dtype, g)
+        elif c.dec_type == "inv":
+            self.dec = InvariantDecoder(f, c.n_rbf, c.atom_cutoff, c.dec_nconv, c.activation,
+                                        dtype, g)
+        else:
+            raise ValueError(f"unknown dec_type {c.dec_type!r}")
+        # mu/sigma heads: Linear-ReLU-Linear (run_ala.py:184-185)
+        self.atom_munet = MLP(f, [f, f], activation="ReLU", dtype=dtype, generator=g)
+        self.atom_sigmanet = MLP(f, [f, f], activation="ReLU", dtype=dtype, generator=g)
+        self.euclidean = None if c.equivariant else Dense(f, 3 * f, dtype=dtype, generator=g)
+
+    def decode(self, g: FlatGraph, S_I: torch.Tensor) -> torch.Tensor:
+        cg_s, cg_v = self.dec(g, S_I)
+        if self.euclidean is not None:
+            # non-equivariant "euclidean" head (cgvae.py:469-471)
+            cg_v = self.euclidean(cg_s).reshape(cg_s.shape[0], self.cfg.n_basis, 3
+                                                ).transpose(1, 2)
+        xyz_recon = lift_channels(cg_v, g, offset=self.cfg.offset)
+        if self.cfg.h_project:
+            xyz_recon = project_h_bonds(xyz_recon, g.z, g.xyz, g.bonds, g.bond_mask)
+        return xyz_recon
+
+    def forward(self, batch: CGBatch, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> VAEOutput:
+        g = flatten_batch(batch)
+        S_I, _ = self.encoder(g)
+        prior_mu, prior_sigma = self.prior_net(g)
+        mu = self.atom_munet(S_I)
+        logvar = torch.clamp(self.atom_sigmanet(S_I), -30.0, 30.0)
+        sigma = 1e-12 + torch.exp(logvar / 2.0)
+        z = S_I if self.cfg.det else mu + sigma * draw_eps(mu, generator, eps)
+        return VAEOutput(mu=mu, sigma=sigma, prior_mu=prior_mu, prior_sigma=prior_sigma,
+                         xyz=g.xyz, xyz_recon=self.decode(g, z))
+
+    def generate(self, batch: CGBatch, generator: Optional[torch.Generator] = None,
+                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B*N, 3) coordinates drawn from the CG prior and decoded; atom
+        coordinates in ``batch`` are read only by ``h_project``."""
+        g = flatten_batch(batch)
+        prior_mu, prior_sigma = self.prior_net(g)
+        return self.decode(g, prior_mu + prior_sigma * draw_eps(prior_mu, generator, eps))
+
+
 def build_flagship_model(cfg: ModelConfig, force_sparse: bool = False,
                          generator: Optional[torch.Generator] = None):
     """The one place that picks the model class for a config, used by the
     training CLI and by checkpoint reloading (``cli/postanalysis.py``,
     ``Backmapper.from_run``), which must rebuild the parameters the run
-    trained. The JAX package picks the sparse ``CGequiVAE`` for
-    ``force_sparse``, ``cfg.sparse`` and the pseudo2/en/inv decoders; the
-    port has only the dense model, so those raise. Parameters are drawn on
-    the CPU from ``generator``."""
+    trained: the sparse ``CGequiVAE`` for ``force_sparse``, ``cfg.sparse``
+    and the pseudo2/en/inv decoders, which exist only in it; else the dense
+    ``DenseCGVAE``. Parameters are drawn on the CPU from ``generator``."""
     if force_sparse or cfg.sparse or cfg.dec_type in ("pseudo2", "en", "inv"):
-        raise NotImplementedError(
-            f"the sparse CGequiVAE (sparse={force_sparse or cfg.sparse}, "
-            f"dec_type={cfg.dec_type!r}) is not ported to PyTorch yet; see "
-            "ROADMAP.md A9")
+        return CGequiVAE(cfg, generator=generator)
     from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
 
     return DenseCGVAE(cfg, generator=generator)

@@ -24,7 +24,11 @@ from torch import nn
 
 from coarsegrainingvae_tpu_torch.config import ModelConfig
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch
-from coarsegrainingvae_tpu_torch.models.cgvae import VAEOutput
+from coarsegrainingvae_tpu_torch.models.cgvae import (
+    VAEOutput,
+    draw_eps,
+    project_batch_h_bonds,
+)
 from coarsegrainingvae_tpu_torch.models.dense import (
     DenseFactoredEquiMessage,
     DenseUpdateBlock,
@@ -114,11 +118,6 @@ class DenseCGVAE(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.h_project or cfg.h_project_eval:
-            raise NotImplementedError(
-                "H bond-length projection (h_project / h_project_eval) is not "
-                "ported to PyTorch yet; see ROADMAP.md"
-            )
         if cfg.dec_type not in ("pseudo", "cross", "painn"):
             # pseudo2/en/inv exist only in the sparse formulation
             raise ValueError(
@@ -213,6 +212,7 @@ class DenseCGVAE(nn.Module):
         return prior_mu, prior_sigma
 
     def _decode(self, batch: CGBatch, z_lat, onehot, norm) -> torch.Tensor:
+        """(B*N, 3) decoded coordinates, H-projected when ``h_project``."""
         c = self.cfg
         b, m, f = z_lat.shape
         S = z_lat
@@ -239,14 +239,10 @@ class DenseCGVAE(nn.Module):
             offsets = torch.einsum("bnk,bnd->bkd", norm, xyz_rel)
             xyz_rel = xyz_rel - torch.einsum("bkd,bnk->bnd", offsets, onehot)
         anchor = torch.einsum("bkd,bnk->bnd", batch.cg_xyz, onehot)
-        return xyz_rel + anchor
-
-    @staticmethod
-    def _eps(like: torch.Tensor, generator, eps) -> torch.Tensor:
-        if eps is None:
-            return torch.randn(like.shape, generator=generator,
-                               device=like.device, dtype=like.dtype)
-        return eps.to(device=like.device, dtype=like.dtype)
+        xyz_recon = (xyz_rel + anchor).reshape(-1, 3)
+        if c.h_project:
+            xyz_recon = project_batch_h_bonds(xyz_recon, batch)
+        return xyz_recon
 
     # ------------------------------------------------------- entry points
     def forward(self, batch: CGBatch, eps: Optional[torch.Tensor] = None,
@@ -260,21 +256,22 @@ class DenseCGVAE(nn.Module):
         onehot, norm = self._assignment(batch)
         H, mu, sigma = self._encode(batch, onehot, norm)
         prior_mu, prior_sigma = self._prior(batch)
-        z_lat = H if self.cfg.det else mu + sigma * self._eps(mu, generator, eps)
+        z_lat = H if self.cfg.det else mu + sigma * draw_eps(mu, generator, eps)
         xyz_recon = self._decode(batch, z_lat, onehot, norm)
         return VAEOutput(
             mu=mu.reshape(b * m, f), sigma=sigma.reshape(b * m, f),
             prior_mu=prior_mu.reshape(b * m, f),
             prior_sigma=prior_sigma.reshape(b * m, f),
-            xyz=batch.xyz.reshape(b * n, 3), xyz_recon=xyz_recon.reshape(b * n, 3),
+            xyz=batch.xyz.reshape(b * n, 3), xyz_recon=xyz_recon,
         )
 
     def generate(self, batch: CGBatch, generator: Optional[torch.Generator] = None,
                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B*N, 3) all-atom coordinates drawn from the prior given the CG
         geometry: prior_mu + prior_sigma * eps, then decode. Atom
-        coordinates in ``batch`` are not read."""
+        coordinates in ``batch`` are read only by ``h_project``, for bond
+        lengths."""
         onehot, norm = self._assignment(batch)
         prior_mu, prior_sigma = self._prior(batch)
-        z_lat = prior_mu + prior_sigma * self._eps(prior_mu, generator, eps)
-        return self._decode(batch, z_lat, onehot, norm).reshape(-1, 3)
+        z_lat = prior_mu + prior_sigma * draw_eps(prior_mu, generator, eps)
+        return self._decode(batch, z_lat, onehot, norm)

@@ -1,9 +1,14 @@
-"""Dense all-pairs geometry shared by the message kernels' plain versions.
+"""Geometry: the sparse model's edge vectors, and the dense all-pairs
+geometry shared by the message kernels' plain versions.
 
-``dense_pairwise`` and ``radius_adjacency`` are the port of
-``coarsegrainingvae_tpu.models.dense`` (dense.py:39-63); they live in ``ops``
-here because only the kernels' plain versions need them (the port's modules
-always go through the kernels, which rebuild the geometry on the card).
+``preprocess_r`` and ``edge_vectors`` are the port of
+``coarsegrainingvae_tpu.ops.geometry`` (geometry.py:16-30): dist =
+sqrt(sum(r^2 + 1e-8)), unit = r / dist, the epsilon inside the sum keeping
+masked zero-length edges finite. ``dense_pairwise`` and
+``radius_adjacency`` are the port of ``coarsegrainingvae_tpu.models.dense``
+(dense.py:39-63); they live in ``ops`` here because only the kernels' plain
+versions need them (the dense modules always go through the kernels, which
+rebuild the geometry on the card).
 """
 from __future__ import annotations
 
@@ -14,6 +19,17 @@ import torch
 from coarsegrainingvae_tpu_torch.ops.basis import cosine_envelope, painn_radial_basis
 
 EPS = 1e-3  # the dense family's distance epsilon (diffpoolvae.py:6)
+
+
+def preprocess_r(r_ij: torch.Tensor, eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge displacement (..., 3) -> (distance, unit vector)."""
+    dist = torch.sqrt(torch.sum(r_ij**2 + eps, dim=-1))
+    return dist, r_ij / dist[..., None]
+
+
+def edge_vectors(xyz: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """r_ij = x[j] - x[i] for directed edges (i = edges[:, 0] receives)."""
+    return xyz[edges[:, 1]] - xyz[edges[:, 0]]
 
 
 def dense_pairwise(xyz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

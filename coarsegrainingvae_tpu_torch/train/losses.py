@@ -1,17 +1,18 @@
 """Loss stack: reconstruction + beta*KL + gamma*graph (port of
 ``coarsegrainingvae_tpu.train.losses``; utils.py:89-191 of the original
-code).
-
-The excluded-volume (steric) term, a repo extension that is off at
-``zeta = 0``, is not ported yet (ROADMAP.md A8; the Trainer refuses
-``zeta > 0``). ``h_bond_weight`` and ``eta_h`` are ported.
+code), with the repo's extensions: the excluded-volume (steric) term
+(``build_steric_tables``, ``steric_loss``, ``zeta``), ``h_bond_weight`` and
+``eta_h``. ``steric_loss_batched``, PCN's multi-topology variant, waits for
+the PCN slice (ROADMAP.md A10).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from coarsegrainingvae_tpu_torch.eval.metrics import COVALENT_RADII
 from coarsegrainingvae_tpu_torch.models.cgvae import FlatGraph, VAEOutput
 
 EPS = 1e-6  # utils.py:15 of the original code
@@ -82,8 +83,61 @@ def graph_loss(
     return torch.mean(sq)
 
 
+def build_steric_tables(z, bonds, scale: float = 1.3, margin: float = 0.3,
+                        frames=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side (numpy) excluded-volume tables for ``steric_loss``.
+
+    z (N,) atomic numbers (0 = padding); bonds (Eb, 2) covalent bonds only.
+    Returns (thresh (N, N) float32, pair_mask (N, N) bool): for every
+    nonbonded pair of real atoms, the distance below which the bond-graph
+    validity metric would see a spurious edge, scale * (r_i + r_j), plus
+    ``margin``. With ``frames`` (T, N, 3) each pair's threshold is instead
+    the ensemble's own closest approach, clipped into [that cutoff, cutoff
+    + margin] (``--steric_data_margin``); the (T, N, N) minimum is taken in
+    chunks that bound host memory."""
+    z = np.asarray(z)
+    n = z.shape[0]
+    real = z > 0
+    r = np.array([COVALENT_RADII.get(int(v), 1.5) for v in z])
+    base = (r[None, :] + r[:, None]) * scale
+    thresh = base + margin
+    if frames is not None:
+        frames = np.asarray(frames, np.float32)
+        dmin = np.full((n, n), np.inf, np.float32)
+        chunk = max(1, min(512, int(1.5e8 // (n * n))))
+        for lo in range(0, frames.shape[0], chunk):
+            c = frames[lo:lo + chunk]
+            d = np.sqrt(((c[:, :, None, :] - c[:, None, :, :]) ** 2).sum(-1)).min(0)
+            np.minimum(dmin, d, out=dmin)
+        thresh = np.clip(dmin, base, base + margin)
+    mask = real[None, :] & real[:, None]
+    mask[np.arange(n), np.arange(n)] = False
+    for a, b in np.asarray(bonds).reshape(-1, 2):
+        mask[int(a), int(b)] = mask[int(b), int(a)] = False
+    return thresh.astype(np.float32), mask
+
+
+def steric_loss(xyz_recon: torch.Tensor, thresh: torch.Tensor,
+                pair_mask: torch.Tensor) -> torch.Tensor:
+    """Mean squared hinge on nonbonded pair distances below ``thresh``.
+    xyz_recon (B*N, 3) flat; thresh, pair_mask (N, N), one topology for the
+    batch. A dense (B, N, N) pass."""
+    n = thresh.shape[0]
+    xyz = xyz_recon.reshape(-1, n, 3)
+    d = torch.sqrt(torch.sum((xyz[:, :, None, :] - xyz[:, None, :, :]) ** 2, -1) + EPS)
+    viol = torch.clamp(thresh[None] - d, min=0.0)
+    m = pair_mask.to(viol.dtype)[None]
+    return torch.sum(viol**2 * m) / torch.clamp(
+        pair_mask.sum().to(viol.dtype) * xyz.shape[0], min=1.0)
+
+
 def _touches_h(g: FlatGraph) -> torch.Tensor:
     return (g.z[g.bonds[:, 0]] == 1) | (g.z[g.bonds[:, 1]] == 1)
+
+
+def steric_active(zeta) -> bool:
+    """False only for a literal 0 weight; a tensor weight is always on."""
+    return not (isinstance(zeta, (int, float)) and float(zeta) == 0.0)
 
 
 def vae_loss(
@@ -92,13 +146,20 @@ def vae_loss(
     beta: float,
     gamma: float,
     legacy_kl: bool = False,
+    zeta=0.0,
+    steric: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     h_bond_weight: float = 1.0,
     eta_h: float = 0.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """total = recon + beta*KL + gamma*graph (utils.py:141) [+ eta_h * the
-    graph MSE over H-touching edges]; ``h_bond_weight`` reweights
-    H-touching edges inside the graph mean. Metrics are 0-d tensors on the
-    loss's device."""
+    """total = recon + beta*KL + gamma*graph (utils.py:141) [+ zeta * the
+    steric hinge] [+ eta_h * the graph MSE over H-touching edges];
+    ``h_bond_weight`` reweights H-touching edges inside the graph mean.
+
+    The steric term, with its ``"steric"`` metric, is present when
+    ``steric`` holds the (thresh, pair_mask) tables and ``zeta`` is not a
+    literal 0: a tensor ``zeta`` (the warm-up ramp, read on the device) is
+    always present, scaled by its value, as the JAX package's traced zeta
+    is. Metrics are 0-d tensors on the loss's device."""
     if out.mu is not None:
         loss_kl = kl_divergence(
             out.mu, out.sigma, out.prior_mu, out.prior_sigma,
@@ -118,6 +179,11 @@ def vae_loss(
     total = loss_recon + beta * loss_kl + gamma * loss_graph
     metrics = {"loss": total, "recon": loss_recon, "kl": loss_kl,
                "graph": loss_graph}
+    if steric_active(zeta) and steric is not None:
+        loss_steric = steric_loss(out.xyz_recon, steric[0], steric[1])
+        total = total + zeta * loss_steric
+        metrics["loss"] = total
+        metrics["steric"] = loss_steric
     if eta_h != 0.0:
         h_mask = _touches_h(g).to(torch.float32)
         if g.bond_mask is not None:

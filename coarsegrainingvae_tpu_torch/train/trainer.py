@@ -30,8 +30,15 @@ Each epoch draws its noise from generators seeded from (seed, epoch), the
 stand-in for the JAX package's ``fold_in(base_rng, epoch)``, so a resumed
 run draws at epoch e what an uninterrupted one draws there.
 
-Not ported yet (ROADMAP.md): the excluded-volume loss and its zeta_warmup
-ramp (A8; ``zeta > 0`` raises) and the multi-device meshes.
+With ``zeta > 0`` and the tables of ``losses.build_steric_tables`` the
+loss carries the excluded-volume term. The tables live on the device and
+the captured step reads them in place; the ``zeta_warmup`` ramp, zeta *
+min(step / warmup, 1), reads the device step counter, so no Python number
+enters the captured step. ``reconstruct`` and ``generate`` apply the H
+bond-length projection when ``cfg.model.h_project_eval``. The model is the
+dense ``DenseCGVAE`` or the sparse ``CGequiVAE``; both are captured alike.
+
+Not ported yet (ROADMAP.md): the multi-device meshes.
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ from coarsegrainingvae_tpu_torch.config import ExperimentConfig
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
 from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
-from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch
+from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch, project_batch_h_bonds
 from coarsegrainingvae_tpu_torch.train.controller import EarlyStopping, LowessPlateauController
 from coarsegrainingvae_tpu_torch.train.losses import vae_loss
 from coarsegrainingvae_tpu_torch.utils.rng import generator as derived_generator
@@ -152,6 +159,9 @@ class TrainState:
 def _mean(values: List[torch.Tensor]) -> float:
     return float(np.mean(torch.stack(values).float().cpu().numpy()))
 
+
+# the per-frame arrays run_epoch_streamed copies into its chunk buffers
+STREAMED_FIELDS = ("xyz", "cg_xyz", "nbrs", "nbr_mask", "cg_nbrs", "cg_nbr_mask")
 
 # eager steps on a side stream before a capture: the lazy set-up (kernel
 # builds and their shared-memory limits, cuBLAS handles and workspaces,
@@ -309,17 +319,19 @@ class _EpochProgram:
 class Trainer:
     """Train and eval steps, epoch loops and ``fit`` around one model on
     one device: the card unless the caller passes ``device="cpu"``. The
-    model is moved there; without a card the default raises."""
+    model is moved there; without a card the default raises.
 
-    def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig, device="cuda"):
-        if cfg.train.zeta > 0:
-            raise NotImplementedError(
-                "the excluded-volume (steric) loss, zeta > 0, is not ported to "
-                "PyTorch yet; see ROADMAP.md A8"
-            )
+    steric_tables: (thresh (N, N), pair_mask (N, N)) from
+    ``losses.build_steric_tables``, used when ``cfg.train.zeta`` is not 0;
+    copied to the device once, where the steps read them."""
+
+    def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig, device="cuda",
+                 steric_tables=None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
+        self.steric_tables = None if steric_tables is None else tuple(
+            torch.as_tensor(np.asarray(t)).to(self.device) for t in steric_tables)
         self.tx = make_optimizer(cfg.train.grad_clip, cfg.train.adam_moment_dtype)
         # static-buffer epoch programs by (DeviceDataset, train), and the two
         # chunk buffers of run_epoch_streamed; release_graphs frees them
@@ -356,18 +368,31 @@ class Trainer:
         return state
 
     # ----------------------------------------------------------------- steps
-    def _loss_fn(self, batch: CGBatch, generator=None):
+    def _loss_fn(self, batch: CGBatch, generator=None, zeta_scale=None):
         tc = self.cfg.train
         out = self.model(batch, generator=generator)
-        return vae_loss(out, flatten_batch(batch), tc.beta, tc.gamma,
-                        h_bond_weight=tc.h_bond_weight, eta_h=tc.eta_h)
+        zeta = tc.zeta if zeta_scale is None else tc.zeta * zeta_scale
+        return vae_loss(out, flatten_batch(batch), tc.beta, tc.gamma, zeta=zeta,
+                        steric=self.steric_tables, h_bond_weight=tc.h_bond_weight,
+                        eta_h=tc.eta_h)
+
+    def zeta_scale(self, state: TrainState) -> Optional[torch.Tensor]:
+        """The zeta_warmup ramp min(step / warmup, 1) as a 0-d device
+        tensor read from ``state.step``, or None without a ramp. At a
+        warm-up step the steric weight ramps 0 -> zeta over the first
+        ``zeta_warmup`` optimizer steps."""
+        warm = int(self.cfg.train.zeta_warmup or 0)
+        if warm <= 0:
+            return None
+        return torch.clamp(state.step.to(torch.float32) / warm, max=1.0)
 
     def loss_and_grads(self, state: TrainState, batch: CGBatch,
                        generator: Optional[torch.Generator] = None):
         """(loss, metrics, gradients in ``state.params`` order) of one
-        batch; metrics are detached 0-d device tensors."""
+        training batch, the steric weight on its warm-up ramp; metrics are
+        detached 0-d device tensors."""
         params = list(state.params.values())
-        loss, metrics = self._loss_fn(batch, generator)
+        loss, metrics = self._loss_fn(batch, generator, self.zeta_scale(state))
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -420,19 +445,31 @@ class Trainer:
             _, metrics = self._loss_fn(batch, generator)
         return metrics
 
+    def _h_project_eval(self, xyz: torch.Tensor, batch: CGBatch) -> torch.Tensor:
+        """The eval-only H bond-length projection (``h_project_eval``):
+        training sees the raw decoder, reconstruct and generate outputs get
+        the constraint, with bond lengths from the batch's atoms."""
+        if self.cfg.model.h_project_eval:
+            return project_batch_h_bonds(xyz, batch)
+        return xyz
+
     def reconstruct(self, batch: CGBatch, generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
         """(B*N, 3) reconstruction of ``batch`` through the posterior, on
         the device."""
+        batch = batch.to(self.device)
         with torch.inference_mode():
-            return self.model(batch.to(self.device), generator=generator).xyz_recon
+            return self._h_project_eval(self.model(batch, generator=generator).xyz_recon,
+                                        batch)
 
     def generate(self, batch: CGBatch, generator: Optional[torch.Generator] = None
                  ) -> torch.Tensor:
         """(B*N, 3) coordinates drawn from the prior given the CG geometry
         of ``batch``, on the device."""
+        batch = batch.to(self.device)
         with torch.inference_mode():
-            return self.model.generate(batch.to(self.device), generator=generator)
+            return self._h_project_eval(self.model.generate(batch, generator=generator),
+                                        batch)
 
     # ------------------------------------------------------------- epochs
     def _run_batches(self, state: TrainState, batches: Iterable[CGBatch],
@@ -536,21 +573,22 @@ class Trainer:
 
         def fill(c: int) -> None:
             buf, idx = buffers[c % 2], chunks[c]
-            host = [torch.from_numpy(np.ascontiguousarray(a[idx], dtype=np.float32))
-                    for a in (dataset.xyz, dataset.cg_xyz)]
+            host = [torch.from_numpy(np.ascontiguousarray(getattr(dataset, k)[idx])).to(
+                getattr(buf, k).dtype) for k in STREAMED_FIELDS]
+            dests = [getattr(buf, k)[:len(idx)] for k in STREAMED_FIELDS]
             if cuda:
                 host = [h.pin_memory() for h in host]
                 pinned.append(host)
                 # the replays that read this buffer (chunk c - 2) come first
                 copy_stream.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(copy_stream):
-                    buf.xyz[:len(idx)].copy_(host[0], non_blocking=True)
-                    buf.cg_xyz[:len(idx)].copy_(host[1], non_blocking=True)
+                    for dest, h in zip(dests, host):
+                        dest.copy_(h, non_blocking=True)
                     ready[c % 2] = torch.cuda.Event()
                     ready[c % 2].record(copy_stream)
             else:
-                buf.xyz[:len(idx)].copy_(host[0])
-                buf.cg_xyz[:len(idx)].copy_(host[1])
+                for dest, h in zip(dests, host):
+                    dest.copy_(h)
             buf.n_frames = len(idx)
 
         agg: Dict[str, list] = {}
@@ -628,10 +666,13 @@ class Trainer:
         history = []
         start_epoch = 0
         n_epochs = nepochs if nepochs is not None else tc.nepochs
-        # hold the plateau controller and the stopper while the lr warmup
-        # ramps: the tracked loss moves because the objective moves
+        # hold the plateau controller and the stopper while a warm-up ramp
+        # (zeta_warmup with the steric term on, or lr_warmup) runs: the
+        # tracked loss moves because the objective moves
         steps_per_epoch = max(len(trainset) // max(self.cfg.data.batch_size, 1), 1)
-        warm_epochs = -(-tc.lr_warmup // steps_per_epoch)
+        warm_steps = max(tc.zeta_warmup if (tc.zeta and self.steric_tables is not None)
+                         else 0, tc.lr_warmup)
+        warm_epochs = -(-warm_steps // steps_per_epoch)
 
         dds_train = dds_val = None
         if on_device and trainset.aux_bonds is None:

@@ -15,6 +15,7 @@ import torch
 
 from coarsegrainingvae_tpu_torch import config as tcfg
 from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
+from coarsegrainingvae_tpu_torch.models import dense_cgvae
 from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
 from coarsegrainingvae_tpu_torch.train import checkpoint as ckpt_mod
 from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
@@ -181,14 +182,14 @@ def test_resumed_epoch_draws_the_noise_of_the_uninterrupted_run(
     cfg = _cfg(tiny_model_cfg)
     train, val = port_ds.subset(np.arange(24)), port_ds.subset(np.arange(24, 32))
     current = []                    # the draws since the last epoch ended
-    original = DenseCGVAE._eps
+    original = dense_cgvae.draw_eps
 
     def recording(like, generator, eps):
         out = original(like, generator, eps)
         current.append(out.clone())
         return out
 
-    monkeypatch.setattr(DenseCGVAE, "_eps", staticmethod(recording))
+    monkeypatch.setattr(dense_cgvae, "draw_eps", recording)
 
     def run(nepochs, mgr, resume, seed):
         """{epoch: the noise it drew} of one fit call."""

@@ -5,6 +5,8 @@ the plain versions' calls), and its refusal to run without a card.
 The script itself runs only on a GPU; these tests import it as a module
 (it imports torch inside its functions) and check what needs no card.
 """
+import json
+
 import pytest
 import torch
 
@@ -81,11 +83,11 @@ def test_smoke_run_needs_a_card(capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-def test_cv_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
-    """The cv phase's control flow and checks at a small width on the CPU.
-    The kernels launch nothing there, so each plain version's calls are
-    counted in their place (a CUDA launch happens exactly where the wrapper
-    would call them) and held to ``cv_expected_launches``."""
+@pytest.fixture
+def counted_plain(monkeypatch):
+    """The kernels launch nothing on the CPU, so each plain version's calls
+    are counted in their place (a CUDA launch happens exactly where the
+    wrapper would call them), through chip_smoke's reset/read of counts."""
     from coarsegrainingvae_tpu_torch.ops import fused_message as mo
     from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
 
@@ -102,10 +104,19 @@ def test_cv_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(mod, attr, counted)
     monkeypatch.setattr(chip_smoke, "reset_counts", lambda: calls.update(dict.fromkeys(calls, 0)))
     monkeypatch.setattr(chip_smoke, "read_counts", lambda: dict(calls))
+    return calls
+
+
+SMALL_WIDTH = ["-n_basis", "16", "-n_rbf", "4", "-enc_nconv", "2", "-dec_nconv", "3",
+               "-batch_size", "16"]
+
+
+def test_cv_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
+    """The cv phase's control flow and checks at a small width on the CPU,
+    the plain versions' calls held to ``cv_expected_launches``."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))  # restored after
-    width = ["-n_basis", "16", "-n_rbf", "4", "-enc_nconv", "2", "-dec_nconv", "3",
-             "-batch_size", "16"]
+    width = SMALL_WIDTH
     paths = chip_smoke.cv(device="cpu", width=width, n_frames=90)
     assert paths["cv"] == chip_smoke.cv_expected_launches(
         width, 90, chip_smoke.CV_FOLDS, chip_smoke.CV_EPOCHS, chip_smoke.CV_EVALS, "pseudo")
@@ -130,3 +141,42 @@ def test_cgae_phase_rehearses_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cgae, "learn_map", counted)
     chip_smoke.cgae_phase(device="cpu", n_frames=48, n_steps=60)
     assert calls and set(calls) == {"cpu"}
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["steric", "sparse"])
+def test_steric_and_sparse_folds_rehearse_on_the_cpu(tmp_path, monkeypatch, counted_plain,
+                                                     sparse):
+    """The steric and sparse phases' CLI folds at a small width on the
+    CPU: the dip_full_z100 recipe's flags plus --h_project_eval (the width
+    flags given after them win), and the CV recipe with --sparse; each fold
+    checked, served by from_run with 0 difference, and its plain calls held
+    to ``cv_expected_launches`` (none for the sparse model)."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+
+    monkeypatch.chdir(tmp_path)
+    n_frames = 90
+    (tmp_path / "data").mkdir()
+    save_npz_traj(str(tmp_path / "data" / "dipeptide.npz"),
+                  *synthetic_peptide("dipeptide", n_frames=n_frames, seed=0, device="cpu"))
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "data"))
+    depth = ["-ndata", str(n_frames), "-n_ensemble", "2", "-nevals", "2", "--graph_eval"]
+    if sparse:
+        args = chip_smoke.CV_RECIPE + SMALL_WIDTH + depth + ["--dec_type", "pseudo", "--sparse"]
+    else:
+        recipe = chip_smoke.recipe_flags("dip_full_z100")
+        assert recipe[recipe.index("-zeta") + 1] == "100.0" and "--h_project_eval" not in recipe
+        args = recipe + ["--h_project_eval"] + SMALL_WIDTH + depth
+    launches = chip_smoke.cli_fold(args, "fold", "pseudo", SMALL_WIDTH, n_frames, 2, 2,
+                                   sparse=sparse, device="cpu")
+    want = chip_smoke.cv_expected_launches(SMALL_WIDTH, n_frames, 1, 2, 2, "pseudo")
+    assert launches == (dict.fromkeys(want, 0) if sparse else want)
+    assert min(want.values()) > 0
+    (run,) = list((tmp_path / "build" / "cv_smoke").glob("fold*"))
+    params = json.loads((run / "modelparams.json").read_text())
+    assert params["model"]["sparse"] == sparse and params["model"]["n_basis"] == 16
+    assert (params["train"]["zeta"] > 0) == params["model"]["h_project_eval"] == (not sparse)
+    assert np.isfinite(float((run / "fold0" / "train_log.csv").read_text().splitlines()[-1]
+                             .split(",")[2]))

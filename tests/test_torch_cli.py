@@ -8,8 +8,9 @@ their initial weights and noise from different streams). Then the port's
 readers of a fold: ``postanalysis.reevaluate`` on JAX weights converted
 into a port checkpoint (rtol 1e-4 on the RMSDs, det and f32), and
 ``Backmapper.from_run`` against the in-memory model (exact), plus
-``-fold_offset``/``-max_folds``, ``--resume`` and the paths that still
-raise."""
+``-fold_offset``/``-max_folds``, ``--resume``, the sparse model's folds
+(``--sparse``, read back by ``from_run(sparse=True)`` and ``postanalysis``)
+and the steric recipe's (``-zeta``, ``--h_project_eval``)."""
 import dataclasses
 import json
 import os
@@ -29,7 +30,7 @@ from coarsegrainingvae_tpu_torch.convert import convert_flax_params
 from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
 from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
 from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
-from coarsegrainingvae_tpu_torch.models.cgvae import build_flagship_model
+from coarsegrainingvae_tpu_torch.models.cgvae import CGequiVAE, build_flagship_model
 from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
 from coarsegrainingvae_tpu_torch.serve import Backmapper
 from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
@@ -233,18 +234,56 @@ def test_resume_continues_a_fold(runs, tmp_path, monkeypatch):
 @pytest.mark.parametrize("dec_type,sparse,force", [
     ("pseudo2", False, False), ("en", False, False), ("inv", False, False),
     ("pseudo", True, False), ("pseudo", False, True)])
-def test_sparse_only_models_raise(dec_type, sparse, force):
+def test_sparse_models_build_cgequivae(dec_type, sparse, force):
+    """build_flagship_model picks the sparse CGequiVAE where the JAX
+    package's does: --sparse, cfg.sparse and the pseudo2/en/inv decoders."""
     cfg = tcfg.ModelConfig(n_basis=8, dec_type=dec_type, sparse=sparse)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-        build_flagship_model(cfg, force_sparse=force)
+    model = build_flagship_model(cfg, force_sparse=force)
+    assert isinstance(model, CGequiVAE) and model.cfg.dec_type == dec_type
     assert isinstance(build_flagship_model(tcfg.ModelConfig(n_basis=8)), DenseCGVAE)
 
 
-@pytest.mark.parametrize("extra,match", [(["--sparse"], "A9"), (["-zeta", "1.0"], "A8")])
-def test_unported_options_raise(runs, tmp_path, monkeypatch, extra, match):
+@pytest.mark.parametrize("extra", [
+    ["--sparse"], ["-zeta", "1.0", "-zeta_warmup", "2", "--steric_data_margin",
+                   "--h_project_eval"]])
+def test_sparse_and_steric_folds_run(runs, tmp_path, monkeypatch, extra):
+    """One fold of the sparse model, and one of the steric recipe (tables
+    from the fold's frames, the ramp, the eval projection), on the CPU;
+    the fold reads back through from_run and postanalysis as the model it
+    trained."""
     monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(runs["data"]))
-    with pytest.raises(NotImplementedError, match=match):
-        run_cgvae.main(ARGS + ["-logdir", str(tmp_path / "run"), "--device", "cpu"] + extra)
+    made = []
+
+    class Recording(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(run_cgvae, "Trainer", Recording)
+    rows = run_cgvae.main(ARGS + ["-logdir", str(tmp_path / "run"), "-max_folds", "1",
+                                  "--device", "cpu"] + extra)
+    # sample RMSDs average over valid samples only: NaN when none is valid
+    assert len(rows) == 1 and all(np.isfinite(v) for k, v in rows[0].items()
+                                  if k not in ("sample_all_rmsd", "sample_heavy_rmsd"))
+    run = _run_dir(tmp_path)
+    assert _artifacts(run) >= {"fold0/train_log.csv", "fold0/test_samples.xyz", "cv_stats.csv"}
+    (tr,) = made
+    cfg = tcfg.ExperimentConfig.load(str(run / "modelparams.json"))
+    sparse = "--sparse" in extra
+    assert isinstance(tr.model, CGequiVAE) == sparse == cfg.model.sparse
+    assert (tr.steric_tables is not None) == (cfg.train.zeta > 0) == (not sparse)
+    bm = Backmapper.from_run(str(run / "modelparams.json"), str(run / "fold0"), sparse=sparse,
+                             device="cpu")
+    assert type(bm.model) is type(tr.model)
+    mapping = json.loads((run / "fold0" / "mapping.json").read_text())
+    ref = Backmapper(tr.model, mapping, bm.z, cfg, device="cpu", bonds=bm.bonds,
+                     ref_xyz=bm.ref_xyz)
+    cg = np.random.default_rng(0).normal(size=(2, 3, 3)).astype(np.float32) * 3.0
+    np.testing.assert_array_equal(bm.backmap(cg, n_samples=3, seed=4),
+                                  ref.backmap(cg, n_samples=3, seed=4))
+    res = postanalysis.reevaluate(str(run / "modelparams.json"), str(run / "fold0"),
+                                  n_ensemble=2, nevals=2, device="cpu")
+    assert np.isfinite(res["all_atom_rmsd"])
 
 
 def test_cli_runs_on_the_card_by_default():

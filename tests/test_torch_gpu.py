@@ -484,8 +484,11 @@ def test_wrappers_name_the_wide_bound_on_card(cuda_device):
         fused_pseudo_message(*args, CUT, po.MAX_RBF + 1)
 
 
-def _epoch_setup(cuda_device, n_frames=32, det=False):
-    """A small trainer on the card and a DeviceDataset of n_frames."""
+def _epoch_setup(cuda_device, n_frames=32, det=False, sparse=False, zeta=0.0,
+                 zeta_warmup=0):
+    """A small trainer on the card (the dense model, or the sparse
+    CGequiVAE; with zeta > 0 the steric tables) and a DeviceDataset of
+    n_frames."""
     import dataclasses
 
     import numpy as np
@@ -494,6 +497,8 @@ def _epoch_setup(cuda_device, n_frames=32, det=False):
     from coarsegrainingvae_tpu_torch.data.device import DeviceDataset
     from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.models.cgvae import build_flagship_model
+    from coarsegrainingvae_tpu_torch.train.losses import build_steric_tables
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
     z, frames, bonds = synthetic_peptide("dipeptide", n_frames=n_frames, seed=0,
@@ -501,9 +506,12 @@ def _epoch_setup(cuda_device, n_frames=32, det=False):
     ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
                        bonds, order=2)
     cfg = _tiny_train_cfg()
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, det=det))
-    tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
-                 device=cuda_device)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, det=det, sparse=sparse),
+        train=dataclasses.replace(cfg.train, zeta=zeta, zeta_warmup=zeta_warmup))
+    tr = Trainer(build_flagship_model(cfg.model, generator=torch.Generator().manual_seed(0)),
+                 cfg, device=cuda_device,
+                 steric_tables=build_steric_tables(z, bonds) if zeta > 0 else None)
     return tr, tr.init_state(ds.batch(np.arange(8))), DeviceDataset.from_dataset(ds, cuda_device)
 
 
@@ -513,15 +521,19 @@ def _tensors(state):
 
 
 @pytest.mark.gpu
-def test_captured_epoch_equals_eager_on_card(cuda_device):
+@pytest.mark.parametrize("kw", [{}, dict(sparse=True), dict(zeta=100.0, zeta_warmup=2)],
+                         ids=["dense", "sparse", "steric"])
+def test_captured_epoch_equals_eager_on_card(cuda_device, kw):
     """run_epoch_scan's replays against the same static step run eagerly,
     from the same state and generator, with the model's noise on: metrics,
-    parameters, moments and the generator's state bit for bit."""
+    parameters, moments and the generator's state bit for bit. For the
+    dense model, the sparse CGequiVAE (its segment sums are CSR reductions,
+    no atomics) and the steric loss across the end of its warm-up ramp."""
     import numpy as np
 
     from coarsegrainingvae_tpu_torch.data.device import epoch_index_batches
 
-    tr, state, dds = _epoch_setup(cuda_device)
+    tr, state, dds = _epoch_setup(cuda_device, **kw)
     start = [t.detach().clone() for t in _tensors(state)]
     batches = epoch_index_batches(dds.n_frames, 8, np.random.default_rng(0))
     runs = []
@@ -612,3 +624,96 @@ def test_learn_map_on_card_matches_cpu(cuda_device):
     assert float((got - want).abs().max()) <= 1e-3 * float(want.max() - want.min())
     mapping = cgae.learn_map(data, 3, n_steps=100, seed=0, device=cuda_device)
     assert mapping.shape == (12,) and mapping[0] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sorted_ids", [True, False])
+def test_segment_sum_is_deterministic_and_capturable_on_card(cuda_device, sorted_ids):
+    """The CSR segment sum on the card: the CPU's sums within f32 rounding,
+    the same bits on every call and backward, and the same bits again
+    replayed from a CUDA graph."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.ops.segment import segment_sum
+
+    rng = np.random.default_rng(0)
+    e, n_seg = 20000, 700
+    ids = rng.integers(0, n_seg - 1, size=e)
+    ids = torch.as_tensor(np.sort(ids) if sorted_ids else ids)
+    data = torch.as_tensor(rng.normal(size=(e, 3, 16)).astype(np.float32) * 1e3)
+    mask = torch.as_tensor(rng.random(e) > 0.2)
+    want = segment_sum(data, ids, n_seg, mask, indices_are_sorted=sorted_ids)
+    d_ids, d_mask = ids.to(cuda_device), mask.to(cuda_device)
+    outs, grads = [], []
+    for _ in range(2):
+        x = data.to(cuda_device).requires_grad_(True)
+        out = segment_sum(x, d_ids, n_seg, d_mask, indices_are_sorted=sorted_ids)
+        (out * out).sum().backward()
+        outs.append(out.detach())
+        grads.append(x.grad)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1])
+    assert float((outs[0].cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    static = data.to(cuda_device)
+    segment_sum(static, d_ids, n_seg, d_mask, indices_are_sorted=sorted_ids)    # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = segment_sum(static, d_ids, n_seg, d_mask, indices_are_sorted=sorted_ids)
+    graph.replay()
+    assert torch.equal(replayed, outs[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dec_type", ["pseudo", "pseudo2", "cross", "en", "inv"])
+def test_sparse_step_on_card_matches_cpu(cuda_device, dec_type):
+    """One f32 train step of the sparse CGequiVAE: every gradient on the
+    card within 1e-4 of its max |CPU| (the segment sums add in the same
+    order on both; the matmuls do not)."""
+    import dataclasses
+
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.models.cgvae import CGequiVAE
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=8, seed=0, device=cuda_device)
+    ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
+                       bonds, order=2)
+    cfg = _tiny_train_cfg(dec_type)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, sparse=True, det=True, compute_dtype="float32"))
+    batch = ds.batch(np.arange(8))
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        tr = Trainer(CGequiVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                     device=dev)
+        _, _, g = tr.loss_and_grads(tr.init_state(batch), batch.to(dev))
+        grads.append([t.cpu() for t in g])
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_project_h_bonds_on_card_matches_cpu(cuda_device):
+    """The H projection's scatter-min and index-adds on the card: the CPU's
+    result, and the same bits on a second call."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.models.cgvae import project_h_bonds
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=4, seed=0, device=cuda_device)
+    n, b = z.shape[0], 4
+    directed = np.concatenate([bonds, bonds[:, ::-1]], 0)
+    edges = torch.as_tensor((directed[None] + n * np.arange(b)[:, None, None]).reshape(-1, 2))
+    zz = torch.as_tensor(np.tile(z, b))
+    true = torch.as_tensor(frames.reshape(-1, 3), dtype=torch.float32)
+    recon = true + 0.3 * torch.randn(true.shape, generator=torch.Generator().manual_seed(0))
+    want = project_h_bonds(recon, zz, true, edges, None)
+    args = [t.to(cuda_device) for t in (recon, zz, true, edges)]
+    got = [project_h_bonds(*args, None) for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    assert float((got[0].cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())

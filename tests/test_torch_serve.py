@@ -84,10 +84,11 @@ def test_backmap_is_a_seeded_ensemble_on_the_cg_frame(served):
 
 
 def test_unported_serving_paths_raise(served, tmp_path, monkeypatch):
-    """from_run serves a fold's checkpoint (the sparse model it cannot build
-    raises, and so does a fold without a checkpoint); H bond-length
-    projection still raises."""
+    """from_run serves a fold's checkpoint (a fold without one raises): the
+    dense model's, and with sparse=True the sparse CGequiVAE's, each equal
+    to the in-memory model it saved."""
     from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.models.cgvae import CGequiVAE
     from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
@@ -96,25 +97,78 @@ def test_unported_serving_paths_raise(served, tmp_path, monkeypatch):
     save_npz_traj(str(tmp_path / "dipeptide.npz"), port.z,
                   np.zeros((8, served["n_atoms"], 3)), np.zeros((0, 2)))
     served["cfg"].save(str(tmp_path / "modelparams.json"))
-    fold = tmp_path / "fold0"
-    fold.mkdir()
-    (fold / "mapping.json").write_text(json.dumps([int(k) for k in served["mapping"]]))
-    with pytest.raises(FileNotFoundError, match="no checkpoints"):
-        Backmapper.from_run(str(tmp_path / "modelparams.json"), str(fold), device="cpu")
-    state = Trainer(port.model, served["cfg"], device="cpu").init_state(
-        port._make_batch(served["cg"][0]))
-    CheckpointManager(str(fold / "ckpt")).save(0, state)
-    bm = Backmapper.from_run(str(tmp_path / "modelparams.json"), str(fold), device="cpu")
-    np.testing.assert_array_equal(bm.backmap(served["cg"][:2], n_samples=3, seed=2),
-                                  port.backmap(served["cg"][:2], n_samples=3, seed=2))
-    with pytest.raises(NotImplementedError, match="A9"):
-        Backmapper.from_run(str(tmp_path / "modelparams.json"), str(fold), sparse=True,
-                            device="cpu")
+    for name, model, sparse in (
+            ("fold0", port.model, False),
+            ("fold1", CGequiVAE(served["cfg"].model, generator=torch.Generator().manual_seed(3)),
+             True)):
+        fold = tmp_path / name
+        fold.mkdir()
+        (fold / "mapping.json").write_text(json.dumps([int(k) for k in served["mapping"]]))
+        if not sparse:
+            with pytest.raises(FileNotFoundError, match="no checkpoints"):
+                Backmapper.from_run(str(tmp_path / "modelparams.json"), str(fold), device="cpu")
+        ref = Backmapper(model, served["mapping"], port.z, served["cfg"], device="cpu")
+        state = Trainer(model, served["cfg"], device="cpu").init_state(
+            ref._make_batch(served["cg"][0]))
+        CheckpointManager(str(fold / "ckpt")).save(0, state)
+        bm = Backmapper.from_run(str(tmp_path / "modelparams.json"), str(fold), sparse=sparse,
+                                 device="cpu")
+        assert type(bm.model) is type(model)
+        np.testing.assert_array_equal(bm.backmap(served["cg"][:2], n_samples=3, seed=2),
+                                      ref.backmap(served["cg"][:2], n_samples=3, seed=2))
+
+
+def test_projection_without_bonds_warns_and_serves_raw(served):
+    """h_project_eval without bonds/ref_xyz warns, as the JAX Backmapper
+    does, and serves the decoder's raw hydrogens; with them the hydrogens
+    move (parity with the JAX package: tests/test_torch_steric.py)."""
+    from coarsegrainingvae_tpu.data.synthetic import synthetic_peptide as jax_peptide
+
     cfg = served["cfg"]
     proj = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, h_project_eval=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Backmapper(served["port"].model, served["mapping"], np.ones(served["n_atoms"]),
-                   proj, device="cpu")
+    port = served["port"]
+    with pytest.warns(RuntimeWarning, match="RAW"):
+        raw = Backmapper(port.model, served["mapping"], port.z, proj, device="cpu")
+    np.testing.assert_array_equal(raw.backmap(served["cg"][0], n_samples=2, seed=1),
+                                  port.backmap(served["cg"][0], n_samples=2, seed=1))
+    _, frames, bonds = jax_peptide("dipeptide", n_frames=1, seed=0)
+    bm = Backmapper(port.model, served["mapping"], port.z, proj, device="cpu", bonds=bonds,
+                    ref_xyz=frames[0])
+    moved = np.abs(bm.backmap(served["cg"][0], n_samples=2, seed=1)
+                   - raw.backmap(served["cg"][0], n_samples=2, seed=1)).max(axis=(0, 2))
+    h = port.z == 1
+    assert moved[h].max() > 1e-3 and moved[~h].max() == 0.0
+
+
+def test_sparse_backmap_matches_jax(served, monkeypatch):
+    """The sparse CGequiVAE served through both Backmappers (each builds
+    the CG radius graph of its requests) on converted parameters and the
+    same prior noise."""
+    from coarsegrainingvae_tpu.models.cgvae import CGequiVAE as JaxSparse
+    from coarsegrainingvae_tpu_torch.models.cgvae import CGequiVAE
+
+    jbm = served["jax"]
+    cfg = dataclasses.replace(jbm.cfg, model=dataclasses.replace(jbm.cfg.model, sparse=True))
+    jmodel = JaxSparse(cfg=cfg.model)
+    batch = JaxBackmapper(jmodel, None, served["mapping"], jbm.z, cfg)._make_batch(
+        served["cg"][0])
+    params = jax.device_get(jax.jit(jmodel.init)(
+        {"params": jax.random.PRNGKey(2), "sample": jax.random.PRNGKey(3)}, batch)["params"])
+    port_cfg = tcfg.ExperimentConfig.from_json(cfg.to_json())
+    tmodel = CGequiVAE(port_cfg.model)
+    tmodel.load_state_dict(convert_flax_params(params, port_cfg.model))
+    n_samples = 3
+    eps = np.random.default_rng(6).normal(size=(n_samples * M, F)).astype(np.float32)
+    with monkeypatch.context() as mp:
+        mp.setattr(jax.random, "normal",
+                   lambda key, shape, dtype=jnp.float32: jnp.asarray(eps, dtype).reshape(shape))
+        mp.setattr(torch, "randn", lambda shape, generator=None, device=None, dtype=None:
+                   torch.as_tensor(eps, device=device, dtype=dtype).reshape(shape))
+        ref = JaxBackmapper(jmodel, params, served["mapping"], jbm.z, cfg).backmap(
+            served["cg"][:2], n_samples=n_samples, seed=1)
+        out = Backmapper(tmodel, served["mapping"], jbm.z, port_cfg, device="cpu").backmap(
+            served["cg"][:2], n_samples=n_samples, seed=1)
+    np.testing.assert_allclose(out, ref, **TOL)
 
 
 def test_backmapper_defaults_to_the_card(served):

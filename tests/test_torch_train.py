@@ -124,10 +124,54 @@ def test_losses_match_jax(kw):
     np.testing.assert_allclose(float(ttotal), float(jtotal), rtol=1e-5)
 
 
-def test_steric_loss_is_refused(tiny_model_cfg):
-    tc = _torch_cfg(_exp(_model_cfg(tiny_model_cfg, "default"), zeta=1.0))
-    with pytest.raises(NotImplementedError, match="A8"):
-        Trainer(DenseCGVAE(tc.model), tc)
+@pytest.mark.parametrize("step", [0, 3, 12])
+def test_steric_step_matches_jax(small_dataset, tiny_model_cfg, step):
+    """One train step with zeta > 0 and zeta_warmup 8 at step 0 (weight 0),
+    mid-ramp and past the ramp: the loss and every metric ("steric" among
+    them) of both trainers' steps, and every gradient against jax.grad at
+    the ramp's weight, read from the device step."""
+    cfg = _exp(_model_cfg(tiny_model_cfg, "default"), gamma=25.0, zeta=50.0,
+               zeta_warmup=8)
+    z, bonds = np.asarray(small_dataset.z), jlosses_topology_bonds()
+    tables = jlosses.build_steric_tables(z, bonds)
+    jtr = JaxTrainer(JaxModel(cfg=cfg.model), cfg, mesh=make_mesh(1), steric_tables=tables)
+    jstate = jtr.init_state(small_dataset.batch(np.arange(BATCH)), seed=0)
+    jstate = jstate.replace(step=jnp.asarray(step, jnp.int32))
+    tc = _torch_cfg(cfg)
+    model = DenseCGVAE(tc.model)
+    model.load_state_dict(convert_flax_params(jax.device_get(jstate.params), tc.model))
+    tr = Trainer(model, tc, device="cpu", steric_tables=losses.build_steric_tables(z, bonds))
+    idx = np.arange(BATCH)
+    jb, tb = small_dataset.batch(idx), _port_dataset(small_dataset).batch(idx)
+    rng = jax.random.PRNGKey(0)
+    scale = min(step / 8, 1.0)
+    jgrads = jax.jit(jax.grad(lambda p, b: jtr._loss_fn(p, b, rng, scale)[0]))(
+        jstate.params, jb)
+    want = convert_flax_params(jax.device_get(jgrads), tc.model)
+    state = tr.init_state(tb)
+    with torch.no_grad():
+        state.step.fill_(step)
+    _, _, got = tr.loss_and_grads(state, tb)
+    for name, g in zip(state.params, got):
+        ref = want[name].numpy()
+        np.testing.assert_allclose(g.numpy(), ref, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] + 1e-4 * np.abs(ref).max(), err_msg=name)
+    _, jm = jtr.train_step(jstate, jb, rng)
+    state, tm = tr.train_step(state, tb)
+    assert set(tm) == set(jm) and "steric" in tm and float(tm["steric"]) > 0.0
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=TOL["rtol"],
+                                   atol=TOL["atol"], err_msg=k)
+    base = float(tm["recon"]) + 0.05 * float(tm["kl"]) + 25.0 * float(tm["graph"])
+    np.testing.assert_allclose(float(tm["loss"]) - base, 50.0 * scale * float(tm["steric"]),
+                               rtol=1e-3, atol=1e-5)
+
+
+def jlosses_topology_bonds():
+    """The covalent bonds of the small_dataset molecule."""
+    from coarsegrainingvae_tpu.data.synthetic import synthetic_peptide
+
+    return synthetic_peptide("dipeptide", n_frames=1, seed=7)[2]
 
 
 def test_trainer_and_synthetic_data_default_to_the_card(tiny_model_cfg):
