@@ -42,7 +42,24 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   decoder: one f32 step card vs CPU, an eager and a captured epoch bit for
   bit, ms/step, device busy and peak memory captured at batch 128 and 32
   beside the dense model's, no kernel launched; then ``run_cgvae --sparse``
-  cut in depth and ``from_run(sparse=True)``.
+  cut in depth and ``from_run(sparse=True)``;
+- native: the host C++ (``native/``) built with g++ on this machine, the
+  cell list against the dense radius graph at N 300 and on the covid
+  stand-in's frames (10,333 atoms, synthesised here and cached), the bond
+  diff against the dense metrics at 2,000 atoms and at the covid N, with
+  each route's host seconds;
+- pcn: ``cli.run_pcn`` with the committed p7 and p7s recipes
+  (``examples/results/pcn_demo``: n_basis 256, dec 4, cross, batch 8,
+  zeta 20, bond_project, well-posed 50-80-residue proteins), cut to 80
+  proteins x 2 epochs, every artifact checked; the p7 step card vs CPU
+  (f32 on the loss's smooth terms, float64 on the whole recipe), two
+  steps from one state bit for bit, ms/step, device busy and peak memory;
+- covid: ``cli.run_cgvae`` with the committed covid recipe
+  (``examples/results/_r5_live/covid2``: sparse, degree_norm, 500
+  seqpartition beads, n_basis 192, cross, batch 2), one fold of one epoch
+  on 7 frames with the graph metrics, checked to have taken the cell list
+  and the bond diff, its wall time by part; then its step eager and
+  captured with peak memory.
 
 Every phase raises on failure; there is no CPU fallback. Output, in order:
 the card's name and power limit (nvidia-smi), the build with each main-path
@@ -51,14 +68,15 @@ kernel's ptxas registers and spills, each kernel against its plain version
 graph replays, and its roofline bound from ``kernel_cost``; the wide kernels,
 R+1 > 16, at n_rbf 16, 20 and the largest each takes; the chignolin
 recipe's shapes), the serve, train, captured and cgae checks and timings,
-the cv phase's checks and its wall time by part, the steric and sparse
-phases' checks and timings,
-one JSON line with one entry per kernel and timed shape, and last one JSON
+the cv phase's checks and its wall time by part, the steric, sparse,
+native, pcn and covid phases' checks and timings, one JSON line with one entry per kernel and timed shape, and last one JSON
 line ``{"ok": true, "device": {...}}``. The profiles' tables go to
 ``chiprun_out/train_profile.txt``, ``captured_profile_b{128,32}.txt`` and
-``sparse_{pseudo,pseudo2}_profile_b{128,32}.txt``, the cv and steric phases'
+``sparse_{pseudo,pseudo2}_profile_b{128,32}.txt``, ``pcn_profile.txt`` and
+``covid_profile_b2.txt``, the cv and steric phases'
 data to
-``chiprun_out/cv_data/`` and its runs to ``build/cv_smoke/``. Needs one
+``chiprun_out/cv_data/`` and its runs (the covid fold's too) to
+``build/cv_smoke/``, the PCN runs to ``build/pcn_smoke/``. Needs one
 CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -118,6 +136,26 @@ CHIG_BATCH, CHIG_RBF, CHIG_FRAMES, CHIG_EVALS = 16, 10, 160, 4
 # the sparse phase: eager vs captured, and each timed epoch, over
 # SPARSE_STEPS steps (its step is ~10x the dense one's and device-bound)
 SPARSE_STEPS = 20
+# the native phase: the cell list against the dense path on NATIVE_FRAMES
+# random frames at N 300 and on the covid stand-in's first frames; the
+# bond diff against the dense metrics on BOND_DIFF_SAMPLES jittered copies
+# of a BOND_DIFF_ATOMS-atom structure
+NATIVE_FRAMES, NATIVE_ATOMS, NATIVE_CUTOFF = 8, 300, 4.5
+BOND_DIFF_ATOMS, BOND_DIFF_SAMPLES = 2000, 4
+# evaluate_samples' default route switch (1,500 atoms, as in the JAX package)
+BOND_DIFF_THRESHOLD = 1500
+# the pcn phase: the committed PCN recipes (p7 and its --stochastic twin
+# p7s), cut in depth to PCN_NDATA proteins and PCN_EPOCHS epochs; the step
+# timed over PCN_STEPS steps
+PCN_RECIPES = Path(__file__).resolve().parent / "examples" / "results" / "pcn_demo"
+PCN_NDATA, PCN_EPOCHS, PCN_STEPS = 80, 2, 20
+PCN_DIR = Path("build") / "pcn_smoke"
+# the covid phase: the committed covid recipe (sparse, degree_norm, 500
+# seqpartition beads), one fold of one epoch on COVID_FRAMES frames (of
+# its 5 splits: 4 train frames, 2 batches of 2, 1 val and 2 test frames),
+# COVID_ENSEMBLE samples of COVID_EVALS test frames
+COVID_RECIPE = Path(__file__).resolve().parent / "examples" / "results" / "_r5_live"
+COVID_FRAMES, COVID_ENSEMBLE, COVID_EVALS, COVID_SEED = 7, 4, 2, 123
 
 
 def card_line() -> str:
@@ -1221,10 +1259,11 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
     return {"cv": launches, "cv_cross": cross_launches}
 
 
-def recipe_flags(name: str) -> list:
-    """run_cgvae flags of a committed recipe (``<name>_modelparams.json``):
-    its model, data and train fields, depth flags left to the caller."""
-    cfg = json.loads((STERIC_RECIPES / f"{name}_modelparams.json").read_text())
+def recipe_flags(name: str, directory: Path = STERIC_RECIPES) -> list:
+    """run_cgvae flags of a committed recipe (``<name>_modelparams.json`` in
+    ``directory``): its model, data and train fields, depth flags left to
+    the caller."""
+    cfg = json.loads((directory / f"{name}_modelparams.json").read_text())
     m, d, t = cfg["model"], cfg["data"], cfg["train"]
     flags = ["-n_cgs", m["n_cgs"], "-n_basis", m["n_basis"], "-n_rbf", m["n_rbf"],
              "-atom_cutoff", m["atom_cutoff"], "-cg_cutoff", m["cg_cutoff"],
@@ -1241,6 +1280,7 @@ def recipe_flags(name: str) -> list:
     flags = [str(v) for v in flags]
     for flag, on in (("--h_project_eval", m.get("h_project_eval")),
                      ("--h_project", m.get("h_project")), ("--det", m.get("det")),
+                     ("--sparse", m.get("sparse")), ("--degree_norm", m.get("degree_norm")),
                      ("--steric_data_margin", t.get("steric_data_margin"))):
         if on:
             flags.append(flag)
@@ -1480,6 +1520,517 @@ def sparse(dense: dict) -> dict:
                                   CV_EPOCHS, sparse=True)}
 
 
+def covid_frames(device: str = "cuda", n_frames: int = COVID_FRAMES) -> tuple:
+    """The covid stand-in's frames as ``run_cgvae`` loads them (the
+    synthetic generator, relaxed on ``device``, cached under the JAX
+    package's key): ((z, frames, bonds), seconds)."""
+    from coarsegrainingvae_tpu_torch.data.proteins import load_frames
+
+    t = time.perf_counter()
+    out = load_frames("covid", n_frames, seed=COVID_SEED, device=device)
+    return out, time.perf_counter() - t
+
+
+def _rows_by_receiver(edges, mask):
+    import numpy as np
+
+    e = edges[mask]
+    return e[np.lexsort((e[:, 1], e[:, 0]))]
+
+
+def native_phase(device: str = "cuda", covid_n_frames: int = COVID_FRAMES,
+                 dense_frames: int = 2) -> None:
+    """The host C++ routes on this machine: both libraries built with g++,
+    the cell list against the dense numpy path (the same mask, the same
+    edges per receiver) at N 300 and at the covid stand-in's N, the bond
+    diff's metrics against the dense ones past 1,500 atoms, and each
+    route's host seconds at the covid N against its dense version's.
+    Synthesises the covid frames (cached for the covid phase) and prints
+    their synthesis seconds. Raises on any disagreement."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data import neighbors
+    from coarsegrainingvae_tpu_torch.eval import metrics
+    from coarsegrainingvae_tpu_torch.native import bond_diff, build, cell_list
+
+    t = time.perf_counter()
+    cell_list._lib()
+    bond_diff._lib()
+    print(f"native: both libraries ready in {time.perf_counter() - t:.3f} s (g++: "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in build.BUILD_SECONDS.items()) or 'cached'}) "
+          f"in {build.BUILD_DIR}", flush=True)
+
+    def check_cell_list(frames, cutoff, label):
+        t = time.perf_counter()
+        e, m = cell_list.radius_graph_frames(frames, cutoff)
+        cell_s = time.perf_counter() - t
+        sub = frames[:dense_frames]
+        t = time.perf_counter()
+        de, dm = neighbors.radius_graph_frames_dense(sub, cutoff, chunk=1)
+        dense_s = time.perf_counter() - t
+        same = (np.array_equal(m[:dense_frames, :dm.shape[1]], dm)
+                and not m[:dense_frames, dm.shape[1]:].any()
+                and all(np.array_equal(_rows_by_receiver(e[k], m[k]),
+                                       _rows_by_receiver(de[k], dm[k]))
+                        for k in range(sub.shape[0])))
+        print(f"native cell list, {label}: {frames.shape[0]} frames x {frames.shape[1]} atoms, "
+              f"cutoff {cutoff}: edges per frame {m.sum(1).tolist()}, {cell_s:.3f} s for all "
+              f"frames; the dense path {dense_s:.3f} s for {sub.shape[0]}; mask and edges per "
+              f"receiver equal: {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"the cell list disagrees with the dense path ({label})")
+        return m.sum(1)
+
+    rng = np.random.default_rng(0)
+    frames = (rng.normal(size=(NATIVE_FRAMES, NATIVE_ATOMS, 3)) * 8.0).astype(np.float32)
+    check_cell_list(frames, NATIVE_CUTOFF, f"N {NATIVE_ATOMS}")
+    (z, frames, _), synth_s = covid_frames(device, covid_n_frames)
+    print(f"native: {covid_n_frames} covid stand-in frames ({z.shape[0]} atoms) synthesised "
+          f"and relaxed on {device} in {synth_s:.3f} s", flush=True)
+    atom_cutoff = json.loads((COVID_RECIPE / "covid2_modelparams.json").read_text()
+                             )["model"]["atom_cutoff"]
+    check_cell_list(frames, atom_cutoff, "covid")
+
+    n = min(BOND_DIFF_ATOMS, z.shape[0])
+    for label, zz, ref, n_dense in (("N %d" % n, z[:n], frames[0, :n], BOND_DIFF_SAMPLES),
+                                    ("covid", z, frames[0], 1)):
+        gen = ref[None] + rng.normal(
+            scale=np.linspace(0.0, 0.6, BOND_DIFF_SAMPLES)[:, None, None],
+            size=(BOND_DIFF_SAMPLES,) + ref.shape).astype(np.float32)
+        calls = bond_diff.calls
+        t = time.perf_counter()
+        cell = metrics.evaluate_samples(ref, gen, zz, large_n_threshold=BOND_DIFF_THRESHOLD)
+        cell_s = time.perf_counter() - t
+        if bond_diff.calls != calls + 2:
+            raise RuntimeError(f"evaluate_samples at N {zz.shape[0]} did not take the bond diff")
+        t = time.perf_counter()
+        dense = metrics.evaluate_samples(ref, gen[:n_dense], zz, large_n_threshold=10**9)
+        dense_s = time.perf_counter() - t
+        want = metrics.evaluate_samples(ref, gen[:n_dense], zz,
+                                        large_n_threshold=BOND_DIFF_THRESHOLD)
+        keys = ("valid_ratio", "valid_allatom_ratio", "graph_val_ratio",
+                "graph_allatom_val_ratio", "graph_edit_ratio", "graph_allatom_edit_ratio")
+        same = all(np.isclose(want[k], dense[k], rtol=1e-9, atol=0) for k in keys)
+        print(f"native bond diff, {label}: {BOND_DIFF_SAMPLES} samples in {cell_s:.3f} s "
+              f"(valid {cell['valid_allatom_ratio']}, edit ratio "
+              f"{cell['graph_allatom_edit_ratio']:.4f}); the dense metrics {dense_s:.3f} s for "
+              f"{n_dense}; equal on those: {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"the bond diff disagrees with the dense metrics ({label})")
+
+
+def pcn_flags(name: str) -> list:
+    """run_pcn flags of a committed PCN recipe (``<name>_modelparams.json``),
+    its logdir and data source left out."""
+    cfg = json.loads((PCN_RECIPES / f"{name}_modelparams.json").read_text())
+    flags = []
+    for k, v in cfg.items():
+        if k in ("logdir", "data_pkl"):
+            continue
+        if isinstance(v, bool):
+            if v:
+                flags.append(f"--{k}")
+        else:
+            flags += [f"--{k}" if k == "dec_type" else f"-{k}", str(v)]
+    return flags
+
+
+def check_pcn_run(run: Path, stochastic: bool, n_epochs: int, n_dump: int) -> list:
+    """The run's artifacts: every file, train_log.csv with one row per
+    epoch, test_results.csv with the JAX package's columns and finite rows,
+    params.pt of plain tensors. Returns the test rows."""
+    import csv
+    import math
+
+    import torch
+
+    names = ["modelparams.json", "train_log.csv", "test_results.csv", "params.pt"] + [
+        f"recon_{i}.pdb" for i in range(n_dump)]
+    missing = [n for n in names if not (run / n).is_file()]
+    if missing:
+        raise RuntimeError(f"{run}: missing {missing}")
+    with open(run / "train_log.csv", newline="") as f:
+        log = list(csv.DictReader(f))
+    with open(run / "test_results.csv", newline="") as f:
+        reader = csv.DictReader(f)
+        rows = list(reader)
+    header = ["protein", "seq_len", "rmsd", "drmsd", "ged", "inference_s"] + (
+        ["sample_best_rmsd", "sample_mean_rmsd"] if stochastic else [])
+    if reader.fieldnames != header or len(log) != n_epochs:
+        raise RuntimeError(f"{run}: test columns {reader.fieldnames}, {len(log)} epochs logged")
+    bad = [(r["protein"], k) for r in rows for k, v in r.items() if not math.isfinite(float(v))]
+    if bad or not rows:
+        raise RuntimeError(f"{run}: test_results.csv has values that are not finite: {bad}")
+    state = torch.load(run / "params.pt", weights_only=True)
+    if not state or not all(isinstance(v, torch.Tensor) for v in state.values()):
+        raise RuntimeError(f"{run}: params.pt does not hold plain tensors")
+    return rows
+
+
+def worst_rel(got, want) -> float:
+    """max over tensors of max|got - want| / max|want|."""
+    return max((x.detach().cpu().double() - y.detach().cpu().double()).abs().max().item()
+               / max(y.detach().abs().max().item(), 1e-30) for x, y in zip(got, want))
+
+
+def pcn_step_grads(device, batch, cam, quads, qmask, cfg, kw, aux, step, dtype):
+    """One PCN step's loss and gradients at ``dtype`` ("float32" or
+    "float64": model, coordinates and arithmetic) on ``device``, from the
+    weights of seed 1: (trainer, state, loss, gradients)."""
+    import dataclasses
+
+    import torch
+
+    from coarsegrainingvae_tpu_torch.models.cgvae import PCN
+    from coarsegrainingvae_tpu_torch.train.pcn_trainer import PCNTrainer
+
+    model = PCN(dataclasses.replace(cfg, compute_dtype=dtype),
+                generator=torch.Generator().manual_seed(1))
+    if dtype == "float64":
+        model = model.double()
+        batch = dataclasses.replace(batch, xyz=batch.xyz.double(), cg_xyz=batch.cg_xyz.double())
+    tr = PCNTrainer(model, device=device, **kw)
+    state = tr.init_state()
+    b, c, q, qm = tr._inputs(batch, cam, quads, qmask)
+    loss, _ = tr._loss(b, c, q, qm, aux, tr.zeta_at(step))
+    params = list(state.params.values())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return tr, state, loss.detach(), grads
+
+
+def step_card_vs_cpu(card, ref) -> tuple:
+    """(worst gradient error, worst updated-parameter error) of a step on
+    the card against the same step on the CPU; the CPU's update applies
+    its own optimizer to the card's gradients. Raises if the guard
+    rejects either step."""
+    from coarsegrainingvae_tpu_torch.train.trainer import guarded_update
+
+    (tr, state, loss, grads), (tr_ref, state_ref, _, grads_ref) = card, ref
+    grad_err = worst_rel(grads, grads_ref)
+    _, ok = guarded_update(tr.tx, list(state.params.values()), grads, loss, state.opt_state,
+                           state.lr, float("inf"))
+    _, ok_ref = guarded_update(tr_ref.tx, list(state_ref.params.values()),
+                               [g.cpu() for g in grads], loss.cpu(), state_ref.opt_state,
+                               state_ref.lr, float("inf"))
+    if not (bool(ok) and bool(ok_ref)):
+        raise RuntimeError("the skip guard rejected a PCN check step")
+    return grad_err, worst_rel(state.params.values(), list(state_ref.params.values()))
+
+
+def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EPOCHS,
+              steps: int = PCN_STEPS, width: tuple = ()) -> dict:
+    """PCN and StochasticPCN through ``cli.run_pcn`` with the p7 and p7s
+    recipes' flags (full width, cut in depth), every artifact checked; then
+    the p7 step on the recipe's batch of 8: card vs CPU (gradients, then
+    the update) at f32 on the loss's smooth terms and at float64 on the
+    whole recipe, and at f32 on the whole recipe within the f32
+    conditioning the CPU shows; two card steps from one state bit for
+    bit, ms/step, device busy, host launch calls and peak memory. PCN runs
+    none of the four kernels (its sums are segment sums): their counters
+    stay 0. Raises on any failed check. ``width`` flags (given after the
+    recipe's) and the depth arguments let the CPU rehearse it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from coarsegrainingvae_tpu_torch.cli import run_pcn
+    from coarsegrainingvae_tpu_torch.config import ModelConfig
+    from coarsegrainingvae_tpu_torch.data.sidechain import build_pcn_dataset
+    from coarsegrainingvae_tpu_torch.models.cgvae import PCN
+    from coarsegrainingvae_tpu_torch.train.pcn_trainer import PCNTrainer
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    shutil.rmtree(PCN_DIR, ignore_errors=True)
+    loaded = {}
+    real_load = run_pcn.load_protein_items
+    paths = {}
+    for name in ("p7", "p7s"):
+        def timed_load(*args, _name=name, **kwargs):
+            sync()
+            t = time.perf_counter()
+            items = real_load(*args, **kwargs)
+            sync()
+            loaded[_name] = (items, time.perf_counter() - t)
+            return items
+
+        flags = pcn_flags(name) + list(width) + ["-ndata", str(ndata), "-nepochs", str(epochs)]
+        a = run_pcn.build_parser().parse_args(flags)
+        run_pcn.load_protein_items = timed_load
+        try:
+            reset_counts()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            rows = run_pcn.main(flags + ["-logdir", str(PCN_DIR / name), "--device", device])
+            wall = time.perf_counter() - t
+            paths[f"pcn_{name}"] = read_counts()
+        finally:
+            run_pcn.load_protein_items = real_load
+        (run,) = list(PCN_DIR.glob(f"{name}_*"))
+        check_pcn_run(run, a.stochastic, epochs, a.n_dump)
+        items, synth_s = loaded[name]
+        # epoch_time_s, the 11th column with or without the KL columns after it
+        epoch_s = [round(float(line.split(",")[10]), 3)
+                   for line in (run / "train_log.csv").read_text().splitlines()[1:]]
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        extra = (f", best-of-{a.n_ensemble} sample RMSD "
+                 f"{np.mean([r['sample_best_rmsd'] for r in rows]):.4f} A" if a.stochastic else "")
+        print(f"pcn {name}: run_pcn {ndata} proteins x {epochs} epochs in {wall:.3f} s "
+              f"(n_basis {a.n_basis}, dec {a.dec_nconv}, {a.dec_type}, batch {a.batch_size}); "
+              f"synthetic_protein(well_posed=True) on {device} {synth_s:.3f} s for {len(items)} "
+              f"proteins ({synth_s / len(items):.3f} s each); epochs {epoch_s} s; test RMSD "
+              f"mean {np.mean([r['rmsd'] for r in rows]):.4f} A over {len(rows)} proteins"
+              f"{extra}; peak allocated {peak:.3f} GB; launches {paths[f'pcn_{name}']}",
+              flush=True)
+        if cuda and any(paths[f"pcn_{name}"].values()):
+            raise RuntimeError(f"pcn {name} launched a kernel: {paths[f'pcn_{name}']}")
+
+    # the p7 step on its own
+    a = run_pcn.build_parser().parse_args(pcn_flags("p7") + list(width))
+    items = loaded["p7"][0]
+    ds = build_pcn_dataset(items, cg_cutoff=a.cutoff)
+    bs = a.batch_size
+    cfg = ModelConfig(dec_type=a.dec_type, n_basis=a.n_basis, n_rbf=a.n_rbf,
+                      atom_cutoff=a.cutoff, dec_nconv=a.dec_nconv, activation=a.activation)
+    kw = dict(gamma=a.gamma, kappa=a.kappa, lr=a.lr, grad_clip=a.grad_clip, seed=a.seed,
+              aux_warmup=a.aux_warmup, zeta=a.zeta, steric_margin=a.steric_margin,
+              zeta_warmup=a.zeta_warmup, bond_project=a.bond_project)
+    aux = 1.0 / a.aux_warmup if a.aux_warmup else 1.0
+    batch, cam, quads, qmask = next(ds.iter_batches(bs))
+    n_atoms = int(batch.atom_mask.sum())
+    print(f"pcn step batch: {bs} proteins, {n_atoms} atoms (padded {batch.z.numel()}), "
+          f"{int(batch.cg_mask.sum())} residues, {int(batch.cg_nbr_mask.sum())} C-alpha edges, "
+          f"{int(batch.bond_mask.sum())} bonds", flush=True)
+
+    # card vs CPU: gradients, then the CPU's update from the card's gradients
+    # (Adam's first step turns rounding-level gradient differences of
+    # entries near zero into lr-sized updates). The recipe's loss at random
+    # weights is ill-conditioned in float32: its dihedral term wraps at
+    # +-pi (atan2) and the rooted projection divides by decoded bond
+    # lengths near zero, so f32 rounding alone moves some gradients by
+    # 1e-3-1e-1. The 1e-4 gate holds the f32 step of the loss's smooth
+    # terms (recon, graph, steric mid-ramp) and the float64 step of the
+    # whole recipe. The whole recipe's f32 gradients are held to that
+    # conditioning, as measured in this run on the CPU ("own": the CPU's
+    # f32 against its float64): the card's f32 no farther from the CPU's
+    # float64 than max(2 * own, 1e-4), and from the CPU's f32 than
+    # max(own, 1e-4).
+    smooth = dict(kw, kappa=0.0, bond_project=False)
+    at = a.zeta_warmup // 2
+    cpu64 = pcn_step_grads("cpu", batch, cam, quads, qmask, cfg, kw, aux, at, "float64")
+    for label, dtype, step_kw in (("f32, smooth terms", "float32", smooth),
+                                  ("float64, the whole recipe", "float64", kw),
+                                  ("f32, the whole recipe", "float32", kw)):
+        card = pcn_step_grads(device, batch, cam, quads, qmask, cfg, step_kw, aux, at, dtype)
+        ref = (cpu64 if (dtype, step_kw) == ("float64", kw) else
+               pcn_step_grads("cpu", batch, cam, quads, qmask, cfg, step_kw, aux, at, dtype))
+        grad_err, param_err = step_card_vs_cpu(card, ref)
+        line = (f"pcn step card vs CPU ({label}; batch {bs}, aux {aux:.4f}, zeta "
+                f"{card[0].zeta_at(at):g}): every gradient max|err|/max|ref| {grad_err:.3e}, "
+                f"every updated parameter {param_err:.3e}")
+        grad_tol = TRAIN_RTOL
+        ok = True
+        if label.startswith("f32, the whole"):
+            own = worst_rel(ref[3], cpu64[3])
+            exact = worst_rel(card[3], cpu64[3])
+            grad_tol = max(own, TRAIN_RTOL)
+            exact_tol = max(2.0 * own, TRAIN_RTOL)
+            line += (f" (tolerance {grad_tol:.3e}); card f32 vs CPU float64 gradients "
+                     f"{exact:.3e} (tolerance {exact_tol:.3e}); the CPU's own f32 vs float64 "
+                     f"{own:.3e}; updated parameters (tolerance {TRAIN_RTOL:g})")
+            ok = exact <= exact_tol
+        else:
+            line += f" (tolerance {TRAIN_RTOL:g})"
+        print(line, flush=True)
+        if not (ok and grad_err <= grad_tol and param_err <= TRAIN_RTOL):
+            raise RuntimeError(f"the PCN step on the card disagrees with the CPU ({label})")
+    del card, ref, cpu64
+
+    # the recipe's step (bf16 matmuls): two steps from one state, then timed
+    tr = PCNTrainer(PCN(cfg, generator=torch.Generator().manual_seed(1)), device=device, **kw)
+    state = tr.init_state()
+    start = {k: p.detach().clone() for k, p in state.params.items()}
+    opt0 = state.opt_state
+    after = []
+    for _ in range(2):
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(start[k])
+        new, _ = tr.train_step(dataclasses.replace(state, opt_state=opt0), batch, cam, quads,
+                               qmask, aux)
+        after.append([p.detach().clone() for p in new.params.values()]
+                     + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
+    same = all(torch.equal(x, y) for x, y in zip(*after))
+    print(f"pcn two steps from one state: parameters and moments bit for bit: {same}",
+          flush=True)
+    if not same:
+        raise RuntimeError("two PCN steps from one state differ")
+    state = new
+    batches = []
+    rng = np.random.default_rng(0)
+    while len(batches) < steps + 3:
+        batches += list(ds.iter_batches(bs, rng=rng))
+    for b in batches[:3]:
+        state, _ = tr.train_step(state, *b, aux)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    metrics = []
+    for b in batches[3:steps + 3]:
+        state, m = tr.train_step(state, *b, aux)
+        metrics.append(m["loss"])
+    losses = torch.stack(metrics).float().cpu().numpy()        # ends in a sync
+    ms = (time.perf_counter() - t) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    line = (f"pcn step (p7, batch {bs}, bf16 matmuls, eager): {ms:.3f} ms/step over {steps} "
+            f"steps (host clock ending in a sync), loss finite {bool(np.isfinite(losses).all())}; "
+            f"peak allocated {peak:.3f} GB")
+    if cuda:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sync()
+            t = time.perf_counter()
+            for b in batches[3:3 + PROFILE_STEPS]:
+                state, _ = tr.train_step(state, *b, aux)
+            sync()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        p = device_profile(prof, wall_ms, PROFILE_STEPS)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "pcn_profile.txt").write_text(
+            prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        line += (f"; profiled {wall_ms / PROFILE_STEPS:.3f} ms/step, device busy "
+                 f"{p['busy_ms'] / PROFILE_STEPS:.3f} ms/step ({100 * p['busy_share']:.1f} %), "
+                 f"{p['device_events_per_step']:.0f} device events and "
+                 f"{p['host_launch_calls_per_step']:.0f} host launch calls per step")
+    print(line, flush=True)
+    if cuda:
+        for name, ms_step, n in p["top"]:
+            print(f"  pcn device {ms_step:.3f} ms/step, {n}/step: {name}", flush=True)
+    if not np.isfinite(losses).all():
+        raise RuntimeError("a timed PCN step's loss is not finite")
+    return paths
+
+
+def covid_phase(device: str = "cuda", n_frames: int = COVID_FRAMES, width: tuple = ()) -> dict:
+    """The committed covid recipe (covid2: sparse CGequiVAE, degree_norm,
+    500 seqpartition beads, n_basis 192, cross decoder, batch 2) through
+    ``run_cgvae`` on the synthetic covid frames, cut in depth to one fold
+    of one epoch on ``n_frames`` frames and COVID_ENSEMBLE samples of
+    COVID_EVALS test frames, with the graph metrics; the fold's artifacts
+    checked, the atom graphs built by the cell list and the metrics by the
+    bond diff, the fold's wall time by part; then the step eager and
+    captured with its peak memory. Raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli import run_cgvae
+    from coarsegrainingvae_tpu_torch.data import dataset as dataset_mod
+    from coarsegrainingvae_tpu_torch.data.device import DeviceDataset
+    from coarsegrainingvae_tpu_torch.eval import sampling
+    from coarsegrainingvae_tpu_torch.native import bond_diff, cell_list
+    from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    cuda = device == "cuda"
+    flags = recipe_flags("covid2", COVID_RECIPE) + list(width)
+    a = run_cgvae.build_parser().parse_args(flags)
+    trained, datasets = [], []
+
+    class RecordingTrainer(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trained.append(self)
+
+    def recording_build(*args, **kwargs):
+        datasets.append(real_build(*args, **kwargs))
+        return datasets[-1]
+
+    real_build = run_cgvae.build_dataset
+    logdir = CV_DIR / "covid"
+    for old in CV_DIR.glob("covid*"):
+        shutil.rmtree(old, ignore_errors=True)
+    parts = [(run_cgvae, "load_frames", "load_frames"),
+             (run_cgvae, "build_fold_mapping", "mapping"),
+             (run_cgvae, "build_dataset", "datasets"),
+             (dataset_mod, "radius_graph_frames", "radius graphs (inside datasets)"),
+             (Trainer, "fit", "fit"),
+             (CheckpointManager, "save", "checkpoint save"),
+             (run_cgvae, "reconstruct_all", "reconstruct_all"),
+             (run_cgvae, "sample_ensemble", "sample_ensemble"),
+             (sampling, "evaluate_samples", "metrics (inside both)"),
+             (run_cgvae, "write_xyz", "xyz dumps"),
+             (run_cgvae, "save_grid_snapshots", "movies")]
+    depth = ["-ndata", str(n_frames), "-n_ensemble", str(COVID_ENSEMBLE), "-nevals",
+             str(COVID_EVALS), "--graph_eval", "-max_folds", "1", "-nepochs", "1",
+             "-logdir", str(logdir), "--device", device]
+    cells, diffs = cell_list.calls, bond_diff.calls
+    run_cgvae.Trainer = RecordingTrainer
+    run_cgvae.build_dataset = recording_build
+    try:
+        reset_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with PartTimes(parts) as times:
+            rows = run_cgvae.main(flags + depth)
+        wall = time.perf_counter() - t
+        launches = read_counts()
+    finally:
+        run_cgvae.Trainer = Trainer
+        run_cgvae.build_dataset = real_build
+    peak_fold = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    (run,) = list(CV_DIR.glob("covid*"))
+    check_cv_run(run, 1, 1)
+    cells, diffs = cell_list.calls - cells, bond_diff.calls - diffs
+    ds_train = datasets[0]
+    n_atoms = ds_train.n_atoms
+    edges = ds_train.nbr_mask.sum(1)
+    print(f"covid run: run_cgvae 1 fold x 1 epoch in {wall:.3f} s ({type(trained[0].model).__name__},"
+          f" {n_atoms} atoms, {a.n_cgs} beads, n_basis {a.n_basis}, batch {a.batch_size}); atom "
+          f"edges per frame {edges.tolist()} (budget {ds_train.nbrs.shape[1]}), CG edges per "
+          f"frame {ds_train.cg_nbr_mask.sum(1).tolist()}; cell-list calls {cells}, bond-diff "
+          f"calls {diffs}; test recon RMSD {rows[0]['test_all_recon_rmsd']:.4f} A, recon valid "
+          f"{rows[0]['recon_all_valid_ratio']}; peak allocated {peak_fold:.3f} GB; launches "
+          f"{launches}", flush=True)
+    print(f"covid wall time by part: {times.line()}", flush=True)
+    if n_atoms >= 256 and cells < 2:
+        raise RuntimeError(f"the cell list built {cells} graph stacks, expected the atom graphs")
+    if n_atoms > 1500 and diffs == 0:
+        raise RuntimeError("the bond diff computed no metric")
+    if cuda and any(launches.values()):
+        raise RuntimeError(f"the sparse covid model launched a kernel: {launches}")
+
+    if not cuda:
+        return {"covid": launches}
+    # the step: eager and captured epochs over the fold's train frames
+    tr = trained[0]
+    n_val = max(int(len(ds_train) * 0.1), 1)
+    ds_tr = ds_train.subset(np.arange(n_val, len(ds_train)))
+    bs = a.batch_size
+    steps = max(len(ds_tr) // bs, 1)
+    dds = DeviceDataset.from_dataset(ds_tr.subset(np.resize(np.arange(len(ds_tr)), steps * bs)),
+                                     "cuda")
+    dds_prof = DeviceDataset.from_dataset(
+        ds_tr.subset(np.resize(np.arange(len(ds_tr)), PROFILE_STEPS * bs)), "cuda")
+    state = tr.init_state(ds_tr.batch(np.arange(bs)))
+    none = dict.fromkeys(DENSE_PER_STEP, 0)
+    _, timings, _, peak = timed_epochs(tr, state, dds, dds_prof, bs, none, "covid ",
+                                       kinds=("eager", "captured", "captured"),
+                                       profile_name=f"covid_profile_b{bs}.txt")
+    print(f"covid step, batch {bs}: eager {timings['eager'][0]:.3f} ms/step, captured "
+          f"{', '.join(f'{x:.3f}' for x in timings['captured'])} ms/step; step peak allocated "
+          f"{peak:.3f} GB (fold {peak_fold:.3f} GB)", flush=True)
+    return {"covid": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1519,6 +2070,9 @@ def main() -> int:
     paths.update(cv())
     paths.update(steric(dense))
     paths.update(sparse(dense))
+    native_phase()
+    paths.update(pcn_phase())
+    paths.update(covid_phase())
 
     source = "coarsegrainingvae_tpu_torch/csrc/"
     rows = {"message": ("fused_message", "fused_message.cu", "pallas_message.py:126"),

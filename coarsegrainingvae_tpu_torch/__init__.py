@@ -10,5 +10,9 @@ over ``data.dataset.build_dataset`` / ``data.device.DeviceDataset``,
 ``cli.run_cgvae`` runs the k-fold CV workflow (checkpoints in
 ``train.checkpoint``, evaluation in ``eval``), ``cli.postanalysis`` and
 ``serve.Backmapper.from_run`` read a fold back, and
-``convert.convert_flax_params`` loads a JAX model's parameters.
+``convert.convert_flax_params`` loads a JAX model's parameters. PCN and
+StochasticPCN (``models.cgvae``) train through ``train.pcn_trainer`` and
+``cli.run_pcn`` on the protein data of ``data.sidechain``; the host C++ of
+``native`` (cell-list radius graphs, bond-graph diffs) is built with g++
+on first use.
 """

@@ -32,11 +32,18 @@ The sparse ``CGequiVAE`` (a tree with ``encoder``, ``prior_net`` and
 ``DistanceEmbed_0`` -> ``.embed``), ``ContractiveMessageBlock_i`` ->
 ``encoder.contract.i``, the decoder's message blocks -> ``dec.msgs.i``
 (pseudo2's ``mix_dv``/``mix_dvbar`` as they are), ``UpdateBlock_i`` ->
-``dec.updates.i``, the MLP heads and ``euclidean``. Every flax leaf must be
-consumed; a leftover or missing one raises.
+``dec.updates.i``, the MLP heads and ``euclidean``.
+
+``PCN`` and ``StochasticPCN`` (a tree with ``embedding`` at the top) map
+the same way: ``dec`` as above, ``embedding``, and for the stochastic one
+``atom_embedding``, ``enc_contract``, ``enc_msgs_i`` -> ``enc_msgs.i``,
+``enc_upds_i`` -> ``enc_upds.i``, ``munet``, ``sigmanet``, ``latent_mix``
+and ``prior_net``. Every flax leaf must be consumed; a leftover or missing
+one raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping
 
 import numpy as np
@@ -96,6 +103,10 @@ def convert_flax_params(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
     out: Dict[str, torch.Tensor] = {}
     if "encoder" in params:
         _sparse(tree, cfg, out)
+        _check_consumed(tree)
+        return out
+    if "embedding" in params:
+        _pcn(tree, cfg, out)
         _check_consumed(tree)
         return out
 
@@ -161,48 +172,88 @@ def _dense(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str,
         out[f"{dst}.bias"] = _tensor(tree.leaf(*src, "Dense_0", "bias"))
 
 
-def _sparse(tree: _Tree, cfg: ModelConfig, out: Dict[str, torch.Tensor]) -> None:
-    def dense(dst, *src, bias=True):
-        _dense(tree, out, dst, *src, bias=bias)
+def _inv(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str) -> None:
+    """An edge block's InvariantMessage_0 -> ``<dst>.inv``."""
+    src = src + ("InvariantMessage_0",)
+    _dense(tree, out, f"{dst}.inv.phi_in", *src, "Dense_0")
+    _dense(tree, out, f"{dst}.inv.phi_out", *src, "Dense_1")
+    _dense(tree, out, f"{dst}.inv.embed.dense", *src, "DistanceEmbed_0", "Dense_0")
 
-    def inv(dst, *src):
-        src = src + ("InvariantMessage_0",)
-        dense(f"{dst}.inv.phi_in", *src, "Dense_0")
-        dense(f"{dst}.inv.phi_out", *src, "Dense_1")
-        dense(f"{dst}.inv.embed.dense", *src, "DistanceEmbed_0", "Dense_0")
 
-    def mlp(dst, *src):
-        for layer in range(2):
-            dense(f"{dst}.layers.{layer}", *src, f"Dense_{layer}")
+def _mlp(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str) -> None:
+    for layer in range(2):
+        _dense(tree, out, f"{dst}.layers.{layer}", *src, f"Dense_{layer}")
 
-    for part in ("encoder", "prior_net"):
-        out[f"{part}.embed.weight"] = _tensor(
-            tree.leaf(part, "EmbeddingZeroPad_0", "Embed_0", "embedding"))
-        for i in range(cfg.enc_nconv):
-            inv(f"{part}.msgs.{i}", part, f"EquiMessageBlock_{i}")
-    for i in range(cfg.enc_nconv):
-        con = ("encoder", f"ContractiveMessageBlock_{i}")
-        dense(f"encoder.contract.{i}.phi_in", *con, "Dense_0")
-        dense(f"encoder.contract.{i}.phi_out", *con, "Dense_1")
-        dense(f"encoder.contract.{i}.embed.dense", *con, "DistanceEmbed_0", "Dense_0")
-    mlp("prior_net.mu", "prior_net", "MLP_0")
-    mlp("prior_net.logvar", "prior_net", "MLP_1")
-    mlp("atom_munet", "atom_munet")
-    mlp("atom_sigmanet", "atom_sigmanet")
+
+def _update(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str) -> None:
+    _dense(tree, out, f"{dst}.u", *src, "Dense_0", bias=False)
+    _dense(tree, out, f"{dst}.v", *src, "Dense_1", bias=False)
+    _dense(tree, out, f"{dst}.gate", *src, "Dense_2")
+    _dense(tree, out, f"{dst}.split", *src, "Dense_3")
+
+
+def _contract(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str) -> None:
+    _dense(tree, out, f"{dst}.phi_in", *src, "Dense_0")
+    _dense(tree, out, f"{dst}.phi_out", *src, "Dense_1")
+    _dense(tree, out, f"{dst}.embed.dense", *src, "DistanceEmbed_0", "Dense_0")
+
+
+def _embedding(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str) -> None:
+    out[f"{dst}.weight"] = _tensor(tree.leaf(*src, "Embed_0", "embedding"))
+
+
+def _sparse_dec(tree: _Tree, cfg: ModelConfig, out: Dict[str, torch.Tensor]) -> None:
+    """The ``dec`` subtree of CGequiVAE and PCN."""
     block = _SPARSE_DEC_BLOCKS[cfg.dec_type]
     for i in range(cfg.dec_nconv):
-        inv(f"dec.msgs.{i}", "dec", f"{block}_{i}")
+        _inv(tree, out, f"dec.msgs.{i}", "dec", f"{block}_{i}")
         if cfg.dec_type == "pseudo2":
             for name in ("mix_dv", "mix_dvbar"):
                 out[f"dec.msgs.{i}.{name}"] = _tensor(tree.leaf("dec", f"{block}_{i}", name))
         if cfg.dec_type != "en":
-            upd = ("dec", f"UpdateBlock_{i}")
-            dense(f"dec.updates.{i}.u", *upd, "Dense_0", bias=False)
-            dense(f"dec.updates.{i}.v", *upd, "Dense_1", bias=False)
-            dense(f"dec.updates.{i}.gate", *upd, "Dense_2")
-            dense(f"dec.updates.{i}.split", *upd, "Dense_3")
+            _update(tree, out, f"dec.updates.{i}", "dec", f"UpdateBlock_{i}")
+
+
+def _sparse(tree: _Tree, cfg: ModelConfig, out: Dict[str, torch.Tensor]) -> None:
+    for part in ("encoder", "prior_net"):
+        _embedding(tree, out, f"{part}.embed", part, "EmbeddingZeroPad_0")
+        for i in range(cfg.enc_nconv):
+            _inv(tree, out, f"{part}.msgs.{i}", part, f"EquiMessageBlock_{i}")
+    for i in range(cfg.enc_nconv):
+        _contract(tree, out, f"encoder.contract.{i}", "encoder", f"ContractiveMessageBlock_{i}")
+    _mlp(tree, out, "prior_net.mu", "prior_net", "MLP_0")
+    _mlp(tree, out, "prior_net.logvar", "prior_net", "MLP_1")
+    _mlp(tree, out, "atom_munet", "atom_munet")
+    _mlp(tree, out, "atom_sigmanet", "atom_sigmanet")
+    _sparse_dec(tree, cfg, out)
     if not cfg.equivariant:
-        dense("euclidean", "euclidean")
+        _dense(tree, out, "euclidean", "euclidean")
+
+
+def _pcn(tree: _Tree, cfg: ModelConfig, out: Dict[str, torch.Tensor]) -> None:
+    # PCN builds its decoder from dec_type as the JAX package does: pseudo
+    # and pseudo2 as they are, painn without the cross term, else cross
+    if cfg.dec_type not in ("pseudo", "pseudo2", "painn"):
+        cfg = dataclasses.replace(cfg, dec_type="cross")
+    _embedding(tree, out, "embedding", "embedding")
+    _sparse_dec(tree, cfg, out)
+    if not tree.has("atom_embedding"):
+        return
+    n_enc = max(cfg.enc_nconv, 1)
+    _embedding(tree, out, "atom_embedding", "atom_embedding")
+    _contract(tree, out, "enc_contract", "enc_contract")
+    for i in range(n_enc):
+        _inv(tree, out, f"enc_msgs.{i}", f"enc_msgs_{i}")
+    for i in range(n_enc + 1):
+        _update(tree, out, f"enc_upds.{i}", f"enc_upds_{i}")
+    _mlp(tree, out, "munet", "munet")
+    _mlp(tree, out, "sigmanet", "sigmanet")
+    _dense(tree, out, "latent_mix", "latent_mix")
+    _embedding(tree, out, "prior_net.embed", "prior_net", "EmbeddingZeroPad_0")
+    for i in range(n_enc):
+        _inv(tree, out, f"prior_net.msgs.{i}", "prior_net", f"EquiMessageBlock_{i}")
+    _mlp(tree, out, "prior_net.mu", "prior_net", "MLP_0")
+    _mlp(tree, out, "prior_net.logvar", "prior_net", "MLP_1")
 
 
 def _check_consumed(tree: _Tree) -> None:

@@ -2,10 +2,12 @@
 ``coarsegrainingvae_tpu.data.neighbors``).
 
 Radius graphs vectorized over frames in numpy and emitted as fixed-shape
-padded, receiver-sorted edge arrays. The JAX package switches to a C++
-cell list at N >= 256 atoms (neighbors.py:72-77), which gives the same
-arrays; the port computes the numpy path at every N (the cell list is a
-later slice, ROADMAP.md A5).
+padded, receiver-sorted edge arrays. From ``CELL_LIST_MIN_ATOMS`` atoms
+on, ``radius_graph_frames`` takes the C++ cell list
+(``native/cell_list.py``), as the JAX package does (neighbors.py:72-77):
+the same edges per receiver and the same mask, in O(N) per frame. The
+numpy path is its plain version. Unlike the JAX package, a failed g++
+build raises instead of falling back to numpy.
 """
 from __future__ import annotations
 
@@ -29,6 +31,23 @@ def make_directed(edges: np.ndarray) -> np.ndarray:
     return np.concatenate([edges, edges[:, ::-1]], axis=0).astype(np.int32)
 
 
+# the JAX package's switch to the cell list (neighbors.py:72-77)
+CELL_LIST_MIN_ATOMS = 256
+
+
+def radius_graph_dense(xyz: np.ndarray, cutoff: float, undirected: bool = True) -> np.ndarray:
+    """Radius graph (d <= cutoff, no self edges) of one frame (N, 3) via
+    the dense pairwise matrix (data.py:65-82); undirected keeps the i < j
+    pairs. Returns (e, 2) int32 in row-major order."""
+    dist = np.sqrt(((xyz[None] - xyz[:, None]) ** 2).sum(-1))
+    mask = dist <= cutoff
+    np.fill_diagonal(mask, False)
+    pairs = np.argwhere(mask)
+    if undirected:
+        pairs = pairs[pairs[:, 1] > pairs[:, 0]]
+    return pairs.astype(np.int32)
+
+
 def radius_graph_frames(
     frames: np.ndarray,
     cutoff: float,
@@ -45,8 +64,29 @@ def radius_graph_frames(
     frames per numpy block, to bound host memory.
 
     Returns edges (F, E_max, 2) int32, sorted by receiver and padded with
-    (N-1, N-1) rows, and mask (F, E_max) bool.
+    (N-1, N-1) rows, and mask (F, E_max) bool. N >= CELL_LIST_MIN_ATOMS
+    takes the cell list (module docstring).
     """
+    frames = np.asarray(frames, dtype=np.float32)
+    f, n, _ = frames.shape
+    if n >= CELL_LIST_MIN_ATOMS:
+        from coarsegrainingvae_tpu_torch.native import cell_list
+
+        return cell_list.radius_graph_frames(frames, cutoff, max_edges, directed, bucket)
+    return radius_graph_frames_dense(frames, cutoff, max_edges, directed, bucket, chunk)
+
+
+def radius_graph_frames_dense(
+    frames: np.ndarray,
+    cutoff: float,
+    max_edges: Optional[int] = None,
+    directed: bool = True,
+    bucket: int = 128,
+    chunk: int = 512,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy path of ``radius_graph_frames`` at any N, the cell
+    list's plain version: within a receiver the i < j partners come first,
+    then the i > j ones, each ascending."""
     frames = np.asarray(frames, dtype=np.float32)
     f, n, _ = frames.shape
 

@@ -11,15 +11,15 @@ order:
 3. the synthetic stand-in ensembles (``data/synthetic.py``), cached under
    the same key as the JAX package's.
 
-``traj_npz_from_pdb_frames`` waits for ``data/sidechain.py`` (ROADMAP.md
-A10).
+``traj_npz_from_pdb_frames`` writes that npz from a directory of per-frame
+PDB files, without mdtraj.
 """
 from __future__ import annotations
 
 import glob
 import os
 import tempfile
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -115,6 +115,53 @@ def load_frames(
         order = np.random.default_rng(seed).permutation(xyz.shape[0])
         xyz = xyz[order]
     return z, xyz[:ndata], bonds
+
+
+def traj_npz_from_pdb_frames(
+    pdb_dir: str, out_path: Optional[str] = None, bond_scale: float = 1.3
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Directory of same-topology PDB frames -> (z, xyz (S, n, 3), bonds),
+    optionally saved as the native trajectory npz cache.
+
+    The mdtraj-free leg of the real-data ingestion (datasets.py:170-187 of
+    the original code loads xtc/dcd through mdtraj): dump an MD trajectory
+    to per-frame PDB files, convert here, and load_frames picks the npz up.
+    Every frame must share the first frame's sequence and set of resolved
+    atoms; the bond graph comes from covalent-radius cutoffs on the first
+    frame (sidechain.py:148-156), and the npz also carries per-atom names
+    so minimal/alpha site selection can use them.
+    """
+    from coarsegrainingvae_tpu_torch.data.sidechain import protein_props
+    from coarsegrainingvae_tpu_torch.utils.pdb import load_pdb_dir
+
+    frames = load_pdb_dir(pdb_dir)
+    ref_id, ref_seq, ref_crd = frames[0]
+    ref = protein_props(ref_seq, ref_crd)
+    xyz_list = [ref.xyz]
+    for pdb_id, seq, crd in frames[1:]:
+        if seq != ref_seq:
+            raise ValueError(
+                f"{pdb_id}: sequence differs from {ref_id}; trajectory "
+                "frames must share one topology"
+            )
+        p = protein_props(seq, crd)
+        if p.z.shape != ref.z.shape or not np.array_equal(
+            p.channel_idx, ref.channel_idx
+        ):
+            raise ValueError(
+                f"{pdb_id}: resolved-atom set differs from {ref_id}"
+            )
+        xyz_list.append(p.xyz)
+    xyz = np.stack(xyz_list)
+    if out_path is not None:
+        from coarsegrainingvae_tpu_torch.data.sidechain import ATOM_NAMES
+
+        names = np.array([ATOM_NAMES[i] for i in ref.atom_idx])
+        np.savez_compressed(
+            out_path, z=ref.z.astype(np.int32), xyz=xyz.astype(np.float32),
+            bonds=ref.bonds.astype(np.int32), atom_names=names,
+        )
+    return ref.z, xyz, ref.bonds
 
 
 def load_traj_atom_names(name: str):

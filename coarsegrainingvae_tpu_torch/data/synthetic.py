@@ -9,9 +9,11 @@ ensembles have a fixed bonded topology (so bond-graph validity metrics are
 meaningful) and multi-modal conformational diversity (so the VAE has
 something to learn).
 
-PyTorch port of ``coarsegrainingvae_tpu.data.synthetic`` (peptide presets
-only): the generator is the same numpy code, and ``relax_frames`` is the
-same steepest descent written in torch on an explicit device.
+PyTorch port of ``coarsegrainingvae_tpu.data.synthetic``: the peptide
+presets and the atom14 proteins of the PCN path (``synthetic_protein``).
+The generators are the same numpy code; ``relax_frames`` and the atom14
+relaxation are the same steepest descent written in torch on an explicit
+device.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import Tuple, Union
 
 import numpy as np
 import torch
+
+from coarsegrainingvae_tpu_torch.ops.segment import segment_sum
 
 # bump whenever generation/relaxation changes so on-disk ensemble caches
 # (data/proteins.py) are invalidated instead of silently served stale
@@ -456,3 +460,274 @@ def synthetic_peptide(
     frames -= frames.mean(axis=1, keepdims=True)
     return z, frames, bonds
 
+
+_SIDECHAIN_TEMPLATES: dict = {}
+
+
+def _sidechain_template(aa: str) -> np.ndarray:
+    """Deterministic per-residue-type sidechain offsets (slots 4..13) in
+    the local backbone frame (fwd, side, up) -- the synthetic analogue of a
+    canonical rotamer. Fixed across all proteins/seeds, so the mapping
+    (residue type, backbone frame) -> sidechain atoms is LEARNABLE, as it
+    is for real rotamer-dominated structures; per-structure thermal noise
+    is added by the caller."""
+    if aa in _SIDECHAIN_TEMPLATES:
+        return _SIDECHAIN_TEMPLATES[aa]
+    from coarsegrainingvae_tpu_torch.data.sidechain import ATOM_MAP_14
+
+    # stable across processes (str hash is randomized by PYTHONHASHSEED)
+    rng = np.random.default_rng(7919 * (ord(aa) + 13))
+    names = ATOM_MAP_14[aa]
+    offs = np.zeros((14, 3))
+    prev = np.zeros(3)
+    grow = np.array([0.0, 1.0, 0.35])
+    grow /= np.linalg.norm(grow)
+    # real sidechains reach at most ~7 A from the C-alpha (ARG/LYS tips);
+    # 1.5 A per-slot steps let 10-slot chains extend to ~15 A, which makes
+    # tip placement amplify backbone-frame error far beyond anything the
+    # PCN task sees on real proteins. Use bonded-step 1.2 A inside a 7 A
+    # rotamer envelope; steps that would leave the envelope or land within
+    # 1 A of an earlier slot (spurious covalent contacts in the
+    # coordinate-derived bond graph) are re-drawn.
+    max_extent = 7.0
+    placed = [np.zeros(3)]  # the C-alpha itself
+    for slot in range(4, 14):
+        if not names[slot]:
+            break
+        cand, g2, best_score = None, grow, -np.inf
+        for _ in range(20):
+            g = grow + 0.45 * rng.normal(size=3)
+            g /= np.linalg.norm(g)
+            c = prev + 1.2 * g
+            near = min(np.linalg.norm(c - p) for p in placed)
+            if np.linalg.norm(c) <= max_extent and near >= 1.0:
+                cand, g2 = c, g
+                break
+            # keep the least-bad candidate: prefer separated, in-envelope
+            score = min(near, 1.0) - max(np.linalg.norm(c) - max_extent, 0.0)
+            if score > best_score:
+                best_score, cand, g2 = score, c, g
+        prev, grow = cand, g2
+        offs[slot] = prev
+        placed.append(prev)
+    _SIDECHAIN_TEMPLATES[aa] = offs
+    return offs
+
+
+def synthetic_protein(
+    n_res: int, seed: int = 0, missing_frac: float = 0.0,
+    noise: float = 0.06, well_posed: bool = False,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[str, np.ndarray]:
+    """Random protein in the atom14 layout for testing the PCN path without
+    SidechainNet: (seq, crd (n_res, 14, 3)).
+
+    The backbone follows a smooth random-walk C-alpha trace (3.8 A spacing);
+    backbone atoms sit at ideal offsets in the local chain frame and
+    sidechains follow DETERMINISTIC per-residue-type templates
+    (_sidechain_template) plus `noise` A of thermal jitter -- like real
+    rotamer-dominated structures, the all-atom geometry is a learnable
+    function of (sequence, C-alpha trace), which is exactly the PCN task
+    (run_pdb.py of the original code). missing_frac randomly zeroes sidechain atoms
+    (SidechainNet items have missing coordinates; zero rows = 'absent').
+
+    well_posed=True additionally relaxes the structure (relax_frames)
+    against its INTENDED covalent topology (backbone chain + linear
+    sidechain chains + peptide bonds) so the coordinate-derived
+    covalent-cutoff bond graph (bond_graph_from_coords, same rule as the
+    original code's truth graphs at sidechain.py:148-156) equals that topology
+    exactly -- a tree. The raw generator leaves template atom pairs and
+    O(i)..N(i+1) backbone pairs inside covalent cutoffs, which makes ~40%
+    of truth graphs cyclic and exact bond-graph recovery (GED 0) literally
+    impossible for any model. Default False preserves the round-3/4 PCN
+    A/B data bit-exactly.
+
+    The default path is numpy and gives the JAX package's bits. With
+    well_posed the relaxation runs in torch on ``device`` (the card unless
+    the caller passes ``"cpu"``), with the physics of the JAX package's
+    jitted relaxer.
+    """
+    from coarsegrainingvae_tpu_torch.data.sidechain import ATOM_MAP_14, AMINO_ACIDS
+
+    rng = np.random.default_rng(seed)
+    seq = "".join(rng.choice(list(AMINO_ACIDS), size=n_res))
+
+    # smooth C-alpha random walk, offset from the origin (a zero coordinate
+    # row means 'missing atom' in the atom14 convention)
+    ca = np.full((n_res, 3), 10.0)
+    d = np.array([1.0, 0.0, 0.0])
+    for i in range(1, n_res):
+        d = d + 0.5 * rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        ca[i] = ca[i - 1] + 3.8 * d
+
+    crd = np.zeros((n_res, 14, 3), np.float32)
+    for i, aa in enumerate(seq):
+        names = ATOM_MAP_14[aa]
+        # backbone frame from LOCAL chain geometry only (tangent +
+        # curvature) -- rotation-covariant, so the all-atom placement is a
+        # function an SE(3)-equivariant model can actually learn (a frame
+        # anchored to a global axis would make the generative rule
+        # non-equivariant and the task unlearnable by construction)
+        lo, hi = max(i - 1, 0), min(i + 1, n_res - 1)
+        fwd = ca[hi] - ca[lo]
+        fwd /= np.linalg.norm(fwd) + 1e-9
+        if 0 < i < n_res - 1:
+            curv = ca[i + 1] - 2.0 * ca[i] + ca[i - 1]
+        elif n_res > 2:
+            j = 1 if i == 0 else n_res - 2
+            curv = ca[j + 1] - 2.0 * ca[j] + ca[j - 1]
+        else:
+            curv = np.array([0.0, 1.0, 0.0])
+        side = curv - np.dot(curv, fwd) * fwd
+        nrm = np.linalg.norm(side)
+        if nrm < 1e-6:  # locally straight chain: any stable perpendicular
+            side = np.cross(fwd, [0.0, 1.0, 0.0])
+            nrm = np.linalg.norm(side)
+        side /= nrm
+        upv = np.cross(fwd, side)
+        frame = np.stack([fwd, side, upv])                    # (3, 3)
+        crd[i, 1] = ca[i]
+        crd[i, 0] = ca[i] - 1.46 * fwd + 0.2 * upv            # N
+        crd[i, 2] = ca[i] + 1.52 * fwd + 0.2 * upv            # C
+        crd[i, 3] = crd[i, 2] + 1.23 * upv                    # O
+        offs = _sidechain_template(aa)
+        for slot in range(4, 14):
+            if not names[slot]:
+                break
+            crd[i, slot] = ca[i] + offs[slot] @ frame
+        present = np.array([bool(nm) for nm in names])
+        crd[i, present] += noise * rng.normal(size=(int(present.sum()), 3))
+        if missing_frac > 0 and not well_posed:
+            for slot in range(4, 14):
+                if names[slot] and rng.random() < missing_frac:
+                    crd[i, slot] = 0.0
+    if well_posed:
+        crd = _relax_protein_atom14(seq, crd, device)
+        if missing_frac > 0:  # zero AFTER relaxing (zero rows = absent)
+            for i, aa in enumerate(seq):
+                names = ATOM_MAP_14[aa]
+                for slot in range(4, 14):
+                    if names[slot] and rng.random() < missing_frac:
+                        crd[i, slot] = 0.0
+    return seq, crd
+
+
+# element -> atomic number for atom14 atom-name first characters
+_NAME2Z = {"N": 7, "C": 6, "O": 8, "S": 16}
+
+
+def intended_atom14_bonds(seq: str) -> "list[tuple[int, int, int, int]]":
+    """Covalent topology the synthetic generator MEANS to draw, as
+    ((res_i, slot_i), (res_j, slot_j)) pairs flattened to 4-tuples:
+    backbone N-CA-C(-O), CA-CB, linear sidechain slot chains, and the
+    peptide C(i)-N(i+1) links."""
+    from coarsegrainingvae_tpu_torch.data.sidechain import ATOM_MAP_14
+
+    out = []
+    for i, aa in enumerate(seq):
+        names = ATOM_MAP_14[aa]
+        out += [(i, 0, i, 1), (i, 1, i, 2), (i, 2, i, 3)]
+        prev_slot = 1  # sidechain chain grows off the C-alpha
+        for slot in range(4, 14):
+            if not names[slot]:
+                break
+            out.append((i, prev_slot, i, slot))
+            prev_slot = slot
+        if i + 1 < len(seq):
+            out.append((i, 2, i + 1, 0))  # peptide bond
+    return out
+
+
+
+def _relax_atom14(x: torch.Tensor, radii: torch.Tensor, bi: torch.Tensor, bj: torch.Tensor,
+                  rest: torch.Tensor, margin: float, n_iter: int = 300) -> torch.Tensor:
+    """One structure's relaxation, the physics of ``relax_frames``' inner
+    loop (the JAX package's ``_relax_atom14_impl``): a soft-sphere push on
+    nonbonded pairs inside margin * 1.3 * (r_i + r_j) and a spring to the
+    rest length on every bond, by steepest descent with a decaying step.
+    The bond forces go into their atoms through ``segment_sum`` over the
+    endpoints in a fixed order, so the card gives the same bits on every
+    call."""
+    n = radii.shape[0]
+    thr = 1.3 * margin * (radii[:, None] + radii[None, :])
+    thr[bi, bj] = 0.0
+    thr[bj, bi] = 0.0
+    thr.fill_diagonal_(0.0)
+    eye = torch.eye(n, dtype=torch.float32, device=x.device)
+    ends = torch.cat([bi, bj])
+    order = torch.argsort(ends, stable=True)
+    ends = ends[order]
+    for it in range(n_iter):
+        diff = x[:, None, :] - x[None, :, :]
+        d = torch.sqrt((diff**2).sum(-1) + eye)
+        nb_viol = torch.clamp(thr - d, min=0.0)
+        force = ((nb_viol / d)[..., None] * diff).sum(1)
+        dbond = d[bi, bj]
+        fb = ((dbond - rest) / dbond)[..., None] * diff[bi, bj]
+        force = force + segment_sum(torch.cat([-fb, fb])[order], ends, n,
+                                    indices_are_sorted=True)
+        # the step schedule in float32, as the jitted JAX loop evaluates it
+        lr = float(np.float32(0.2) / (np.float32(1.0) + np.float32(0.02) * np.float32(it)))
+        x = x + lr * force
+    return x
+
+
+def _relax_protein_atom14(seq: str, crd: np.ndarray,
+                          device: Union[str, torch.device] = "cuda") -> np.ndarray:
+    """Relax an atom14 structure on ``device`` so its covalent-cutoff bond
+    graph equals intended_atom14_bonds(seq) exactly (see
+    synthetic_protein.well_posed): the present slots flattened, rounds of
+    ``_relax_atom14`` from a fresh step schedule until the graph of the
+    float32 coordinates (as the dataset stores them) is the intended one,
+    at most 8, then the coordinates scattered back into (n_res, 14, 3).
+    The JAX package pads the atoms and bonds to multiples of 256 to bound
+    its compilations; far-away dummy atoms and self-loop bonds exert no
+    force, so the port relaxes the real atoms alone."""
+    from coarsegrainingvae_tpu_torch.data.sidechain import (
+        _COV_RADII,
+        ATOM_MAP_14,
+        bond_graph_from_coords,
+    )
+
+    device = torch.device(device)
+    flat_idx = -np.ones((len(seq), 14), np.int64)
+    z_list, xyz_list = [], []
+    for i, aa in enumerate(seq):
+        for slot, nm in enumerate(ATOM_MAP_14[aa]):
+            if nm:
+                flat_idx[i, slot] = len(z_list)
+                z_list.append(_NAME2Z[nm[0]])
+                xyz_list.append(crd[i, slot])
+    z = np.asarray(z_list, np.int64)
+    xyz = np.asarray(xyz_list, np.float64)
+    bonds = np.array([(flat_idx[ri, si], flat_idx[rj, sj])
+                      for ri, si, rj, sj in intended_atom14_bonds(seq)], np.int64)
+    d0 = np.linalg.norm(xyz[bonds[:, 0]] - xyz[bonds[:, 1]], axis=-1)
+    rest = np.clip(d0, 1.25, 1.6)  # peptide C-N starts ~0.8: pull to bond range
+    # the truth graphs PCN is scored against come from sidechain._COV_RADII
+    # (bond_graph_from_coords), whose C/N/O/S radii are larger than the
+    # metrics' covalent table: relax against the larger one to clear both
+    radii = torch.tensor([_COV_RADII[int(s)] for s in z], dtype=torch.float32, device=device)
+    bi = torch.as_tensor(bonds[:, 0], device=device)
+    bj = torch.as_tensor(bonds[:, 1], device=device)
+    rest_t = torch.as_tensor(rest, dtype=torch.float32, device=device)
+
+    want = {tuple(sorted(map(int, e))) for e in bonds}
+    x = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+    for _round in range(8):  # a fresh step schedule each round
+        x = _relax_atom14(x, radii, bi, bj, rest_t, 1.12)
+        relaxed = x.cpu().numpy().astype(np.float64)
+        got = {tuple(sorted(map(int, e)))
+               for e in bond_graph_from_coords(z, relaxed.astype(np.float32))}
+        if got == want:
+            break
+    else:
+        import warnings
+
+        warnings.warn(f"atom14 relax left a cyclic truth graph at n_res={len(seq)}",
+                      stacklevel=2)
+    out = crd.copy()
+    present = flat_idx >= 0
+    out[present] = relaxed[flat_idx[present]]
+    return out

@@ -3,10 +3,12 @@ reconstruction/sample RMSD (port of ``coarsegrainingvae_tpu.eval.metrics``).
 
 Host numpy, as in the JAX package: a whole ensemble (S, N, 3) is evaluated
 with one batched distance-matrix pass (the original code loops over
-structures with ase, scripts/sampling.py:120-239). The JAX package routes
-structures past 1,500 atoms to its native cell-list diff
-(``native/bond_diff.cpp``, the same semantics); the port takes the dense
-path at every N for now (ROADMAP.md A5).
+structures with ase, scripts/sampling.py:120-239). Structures past
+``large_n_threshold`` atoms (1,500 by default, as in the JAX package) go to
+the C++ cell-list diff (``native/bond_diff.py``) instead, which gives the
+same statistics in O(N) per structure; the dense path is its plain version.
+Unlike the JAX package, a failed g++ build raises instead of falling back
+to the dense path.
 
 COVALENT_RADII are the standard covalent radii in Angstrom for Z = 1..107,
 as the original code tabulates them (scripts/sampling.py:12-118).
@@ -102,7 +104,7 @@ def compute_rmsd_batch(
     return np.stack([aa, hv], axis=1)
 
 
-def _graph_stats(ref_xyz, gen_xyz, z, scale):
+def _graph_stats_dense(ref_xyz, gen_xyz, z, scale):
     """(valid mask, net-diff ratio, edit ratio) of gen vs ref bond graphs,
     dense O(N^2)."""
     ref = bond_graphs_batch(ref_xyz[None], z, scale)[0]
@@ -111,16 +113,38 @@ def _graph_stats(ref_xyz, gen_xyz, z, scale):
     return valid_mask, graph_diff_ratio(ref, gen), graph_edit_ratio(ref, gen)
 
 
+def _graph_stats_cell(ref_xyz, gen_xyz, z, scale):
+    """The statistics of ``_graph_stats_dense`` from the cell-list diff:
+    missing + spurious edges is the edit count, |spurious - missing| the
+    net difference, an exact match has both 0. The dense graphs count each
+    undirected edge twice, so the ratios carry a factor 2 over twice the
+    reference's edges."""
+    from coarsegrainingvae_tpu_torch.native import bond_diff
+
+    radii = _radii(z)
+    ref_edges = bond_diff.bond_graph_extract(ref_xyz, radii, scale)
+    missing, spurious = bond_diff.bond_graph_diff(gen_xyz, radii, ref_edges, scale)
+    denom = max(2 * ref_edges.shape[0], 1)
+    valid_mask = (missing + spurious) == 0
+    net = 2.0 * np.abs(spurious - missing) / denom
+    edit = 2.0 * (spurious + missing) / denom
+    return valid_mask, net, edit
+
+
 def evaluate_samples(
     ref_xyz: np.ndarray, gen_xyz: np.ndarray, z: np.ndarray, scale: float = 1.3,
+    large_n_threshold: int = 1500,
 ) -> Dict[str, object]:
     """Full sample-quality evaluation (eval_sample_qualities,
     sampling.py:324-333): heavy-only and all-atom validity, GED ratios,
-    RMSDs over valid structures. ref_xyz: (N, 3); gen_xyz: (S, N, 3)."""
+    RMSDs over valid structures. ref_xyz: (N, 3); gen_xyz: (S, N, 3).
+    Past ``large_n_threshold`` atoms the graphs are compared by the
+    cell-list diff instead of dense (N, N) matrices."""
     z = np.asarray(z)
     heavy = z != 1
-    valid_all_mask, ged_all, edit_all = _graph_stats(ref_xyz, gen_xyz, z, scale)
-    valid_hv_mask, ged_hv, edit_hv = _graph_stats(
+    stats = _graph_stats_cell if z.shape[0] > large_n_threshold else _graph_stats_dense
+    valid_all_mask, ged_all, edit_all = stats(ref_xyz, gen_xyz, z, scale)
+    valid_hv_mask, ged_hv, edit_hv = stats(
         ref_xyz[heavy], gen_xyz[:, heavy], z[heavy], scale)
     valid_hv = float(valid_hv_mask.mean()) if valid_hv_mask.size else 0.0
     valid_all = float(valid_all_mask.mean()) if valid_all_mask.size else 0.0

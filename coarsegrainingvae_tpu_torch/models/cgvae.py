@@ -1,5 +1,6 @@
-"""The sparse CGequiVAE, the flat graph, the H bond-length projection and
-the model switch (port of ``coarsegrainingvae_tpu.models.cgvae``).
+"""The sparse CGequiVAE, PCN and StochasticPCN, the flat graph, the H and
+the rooted bond-length projections and the model switch (port of
+``coarsegrainingvae_tpu.models.cgvae``).
 
 A ``CGBatch`` is flattened into one graph (per-sample ids plus arithmetic
 offsets, no host work) and every aggregation is a masked segment sum over a
@@ -15,7 +16,7 @@ from an explicit generator, or ``eps=`` injected as in ``DenseCGVAE``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -34,9 +35,9 @@ from coarsegrainingvae_tpu_torch.models.conv import (
 )
 from coarsegrainingvae_tpu_torch.models.modules import MLP, Dense, EmbeddingZeroPad
 from coarsegrainingvae_tpu_torch.ops.geometry import edge_vectors
-from coarsegrainingvae_tpu_torch.ops.segment import segment_mean
+from coarsegrainingvae_tpu_torch.ops.segment import segment_mean, segment_sum
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 
 @dataclass
@@ -141,6 +142,75 @@ def project_h_bonds(xyz_recon: torch.Tensor, z: torch.Tensor, xyz_true: torch.Te
                       device=xyz_recon.device).index_add(0, h_idx, selw)
     proj = acc / torch.clamp(cnt, min=1.0)[:, None]
     return torch.where((cnt > 0.0)[:, None], proj, xyz_recon)
+
+
+def project_bonds_rooted(xyz_recon: torch.Tensor, xyz_true: torch.Tensor,
+                         bonds: torch.Tensor, bond_mask: Optional[torch.Tensor],
+                         root_mask: torch.Tensor, atom_mask: Optional[torch.Tensor] = None,
+                         max_depth: int = 8, n_relax: int = 20) -> torch.Tensor:
+    """Depth-ordered covalent bond-length projection rooted at pinned atoms
+    (PCN's C-alphas; models/cgvae.py:157-215 of the JAX package). Every
+    atom gets its breadth-first depth from the nearest root along the
+    bonds (``max_depth`` rounds of scatter-min) and a parent one level up
+    (scatter-max); then, depth by depth, each atom is put on its already
+    placed parent at the true bond length along the decoded direction, so
+    every tree bond is exact and the roots never move. The bonds that close
+    rings get ``n_relax`` rounds of Jacobi relaxation: each movable atom
+    moves by the degree-normalised sum of its bonds' length corrections.
+
+    The scatters of int32 depths and parents give the same result in any
+    order. The relaxation's per-atom float sums go through ``segment_sum``
+    after a stable argsort of the bond endpoints (each atom's terms as the
+    first endpoint in bond order, then as the second), so the card gives
+    the same bits on every call. All arrays are flat (B*N, ...), bonds
+    global ids."""
+    n = xyz_recon.shape[0]
+    a, b = bonds[:, 0], bonds[:, 1]
+    bm = (torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+          if bond_mask is None else bond_mask > 0)
+    if atom_mask is not None:
+        bm = bm & (atom_mask[a] > 0) & (atom_mask[b] > 0)
+    inf = torch.tensor(1_000_000, dtype=torch.int32, device=a.device)
+    depth = torch.where(root_mask > 0, 0, inf).to(torch.int32)
+    if atom_mask is not None:
+        depth = torch.where(atom_mask > 0, depth, inf)
+    for _ in range(max_depth):
+        da, db = depth[a], depth[b]
+        depth = depth.scatter_reduce(0, a, torch.where(bm, db + 1, inf), "amin")
+        depth = depth.scatter_reduce(0, b, torch.where(bm, da + 1, inf), "amin")
+    da, db = depth[a], depth[b]
+    none = torch.full_like(a, -1)
+    parent = torch.full((n,), -1, dtype=a.dtype, device=a.device)
+    parent = parent.scatter_reduce(0, a, torch.where(bm & (da == db + 1), b, none), "amax")
+    parent = parent.scatter_reduce(0, b, torch.where(bm & (db == da + 1), a, none), "amax")
+    p = torch.clamp(parent, min=0)
+    rest = torch.sqrt(torch.sum((xyz_true - xyz_true[p]) ** 2, -1) + 1e-12)
+    x = xyz_recon
+    for d in range(1, max_depth + 1):
+        sel = (depth == d) & (parent >= 0)
+        dvec = x - x[p]
+        nrm = torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-12)
+        target = x[p] + dvec * (rest / nrm)[:, None]
+        x = torch.where(sel[:, None], target, x)
+    if n_relax > 0:
+        bw = bm.to(x.dtype)
+        rest_e = torch.sqrt(torch.sum((xyz_true[a] - xyz_true[b]) ** 2, -1) + 1e-12)
+        ends = torch.cat([a, b])
+        order = torch.argsort(ends, stable=True)
+        ends = ends[order]
+        deg = segment_sum(torch.cat([bw, bw])[order], ends, n, indices_are_sorted=True)
+        movable = (root_mask <= 0) & (deg > 0)
+        if atom_mask is not None:
+            movable = movable & (atom_mask > 0)
+        inv_deg = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1.0), 0.0)
+        for _ in range(n_relax):
+            dvec = x[a] - x[b]
+            dist = torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-12)
+            corr = (bw * (dist - rest_e) / dist)[:, None] * dvec
+            delta = segment_sum(torch.cat([-0.5 * corr, 0.5 * corr])[order], ends, n,
+                                indices_are_sorted=True)
+            x = x + torch.where(movable[:, None], delta * inv_deg[:, None], 0.0)
+    return x
 
 
 def project_batch_h_bonds(xyz_recon: torch.Tensor, batch: CGBatch) -> torch.Tensor:
@@ -410,6 +480,136 @@ class CGequiVAE(nn.Module):
         g = flatten_batch(batch)
         prior_mu, prior_sigma = self.prior_net(g)
         return self.decode(g, prior_mu + prior_sigma * draw_eps(prior_mu, generator, eps))
+
+
+def _as_graph(batch: Union[CGBatch, FlatGraph]) -> FlatGraph:
+    return batch if isinstance(batch, FlatGraph) else flatten_batch(batch)
+
+
+class PCN(nn.Module):
+    """Protein Completion Network (cgvae.py:516-594 of the original code):
+    residue-type embedding -> equivariant decoder over the C-alpha graph ->
+    channel lift, with each residue's C-alpha pinned to its bead when
+    ``ca_recenter``. The original code fixes the cross decoder; ``dec_type``
+    pseudo or pseudo2 picks the chirality-aware decoder, as in the JAX
+    package. Parameters are drawn on the CPU from ``generator``."""
+
+    def __init__(self, cfg: ModelConfig, ca_recenter: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = c = cfg
+        self.ca_recenter = ca_recenter
+        f, g = c.n_basis, generator
+        dtype = _DTYPES[c.compute_dtype]
+        self.embedding = EmbeddingZeroPad(100, f, g)
+        if c.dec_type in ("pseudo", "pseudo2"):
+            self.dec = EquivariantPseudoDecoder(f, c.n_rbf, c.atom_cutoff, c.dec_nconv,
+                                                c.activation, c.breaksym, c.dec_type, dtype, g)
+        else:
+            self.dec = EquivariantDecoder(f, c.n_rbf, c.atom_cutoff, c.dec_nconv, c.activation,
+                                          c.dec_type != "painn", dtype=dtype, generator=g)
+
+    def _decode(self, g: FlatGraph, S_I: torch.Tensor,
+                ca_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        _, cg_v = self.dec(g, S_I)
+        xyz_rel = cg_v[g.mapping, :, g.channel_idx]                   # (BN, 3)
+        if self.ca_recenter and ca_mask is not None:
+            # zero each residue's C-alpha displacement, at the C-alpha only
+            cam = ca_mask.reshape(-1).to(xyz_rel.dtype)[:, None]
+            xyz_rel = xyz_rel - xyz_rel * cam
+        return xyz_rel + g.cg_xyz[g.mapping]
+
+    def forward(self, batch: Union[CGBatch, FlatGraph],
+                ca_mask: Optional[torch.Tensor] = None) -> VAEOutput:
+        """ca_mask (B, N) marks each residue's C-alpha atom. Every entry
+        point takes the padded batch or its ``flatten_batch`` graph, so a
+        caller that needs the graph too builds it once."""
+        g = _as_graph(batch)
+        return VAEOutput(mu=None, sigma=None, prior_mu=None, prior_sigma=None, xyz=g.xyz,
+                         xyz_recon=self._decode(g, self.embedding(g.cg_z), ca_mask))
+
+
+class StochasticPCN(PCN):
+    """The CVAE variant of PCN (``run_pcn --stochastic``; the JAX package's
+    extension, cgvae.py:613-743 there): a per-residue invariant latent from
+    an encoder that sees the true all-atom geometry (atoms pooled into
+    their residue by a ContractiveMessageBlock, then PaiNN layers over the
+    C-alpha graph), a C-alpha-conditioned prior, and the PCN decoder
+    conditioned on the residue embedding plus Dense(z). ``forward`` and
+    ``generate`` draw their noise from ``generator`` or take ``eps``, as
+    ``CGequiVAE`` does."""
+
+    def __init__(self, cfg: ModelConfig, ca_recenter: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, ca_recenter, generator)
+        c, f, g = cfg, cfg.n_basis, generator
+        dtype = _DTYPES[c.compute_dtype]
+        n_enc = max(c.enc_nconv, 1)
+        self.atom_embedding = EmbeddingZeroPad(100, f, g)
+        self.enc_contract = ContractiveMessageBlock(f, c.activation, c.n_rbf,
+                                                    c.contract_cutoff, dtype, g)
+        self.enc_msgs = nn.ModuleList(
+            EquiMessageBlock(f, c.activation, c.n_rbf, c.atom_cutoff, dtype=dtype, generator=g)
+            for _ in range(n_enc))
+        self.enc_upds = nn.ModuleList(UpdateBlock(f, c.activation, dtype, g)
+                                      for _ in range(n_enc + 1))
+        self.munet = MLP(f, [f, f], activation="ReLU", dtype=dtype, generator=g)
+        self.sigmanet = MLP(f, [f, f], activation="ReLU", dtype=dtype, generator=g)
+        self.latent_mix = Dense(f, f, dtype=dtype, generator=g)
+        self.prior_net = CGprior(n_enc, f, c.n_rbf, c.activation, c.atom_cutoff, dtype=dtype,
+                                 generator=g)
+
+    def encode(self, g: FlatGraph) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self.atom_embedding(g.z)
+        v = torch.zeros((g.num_nodes, 3, h.shape[-1]), dtype=h.dtype, device=h.device)
+        r_iI = g.xyz - g.cg_xyz[g.mapping]
+        # atoms -> their residue; the offsets r_iI carry the rotamer
+        H = segment_mean(h, g.mapping, g.num_cg, g.atom_mask)
+        dH, V = self.enc_contract(h, v, r_iI, g.mapping, g.num_cg, g.atom_mask)
+        H = H + dH
+        # the update's inner products tell apart rotamers whose atom
+        # distance sets coincide
+        dH, dV = self.enc_upds[0](H, V)
+        H, V = H + dH, V + dV
+        r_IJ = edge_vectors(g.cg_xyz, g.cg_nbrs)
+        for msg, upd in zip(self.enc_msgs, self.enc_upds[1:]):
+            dH, dV = msg(H, V, r_IJ, g.cg_nbrs, g.cg_nbr_mask)
+            H, V = H + dH, V + dV
+            dH, dV = upd(H, V)
+            H, V = H + dH, V + dV
+        mu = self.munet(H)
+        logvar = torch.clamp(self.sigmanet(H), -30.0, 30.0)
+        return mu, 1e-12 + torch.exp(logvar / 2.0)
+
+    def _condition(self, g: FlatGraph, z: torch.Tensor) -> torch.Tensor:
+        return self.embedding(g.cg_z) + self.latent_mix(z)
+
+    def forward(self, batch: Union[CGBatch, FlatGraph], ca_mask: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> VAEOutput:
+        g = _as_graph(batch)
+        mu, sigma = self.encode(g)
+        prior_mu, prior_sigma = self.prior_net(g)
+        z = mu + sigma * draw_eps(mu, generator, eps)
+        return VAEOutput(mu=mu, sigma=sigma, prior_mu=prior_mu, prior_sigma=prior_sigma,
+                         xyz=g.xyz, xyz_recon=self._decode(g, self._condition(g, z), ca_mask))
+
+    def reconstruct_mean(self, batch: Union[CGBatch, FlatGraph],
+                         ca_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The posterior-mean reconstruction (z = mu), (B*N, 3)."""
+        g = _as_graph(batch)
+        mu, _ = self.encode(g)
+        return self._decode(g, self._condition(g, mu), ca_mask)
+
+    def generate(self, batch: Union[CGBatch, FlatGraph], ca_mask: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B*N, 3) coordinates from the C-alpha trace alone: z drawn from
+        the prior, then decoded."""
+        g = _as_graph(batch)
+        prior_mu, prior_sigma = self.prior_net(g)
+        z = prior_mu + prior_sigma * draw_eps(prior_mu, generator, eps)
+        return self._decode(g, self._condition(g, z), ca_mask)
 
 
 def build_flagship_model(cfg: ModelConfig, force_sparse: bool = False,

@@ -8,7 +8,8 @@ masked zero-length edges finite. ``dense_pairwise`` and
 ``radius_adjacency`` are the port of ``coarsegrainingvae_tpu.models.dense``
 (dense.py:39-63); they live in ``ops`` here because only the kernels' plain
 versions need them (the dense modules always go through the kernels, which
-rebuild the geometry on the card).
+rebuild the geometry on the card). ``dihedral`` and ``drmsd`` are the
+PCN loss's and metrics' (geometry.py:80-124 of the JAX package).
 """
 from __future__ import annotations
 
@@ -69,3 +70,34 @@ def pair_filter_basis(
     rbf = torch.cat([rbf, torch.ones_like(rbf[..., :1])], dim=-1)
     k = (adj * cosine_envelope(dist, cutoff))[..., None] * rbf
     return unit, adj, k
+
+
+def dihedral(xyz: torch.Tensor, quads: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Signed dihedral angles (radians) of (Q, 4) atom-index quads, by
+    atan2. The original code's compute_dihe (pcn_utils.py:114-132) takes
+    arctan(p1/p2), which loses the quadrant; the JAX package fixes that,
+    and so does the port."""
+    p0, p1, p2, p3 = (xyz[quads[:, k]] for k in range(4))
+    b1 = p1 - p0
+    b2 = p2 - p1
+    b3 = p3 - p2
+    c1 = torch.linalg.cross(b2, b3)
+    c2 = torch.linalg.cross(b1, b2)
+    b2n = torch.sqrt(torch.sum(b2**2, -1) + eps)
+    y = torch.sum(b1 * c1, -1) * b2n
+    x = torch.sum(c1 * c2, -1)
+    return torch.atan2(y, x + eps)
+
+
+def drmsd(x: torch.Tensor, y: torch.Tensor, mask: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """Distance-matrix RMSD over atom pairs i < j (run_pdb.py:20-31):
+    sqrt(mean (d_ij(x) - d_ij(y))^2). x, y (N, 3); mask (N,) bool."""
+    dx = torch.sqrt(torch.sum((x[:, None] - x[None]) ** 2, -1) + 1e-12)
+    dy = torch.sqrt(torch.sum((y[:, None] - y[None]) ** 2, -1) + 1e-12)
+    n = x.shape[0]
+    triu = torch.triu(torch.ones((n, n), dtype=torch.bool, device=x.device), diagonal=1)
+    if mask is not None:
+        triu = triu & (mask[:, None] & mask[None, :])
+    w = triu.to(dx.dtype)
+    return torch.sqrt(torch.sum((dx - dy) ** 2 * w) / torch.clamp(torch.sum(w), min=1.0))

@@ -66,3 +66,28 @@ def segment_mean(
                          indices_are_sorted=indices_are_sorted)
     counts = counts.reshape(counts.shape + (1,) * (data.ndim - 1))
     return total / torch.clamp(counts, min=eps)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-segment softmax over rows of ``logits`` (E,), stable by the
+    segment's max; masked rows get 0, and a segment with no unmasked row
+    gives 0 rather than NaN. The max is a scatter-reduce, which gives the
+    same result in any order; the sum goes through ``segment_sum``. Not on
+    the original code's live path (its attention is commented out,
+    conv.py:536-551); the JAX package keeps it in its op library."""
+    neg_inf = torch.full_like(logits, float("-inf"))
+    if mask is not None:
+        logits = torch.where(mask, logits, neg_inf)
+    maxes = torch.full((num_segments,), float("-inf"), dtype=logits.dtype,
+                       device=logits.device).scatter_reduce(0, segment_ids, logits, "amax")
+    maxes = torch.where(torch.isfinite(maxes), maxes, torch.zeros_like(maxes))
+    exp = torch.exp(logits - maxes[segment_ids])
+    if mask is not None:
+        exp = torch.where(mask, exp, torch.zeros_like(exp))
+    denom = segment_sum(exp, segment_ids, num_segments)
+    return exp / torch.clamp(denom[segment_ids], min=1e-12)

@@ -2,8 +2,8 @@
 ``coarsegrainingvae_tpu.train.losses``; utils.py:89-191 of the original
 code), with the repo's extensions: the excluded-volume (steric) term
 (``build_steric_tables``, ``steric_loss``, ``zeta``), ``h_bond_weight`` and
-``eta_h``. ``steric_loss_batched``, PCN's multi-topology variant, waits for
-the PCN slice (ROADMAP.md A10).
+``eta_h``; ``steric_loss_batched`` is the steric term of PCN's
+multi-topology batches.
 """
 from __future__ import annotations
 
@@ -129,6 +129,39 @@ def steric_loss(xyz_recon: torch.Tensor, thresh: torch.Tensor,
     m = pair_mask.to(viol.dtype)[None]
     return torch.sum(viol**2 * m) / torch.clamp(
         pair_mask.sum().to(viol.dtype) * xyz.shape[0], min=1.0)
+
+
+def steric_loss_batched(xyz_recon: torch.Tensor, z: torch.Tensor, bonds: torch.Tensor,
+                        bond_mask: torch.Tensor, scale: float = 1.3,
+                        margin: float = 0.3) -> torch.Tensor:
+    """The excluded-volume hinge for multi-topology padded batches (PCN,
+    ``data/sidechain.py``; losses.py:165-208 of the JAX package): every
+    sample has its own atoms and bonds, so the (N, N) tables are built in
+    the step from the batch. xyz_recon (B*N, 3) flat; z (B, N) atomic
+    numbers, 0 = padding; bonds (B, Eb, 2) local pairs with bond_mask
+    (B, Eb). The squared hinge on nonbonded real-atom pair distances below
+    scale * (r_i + r_j) + margin, averaged over those pairs; a dense
+    (B, N, N) pass. The bonded pairs leave the mask by index assignment,
+    which gives the same mask in any order."""
+    b, n = z.shape
+    xyz = xyz_recon.reshape(b, n, 3)
+    radii = torch.tensor([1.5] + [COVALENT_RADII.get(k, 1.5) for k in range(1, 120)],
+                         dtype=xyz.dtype, device=xyz.device)
+    r = radii[torch.clamp(z, 0, 119)]
+    thresh = (r[:, :, None] + r[:, None, :]) * scale + margin
+    real = z > 0
+    mask = real[:, :, None] & real[:, None, :]
+    mask = mask & ~torch.eye(n, dtype=torch.bool, device=z.device)[None]
+    # padded bond rows go to (0, 0), the diagonal, which is already out
+    i = torch.where(bond_mask, bonds[..., 0], 0)
+    j = torch.where(bond_mask, bonds[..., 1], 0)
+    bi = torch.arange(b, device=z.device)[:, None].expand_as(i)
+    mask[bi, i, j] = False
+    mask[bi, j, i] = False
+    d = torch.sqrt(torch.sum((xyz[:, :, None, :] - xyz[:, None, :, :]) ** 2, -1) + EPS)
+    m = mask.to(d.dtype)
+    viol = torch.clamp(thresh - d, min=0.0) * m
+    return torch.sum(viol**2) / torch.clamp(torch.sum(m), min=1.0)
 
 
 def _touches_h(g: FlatGraph) -> torch.Tensor:

@@ -148,6 +148,32 @@ def make_optimizer(grad_clip: float, moment_dtype: str = "float32") -> ClippedAd
     return ClippedAdam(grad_clip, ScaleByAdamCompact(moment_dtype=_DTYPES[moment_dtype]))
 
 
+def guarded_update(tx: ClippedAdam, params: Sequence[torch.Tensor],
+                   grads: Sequence[torch.Tensor], loss: torch.Tensor, opt_state: AdamState,
+                   lr, thresh: float) -> Tuple[AdamState, torch.Tensor]:
+    """The skip-batch guard around one clipped Adam step, on the device:
+    the batch is accepted (ok) if its loss is finite and below ``thresh``
+    and its gradient norm is finite. An accepted batch moves ``params`` in
+    place by -lr * update and gives the new moments; a rejected one leaves
+    the parameters, the moments and their count as they were. Returns
+    (moments, ok), with no host synchronisation."""
+    with torch.no_grad():
+        g = flatten(grads)
+        g_norm = global_norm(g)
+        ok = torch.isfinite(loss) & (loss < thresh) & torch.isfinite(g_norm)
+        # a rejected batch's update and moments are discarded below with
+        # torch.where, which passes over NaN and inf, so its gradient
+        # need not be zeroed first
+        upd, new_opt = tx.update(g, opt_state, g_norm)
+        upd = torch.where(ok, -lr * upd, 0.0)
+        torch._foreach_add_(list(params), [u.view_as(p) for u, p in zip(
+            torch.split(upd, [p.numel() for p in params]), params)])
+        opt_state = AdamState(count=torch.where(ok, new_opt.count, opt_state.count),
+                              mu=torch.where(ok, new_opt.mu, opt_state.mu),
+                              nu=torch.where(ok, new_opt.nu, opt_state.nu))
+    return opt_state, ok
+
+
 @dataclass
 class TrainState:
     params: Dict[str, torch.nn.Parameter]   # the model's own, updated in place
@@ -404,28 +430,14 @@ class Trainer:
         gradient norm is finite; a rejected batch leaves the parameters,
         the moments and their count as they were."""
         tc = self.cfg.train
-        params = list(state.params.values())
-        with torch.no_grad():
-            g = flatten(grads)
-            g_norm = global_norm(g)
-            thresh = tc.gamma * tc.loss_skip_factor if tc.gamma > 0 else math.inf
-            ok = torch.isfinite(loss) & (loss < thresh) & torch.isfinite(g_norm)
-            # a rejected batch's update and moments are discarded below with
-            # torch.where, which passes over NaN and inf, so its gradient
-            # need not be zeroed first
-            upd, new_opt = self.tx.update(g, state.opt_state, g_norm)
-            lr_eff = state.lr
-            if tc.lr_warmup > 0:
-                # (step+1)/N so the ramp starts at 1/N, not a wasted 0-step
-                lr_eff = lr_eff * torch.clamp(
-                    (state.step.to(torch.float32) + 1.0) / tc.lr_warmup, max=1.0)
-            upd = torch.where(ok, -lr_eff * upd, 0.0)
-            torch._foreach_add_(params, [u.view_as(p) for u, p in zip(
-                torch.split(upd, [p.numel() for p in params]), params)])
-            old = state.opt_state
-            opt_state = AdamState(count=torch.where(ok, new_opt.count, old.count),
-                                  mu=torch.where(ok, new_opt.mu, old.mu),
-                                  nu=torch.where(ok, new_opt.nu, old.nu))
+        lr_eff = state.lr
+        if tc.lr_warmup > 0:
+            # (step+1)/N so the ramp starts at 1/N, not a wasted 0-step
+            lr_eff = lr_eff * torch.clamp(
+                (state.step.to(torch.float32) + 1.0) / tc.lr_warmup, max=1.0)
+        thresh = tc.gamma * tc.loss_skip_factor if tc.gamma > 0 else math.inf
+        opt_state, ok = guarded_update(self.tx, list(state.params.values()), grads, loss,
+                                       state.opt_state, lr_eff, thresh)
         return dataclasses.replace(state, opt_state=opt_state, step=state.step + 1), ok
 
     def train_step(self, state: TrainState, batch: CGBatch,

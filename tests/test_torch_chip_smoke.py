@@ -180,3 +180,63 @@ def test_steric_and_sparse_folds_rehearse_on_the_cpu(tmp_path, monkeypatch, coun
     assert (params["train"]["zeta"] > 0) == params["model"]["h_project_eval"] == (not sparse)
     assert np.isfinite(float((run / "fold0" / "train_log.csv").read_text().splitlines()[-1]
                              .split(",")[2]))
+
+
+def test_pcn_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
+    """The pcn phase at a small width on the CPU: both recipes' runs and
+    artifacts, the f32 step against itself, two steps from one state bit
+    for bit, the timed steps; no kernel's plain version is called."""
+    monkeypatch.chdir(tmp_path)
+    width = ("-n_basis", "16", "-n_rbf", "4", "-dec_nconv", "1", "-batch_size", "2",
+             "-min_res", "6", "-max_res", "10", "-n_ensemble", "2")
+    paths = chip_smoke.pcn_phase(device="cpu", ndata=10, epochs=2, steps=2, width=width)
+    assert set(paths) == {"pcn_p7", "pcn_p7s"}
+    assert all(v == 0 for counts in paths.values() for v in counts.values())
+    flags = chip_smoke.pcn_flags("p7s")
+    assert "--stochastic" in flags and flags[flags.index("-n_basis") + 1] == "256"
+    assert sorted(p.name.split("_")[0] for p in (tmp_path / "build" / "pcn_smoke").iterdir()) \
+        == ["p7", "p7s"]
+
+
+def test_covid_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
+    """The covid phase's fold at a small size on the CPU: the covid2
+    recipe's flags (sparse, degree_norm, seqpartition, cross decoder, batch
+    2) with a small dataset and width given after them, the cell list and
+    the bond diff forced by lowering their thresholds."""
+    import functools
+
+    from coarsegrainingvae_tpu_torch.data import neighbors
+    from coarsegrainingvae_tpu_torch.eval import metrics, sampling
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "no_data"))
+    monkeypatch.setattr(neighbors, "CELL_LIST_MIN_ATOMS", 1)
+    monkeypatch.setattr(sampling, "evaluate_samples",
+                        functools.partial(metrics.evaluate_samples, large_n_threshold=1))
+    flags = chip_smoke.recipe_flags("covid2", chip_smoke.COVID_RECIPE)
+    for flag in ("--sparse", "--degree_norm"):
+        assert flag in flags
+    assert flags[flags.index("-batch_size") + 1] == "2"
+    width = ("-dataset", "pentapeptide", "-n_cgs", "12", "-n_basis", "64", "-n_rbf", "4",
+             "-enc_nconv", "1", "-dec_nconv", "1")
+    paths = chip_smoke.covid_phase(device="cpu", width=width)
+    assert paths["covid"] == dict.fromkeys(paths["covid"], 0)
+    (run,) = list((tmp_path / "build" / "cv_smoke").glob("covid*"))
+    params = json.loads((run / "modelparams.json").read_text())
+    assert params["model"]["sparse"] and params["model"]["degree_norm"]
+    assert params["data"]["cg_method"] == "seqpartition"
+
+
+def test_native_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """The native phase's checks on the CPU, with the pentapeptide standing
+    in for the covid frames and the bond diff's threshold lowered below its
+    atoms."""
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+
+    monkeypatch.setattr(chip_smoke, "BOND_DIFF_THRESHOLD", 1)
+    monkeypatch.setattr(chip_smoke, "covid_frames", lambda device, n: (
+        synthetic_peptide("pentapeptide", n_frames=n, seed=0, device="cpu"), 0.0))
+    chip_smoke.native_phase(device="cpu", covid_n_frames=3)
+    out = capsys.readouterr().out
+    assert out.count("mask and edges per receiver equal: True") == 2
+    assert out.count("equal on those: True") == 2

@@ -717,3 +717,164 @@ def test_project_h_bonds_on_card_matches_cpu(cuda_device):
     got = [project_h_bonds(*args, None) for _ in range(2)]
     assert torch.equal(got[0], got[1])
     assert float((got[0].cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _pcn_batch(n_proteins=4, device="cpu"):
+    """Four synthetic proteins of 6-14 residues as one padded batch, with
+    its C-alpha mask and dihedral quads."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.sidechain import build_pcn_dataset
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_protein
+
+    items = [synthetic_protein(n, seed=s, device=device)
+             for n, s in ((6, 0), (9, 1), (14, 2), (11, 3))[:n_proteins]]
+    ds = build_pcn_dataset(items, cg_cutoff=10.0)
+    idx = np.arange(n_proteins)
+    return (ds.batch(idx), ds.ca_mask_for(idx), *ds.dihedrals_for(idx))
+
+
+PCN_CARD_KW = dict(gamma=5.0, lr=3e-3, grad_clip=1.0, zeta=20.0, zeta_warmup=10)
+
+
+def _pcn_step_grads(dev, dec_type, dtype, kw):
+    """(trainer, state, loss, gradients) of one PCN step on ``dev`` at
+    ``dtype`` (the model and the coordinates), aux 0.5, zeta mid-ramp."""
+    import dataclasses
+
+    from coarsegrainingvae_tpu_torch.models.cgvae import PCN
+    from coarsegrainingvae_tpu_torch.train.pcn_trainer import PCNTrainer
+
+    batch, cam, quads, qmask = _pcn_batch()
+    if dtype == "float64":
+        batch = dataclasses.replace(batch, xyz=batch.xyz.double(), cg_xyz=batch.cg_xyz.double())
+    cfg = ModelConfig(n_basis=32, n_rbf=10, atom_cutoff=10.0, dec_nconv=2, dec_type=dec_type,
+                      compute_dtype=dtype)
+    model = PCN(cfg, generator=torch.Generator().manual_seed(0)).to(getattr(torch, dtype))
+    tr = PCNTrainer(model, device=dev, **kw)
+    state = tr.init_state()
+    b, c, q, qm = tr._inputs(batch, cam, quads, qmask)
+    loss, _ = tr._loss(b, c, q, qm, 0.5, tr.zeta_at(5))
+    params = list(state.params.values())
+    # pseudo2's last dvbar mix reaches no output: a zero gradient
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return tr, state, loss.detach(), grads
+
+
+def _worst_rel(got, want) -> float:
+    """max over tensors of max|got - want| / max|want|."""
+    return max(float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+               / max(float(b.detach().abs().max()), 1e-30) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dec_type", ["cross", "painn", "pseudo", "pseudo2"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pcn_step_on_card_matches_cpu(cuda_device, dec_type, dtype):
+    """One PCN train step: every gradient on the card within 1e-4 of its
+    max |CPU|, then every updated parameter against the CPU's optimizer
+    applied to the card's gradients (Adam's first step maps g to
+    g / (|g| + 1e-8), which turns rounding-level gradient differences into
+    update differences up to lr). At float64 the whole loss (the dihedral
+    term, the ramped steric term and the rooted bond projection); at f32
+    its smooth terms: at random weights the dihedral's atan2 wraps at +-pi
+    and the projection divides by decoded bond lengths near zero, so f32
+    rounding alone moves some of their gradients by far more than 1e-4
+    (the test below holds the whole loss at f32)."""
+    from coarsegrainingvae_tpu_torch.train.trainer import guarded_update
+
+    kw = dict(PCN_CARD_KW)
+    kw.update(dict(kappa=1.0, bond_project=True) if dtype == "float64" else dict(kappa=0.0))
+    tr, state, loss, grads = _pcn_step_grads(cuda_device, dec_type, dtype, kw)
+    tr_ref, state_ref, _, grads_ref = _pcn_step_grads(torch.device("cpu"), dec_type, dtype, kw)
+    assert _worst_rel(grads, grads_ref) <= 1e-4
+    params = list(state.params.values())
+    guarded_update(tr.tx, params, grads, loss, state.opt_state, state.lr, 1e9)
+    params_ref = list(state_ref.params.values())
+    guarded_update(tr_ref.tx, params_ref, [g.cpu() for g in grads], loss.cpu(),
+                   state_ref.opt_state, state_ref.lr, 1e9)
+    assert _worst_rel(params, params_ref) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dec_type", ["cross", "painn", "pseudo", "pseudo2"])
+def test_pcn_whole_loss_f32_step_on_card_within_its_conditioning(cuda_device, dec_type):
+    """The whole loss (dihedral, ramped steric, rooted projection) at f32:
+    its gradients on the card are held to the f32 conditioning the CPU
+    shows on the same step ("own": the CPU's f32 gradients against its
+    float64 ones). The card's f32 lies within max(2 * own, 1e-4) of the
+    CPU's float64 and within max(own, 1e-4) of the CPU's f32."""
+    kw = dict(PCN_CARD_KW, kappa=1.0, bond_project=True)
+    card = _pcn_step_grads(cuda_device, dec_type, "float32", kw)[3]
+    cpu = _pcn_step_grads(torch.device("cpu"), dec_type, "float32", kw)[3]
+    exact = _pcn_step_grads(torch.device("cpu"), dec_type, "float64", kw)[3]
+    own = _worst_rel(cpu, exact)
+    assert _worst_rel(card, exact) <= max(2.0 * own, 1e-4)
+    assert _worst_rel(card, cpu) <= max(own, 1e-4)
+
+
+@pytest.mark.gpu
+def test_pcn_projection_and_atom14_relaxation_repeat_their_bits_on_card(cuda_device):
+    """project_bonds_rooted's segment sums and the atom14 relaxation's on
+    the card: the same bits on a second call, and the CPU's result within
+    float32 summation-order tolerance."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_protein
+    from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch, project_bonds_rooted
+
+    batch, cam, _, _ = _pcn_batch()
+    g = flatten_batch(batch)
+    noisy = g.xyz + 0.5 * torch.randn(g.xyz.shape, generator=torch.Generator().manual_seed(0))
+    args = (noisy, g.xyz, g.bonds, g.bond_mask, torch.as_tensor(cam).reshape(-1), g.atom_mask)
+    want = project_bonds_rooted(*args)
+    on_card = [a.to(cuda_device) for a in args]
+    got = [project_bonds_rooted(*on_card) for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    torch.testing.assert_close(got[0].cpu(), want, rtol=1e-4, atol=1e-4)
+
+    runs = [synthetic_protein(40, seed=7, well_posed=True, device=cuda_device)[1]
+            for _ in range(2)]
+    np.testing.assert_array_equal(runs[0], runs[1])
+    cpu = synthetic_protein(40, seed=7, well_posed=True, device="cpu")[1]
+    np.testing.assert_allclose(runs[0], cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_native_routes_on_the_card_machine(cuda_device, tmp_path, monkeypatch):
+    """The g++ build of both native sources where the card is, and each
+    route against its dense plain version: the cell list at N 300 (edges
+    per receiver and mask), the bond diff's metrics past the threshold."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data import neighbors
+    from coarsegrainingvae_tpu_torch.eval import metrics
+    from coarsegrainingvae_tpu_torch.native import bond_diff, build, cell_list
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    frames = (np.random.default_rng(0).normal(size=(4, 300, 3)) * 8.0).astype(np.float32)
+    calls = cell_list.calls
+    e, m = neighbors.radius_graph_frames(frames, 4.5)
+    assert cell_list.calls == calls + 1
+    de, dm = neighbors.radius_graph_frames_dense(frames, 4.5)
+    np.testing.assert_array_equal(m, dm)
+    for k in range(frames.shape[0]):
+        got, want = e[k][m[k]], de[k][dm[k]]
+        np.testing.assert_array_equal(got[np.lexsort((got[:, 1], got[:, 0]))],
+                                      want[np.lexsort((want[:, 1], want[:, 0]))])
+
+    rng = np.random.default_rng(1)
+    z = rng.choice([1, 6, 7, 8], size=120)
+    ref = rng.normal(size=(120, 3)).astype(np.float32) * 4.0
+    gen = ref[None] + rng.normal(scale=np.linspace(0.0, 0.5, 4)[:, None, None],
+                                 size=(4, 120, 3)).astype(np.float32)
+    calls = bond_diff.calls
+    cell = metrics.evaluate_samples(ref, gen, z, large_n_threshold=1)
+    assert bond_diff.calls == calls + 2
+    dense = metrics.evaluate_samples(ref, gen, z)
+    for k in ("valid_ratio", "valid_allatom_ratio", "graph_val_ratio", "graph_edit_ratio"):
+        np.testing.assert_allclose(cell[k], dense[k], rtol=1e-9, err_msg=k)
+    assert sorted(p.name[:len("libcell_list")] for p in tmp_path.iterdir()) == [
+        "libbond_diff", "libcell_list"]
