@@ -59,7 +59,23 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   seqpartition beads, n_basis 192, cross, batch 2), one fold of one epoch
   on 7 frames with the graph metrics, checked to have taken the cell list
   and the bond diff, its wall time by part; then its step eager and
-  captured with peak memory.
+  captured with peak memory;
+- diffpool: ``cli.run_diffpool`` with the committed v6 recipe
+  (``examples/results/diffpool_demo``: n_cgs 8, F 512, enc 2 / dec 3,
+  cross, batch 32, graph_grad and zeta on 5,000-step ramps, h_project,
+  sample_hard) at full width, cut to 320 frames x 2 epochs x 2 folds
+  after 2 pretraining epochs, every file checked; the step card vs CPU at
+  f32 mid-ramp (with the CPU's float64 step beside it), two steps from
+  one state bit for bit, ms/step, device busy, host launch calls and peak
+  memory;
+- baseline: ``cli.run_baseline`` with the committed
+  ``examples/results/baseline_demo`` recipe (equimlp), cut to 400 frames
+  x 3 epochs; one step of each of the seven zoo entries card vs CPU; the
+  recipe's step timed;
+- hpo: ``cli.hpo`` with the committed ``examples/results/hpo_demo`` recipe
+  (ASHA, 6 trials, 8 epochs, 2 folds per trial run) on the card; it
+  raises if a trial failed, and holds the message kernels' launches to the
+  count worked out from the trials' configs.
 
 Every phase raises on failure; there is no CPU fallback. Output, in order:
 the card's name and power limit (nvidia-smi), the build with each main-path
@@ -69,18 +85,20 @@ graph replays, and its roofline bound from ``kernel_cost``; the wide kernels,
 R+1 > 16, at n_rbf 16, 20 and the largest each takes; the chignolin
 recipe's shapes), the serve, train, captured and cgae checks and timings,
 the cv phase's checks and its wall time by part, the steric, sparse,
-native, pcn and covid phases' checks and timings, one JSON line with one entry per kernel and timed shape, and last one JSON
+native, pcn, covid, diffpool, baseline and hpo phases' checks and
+timings, one JSON line with one entry per kernel and timed shape, and last one JSON
 line ``{"ok": true, "device": {...}}``. The profiles' tables go to
 ``chiprun_out/train_profile.txt``, ``captured_profile_b{128,32}.txt`` and
-``sparse_{pseudo,pseudo2}_profile_b{128,32}.txt``, ``pcn_profile.txt`` and
-``covid_profile_b2.txt``, the cv and steric phases'
-data to
-``chiprun_out/cv_data/`` and its runs (the covid fold's too) to
-``build/cv_smoke/``, the PCN runs to ``build/pcn_smoke/``. Needs one
+``sparse_{pseudo,pseudo2}_profile_b{128,32}.txt``, ``pcn_profile.txt``,
+``covid_profile_b2.txt``, ``diffpool_profile.txt`` and
+``baseline_profile.txt``, the dipeptide data to ``chiprun_out/cv_data/``,
+the cv runs (the covid fold's too) to ``build/cv_smoke/``, the PCN, DiffPool,
+baseline and hpo runs to ``build/{pcn,diffpool,baseline,hpo}_smoke/``. Needs one
 CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -156,6 +174,31 @@ PCN_DIR = Path("build") / "pcn_smoke"
 # COVID_ENSEMBLE samples of COVID_EVALS test frames
 COVID_RECIPE = Path(__file__).resolve().parent / "examples" / "results" / "_r5_live"
 COVID_FRAMES, COVID_ENSEMBLE, COVID_EVALS, COVID_SEED = 7, 4, 2, 123
+
+# the diffpool phase: the committed v6 recipe (examples/results/diffpool_demo)
+# through run_diffpool, cut in depth to DIFFPOOL_NDATA frames, DIFFPOOL_EPOCHS
+# epochs and DIFFPOOL_PRETRAIN pretraining epochs (both of its 2 folds); the
+# step timed over DIFFPOOL_STEPS eager steps
+DIFFPOOL_RECIPE = Path(__file__).resolve().parent / "examples" / "results" / "diffpool_demo"
+DIFFPOOL_NDATA, DIFFPOOL_EPOCHS, DIFFPOOL_PRETRAIN, DIFFPOOL_STEPS = 320, 2, 2, 20
+DIFFPOOL_DIR = Path("build") / "diffpool_smoke"
+DIFFPOOL_CV_COLUMNS = ["fold", "test_entropy", "test_graph", "test_kl", "test_loss",
+                       "test_recon", "test_reg", "test_steric", "sample_valid_ratio",
+                       "sample_allatom_valid_ratio", "sample_ged", "sample_allatom_ged"]
+# the baseline phase: the committed examples/results/baseline_demo recipe
+# (equimlp), cut to BASELINE_NDATA frames and BASELINE_EPOCHS epochs
+BASELINE_RECIPE = Path(__file__).resolve().parent / "examples" / "results" / "baseline_demo"
+BASELINE_NDATA, BASELINE_EPOCHS = 400, 3
+# beads of the zoo's card-vs-CPU steps (the recipe's knn 3 then reaches
+# half the other beads; baseline_phase says why not the recipe's 3)
+BASELINE_CHECK_CGS = 6
+BASELINE_DIR = Path("build") / "baseline_smoke"
+# the hpo phase: the committed examples/results/hpo_demo recipe, as its
+# README runs it (6 trials, ASHA, 8 epochs; each trial runs both folds)
+HPO_RECIPE = ["-strategy", "asha", "-n_trials", "6", "-dataset", "dipeptide", "-n_cgs", "3",
+              "-ndata", "400", "-nepochs", "8", "-batch_size", "32", "-nsplits", "2",
+              "-max_folds", "1", "-cg_method", "newman", "-seed", "7", "-patience", "8"]
+HPO_DIR = Path("build") / "hpo_smoke"
 
 
 def card_line() -> str:
@@ -1032,22 +1075,24 @@ class PartTimes:
         return ", ".join(f"{k} {v:.3f} s ({self.calls[k]}x)" for k, v in self.seconds.items())
 
 
-def cv_expected_launches(width: list, n_frames: int, folds: int, epochs: int, evals: int,
-                         dec_type: str) -> dict:
+def cv_expected_launches(width: list, n_frames: int, folds: int, epochs, evals: int,
+                         dec_type: str, splits: int = CV_SPLITS) -> dict:
     """Kernel launches of ``run_cgvae`` over its first ``folds`` folds of
-    CV_SPLITS: per fold, ``epochs`` x (train steps + val steps) model
-    forwards and train steps backwards, ``reconstruct_all``'s batches, and
-    per evaluated frame one reconstruction (B 1) and one generation (prior
-    and decoder only). Each forward runs enc_nconv encoder and enc_nconv
-    prior message layers and dec_nconv decoder layers (pseudo kernels, or
-    message kernels for the cross decoder)."""
+    ``splits``: per fold, ``epochs`` (one count, or one per fold) x (train
+    steps + val steps) model forwards and train steps backwards,
+    ``reconstruct_all``'s batches, and per evaluated frame one
+    reconstruction (B 1) and one generation (prior and decoder only). Each
+    forward runs enc_nconv encoder and enc_nconv prior message layers and
+    dec_nconv decoder layers (pseudo kernels, or message kernels for the
+    cross decoder)."""
     import numpy as np
 
     arg = dict(zip(width[::2], width[1::2]))
     bs, enc, dec = int(arg["-batch_size"]), int(arg["-enc_nconv"]), int(arg["-dec_nconv"])
     out = dict.fromkeys(("fused_message", "fused_message_vjp", "fused_pseudo_message",
                          "fused_pseudo_vjp"), 0)
-    for test in np.array_split(np.arange(n_frames), CV_SPLITS)[:folds]:
+    per_fold = [epochs] * folds if isinstance(epochs, int) else list(epochs)
+    for test, epochs in zip(np.array_split(np.arange(n_frames), splits)[:folds], per_fold):
         n_full = n_frames - len(test)
         n_val = max(int(n_full * 0.1), 1)
         steps, val_steps = max((n_full - n_val) // bs, 1), max(n_val // bs, 1)
@@ -1622,17 +1667,8 @@ def native_phase(device: str = "cuda", covid_n_frames: int = COVID_FRAMES,
 def pcn_flags(name: str) -> list:
     """run_pcn flags of a committed PCN recipe (``<name>_modelparams.json``),
     its logdir and data source left out."""
-    cfg = json.loads((PCN_RECIPES / f"{name}_modelparams.json").read_text())
-    flags = []
-    for k, v in cfg.items():
-        if k in ("logdir", "data_pkl"):
-            continue
-        if isinstance(v, bool):
-            if v:
-                flags.append(f"--{k}")
-        else:
-            flags += [f"--{k}" if k == "dec_type" else f"-{k}", str(v)]
-    return flags
+    return json_recipe_flags(PCN_RECIPES / f"{name}_modelparams.json",
+                             skip=("logdir", "data_pkl"), long=("dec_type",))
 
 
 def check_pcn_run(run: Path, stochastic: bool, n_epochs: int, n_dump: int) -> list:
@@ -2031,6 +2067,492 @@ def covid_phase(device: str = "cuda", n_frames: int = COVID_FRAMES, width: tuple
     return {"covid": launches}
 
 
+
+def dipeptide_data(device: str, n_frames: int) -> None:
+    """Point the data root at ``chiprun_out/cv_data/dipeptide.npz``, made
+    from synthetic frames relaxed on ``device`` unless it already holds
+    ``n_frames`` frames (the cv phase writes 640)."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+
+    data = OUT_DIR / "cv_data"
+    path = data / "dipeptide.npz"
+    os.environ["COARSEGRAININGVAE_DATA"] = str(data)
+    if path.is_file():
+        with np.load(path) as d:
+            if d["xyz"].shape[0] >= n_frames:
+                return
+    data.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    save_npz_traj(str(path), *synthetic_peptide("dipeptide", n_frames=n_frames, seed=0,
+                                                device=device))
+    print(f"data: {n_frames} synthetic dipeptide frames relaxed on {device} and written to "
+          f"{path} in {time.perf_counter() - t:.3f} s", flush=True)
+
+
+def json_recipe_flags(path: Path, skip=("logdir",), long=()) -> list:
+    """CLI flags of a committed run's modelparams.json (the JAX CLI's
+    ``vars(args)``): ``-key value`` (``--key value`` for the keys in
+    ``long``), and ``--key`` for a true switch."""
+    flags = []
+    for k, v in json.loads(path.read_text()).items():
+        if k in skip:
+            continue
+        if isinstance(v, bool):
+            if v:
+                flags.append(f"--{k}")
+        else:
+            flags += [f"--{k}" if k in long else f"-{k}", str(v)]
+    return flags
+
+
+def read_csv(path: Path) -> tuple:
+    import csv
+
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f)
+        return reader.fieldnames, list(reader)
+
+
+def check_finite_rows(path: Path, header: list, n_rows: int) -> list:
+    """The CSV's header and row count, every value finite; returns the rows."""
+    import math
+
+    fields, rows = read_csv(path)
+    if fields != header or len(rows) != n_rows:
+        raise RuntimeError(f"{path}: header {fields}, {len(rows)} rows; expected {header}, "
+                           f"{n_rows} rows")
+    bad = [(i, k) for i, r in enumerate(rows) for k, v in r.items() if not math.isfinite(float(v))]
+    if bad:
+        raise RuntimeError(f"{path}: values that are not finite: {bad}")
+    return rows
+
+
+def check_plain_tensors(path: Path, keys) -> None:
+    import torch
+
+    state = torch.load(path, weights_only=True)
+    if set(state) != set(keys) or not all(isinstance(v, torch.Tensor) for v in state.values()):
+        raise RuntimeError(f"{path} does not hold the model's plain tensors")
+
+
+def timed_steps(step, batches, cuda: bool, label: str, profile_name: str) -> str:
+    """ms/step of ``step(batch)`` over ``batches`` (eager; host clock ending
+    in a sync, after 3 warm-up steps) and peak memory, then on the card a
+    profiled window: device busy, device events and host launch calls per
+    step, the profile's table to ``chiprun_out/<profile_name>``. Returns
+    the line it prints; raises if a loss is not finite."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    for b in batches[:3]:
+        step(b)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    losses = [step(b) for b in batches[3:]]
+    losses = torch.stack(losses).float().cpu().numpy()           # ends in a sync
+    n = len(batches) - 3
+    ms = (time.perf_counter() - t) / n * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    line = (f"{label}: {ms:.3f} ms/step over {n} steps (eager, host clock ending in a sync), "
+            f"loss finite {bool(np.isfinite(losses).all())}; peak allocated {peak:.3f} GB")
+    top = []
+    if cuda:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sync()
+            t = time.perf_counter()
+            for b in batches[3:3 + PROFILE_STEPS]:
+                step(b)
+            sync()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        p = device_profile(prof, wall_ms, PROFILE_STEPS)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / profile_name).write_text(
+            prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        line += (f"; profiled {wall_ms / PROFILE_STEPS:.3f} ms/step, device busy "
+                 f"{p['busy_ms'] / PROFILE_STEPS:.3f} ms/step ({100 * p['busy_share']:.1f} %), "
+                 f"{p['device_events_per_step']:.0f} device events and "
+                 f"{p['host_launch_calls_per_step']:.0f} host launch calls per step")
+        top = p["top"]
+    print(line, flush=True)
+    for name, ms_step, count in top:
+        print(f"  {label} device {ms_step:.3f} ms/step, {count}/step: {name}", flush=True)
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"a timed {label} loss is not finite")
+    return line
+
+
+def diffpool_trainer(a, n_atoms: int, device: str, z=None, bonds=None, dtype="float32"):
+    """The DiffPoolTrainer of run_diffpool's arguments ``a`` on ``device``
+    (weights from the recipe's seed, drawn on the CPU), with the recipe's
+    steric tables when zeta > 0."""
+    import dataclasses
+
+    from coarsegrainingvae_tpu_torch.cli.run_diffpool import config_from_args
+    from coarsegrainingvae_tpu_torch.train.diffpool_trainer import DiffPoolTrainer
+    from coarsegrainingvae_tpu_torch.train.losses import build_steric_tables
+
+    cfg = dataclasses.replace(config_from_args(a, n_atoms), compute_dtype=dtype)
+    steric = build_steric_tables(z, bonds, margin=a.steric_margin) if a.zeta > 0 else None
+    return DiffPoolTrainer(cfg, beta=a.beta, gamma=a.gamma, lr=a.lr, seed=a.seed, zeta=a.zeta,
+                           steric_tables=steric, graph_grad=a.graph_grad,
+                           zeta_warmup=a.zeta_warmup, graph_warmup=a.graph_warmup,
+                           h_project=a.h_project, device=device)
+
+
+def diffpool_step_grads(tr, batch, step: int, u, eps) -> tuple:
+    """(trainer, state, tracked loss, gradients) of one train step's
+    objective at ``step`` with the draws (u, eps) handed to the model; a
+    float64 trainer gets a float64 model, tables and batch."""
+    import dataclasses
+
+    import torch
+
+    device = tr.device
+    if tr.cfg.compute_dtype == "float64":
+        tr.model.double()
+        tr.steric_tables = tuple(t.double() if t.is_floating_point() else t
+                                 for t in tr.steric_tables or ()) or None
+        batch = dataclasses.replace(batch, xyz=batch.xyz.double(), adj=batch.adj.double())
+    tr.noise = lambda key, batch_size: (None if u is None else u.to(device), eps.to(device))
+    state = tr.init_state()
+    total, metrics = tr.loss(batch.to(device), step, (0,))
+    params = list(state.params.values())
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return tr, state, metrics["loss"].detach(), grads
+
+
+def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
+                   epochs: int = DIFFPOOL_EPOCHS, pretrain: int = DIFFPOOL_PRETRAIN,
+                   steps: int = DIFFPOOL_STEPS, width: tuple = ()) -> dict:
+    """The committed DiffPool v6 recipe (examples/results/diffpool_demo:
+    n_cgs 8, F 512, enc 2 / dec 3, cross, batch 32, graph_grad and zeta
+    with 5,000-step ramps, h_project, sample_hard) through
+    ``cli.run_diffpool`` at full width, cut in depth; every file checked.
+    Then the recipe's step: card vs CPU at f32 mid-ramp (the same weights
+    and draws; the CPU's float64 step shows the loss's own f32
+    conditioning), two steps from one state bit for bit, and ms/step,
+    device busy, host launch calls and peak memory. DiffPool runs none of
+    the four kernels: their counters stay 0. Raises on any failed check.
+    ``width`` flags (given after the recipe's) let the CPU rehearse it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli import run_diffpool
+    from coarsegrainingvae_tpu_torch.data.diffpool import build_diffpool_dataset
+    from coarsegrainingvae_tpu_torch.data.proteins import load_frames
+    from coarsegrainingvae_tpu_torch.models.cgae import uniform_noise
+
+    cuda = device == "cuda"
+    shutil.rmtree(DIFFPOOL_DIR, ignore_errors=True)
+    dipeptide_data(device, ndata)
+    recipe = json_recipe_flags(DIFFPOOL_RECIPE / "v6_modelparams.json")
+    full = run_diffpool.build_parser().parse_args(recipe)
+    depth = ["-ndata", str(ndata), "-nepochs", str(epochs), "-n_pretrain", str(pretrain)]
+    flags = recipe + list(width) + depth
+    a = run_diffpool.build_parser().parse_args(flags)
+    print(f"diffpool: the v6 recipe (n_cgs {a.n_cgs}, F {a.num_features}, n_rbf {a.n_rbf}, "
+          f"enc {a.enc_nconv} / dec {a.dec_nconv}, {a.activation}, batch {a.batch_size}, "
+          f"lr {a.lr}, beta {a.beta}, gamma {a.gamma}, zeta {a.zeta} over {a.zeta_warmup} steps, "
+          f"graph_grad over {a.graph_warmup}, h_project {a.h_project}, tau_min {a.tau_min}, "
+          f"sample_hard {a.sample_hard}) cut in depth: ndata {full.ndata} -> {a.ndata}, nepochs "
+          f"{full.nepochs} -> {a.nepochs}, n_pretrain {full.n_pretrain} -> {a.n_pretrain}, "
+          f"folds {a.nsplits} of {a.nsplits}", flush=True)
+    reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rows = run_diffpool.main(flags + ["-logdir", str(DIFFPOOL_DIR / "v6"), "--device", device])
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    (run,) = list(DIFFPOOL_DIR.glob("v6_*"))
+    check_finite_rows(run / "cv_stats.csv", DIFFPOOL_CV_COLUMNS, a.nsplits)
+    z, frames, bonds = load_frames(a.dataset, a.ndata, seed=a.seed, device=device)
+    n_atoms = z.shape[0]
+    keys = diffpool_trainer(a, n_atoms, "cpu", z, bonds).model.state_dict().keys()
+    epoch_s = []
+    for k in range(a.nsplits):
+        fold = run / f"fold{k}"
+        log = check_finite_rows(fold / "train_log.csv", [
+            "epoch", "lr", "train_loss", "val_loss", "train_recon", "val_recon", "train_KL",
+            "val_KL", "train_graph", "val_graph", "tau", "epoch_time_s"], a.nepochs)
+        epoch_s.append([round(float(r["epoch_time_s"]), 3) for r in log])
+        samples = np.load(fold / "test_samples.npy")
+        if samples.shape != (8, n_atoms, 3) or not np.isfinite(samples).all():
+            raise RuntimeError(f"{fold}/test_samples.npy: {samples.shape}, finite "
+                               f"{np.isfinite(samples).all()}")
+        check_plain_tensors(fold / "params.pt", keys)
+    if not (run / "modelparams.json").is_file():
+        raise RuntimeError(f"{run}: missing modelparams.json")
+    print(f"diffpool run: {a.nsplits} folds x {a.nepochs} epochs (after {a.n_pretrain} "
+          f"pretraining epochs) in {wall:.3f} s; epochs {epoch_s} s; test recon "
+          f"{[round(r['test_recon'], 4) for r in rows]}, sample valid "
+          f"{[r['sample_valid_ratio'] for r in rows]}; peak allocated {peak:.3f} GB; "
+          f"launches {launches}", flush=True)
+    if any(launches.values()):
+        raise RuntimeError(f"run_diffpool launched a kernel: {launches}")
+
+    # the recipe's step on its own: card vs CPU mid-ramp at f32, with the
+    # CPU's float64 step beside it (the loss's own f32 conditioning)
+    ds = build_diffpool_dataset(frames, z, bonds, rotate=True, seed=a.seed)
+    bs = a.batch_size
+    batch = ds.batch(np.arange(bs))
+    at = max(a.zeta_warmup, a.graph_warmup) // 2
+    gen = torch.Generator().manual_seed(5)
+    shape = diffpool_trainer(a, n_atoms, "cpu", z, bonds).model.pooler.noise_shape(bs, n_atoms)
+    u = None if shape is None else uniform_noise(shape, gen, "cpu")
+    eps = torch.randn((bs, a.n_cgs, a.num_features), generator=gen)
+    card = diffpool_step_grads(diffpool_trainer(a, n_atoms, device, z, bonds), batch, at, u, eps)
+    ref = diffpool_step_grads(diffpool_trainer(a, n_atoms, "cpu", z, bonds), batch, at, u, eps)
+    ref64 = diffpool_step_grads(diffpool_trainer(a, n_atoms, "cpu", z, bonds, "float64"),
+                                batch, at, None if u is None else u.double(), eps.double())
+    own = worst_rel(ref[3], ref64[3])
+    grad_err, param_err = step_card_vs_cpu(card, ref)
+    print(f"diffpool step card vs CPU (f32, batch {bs}, step {at}: tau "
+          f"{card[0].tau_at(at):.4f}, zeta and graph weight at {at / a.zeta_warmup:.2f} of "
+          f"their ramps, h_project {a.h_project}; the same weights and draws): every gradient "
+          f"max|err|/max|ref| {grad_err:.3e}, every updated parameter {param_err:.3e} "
+          f"(tolerance {TRAIN_RTOL:g}); the CPU's own f32 vs float64 gradients {own:.3e}",
+          flush=True)
+    if not (grad_err <= TRAIN_RTOL and param_err <= TRAIN_RTOL):
+        raise RuntimeError("the DiffPool step on the card disagrees with the CPU")
+    del card, ref, ref64
+
+    # two steps from one state, then timed
+    tr = diffpool_trainer(a, n_atoms, device, z, bonds)
+    state = tr.init_state()
+    start = {k: p.detach().clone() for k, p in state.params.items()}
+    after = []
+    for _ in range(2):
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(start[k])
+        new, _ = tr.train_step(dataclasses.replace(state, step=at), batch, (0, 1))
+        after.append([p.detach().clone() for p in new.params.values()]
+                     + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
+    same = all(torch.equal(x, y) for x, y in zip(*after))
+    print(f"diffpool two steps from one state: parameters and moments bit for bit: {same}",
+          flush=True)
+    if not same:
+        raise RuntimeError("two DiffPool steps from one state differ")
+    batches = []
+    rng = np.random.default_rng(0)
+    while len(batches) < steps + 3:
+        batches += list(ds.iter_batches(bs, rng=rng))
+    box = {"state": new}
+
+    def step(b):
+        box["state"], m = tr.train_step(box["state"], b, (1, box["state"].step))
+        return m["loss"]
+
+    timed_steps(step, batches[:steps + 3], cuda,
+                f"diffpool step (v6, batch {bs}, F {a.num_features}, f32)", "diffpool_profile.txt")
+    return {"diffpool": launches}
+
+
+
+def baseline_step_grads(name: str, a, n_atoms: int, mapping, batch, device: str) -> tuple:
+    """(trainer, state, loss, gradients) of one step of the zoo entry
+    ``name`` with run_baseline's arguments ``a`` on ``device`` (weights of
+    the recipe's seed, drawn on the CPU)."""
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli.run_baseline import model_kwargs
+    from coarsegrainingvae_tpu_torch.models.baseline import build_baseline
+    from coarsegrainingvae_tpu_torch.train.baseline_trainer import BaselineTrainer
+
+    kw = model_kwargs(argparse.Namespace(**dict(vars(a), model=name)), mapping)
+    model = build_baseline(name, a.n_cgs, n_atoms, mapping,
+                           generator=torch.Generator().manual_seed(a.seed), **kw)
+    tr = BaselineTrainer(model, gamma=a.gamma, lr=a.lr, seed=a.seed, device=device)
+    state = tr.init_state()
+    total, metrics = tr.loss(batch.to(tr.device))
+    params = list(state.params.values())
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return tr, state, metrics["loss"].detach(), grads
+
+
+def baseline_phase(device: str = "cuda", ndata: int = BASELINE_NDATA,
+                   epochs: int = BASELINE_EPOCHS, steps: int = DIFFPOOL_STEPS,
+                   width: tuple = ()) -> dict:
+    """The committed baseline recipe (examples/results/baseline_demo:
+    equimlp, n_cgs 3, newman, knn 3, width 1, depth 1, batch 32, lr 3e-4,
+    gamma 5, 2 folds) through ``cli.run_baseline``, cut in depth, every
+    file checked; then one step of every zoo entry card vs CPU at f32 on
+    the same weights and batch, and the recipe's step timed. No kernel
+    runs on this path: the counters stay 0. Raises on any failed check.
+    ``width`` flags (given after the recipe's) let the CPU rehearse it."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli import run_baseline
+    from coarsegrainingvae_tpu_torch.data.diffpool import build_diffpool_dataset
+    from coarsegrainingvae_tpu_torch.data.mappings import get_mapping
+    from coarsegrainingvae_tpu_torch.data.proteins import load_frames
+    from coarsegrainingvae_tpu_torch.models.baseline import BASELINE_ZOO
+
+    cuda = device == "cuda"
+    shutil.rmtree(BASELINE_DIR, ignore_errors=True)
+    dipeptide_data(device, ndata)
+    recipe = json_recipe_flags(BASELINE_RECIPE / "modelparams.json")
+    full = run_baseline.build_parser().parse_args(recipe)
+    flags = recipe + list(width) + ["-ndata", str(ndata), "-nepochs", str(epochs)]
+    a = run_baseline.build_parser().parse_args(flags)
+    reset_counts()
+    t = time.perf_counter()
+    rows = run_baseline.main(flags + ["-logdir", str(BASELINE_DIR / "demo"), "--device", device])
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    (run,) = list(BASELINE_DIR.glob("demo_*"))
+    check_finite_rows(run / "cv_stats.csv",
+                      ["fold", "test_recon_rmsd", "test_graph", "test_loss", "test_recon"],
+                      a.nsplits)
+    for k in range(a.nsplits):
+        check_finite_rows(run / f"fold{k}" / "train_log.csv", [
+            "epoch", "lr", "train_loss", "val_loss", "train_recon", "val_recon", "train_graph",
+            "val_graph", "epoch_time_s"], a.nepochs)
+    print(f"baseline run: the baseline_demo recipe ({a.model}, n_cgs {a.n_cgs}, {a.cg_method}, "
+          f"knn {a.knn}, batch {a.batch_size}, lr {a.lr}, gamma {a.gamma}) cut in depth: ndata "
+          f"{full.ndata} -> {a.ndata}, nepochs {full.nepochs} -> {a.nepochs}; {a.nsplits} folds "
+          f"in {wall:.3f} s; test recon RMSD {[round(r['test_recon_rmsd'], 4) for r in rows]} "
+          f"A; launches {launches}", flush=True)
+    if any(launches.values()):
+        raise RuntimeError(f"run_baseline launched a kernel: {launches}")
+
+    z, frames, bonds = load_frames(a.dataset, a.ndata, seed=a.seed, device=device)
+    n_atoms = z.shape[0]
+    ds = build_diffpool_dataset(frames, z, bonds)
+    batch = ds.batch(np.arange(a.batch_size))
+    # the zoo's steps at BASELINE_CHECK_CGS beads: at the recipe's 3 the
+    # knn (clamped to 2) reaches every other bead, each edge comes with its
+    # reverse at the same length, the edge sums cancel, and equimlp's
+    # gradients (and edgesetmlp's last bias) are 0 up to rounding, which
+    # no relative gate can read
+    ca = argparse.Namespace(**dict(vars(a), n_cgs=BASELINE_CHECK_CGS))
+    mapping = get_mapping(a.cg_method, ca.n_cgs, n_atoms, bonds=bonds, frames=frames,
+                          seed=a.seed, device=device)
+    worst = []
+    for name in BASELINE_ZOO:
+        card = baseline_step_grads(name, ca, n_atoms, mapping, batch, device)
+        ref = baseline_step_grads(name, ca, n_atoms, mapping, batch, "cpu")
+        worst.append((name, *step_card_vs_cpu(card, ref)))
+    print("baseline steps card vs CPU (f32, batch {}, n_cgs {} for the check, knn {}; "
+          "max|err|/max|ref| of every gradient, every updated parameter; tolerance {:g}): "
+          "{}".format(a.batch_size, ca.n_cgs, a.knn, TRAIN_RTOL,
+                      ", ".join(f"{n} {g:.3e} {p:.3e}" for n, g, p in worst)), flush=True)
+    if not all(g <= TRAIN_RTOL and p <= TRAIN_RTOL for _, g, p in worst):
+        raise RuntimeError("a baseline step on the card disagrees with the CPU")
+
+    mapping = get_mapping(a.cg_method, a.n_cgs, n_atoms, bonds=bonds, frames=frames,
+                          seed=a.seed, device=device)
+    tr, state, _, _ = baseline_step_grads(a.model, a, n_atoms, mapping, batch, device)
+    batches = []
+    rng = np.random.default_rng(0)
+    while len(batches) < steps + 3:
+        batches += list(ds.iter_batches(a.batch_size, rng=rng))
+    box = {"state": state}
+
+    def step(b):
+        box["state"], m = tr.train_step(box["state"], b)
+        return m["loss"]
+
+    timed_steps(step, batches[:steps + 3], cuda, f"baseline step ({a.model}, batch "
+                f"{a.batch_size})", "baseline_profile.txt")
+    return {"baseline": launches}
+
+
+def hpo_expected_launches(run: Path, rows: list, a) -> dict:
+    """The hpo run's kernel launches worked out from its trials: per trial
+    (``trial_%04d`` in row order), ``cv_expected_launches`` of its config
+    over every fold of ``-nsplits`` at the epochs each fold logged, with
+    the objective's 4 evaluated frames and the CLI's decoder."""
+    total = dict.fromkeys(("fused_message", "fused_message_vjp", "fused_pseudo_message",
+                           "fused_pseudo_vjp"), 0)
+    for i, row in enumerate(rows):
+        trial = run / f"trial_{i:04d}"
+        epochs = [len(read_csv(trial / f"fold{k}" / "train_log.csv")[1])
+                  for k in range(a.nsplits)]
+        width = ["-batch_size", a.batch_size, "-enc_nconv", row["enc_nconv"],
+                 "-dec_nconv", row["dec_nconv"]]
+        per = cv_expected_launches(width, a.ndata, a.nsplits, epochs, 4, a.dec_type, a.nsplits)
+        for k, v in per.items():
+            total[k] += v
+    return total
+
+
+def hpo_phase(device: str = "cuda", recipe: list = HPO_RECIPE, width: tuple = ()) -> dict:
+    """The committed hpo recipe (examples/results/hpo_demo: ASHA over the
+    CGequiVAE search space, 6 trials, 8 epochs, 400 dipeptide frames, 2
+    folds per trial) through ``cli.hpo``: every trial's CV run goes through
+    the dense model's message kernels on the card (the CLI's default cross
+    decoder runs them at S 4 too). Raises if any trial failed, or if the
+    launches differ from the count worked out from the trials' configs.
+    ``width`` flags (given after the recipe's) let the CPU rehearse it."""
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli import hpo
+
+    shutil.rmtree(HPO_DIR, ignore_errors=True)
+    flags = list(recipe) + list(width) + ["-logdir", str(HPO_DIR), "--device", device]
+    a = hpo.build_parser().parse_args(flags)
+    dipeptide_data(device, a.ndata)
+    # the search logs a trial's error only when the log's first row has
+    # one; the trial results are read where the search makes them
+    trials = []
+    evaluate = hpo._evaluate
+
+    def recording(*args):
+        trials.append(evaluate(*args))
+        return trials[-1]
+
+    reset_counts()
+    hpo._evaluate = recording
+    try:
+        t = time.perf_counter()
+        best, value = hpo.main(flags)
+        wall = time.perf_counter() - t
+    finally:
+        hpo._evaluate = evaluate
+    launches = read_counts()
+    log = HPO_DIR / ("hpo_asha_log.csv" if a.strategy == "asha" else "hpo_log.csv")
+    _, rows = read_csv(log)
+    failed = [(i, cfg.get("error")) for i, (cfg, _, bad, _) in enumerate(trials) if bad]
+    if len(trials) != len(rows) or any(r["failed"] != str(bad) for r, (_, _, bad, _) in
+                                       zip(rows, trials)):
+        raise RuntimeError(f"{log} does not hold the {len(trials)} trial runs")
+    print(f"hpo run: {a.strategy}, {a.n_trials} trials, {len(rows)} trial runs of "
+          f"{a.nsplits} folds in {wall:.3f} s; per run (rung, epochs, n_basis, enc/dec, value, "
+          f"wall s): {[(r.get('rung'), r.get('epochs'), r['n_basis'], r['enc_nconv'] + '/' + r['dec_nconv'], round(float(r['value']), 4), float(r['wall_s'])) for r in rows]}; "
+          f"best {best} at {value:.4f}; failed {failed}", flush=True)
+    if failed:
+        raise RuntimeError(f"hpo trials failed: {failed}")
+    expect = hpo_expected_launches(HPO_DIR, rows, a)
+    print(f"hpo launches {launches} (expected {expect}; "
+          f"{launches['fused_message'] / len(rows):.0f} message forwards per trial run)",
+          flush=True)
+    if device == "cuda" and (launches != expect or not (
+            launches["fused_message"] and launches["fused_message_vjp"])):
+        raise RuntimeError(f"hpo kernel launches {launches}, expected {expect}, both message "
+                           "kernels launched")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"hpo": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -2073,6 +2595,9 @@ def main() -> int:
     native_phase()
     paths.update(pcn_phase())
     paths.update(covid_phase())
+    paths.update(diffpool_phase())
+    paths.update(baseline_phase())
+    paths.update(hpo_phase())
 
     source = "coarsegrainingvae_tpu_torch/csrc/"
     rows = {"message": ("fused_message", "fused_message.cu", "pallas_message.py:126"),

@@ -151,6 +151,31 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class DiffPoolConfig:
+    """Hyperparameters of the DiffPoolVAE family (run_diffpool.py CLI)."""
+
+    n_atoms: int = 0            # padded atom count (the decoder's channel
+                                # pooler has one row per atom)
+    n_cgs: int = 3
+    feat_dim: int = 512         # -num_features
+    n_rbf: int = 7
+    atom_cutoff: float = 8.0    # encoder atom-graph cutoff (-cutoff)
+    cg_cutoff: float = 30.0     # prior/decoder CG filter cutoff (-cg_cutoff)
+    pool_nconv: int = 1         # -nconv_pool
+    enc_nconv: int = 2
+    dec_nconv: int = 3
+    activation: str = "swish"
+    cross: bool = True
+    det: bool = False
+    trainable_map: bool = True  # shared trainable assignment (run_diffpool.py:362-366)
+    # gumbel temperature schedule (run_diffpool.py:357-358)
+    tau_0: float = 2.0
+    tau_min: float = 0.3
+    tau_rate: float = 0.004
+    compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class ParallelConfig:
     """Mesh layout. Data parallelism is the main lever at this model scale
     (the reference is single-GPU, SURVEY.md section 2.11)."""

@@ -40,6 +40,16 @@ the same way: ``dec`` as above, ``embedding``, and for the stochastic one
 ``enc_upds_i`` -> ``enc_upds.i``, ``munet``, ``sigmanet``, ``latent_mix``
 and ``prior_net``. Every flax leaf must be consumed; a leftover or missing
 one raises.
+
+``convert_diffpool_params`` maps a ``DiffPoolVAE`` tree: the pooler's
+``EmbeddingZeroPad_0``, ``MLP_i`` convs (``MLP_<nconv>``, the per-atom
+logits) and ``assign_map``; per dense stack ``DenseEquiMessageBlock_i`` ->
+``msgs.i`` (its ``DenseInvariantMessage_0`` -> ``.inv``),
+``DenseUpdateBlock_i`` -> ``updates.i``, the encoder's ``DenseContract_i``
+-> ``contract.i`` (``Dense_0`` the distance filter, ``Dense_1`` / ``_2``
+phi), the prior's ``Dense_0..3`` -> ``mu_in``, ``mu_out``, ``logvar_in``,
+``logvar_out``, the decoder's ``channel_pooler``, and the two MLP heads.
+``convert_baseline_params`` maps a baseline of the zoo by name.
 """
 from __future__ import annotations
 
@@ -49,7 +59,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from coarsegrainingvae_tpu_torch.config import ModelConfig
+from coarsegrainingvae_tpu_torch.config import DiffPoolConfig, ModelConfig
 
 
 def _tensor(a) -> torch.Tensor:
@@ -180,8 +190,9 @@ def _inv(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str) -> None
     _dense(tree, out, f"{dst}.inv.embed.dense", *src, "DistanceEmbed_0", "Dense_0")
 
 
-def _mlp(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str) -> None:
-    for layer in range(2):
+def _mlp(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, *src: str,
+         n_layers: int = 2) -> None:
+    for layer in range(n_layers):
         _dense(tree, out, f"{dst}.layers.{layer}", *src, f"Dense_{layer}")
 
 
@@ -254,6 +265,80 @@ def _pcn(tree: _Tree, cfg: ModelConfig, out: Dict[str, torch.Tensor]) -> None:
         _inv(tree, out, f"prior_net.msgs.{i}", "prior_net", f"EquiMessageBlock_{i}")
     _mlp(tree, out, "prior_net.mu", "prior_net", "MLP_0")
     _mlp(tree, out, "prior_net.logvar", "prior_net", "MLP_1")
+
+
+def _dense_stack(tree: _Tree, out: Dict[str, torch.Tensor], dst: str, src: str,
+                 n_conv: int) -> None:
+    """The message and update blocks of a DiffPool dense stack."""
+    for i in range(n_conv):
+        inv = (src, f"DenseEquiMessageBlock_{i}", "DenseInvariantMessage_0")
+        _dense(tree, out, f"{dst}.msgs.{i}.inv.phi_in", *inv, "Dense_0")
+        _dense(tree, out, f"{dst}.msgs.{i}.inv.phi_out", *inv, "Dense_1")
+        _dense(tree, out, f"{dst}.msgs.{i}.inv.embed.dense", *inv, "DistanceEmbed_0", "Dense_0")
+        _update(tree, out, f"{dst}.updates.{i}.update", src, f"DenseUpdateBlock_{i}",
+                "UpdateBlock_0")
+
+
+def convert_diffpool_params(params: Mapping, cfg: DiffPoolConfig) -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays (flax DiffPoolVAE params) -> the port's
+    state_dict. The pooler's mode is read from the tree."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    tree = _Tree(params)
+    out: Dict[str, torch.Tensor] = {}
+    _embedding(tree, out, "pooler.embed", "pooler", "EmbeddingZeroPad_0")
+    for i in range(cfg.pool_nconv):
+        _mlp(tree, out, f"pooler.convs.{i}", "pooler", f"MLP_{i}")
+    if tree.has("pooler", "assign_map"):
+        out["pooler.assign_map"] = _tensor(tree.leaf("pooler", "assign_map"))
+    elif tree.has("pooler", f"MLP_{cfg.pool_nconv}"):
+        _mlp(tree, out, "pooler.logits", "pooler", f"MLP_{cfg.pool_nconv}")
+    for part, n_conv in (("prior_net", cfg.enc_nconv), ("encoder", cfg.enc_nconv),
+                         ("decoder", cfg.dec_nconv)):
+        _dense_stack(tree, out, part, part, n_conv)
+    for i in range(cfg.enc_nconv):
+        for name, layer in (("filter", 0), ("phi_in", 1), ("phi_out", 2)):
+            _dense(tree, out, f"encoder.contract.{i}.{name}", "encoder", f"DenseContract_{i}",
+                   f"Dense_{layer}")
+    for layer, name in enumerate(("mu_in", "mu_out", "logvar_in", "logvar_out")):
+        _dense(tree, out, f"prior_net.{name}", "prior_net", f"Dense_{layer}")
+    out["decoder.channel_pooler"] = _tensor(tree.leaf("decoder", "channel_pooler"))
+    _mlp(tree, out, "atom_munet", "atom_munet")
+    _mlp(tree, out, "atom_sigmanet", "atom_sigmanet")
+    _check_consumed(tree)
+    return out
+
+
+def convert_baseline_params(params: Mapping, name: str) -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays (flax params of the baseline ``name``)
+    -> the port's state_dict: ``B`` as it is, each ``MLP_i`` with all its
+    ``Dense_k``, and EdgeSetMLP's ``SetTransform_i`` (``MLP_0`` ->
+    ``update``, ``MLP_1`` -> ``mix``)."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    tree = _Tree(params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def mlp(dst: str, *src: str) -> None:
+        node = tree.params
+        for p in src:
+            node = node[p]
+        _mlp(tree, out, dst, *src, n_layers=len(node))
+
+    name = name.lower()
+    if name in ("linear", "equilinear"):
+        out["B"] = _tensor(tree.leaf("B"))
+    elif name == "edgesetmlp":
+        i = 0
+        while tree.has(f"SetTransform_{i}"):
+            mlp(f"sets.{i}.update", f"SetTransform_{i}", "MLP_0")
+            mlp(f"sets.{i}.mix", f"SetTransform_{i}", "MLP_1")
+            i += 1
+        mlp("coeffs", "MLP_0")
+    else:
+        mlp("coeffs", "MLP_0")
+    _check_consumed(tree)
+    return out
 
 
 def _check_consumed(tree: _Tree) -> None:

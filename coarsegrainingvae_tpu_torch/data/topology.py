@@ -2,9 +2,10 @@
 
 These quantities depend only on the molecular topology and the CG mapping,
 so they are computed once on the host with numpy: the bonded adjacency, the
-high-order bonded edges of the graph loss, the bond-contracted CG graph and
+high-order bonded edges of the graph loss, the bond-contracted CG graph,
 the per-bead channel index of every atom (CG2ChannelIdx, cgvae.py:451-460 of
-the original code).
+the original code) and its largest count, and the bonded angle and dihedral
+index tuples of the DiffPool dataset.
 """
 from __future__ import annotations
 
@@ -70,3 +71,48 @@ def channel_index_from_mapping(mapping: np.ndarray) -> np.ndarray:
         idx = np.flatnonzero(mapping == cg)
         out[idx] = np.arange(idx.shape[0], dtype=np.int32)
     return out
+
+
+def max_atoms_per_bead(mapping: np.ndarray) -> int:
+    _, counts = np.unique(np.asarray(mapping), return_counts=True)
+    return int(counts.max())
+
+
+def _neighbours(bonds: np.ndarray, n_atoms: int) -> list:
+    nbrs: list = [[] for _ in range(n_atoms)]
+    for a, b in np.asarray(bonds):
+        nbrs[int(a)].append(int(b))
+        nbrs[int(b)].append(int(a))
+    return nbrs
+
+
+def angle_triplets(bonds: np.ndarray, n_atoms: int) -> np.ndarray:
+    """All bonded angle index triplets (i, j, k): i and k distinct
+    neighbours of the centre j, i < k (the bond-graph form of the original
+    code's guessed angles, datasets.py:117-128). (A, 3) int32."""
+    nbrs = _neighbours(bonds, n_atoms)
+    out = []
+    for j in range(n_atoms):
+        ns = sorted(set(nbrs[j]))
+        for x in range(len(ns)):
+            for y in range(x + 1, len(ns)):
+                out.append((ns[x], j, ns[y]))
+    return np.asarray(out, np.int32) if out else np.zeros((0, 3), np.int32)
+
+
+def dihedral_quads_from_bonds(bonds: np.ndarray, n_atoms: int) -> np.ndarray:
+    """All proper dihedral index quads (i, j, k, l): central bond (j, k)
+    in sorted order, i a neighbour of j other than k, l a neighbour of k
+    other than j and i. (Q, 4) int32."""
+    nbrs = _neighbours(bonds, n_atoms)
+    pairs = sorted({(min(int(a), int(b)), max(int(a), int(b))) for a, b in np.asarray(bonds)})
+    out = []
+    for j, k in pairs:
+        for i in sorted(set(nbrs[j])):
+            if i == k:
+                continue
+            for l in sorted(set(nbrs[k])):
+                if l == j or l == i:
+                    continue
+                out.append((i, j, k, l))
+    return np.asarray(out, np.int32) if out else np.zeros((0, 4), np.int32)

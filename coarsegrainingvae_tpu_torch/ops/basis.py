@@ -31,3 +31,20 @@ def painn_radial_basis(d: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tens
     num = torch.where(zero, coef, torch.sin(coef * shape_d))
     out = num / denom
     return torch.where(shape_d >= cutoff, torch.zeros_like(out), out)
+
+
+def gaussian_smearing(d: torch.Tensor, start: float, stop: float, n_gaussians: int,
+                      centered: bool = False) -> torch.Tensor:
+    """Gaussian RBF expansion (basis.py:37 of the JAX package;
+    modules.py:60-72,116-136 of the original code): n_gaussians offsets
+    ``linspace(start, stop)`` of the spacing's width, or centred at zero
+    with the offsets as widths. Returns shape d.shape + (n_gaussians,)."""
+    offset = torch.linspace(start, stop, n_gaussians, dtype=d.dtype, device=d.device)
+    width = (offset[1] - offset[0]) * torch.ones_like(offset)
+    if not centered:
+        coeff = -0.5 / width**2
+        diff = d[..., None] - offset
+    else:
+        coeff = -0.5 / offset**2
+        diff = d[..., None]
+    return torch.exp(coeff * diff**2)

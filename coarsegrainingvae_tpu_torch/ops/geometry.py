@@ -6,8 +6,9 @@ geometry shared by the message kernels' plain versions.
 sqrt(sum(r^2 + 1e-8)), unit = r / dist, the epsilon inside the sum keeping
 masked zero-length edges finite. ``dense_pairwise`` and
 ``radius_adjacency`` are the port of ``coarsegrainingvae_tpu.models.dense``
-(dense.py:39-63); they live in ``ops`` here because only the kernels' plain
-versions need them (the dense modules always go through the kernels, which
+(dense.py:39-63); they live in ``ops`` because the kernels' plain versions
+use them as well as the DiffPool blocks of ``models/dense.py``, which run
+in plain torch (the dense CGVAE's messages go through the kernels, which
 rebuild the geometry on the card). ``dihedral`` and ``drmsd`` are the
 PCN loss's and metrics' (geometry.py:80-124 of the JAX package).
 """

@@ -5,6 +5,7 @@ the plain versions' calls), and its refusal to run without a card.
 The script itself runs only on a GPU; these tests import it as a module
 (it imports torch inside its functions) and check what needs no card.
 """
+import argparse
 import json
 
 import pytest
@@ -240,3 +241,90 @@ def test_native_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert out.count("mask and edges per receiver equal: True") == 2
     assert out.count("equal on those: True") == 2
+
+
+def test_diffpool_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain, capsys):
+    """The diffpool phase at a small width on the CPU: the v6 recipe's
+    flags (graph_grad, zeta, h_project, sample_hard) through run_diffpool
+    and every file, the step against the CPU's own (and float64), two steps
+    bit for bit, the timed steps; no kernel's plain version is called."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))  # restored after
+    width = ("-num_features", "16", "-n_rbf", "4", "-n_cgs", "4", "-batch_size", "4")
+    paths = chip_smoke.diffpool_phase(device="cpu", ndata=24, epochs=1, pretrain=1, steps=2,
+                                      width=width)
+    assert paths == {"diffpool": dict.fromkeys(counted_plain, 0)}
+    flags = chip_smoke.json_recipe_flags(chip_smoke.DIFFPOOL_RECIPE / "v6_modelparams.json")
+    for flag in ("--graph_grad", "--h_project", "--sample_hard"):
+        assert flag in flags
+    assert flags[flags.index("-num_features") + 1] == "512"
+    out = capsys.readouterr().out
+    assert "bit for bit: True" in out and "ndata 2000 -> 24" in out
+    (run,) = list((tmp_path / "build" / "diffpool_smoke").glob("v6_*"))
+    assert (run / "fold1" / "params.pt").is_file()
+
+
+def test_baseline_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain, capsys):
+    """The baseline phase on the CPU: the baseline_demo recipe through
+    run_baseline, every zoo entry's step against the CPU's own, the timed
+    steps; no kernel's plain version is called."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))
+    paths = chip_smoke.baseline_phase(device="cpu", ndata=24, epochs=1, steps=2,
+                                      width=("-batch_size", "4"))
+    assert paths == {"baseline": dict.fromkeys(counted_plain, 0)}
+    out = capsys.readouterr().out
+    assert all(f"{name} 0.000e+00" in out for name in ("linear", "setequimlp", "edgesetmlp"))
+
+
+def _tiny_space(monkeypatch):
+    from coarsegrainingvae_tpu_torch.cli import hpo
+
+    monkeypatch.setattr(hpo, "CGVAE_SPACE", dict(
+        hpo.CGVAE_SPACE, n_basis=("int", 8, 16), n_rbf=("int", 3, 4), enc_nconv=("int", 1, 2),
+        dec_nconv=("int", 1, 2)))
+
+
+HPO_SMALL = ("-ndata", "24", "-batch_size", "4", "-n_trials", "3", "-nepochs", "4")
+
+
+def test_hpo_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
+    """The hpo phase on the CPU with a narrow search space and a small
+    budget: every trial runs, and the plain versions' calls equal the
+    count worked out from the trials' configs."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))
+    _tiny_space(monkeypatch)
+    paths = chip_smoke.hpo_phase(device="cpu", width=HPO_SMALL)
+    _, rows = chip_smoke.read_csv(chip_smoke.HPO_DIR / "hpo_asha_log.csv")
+    assert len(rows) == 4 and {r["failed"] for r in rows} == {"False"}     # 3 trials, then 1
+    a = argparse.Namespace(ndata=24, nsplits=2, batch_size=4, dec_type="cross")
+    assert paths["hpo"] == chip_smoke.hpo_expected_launches(chip_smoke.HPO_DIR, rows, a)
+    assert paths["hpo"]["fused_message"] > 0 and paths["hpo"]["fused_message_vjp"] > 0
+    assert paths["hpo"]["fused_pseudo_message"] == 0
+
+
+def test_hpo_phase_raises_on_a_failed_trial(tmp_path, monkeypatch, counted_plain):
+    """A trial that raises is recorded as failed by the search, and the
+    phase raises on it."""
+    from coarsegrainingvae_tpu_torch.cli import run_cgvae
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))
+    _tiny_space(monkeypatch)
+    real = run_cgvae.run_cv
+
+    def flaky(cfg, **kw):
+        if cfg.logdir.endswith("trial_0001"):
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+        return real(cfg, **kw)
+
+    monkeypatch.setattr(run_cgvae, "run_cv", flaky)
+    with pytest.raises(RuntimeError, match="hpo trials failed.*illegal memory access"):
+        chip_smoke.hpo_phase(device="cpu", width=HPO_SMALL)
+
+
+def test_hpo_recipe_is_the_committed_demo():
+    readme = (chip_smoke.DIFFPOOL_RECIPE.parent / "hpo_demo" / "README.md").read_text()
+    command = readme.split("python -m coarsegrainingvae_tpu.cli.hpo", 1)[1].split("\n\n")[0]
+    assert command.replace("\\", " ").split() == chip_smoke.HPO_RECIPE

@@ -878,3 +878,178 @@ def test_native_routes_on_the_card_machine(cuda_device, tmp_path, monkeypatch):
         np.testing.assert_allclose(cell[k], dense[k], rtol=1e-9, err_msg=k)
     assert sorted(p.name[:len("libcell_list")] for p in tmp_path.iterdir()) == [
         "libbond_diff", "libcell_list"]
+
+
+# ------------------------------------------------------- DiffPool, baselines
+# the committed DiffPool v6 recipe's width (examples/results/diffpool_demo)
+V6 = dict(n_cgs=8, feat_dim=512, n_rbf=7, atom_cutoff=8.0, cg_cutoff=30.0, pool_nconv=1,
+          enc_nconv=2, dec_nconv=3, activation="swish", cross=True, tau_min=0.1)
+V6_TRAIN = dict(beta=0.02, gamma=25.0, lr=3e-4, zeta=50.0, zeta_warmup=5000, graph_grad=True,
+                graph_warmup=5000, h_project=True)
+
+
+def _diffpool_setup(n_frames=32):
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.diffpool import build_diffpool_dataset
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.train.losses import build_steric_tables
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=n_frames, seed=0, device="cpu")
+    ds = build_diffpool_dataset(frames, z, bonds, rotate=True, seed=1)
+    return z, ds, build_steric_tables(z, bonds, margin=0.3), ds.batch(np.arange(n_frames))
+
+
+def _diffpool_trainer(device, z, steric):
+    from coarsegrainingvae_tpu_torch.config import DiffPoolConfig
+    from coarsegrainingvae_tpu_torch.train.diffpool_trainer import DiffPoolTrainer
+
+    return DiffPoolTrainer(DiffPoolConfig(n_atoms=z.shape[0], **V6), steric_tables=steric,
+                           device=device, **V6_TRAIN)
+
+
+def _v6_draws(tr, batch_size):
+    from coarsegrainingvae_tpu_torch.models.cgae import uniform_noise
+
+    g = torch.Generator().manual_seed(3)
+    u = uniform_noise(tr.model.pooler.noise_shape(batch_size, tr.cfg.n_atoms), g, "cpu")
+    return u, torch.randn((batch_size, tr.cfg.n_cgs, tr.cfg.feat_dim), generator=g)
+
+
+@pytest.mark.gpu
+def test_diffpool_step_on_card_matches_cpu(cuda_device):
+    """The v6 recipe's f32 step at full width and batch 32 mid-ramp (step
+    2,500 of the 5,000-step graph and zeta ramps, h_project): every
+    gradient on the card within 1e-4 of its max |CPU|, with the same
+    weights and draws."""
+    z, _, steric, batch = _diffpool_setup()
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        tr = _diffpool_trainer(dev, z, steric)
+        u, eps = _v6_draws(tr, 32)
+        tr.noise = lambda key, b, u=u, eps=eps, dev=dev: (u.to(dev), eps.to(dev))
+        state = tr.init_state()
+        total, metrics = tr.loss(batch.to(dev), 2500, (0,))
+        assert "steric" in metrics
+        g = torch.autograd.grad(total, list(state.params.values()), allow_unused=True)
+        grads.append([torch.zeros_like(p).cpu() if t is None else t.cpu()
+                      for p, t in zip(state.params.values(), g)])
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_diffpool_sample_hard_on_card_matches_cpu(cuda_device):
+    z, _, steric, batch = _diffpool_setup(8)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        tr = _diffpool_trainer(dev, z, steric)
+        u, eps = _v6_draws(tr, 8)
+        tr.noise = lambda key, b, u=u, eps=eps, dev=dev: (u.to(dev), eps.to(dev))
+        out.append(tr.sample(batch, seed=0, hard=True).cpu())
+    assert torch.isfinite(out[0]).all()
+    assert float((out[0] - out[1]).abs().max()) <= 1e-4 * float(out[1].abs().max())
+
+
+@pytest.mark.gpu
+def test_diffpool_steps_repeat_their_bits_on_card(cuda_device):
+    """Two v6 steps from one state (the same key, so the same draws): the
+    parameters and both moments bit for bit."""
+    import dataclasses
+
+    z, _, steric, batch = _diffpool_setup()
+    tr = _diffpool_trainer(cuda_device, z, steric)
+    state = dataclasses.replace(tr.init_state(), step=2500)
+    start = {k: p.detach().clone() for k, p in state.params.items()}
+    after = []
+    for _ in range(2):
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(start[k])
+        new, _ = tr.train_step(state, batch, (0, 1))
+        after.append([p.detach().clone() for p in new.params.values()]
+                     + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
+    assert all(torch.equal(x, y) for x, y in zip(*after))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["linear", "mlp", "equimlp", "equimlp2", "setequimlp",
+                                  "edgesetmlp", "equilinear"])
+def test_baseline_step_on_card_matches_cpu(cuda_device, name):
+    """One f32 step of each zoo entry at the baseline_demo recipe's knn 3,
+    batch 32 and gamma 5, on 6 beads (at the recipe's 3 the kNN graph is
+    complete, the edge sums cancel and equimlp's gradients are 0 up to
+    rounding): every gradient within 1e-4 of its max |CPU|."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.diffpool import build_diffpool_dataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.data.topology import (
+        channel_index_from_mapping,
+        max_atoms_per_bead,
+    )
+    from coarsegrainingvae_tpu_torch.models.baseline import build_baseline
+    from coarsegrainingvae_tpu_torch.train.baseline_trainer import BaselineTrainer
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=32, seed=0, device="cpu")
+    mapping = newman_mapping(bonds, z.shape[0], 6, seed=0)
+    batch = build_diffpool_dataset(frames, z, bonds).batch(np.arange(32))
+    kw = dict(linear={}, mlp=dict(width=1, depth=1), edgesetmlp=dict(knn=3),
+              equilinear=dict(knn=3)).get(name, dict(knn=3, width=1, depth=1))
+    if name == "setequimlp":
+        kw.update(channel_idx=channel_index_from_mapping(mapping),
+                  n_channels=max_atoms_per_bead(mapping))
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = build_baseline(name, 6, z.shape[0], mapping,
+                               generator=torch.Generator().manual_seed(0), **kw)
+        tr = BaselineTrainer(model, gamma=5.0, lr=3e-4, device=dev)
+        state = tr.init_state()
+        total, _ = tr.loss(batch.to(dev))
+        g = torch.autograd.grad(total, list(state.params.values()))
+        grads.append([t.cpu() for t in g])
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_diffpool_baseline_and_hpo_clis_run_on_card(cuda_device, tmp_path, monkeypatch):
+    """run_diffpool, run_baseline and one hpo trial at a tiny size with
+    --device cuda, each writing its files; and an hpo trial that fails on
+    the card (a basis beyond the wide kernels' bound raises in the
+    wrapper, before any launch) is reported as failed while the next
+    trial runs."""
+    import csv
+
+    from coarsegrainingvae_tpu_torch.cli import hpo, run_baseline, run_cgvae, run_diffpool
+    from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+
+    save_npz_traj(str(tmp_path / "dipeptide.npz"),
+                  *synthetic_peptide("dipeptide", n_frames=32, seed=0, device=cuda_device))
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path))
+    rows = run_diffpool.main(["-logdir", str(tmp_path / "dp"), "-n_cgs", "4", "-num_features",
+                              "16", "-ndata", "32", "-nepochs", "1", "-batch_size", "8",
+                              "-n_pretrain", "1", "--h_project", "--device", "cuda"])
+    assert len(rows) == 2 and all(r["test_recon"] > 0 for r in rows)
+    rows = run_baseline.main(["-logdir", str(tmp_path / "bl"), "-model", "setequimlp",
+                              "-ndata", "32", "-nepochs", "1", "-batch_size", "8",
+                              "--device", "cuda"])
+    assert len(rows) == 2 and all(r["test_recon_rmsd"] > 0 for r in rows)
+
+    args = run_cgvae.build_parser().parse_args([
+        "-logdir", str(tmp_path / "hpo"), "-ndata", "32", "-batch_size", "8", "-nsplits", "2",
+        "-cg_method", "newman", "--device", "cuda"])
+    objective = hpo._cv_objective(args)
+    space = {k: ("choice", (v,), None) for k, v in dict(
+        lr=3e-4, beta=0.05, gamma=5.0, n_basis=16, enc_nconv=1, dec_nconv=1, atom_cutoff=8.0,
+        cg_cutoff=9.0).items()}
+    space["n_rbf"] = ("choice", (300, 4), None)
+    _, _, trials = hpo.random_search(lambda c: objective(c, 1), space, 6, seed=0,
+                                     log_path=str(tmp_path / "hpo" / "log.csv"))
+    by_rbf = {r["n_rbf"]: r for r in trials}
+    assert by_rbf[300]["failed"] and "200" in by_rbf[300]["error"]
+    assert not by_rbf[4]["failed"] and by_rbf[4]["value"] > 0
+    with open(tmp_path / "hpo" / "log.csv", newline="") as f:
+        assert {r["failed"] for r in csv.DictReader(f)} == {"True", "False"}
