@@ -75,7 +75,18 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
 - hpo: ``cli.hpo`` with the committed ``examples/results/hpo_demo`` recipe
   (ASHA, 6 trials, 8 epochs, 2 folds per trial run) on the card; it
   raises if a trial failed, and holds the message kernels' launches to the
-  count worked out from the trials' configs.
+  count worked out from the trials' configs;
+- multigpu: data-parallel training and the halo stack (``parallel/``) on
+  the one card. One rank of an NCCL process group through
+  ``Trainer(mesh=make_mesh())``: its captured epoch, the all-reduce in the
+  graph, bit for bit the plain trainer's at batch 128 and 32, both timed
+  in turns, with the collective's bytes per step; then two spawned ranks
+  sharing the card on gloo (NCCL refuses two ranks on one device): 3 f32
+  steps at batch 128 against the one-rank run, ZeRO-1 against the
+  replicated optimizer, each rank's kernel launches as counted; and on
+  those ranks the halo stack on the covid stand-in's first frame (10,333
+  atoms, F 192, 2 layers) against the unsharded ``EquiStack``, with each
+  rank's peak memory.
 
 Every phase raises on failure; there is no CPU fallback. Output, in order:
 the card's name and power limit (nvidia-smi), the build with each main-path
@@ -85,16 +96,17 @@ graph replays, and its roofline bound from ``kernel_cost``; the wide kernels,
 R+1 > 16, at n_rbf 16, 20 and the largest each takes; the chignolin
 recipe's shapes), the serve, train, captured and cgae checks and timings,
 the cv phase's checks and its wall time by part, the steric, sparse,
-native, pcn, covid, diffpool, baseline and hpo phases' checks and
-timings, one JSON line with one entry per kernel and timed shape, and last one JSON
+native, pcn, covid, diffpool, baseline, hpo and multigpu phases' checks
+and timings, one JSON line with one entry per kernel and timed shape, and last one JSON
 line ``{"ok": true, "device": {...}}``. The profiles' tables go to
 ``chiprun_out/train_profile.txt``, ``captured_profile_b{128,32}.txt`` and
 ``sparse_{pseudo,pseudo2}_profile_b{128,32}.txt``, ``pcn_profile.txt``,
 ``covid_profile_b2.txt``, ``diffpool_profile.txt`` and
 ``baseline_profile.txt``, the dipeptide data to ``chiprun_out/cv_data/``,
 the cv runs (the covid fold's too) to ``build/cv_smoke/``, the PCN, DiffPool,
-baseline and hpo runs to ``build/{pcn,diffpool,baseline,hpo}_smoke/``. Needs one
-CUDA device; imports nothing of JAX.
+baseline and hpo runs to ``build/{pcn,diffpool,baseline,hpo}_smoke/``, the
+multigpu phase's stores and one-rank parameters to ``build/multigpu_smoke/``.
+Needs one CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -199,6 +211,18 @@ HPO_RECIPE = ["-strategy", "asha", "-n_trials", "6", "-dataset", "dipeptide", "-
               "-ndata", "400", "-nepochs", "8", "-batch_size", "32", "-nsplits", "2",
               "-max_folds", "1", "-cg_method", "newman", "-seed", "7", "-patience", "8"]
 HPO_DIR = Path("build") / "hpo_smoke"
+# the multigpu phase (A14): one NCCL rank through the captured step at the
+# captured phase's batches, MULTIGPU_STEPS-step epochs held bit for bit to
+# the plain trainer's and timed beside them; then MULTIGPU_RANKS ranks
+# sharing the card on gloo (NCCL refuses two ranks on one device):
+# MULTIGPU_TRAIN_STEPS f32 steps at TRAIN_BATCH against the one-rank run
+# (TRAIN_RTOL of each parameter's max |ref|), ZeRO-1 against the
+# replicated optimizer, and the halo stack at the covid recipe's width,
+# HALO_LAYERS layers, on the covid stand-in's first frame (HALO_RTOL of
+# max |ref|, forward and parameter gradients)
+MULTIGPU_RANKS, MULTIGPU_STEPS, MULTIGPU_TRAIN_STEPS, HALO_LAYERS = 2, 20, 3, 2
+HALO_RTOL = 1e-4
+MULTIGPU_DIR = Path("build") / "multigpu_smoke"
 
 
 def card_line() -> str:
@@ -801,7 +825,7 @@ def train_cfg(batch_size: int, **model_kw):
                           grad_clip=0.01, adam_moment_dtype="bfloat16"))
 
 
-def dipeptide_device_data():
+def dipeptide_device_data(device: str = "cuda", n_frames: int = TRAIN_FRAMES):
     """bench.py's 256 dipeptide frames (newman mapping) and a maker of
     DeviceDatasets of n frames, the 256 repeated."""
     import numpy as np
@@ -811,12 +835,12 @@ def dipeptide_device_data():
     from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
 
-    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=TRAIN_FRAMES, seed=0, device="cuda")
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=n_frames, seed=0, device=device)
     ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, atom_cutoff=8.5,
                        cg_cutoff=9.5, atomic_nums=z, bonds=bonds, order=2, rotate=True)
 
     def dataset(n):
-        return DeviceDataset.from_dataset(ds.subset(np.resize(np.arange(len(ds)), n)), "cuda")
+        return DeviceDataset.from_dataset(ds.subset(np.resize(np.arange(len(ds)), n)), device)
 
     return ds, dataset, z, bonds
 
@@ -2553,6 +2577,316 @@ def hpo_phase(device: str = "cuda", recipe: list = HPO_RECIPE, width: tuple = ()
     return {"hpo": launches}
 
 
+def one_rank_mesh(device: str):
+    """A process group of one rank over a FileStore (NCCL on the card,
+    gloo on the CPU) and its mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from coarsegrainingvae_tpu_torch.parallel.mesh import TIMEOUT, make_mesh
+
+    MULTIGPU_DIR.mkdir(parents=True, exist_ok=True)
+    store = MULTIGPU_DIR / f"store_one_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    kw = {"device_id": torch.device("cuda", 0)} if device == "cuda" else {}
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            timeout=TIMEOUT, **kw)
+    return make_mesh(device=device)
+
+
+def halo_inputs(n: int, f: int, seed: int = 5) -> tuple:
+    """Seeded (s (n, f), v (n, 3, f)) node features for the halo stack."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, f)).astype(np.float32),
+            rng.normal(size=(n, 3, f)).astype(np.float32))
+
+
+def multigpu_rank(device: str, cfg, ds, order, n_steps: int, ref_path: str, halo: tuple) -> dict:
+    """One rank of the multigpu phase's spawned ranks (gloo): the
+    data-parallel trainer's ``n_steps`` steps over ``ds``'s global batches
+    in ``order``, replicated and ZeRO-1, against the one-rank parameters at
+    ``ref_path``; then this rank's block of the halo stack, forward and
+    parameter gradients (summed over the ranks). Returns what the parent
+    checks and prints."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.config import ParallelConfig
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.parallel import halo as halo_mod
+    from coarsegrainingvae_tpu_torch.parallel.mesh import all_reduce_, make_mesh
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    reset_counts()
+    mesh = make_mesh(device=device)
+    bs = cfg.data.batch_size
+    out = {"rank": mesh.rank, "transport": mesh.transport}
+    ref = torch.load(ref_path, weights_only=True)
+    trained = {}
+    for zero in (False, True):
+        c = dataclasses.replace(cfg, parallel=ParallelConfig(zero_optimizer=zero))
+        tr = Trainer(DenseCGVAE(c.model, generator=torch.Generator().manual_seed(0)), c,
+                     device=device, mesh=mesh)
+        st = tr.init_state(ds.batch(order[:bs]))
+        gen = torch.Generator(device=device).manual_seed(21)
+        ms = []
+        for i in range(n_steps):
+            batch = ds.batch(order[i * bs:(i + 1) * bs]).to(device)
+            sync()
+            t = time.perf_counter()
+            st, m = tr.train_step(st, batch, gen)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            if float(m["grad_ok"]) != 1.0:
+                raise RuntimeError(f"rank {mesh.rank}: step {i} was rejected")
+        trained[zero] = {k: p.detach().cpu().clone() for k, p in st.params.items()}
+        out["zero_ms" if zero else "ms"] = ms
+        out["zero_moments" if zero else "moments"] = st.opt_state.mu.numel()
+        del tr, st
+    out["launches"] = read_counts()
+    out["dp_err"] = worst_rel([trained[False][k] for k in ref], [ref[k] for k in ref])
+    out["zero_equal"] = all(torch.equal(trained[True][k], trained[False][k]) for k in ref)
+    out["zero_err"] = worst_rel([trained[True][k] for k in ref],
+                                [trained[False][k] for k in ref])
+
+    xyz, edges, kw = halo
+    plan = halo_mod.plan_halo(xyz, edges, mesh.size, halo_mod.min_halo(xyz, edges, mesh.size))
+    stack = halo_mod.EquiStack(**kw, generator=torch.Generator().manual_seed(0)).to(device)
+    s, v = halo_inputs(xyz.shape[0], kw["feat_dim"])
+
+    def block(a):
+        return torch.as_tensor(plan.block(plan.pad(a), mesh.rank)).to(device)
+
+    s_b, v_b, xyz_b = block(s), block(v), block(xyz)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t = time.perf_counter()
+    so, vo = halo_mod.halo_stack_apply(stack, s_b, v_b, xyz_b, plan, mesh)
+    loss = (so ** 2).sum() + (vo ** 2).sum()
+    grads = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, list(stack.parameters()))])
+    all_reduce_(grads, mesh)
+    sync()
+    out["halo"] = {"s": so.detach().cpu().numpy(), "v": vo.detach().cpu().numpy(),
+                   "grads": grads.cpu().numpy(), "halo": plan.halo, "shard": plan.shard_size,
+                   "edges": int(plan.edge_mask[mesh.rank].sum()),
+                   "seconds": time.perf_counter() - t,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+    return out
+
+
+def multigpu_phase(device: str = "cuda", batches=CAPTURE_BATCHES, steps: int = MULTIGPU_STEPS,
+                   model_kw=None, n_frames: int = TRAIN_FRAMES, train_batch: int = TRAIN_BATCH,
+                   halo_frame=None, dense=None) -> dict:
+    """Multi-GPU training (A14) on one card. (a) One rank of an NCCL
+    process group (gloo on the CPU) through ``Trainer(mesh=make_mesh())``:
+    at each of ``batches`` a ``steps``-step captured epoch, its all-reduce
+    in the graph, held bit for bit to the plain trainer's from the same
+    weights and draws, then both timed in turns, with the bytes the
+    collective moves per step. (b) MULTIGPU_RANKS spawned ranks sharing the
+    card on gloo: MULTIGPU_TRAIN_STEPS f32 steps at ``train_batch`` against
+    the one-rank run, ZeRO-1 against the replicated optimizer, the kernels'
+    launches on each rank against their counts (none on the CPU, where the
+    wrappers run their plain versions). (c) On the same ranks the
+    halo stack on ``halo_frame`` = (xyz (N, 3), cutoff, n_rbf, activation,
+    feat_dim) (default: the covid stand-in's first frame at the covid
+    recipe's width and cutoff) against the unsharded ``EquiStack`` on the
+    device, with each rank's peak memory. ``dense`` is the captured
+    phase's summary, printed beside. Raises on any failed check; returns
+    {"multigpu": the launches of (a) and of every rank in (b)}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from coarsegrainingvae_tpu_torch.data.device import epoch_index_batches
+    from coarsegrainingvae_tpu_torch.data.neighbors import radius_graph_frames
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.parallel.halo import EquiStack, plan_halo
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+    from coarsegrainingvae_tpu_torch.parallel.mesh import Mesh
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    model_kw = model_kw or {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    ds, dataset, _, _ = dipeptide_device_data(device, n_frames)
+    total = dict.fromkeys(DENSE_PER_STEP, 0)
+    model = dipeptide_model_cfg(**model_kw)
+    per_step = {"fused_message": 2 * model.enc_nconv, "fused_message_vjp": 2 * model.enc_nconv,
+                "fused_pseudo_message": model.dec_nconv, "fused_pseudo_vjp": model.dec_nconv}
+    mesh = one_rank_mesh(device)
+    single = Mesh(0, 1, None, None, torch.device(device))
+    try:
+        for bs in batches:
+            cfg = train_cfg(bs, **model_kw)
+            dds = dataset(bs * steps)
+            idx = epoch_index_batches(dds.n_frames, bs, np.random.default_rng(1))
+            runs = {}
+            for label, on in (("plain", single), ("one rank", mesh)):
+                tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)),
+                             cfg, device=device, mesh=on)
+                st = tr.init_state(ds.batch(np.arange(bs)))
+                gen = torch.Generator(device=device).manual_seed(11)
+                reset_counts()
+                st, _ = tr._run_program(st, dds, idx, gen, True, tr.captures)
+                launches = read_counts()
+                prog = tr._programs[(id(dds), True)]
+                runs[label] = dict(tr=tr, st=st, launches=launches, keys=prog.keys,
+                                   metrics=prog.metrics[:steps].clone(), gen=gen.get_state(),
+                                   tensors=[t.detach().clone() for t in state_tensors(st)])
+            ref, got = runs["plain"], runs["one rank"]
+            expect = {k: v * steps for k, v in per_step.items()}
+            if got["launches"] != expect:
+                raise RuntimeError(f"multigpu: one rank at batch {bs} launched "
+                                   f"{got['launches']}, expected {expect}")
+            for k in total:
+                total[k] += got["launches"][k]
+            exact = (torch.equal(ref["metrics"], got["metrics"])
+                     and torch.equal(ref["gen"], got["gen"])
+                     and all(torch.equal(a, b) for a, b in zip(ref["tensors"], got["tensors"])))
+            rel = worst_rel(got["tensors"], ref["tensors"])
+            n_params = sum(p.numel() for p in got["st"].params.values())
+            # the all-reduced buffer: [gradient, loss, the loss terms]
+            n_bytes = 4 * (n_params + 1 + len(got["keys"]) - 2)
+            print(f"multigpu one {mesh.backend} rank, batch {bs}: {steps}-step epoch "
+                  f"{'captured' if got['tr'].captures else 'in a loop'} with the all-reduce in the "
+                  f"step, against the plain trainer from the same weights and draws: bit for bit "
+                  f"{exact}, parameters and moments max|err|/max|ref| {rel:.3e}; launches "
+                  f"{got['launches']}; the collective moves {n_bytes} bytes "
+                  f"({n_bytes / 1e6:.1f} MB) per step", flush=True)
+            if not exact and not rel <= TRAIN_RTOL:
+                raise RuntimeError(f"multigpu: one rank disagrees with the plain trainer at "
+                                   f"batch {bs}")
+            timings = {"plain": [], "one rank": []}
+            for label in ("plain", "one rank", "one rank", "plain"):
+                r = runs[label]
+                gen = torch.Generator(device=device).manual_seed(12)
+                sync()
+                t = time.perf_counter()
+                r["st"], _ = r["tr"]._run_program(r["st"], dds, idx, gen, True, r["tr"].captures)
+                sync()
+                timings[label].append((time.perf_counter() - t) / steps * 1e3)
+            beside = ""
+            if dense is not None and bs in dense:
+                beside = (f"; the captured phase, this call: "
+                          f"{', '.join(f'{x:.3f}' for x in dense[bs][0])} ms/step")
+            print(f"multigpu one rank, batch {bs}: "
+                  f"{', '.join(f'{x:.3f}' for x in timings['one rank'])} ms/step against the plain "
+                  f"trainer's {', '.join(f'{x:.3f}' for x in timings['plain'])} in turns{beside}",
+                  flush=True)
+            for r in runs.values():
+                r["tr"].release_graphs()
+            del runs, ref, got, dds
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) the one-rank reference at f32 for the spawned ranks
+    cfg = train_cfg(train_batch, compute_dtype="float32", **model_kw)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             adam_moment_dtype="float32"))
+    order = np.resize(np.random.default_rng(3).permutation(len(ds)),
+                      train_batch * MULTIGPU_TRAIN_STEPS)
+    tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                 device=device, mesh=single)
+    st = tr.init_state(ds.batch(order[:train_batch]))
+    gen = torch.Generator(device=device).manual_seed(21)
+    for i in range(MULTIGPU_TRAIN_STEPS):
+        st, _ = tr.train_step(st, ds.batch(order[i * train_batch:(i + 1) * train_batch]
+                                           ).to(device), gen)
+    ref_path = MULTIGPU_DIR / "one_rank_params.pt"
+    torch.save({k: p.detach().cpu() for k, p in st.params.items()}, ref_path)
+    del tr, st
+
+    # (c) the unsharded halo stack on the device
+    if halo_frame is None:
+        recipe = json.loads((COVID_RECIPE / "covid2_modelparams.json").read_text())["model"]
+        (_, frames, _), _ = covid_frames(device)
+        halo_frame = (frames[0], recipe["atom_cutoff"], recipe["n_rbf"], recipe["activation"],
+                      recipe["n_basis"])
+    xyz, cutoff, n_rbf, activation, feat_dim = halo_frame
+    xyz = np.asarray(xyz, np.float32)
+    e, emask = radius_graph_frames(xyz[None], cutoff)
+    edges = e[0][emask[0]]
+    kw = dict(n_conv=HALO_LAYERS, feat_dim=feat_dim, n_rbf=n_rbf, activation=activation,
+              cutoff=cutoff)
+    stack = EquiStack(**kw, generator=torch.Generator().manual_seed(0)).to(device)
+    s, v = halo_inputs(xyz.shape[0], feat_dim)
+    s_ref, v_ref = stack(*(torch.as_tensor(a).to(device) for a in (s, v, xyz)),
+                         torch.as_tensor(edges, dtype=torch.long).to(device))
+    loss = (s_ref ** 2).sum() + (v_ref ** 2).sum()
+    g_ref = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, list(stack.parameters()))])
+    s_ref, v_ref, g_ref = (t.detach().cpu().numpy() for t in (s_ref, v_ref, g_ref))
+    del stack
+
+    store = MULTIGPU_DIR / f"store_ranks_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    t = time.perf_counter()
+    ranks = spawn_ranks(multigpu_rank, MULTIGPU_RANKS, str(store),
+                        (device, cfg, ds, order, MULTIGPU_TRAIN_STEPS, str(ref_path),
+                         (xyz, edges, kw)), backend="gloo", threads=2)
+    spawn_s = time.perf_counter() - t
+    expect = {k: v * 2 * MULTIGPU_TRAIN_STEPS * cuda for k, v in per_step.items()}
+    n_params = sum(np.prod(p.shape) for p in torch.load(ref_path, weights_only=True).values())
+    for r in ranks:
+        print(f"multigpu rank {r['rank']} of {MULTIGPU_RANKS} sharing the {device} on "
+              f"{r['transport']}: {MULTIGPU_TRAIN_STEPS} f32 steps at batch {train_batch} "
+              f"(its {train_batch // MULTIGPU_RANKS} rows) against the one-rank run, "
+              f"max|err|/max|ref| {r['dp_err']:.3e}; ZeRO-1 against the replicated optimizer: "
+              f"bit for bit {r['zero_equal']}, {r['zero_err']:.3e}, moments "
+              f"{r['zero_moments']} of {n_params} (replicated {r['moments']}); "
+              f"{', '.join(f'{x:.1f}' for x in r['ms'])} ms/step replicated, "
+              f"{', '.join(f'{x:.1f}' for x in r['zero_ms'])} ZeRO-1; launches {r['launches']}",
+              flush=True)
+        if not r["dp_err"] <= TRAIN_RTOL or not r["zero_err"] <= TRAIN_RTOL:
+            raise RuntimeError(f"multigpu: rank {r['rank']} disagrees with the one-rank run")
+        if r["zero_moments"] != -(-n_params // MULTIGPU_RANKS) or r["moments"] != n_params:
+            raise RuntimeError(f"multigpu: rank {r['rank']} holds {r['zero_moments']} moments")
+        if r["launches"] != expect:
+            raise RuntimeError(f"multigpu: rank {r['rank']} launched {r['launches']}, "
+                               f"expected {expect}")
+        for k in total:
+            total[k] += r["launches"][k]
+    h = ranks[0]["halo"]
+    plan = plan_halo(xyz, edges, MULTIGPU_RANKS, h["halo"])
+    s_h = np.concatenate([r["halo"]["s"] for r in ranks])[plan.inv_order]
+    v_h = np.concatenate([r["halo"]["v"] for r in ranks])[plan.inv_order]
+    errs = tuple(worst_rel([torch.as_tensor(a)], [torch.as_tensor(b)])
+                 for a, b in ((s_h, s_ref), (v_h, v_ref), (h["grads"], g_ref)))
+    print(f"multigpu halo stack, {MULTIGPU_RANKS} ranks on {device}: {xyz.shape[0]} atoms, "
+          f"{len(edges)} edges (cutoff {cutoff}), F {feat_dim}, {HALO_LAYERS} layers; slabs of "
+          f"{h['shard']} atoms, halo {h['halo']}; against the unsharded EquiStack: s "
+          f"{errs[0]:.3e}, v {errs[1]:.3e}, parameter gradients {errs[2]:.3e} "
+          f"(max|err|/max|ref|); per rank " + ", ".join(
+              f"rank {r['rank']} {r['halo']['edges']} edges, {r['halo']['seconds']:.3f} s, peak "
+              + (f"{r['halo']['peak_gb']:.3f} GB" if r['halo']['peak_gb'] is not None else "n/a")
+              for r in ranks), flush=True)
+    if not max(errs) <= HALO_RTOL:
+        raise RuntimeError("multigpu: the halo stack disagrees with the unsharded stack")
+    print(f"multigpu: {spawn_s:.1f} s for the spawned ranks, {time.perf_counter() - t_phase:.1f} s "
+          f"for the phase", flush=True)
+    return {"multigpu": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -2598,6 +2932,7 @@ def main() -> int:
     paths.update(diffpool_phase())
     paths.update(baseline_phase())
     paths.update(hpo_phase())
+    paths.update(multigpu_phase(dense=dense))
 
     source = "coarsegrainingvae_tpu_torch/csrc/"
     rows = {"message": ("fused_message", "fused_message.cu", "pallas_message.py:126"),

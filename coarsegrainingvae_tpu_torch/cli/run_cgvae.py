@@ -22,6 +22,19 @@ and the pseudo2/en/inv decoders train the sparse ``CGequiVAE``; ``-zeta``
 (with ``-zeta_warmup`` and ``--steric_data_margin``) builds each fold's
 excluded-volume tables before its trainer; ``--h_project`` and
 ``--h_project_eval`` project the hydrogens, as in the JAX CLI.
+
+Under ``torchrun`` (WORLD_SIZE set) the run trains data-parallel over every
+rank, as the JAX CLI trains over every local chip:
+
+    torchrun --nproc_per_node 4 -m coarsegrainingvae_tpu_torch.cli.run_cgvae ...
+
+The process group is NCCL for ``--device cuda`` (rank r on cuda:LOCAL_RANK)
+and gloo for ``--device cpu``. Rank 0 loads the frames and builds each
+fold's mapping and broadcasts them, so every rank builds the same datasets;
+``fit`` trains with data parallelism; ``reconstruct_all`` and
+``sample_ensemble`` run replicated on every rank; only rank 0 writes files,
+and the ranks meet at a barrier at the end of each fold. Without
+``torchrun`` nothing of this happens.
 """
 from __future__ import annotations
 
@@ -33,6 +46,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from coarsegrainingvae_tpu_torch.config import (
     DataConfig,
@@ -46,6 +60,7 @@ from coarsegrainingvae_tpu_torch.data.proteins import load_frames
 from coarsegrainingvae_tpu_torch.eval.analysis import get_cv_stats
 from coarsegrainingvae_tpu_torch.eval.sampling import reconstruct_all, sample_ensemble
 from coarsegrainingvae_tpu_torch.models.cgvae import CGequiVAE, build_flagship_model
+from coarsegrainingvae_tpu_torch.parallel.mesh import init_distributed, local_device
 from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
 from coarsegrainingvae_tpu_torch.train.losses import build_steric_tables
 from coarsegrainingvae_tpu_torch.train.trainer import Trainer
@@ -228,17 +243,30 @@ def build_fold_mapping(cfg: ExperimentConfig, z, frames, bonds, seed: int, devic
     raise RuntimeError("could not build a non-degenerate CG mapping")
 
 
+def _from_rank0(make):
+    """make() on rank 0, broadcast to every rank of the default process
+    group; make() alone without one."""
+    if not dist.is_initialized():
+        return make()
+    box = [make() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
            graph_eval: bool = False, reflection: bool = False,
            resume: bool = False, sparse: bool = False,
            max_folds: int = 0, fold_offset: int = 0, device="cuda") -> list:
     """The main CV loop (run_cv, run_ala.py:75-414) on ``device``. Returns
-    the cv rows."""
-    os.makedirs(cfg.logdir, exist_ok=True)
-    cfg.save(os.path.join(cfg.logdir, "modelparams.json"))
+    the cv rows. Under an initialised process group every rank runs it
+    (module docstring) and rank 0 alone writes."""
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    if writer:
+        os.makedirs(cfg.logdir, exist_ok=True)
+        cfg.save(os.path.join(cfg.logdir, "modelparams.json"))
 
-    z, frames, bonds = load_frames(cfg.data.dataset, cfg.data.ndata,
-                                   seed=cfg.data.seed, device=device)
+    z, frames, bonds = _from_rank0(lambda: load_frames(
+        cfg.data.dataset, cfg.data.ndata, seed=cfg.data.seed, device=device))
 
     if cfg.data.cg_method in ("minimal", "alpha") and cfg.data.site_index is None:
         # sites come from the topology and the user's n_cgs is overwritten
@@ -259,7 +287,8 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
             model=dataclasses.replace(cfg.model, n_cgs=len(sites)),
             data=dataclasses.replace(cfg.data, site_index=tuple(int(s) for s in sites)),
         )
-        cfg.save(os.path.join(cfg.logdir, "modelparams.json"))
+        if writer:
+            cfg.save(os.path.join(cfg.logdir, "modelparams.json"))
 
     folds = kfold_indices(frames.shape[0], cfg.data.nsplits, cfg.data.seed)
     cv_logger = CSVLogger(os.path.join(cfg.logdir, "cv_stats.csv"), CV_STAT_FIELDS)
@@ -272,12 +301,12 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
             break
         t0 = time.time()
         split_dir = os.path.join(cfg.logdir, f"fold{fold}")
-        os.makedirs(split_dir, exist_ok=True)
-
-        mapping = build_fold_mapping(cfg, z, frames[train_idx], bonds,
-                                     seed=cfg.data.seed + fold, device=device)
-        with open(os.path.join(split_dir, "mapping.json"), "w") as f:
-            json.dump([int(x) for x in mapping], f)
+        mapping = _from_rank0(lambda: build_fold_mapping(
+            cfg, z, frames[train_idx], bonds, seed=cfg.data.seed + fold, device=device))
+        if writer:
+            os.makedirs(split_dir, exist_ok=True)
+            with open(os.path.join(split_dir, "mapping.json"), "w") as f:
+                json.dump([int(x) for x in mapping], f)
 
         aux = cfg.data.auxcutoff if cfg.data.auxcutoff > 0 else None
         ds_train_full = build_dataset(
@@ -310,13 +339,17 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
                 frames=frames[train_idx] if cfg.train.steric_data_margin else None)
         trainer = Trainer(model, cfg, device=device, steric_tables=steric)
         state = trainer.init_state(ds_tr.batch(np.arange(min(cfg.data.batch_size, len(ds_tr)))))
+        # every rank reads a checkpoint on --resume; rank 0 alone saves
         ckpt = CheckpointManager(os.path.join(split_dir, "ckpt"))
         train_logger = CSVLogger(os.path.join(split_dir, "train_log.csv"))
-        state, history = trainer.fit(state, ds_tr, ds_val, log_fn=train_logger.log,
+        state, history = trainer.fit(state, ds_tr, ds_val,
+                                     log_fn=train_logger.log if writer else None,
                                      ckpt=ckpt, resume=resume)
         if not history or not np.isfinite(history[-1]["val_recon"]):
-            with open(os.path.join(split_dir, "FAILED.txt"), "w") as f:
-                f.write("NaN loss or empty history\n")  # run_ala.py:410-412
+            if writer:
+                with open(os.path.join(split_dir, "FAILED.txt"), "w") as f:
+                    f.write("NaN loss or empty history\n")  # run_ala.py:410-412
+            _barrier()
             continue
 
         seed = cfg.data.seed + 777
@@ -327,16 +360,17 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
                                   fold_in(seed, 5), graph_eval=graph_eval,
                                   reflection=reflection)
 
-        write_xyz(os.path.join(split_dir, "test_recon.xyz"), recon["recon_xyzs"][:64], z)
-        write_xyz(os.path.join(split_dir, "test_samples.xyz"),
-                  samples["sample_xyzs"].reshape(-1, z.shape[0], 3)[:128], z)
-        # rotating-grid movies for ensemble/data/recon/CG (run_ala.py:407)
-        n_show = min(9, samples["sample_xyzs"].shape[0])
-        save_grid_snapshots(
-            samples["sample_xyzs"][0, :n_show], samples["data_xyzs"][:n_show],
-            samples["recon_xyzs"][:n_show], samples["cg_xyzs"][:n_show],
-            z, np.full(cfg.model.n_cgs, 6), split_dir,
-        )
+        if writer:
+            write_xyz(os.path.join(split_dir, "test_recon.xyz"), recon["recon_xyzs"][:64], z)
+            write_xyz(os.path.join(split_dir, "test_samples.xyz"),
+                      samples["sample_xyzs"].reshape(-1, z.shape[0], 3)[:128], z)
+            # rotating-grid movies for ensemble/data/recon/CG (run_ala.py:407)
+            n_show = min(9, samples["sample_xyzs"].shape[0])
+            save_grid_snapshots(
+                samples["sample_xyzs"][0, :n_show], samples["data_xyzs"][:n_show],
+                samples["recon_xyzs"][:n_show], samples["cg_xyzs"][:n_show],
+                z, np.full(cfg.model.n_cgs, 6), split_dir,
+            )
 
         def _rmsd_mean(v):
             return float(np.mean(v)) if v is not None and len(np.atleast_1d(v)) else float("nan")
@@ -366,14 +400,21 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
             "graph": history[-1]["val_graph"],
             "wall_s": time.time() - t0,
         }
-        cv_logger.log(row)
+        if writer:
+            cv_logger.log(row)
         rows.append(row)
-    if len(rows) > 1:
+        _barrier()
+    if writer and len(rows) > 1:
         # multi-fold runs also get the plots.py:21-44-style rollup
         with open(os.path.join(cfg.logdir, "cv_stats_summary.json"), "w") as f:
             json.dump({k: {"mean": m, "std": s}
                        for k, (m, s) in get_cv_stats(cfg.logdir).items()}, f, indent=2)
     return rows
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def main(argv=None) -> list:
@@ -383,12 +424,20 @@ def main(argv=None) -> list:
     cfg = dataclasses.replace(
         cfg, logdir=annotate_job(f"{args.cg_method}_{task}_ndata{args.ndata}",
                                  args.logdir, args.n_cgs))
-    return run_cv(
-        cfg, n_ensemble=args.n_ensemble, nevals=args.nevals,
-        graph_eval=args.graph_eval, reflection=args.reflectiontest,
-        resume=args.resume, sparse=args.sparse, max_folds=args.max_folds,
-        fold_offset=args.fold_offset, device=args.device,
-    )
+    device = args.device
+    launched = init_distributed(torch.device(device).type)
+    if launched:
+        device = local_device(torch.device(device).type)
+    try:
+        return run_cv(
+            cfg, n_ensemble=args.n_ensemble, nevals=args.nevals,
+            graph_eval=args.graph_eval, reflection=args.reflectiontest,
+            resume=args.resume, sparse=args.sparse, max_folds=args.max_folds,
+            fold_offset=args.fold_offset, device=device,
+        )
+    finally:
+        if launched:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -49,7 +49,9 @@ logits) and ``assign_map``; per dense stack ``DenseEquiMessageBlock_i`` ->
 -> ``contract.i`` (``Dense_0`` the distance filter, ``Dense_1`` / ``_2``
 phi), the prior's ``Dense_0..3`` -> ``mu_in``, ``mu_out``, ``logvar_in``,
 ``logvar_out``, the decoder's ``channel_pooler``, and the two MLP heads.
-``convert_baseline_params`` maps a baseline of the zoo by name.
+``convert_baseline_params`` maps a baseline of the zoo by name, and
+``convert_equistack_params`` the halo stack's ``EquiStack``
+(``EquiMessageBlock_i`` -> ``msgs.i``, ``UpdateBlock_i`` -> ``updates.i``).
 """
 from __future__ import annotations
 
@@ -337,6 +339,19 @@ def convert_baseline_params(params: Mapping, name: str) -> Dict[str, torch.Tenso
         mlp("coeffs", "MLP_0")
     else:
         mlp("coeffs", "MLP_0")
+    _check_consumed(tree)
+    return out
+
+
+def convert_equistack_params(params: Mapping, n_conv: int) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``parallel.halo.EquiStack`` tree
+    (``EquiMessageBlock_i``, ``UpdateBlock_i``) -> the state_dict of the
+    port's ``parallel.halo.EquiStack``."""
+    tree = _Tree(params)
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(n_conv):
+        _inv(tree, out, f"msgs.{i}", f"EquiMessageBlock_{i}")
+        _update(tree, out, f"updates.{i}", f"UpdateBlock_{i}")
     _check_consumed(tree)
     return out
 

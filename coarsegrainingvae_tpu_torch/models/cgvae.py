@@ -36,6 +36,7 @@ from coarsegrainingvae_tpu_torch.models.conv import (
 from coarsegrainingvae_tpu_torch.models.modules import MLP, Dense, EmbeddingZeroPad
 from coarsegrainingvae_tpu_torch.ops.geometry import edge_vectors
 from coarsegrainingvae_tpu_torch.ops.segment import segment_mean, segment_sum
+from coarsegrainingvae_tpu_torch.parallel.mesh import RowNoise
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
@@ -222,7 +223,10 @@ def project_batch_h_bonds(xyz_recon: torch.Tensor, batch: CGBatch) -> torch.Tens
 
 def draw_eps(like: torch.Tensor, generator, eps) -> torch.Tensor:
     """Standard normal noise shaped like ``like``: drawn from ``generator``
-    on its device, or ``eps`` given by the caller."""
+    on its device (a ``parallel.mesh.RowNoise`` draws this rank's rows of
+    the global batch's noise), or ``eps`` given by the caller."""
+    if eps is None and isinstance(generator, RowNoise):
+        return generator.draw(like)
     if eps is None:
         return torch.randn(like.shape, generator=generator, device=like.device,
                            dtype=like.dtype)

@@ -38,7 +38,22 @@ enters the captured step. ``reconstruct`` and ``generate`` apply the H
 bond-length projection when ``cfg.model.h_project_eval``. The model is the
 dense ``DenseCGVAE`` or the sparse ``CGequiVAE``; both are captured alike.
 
-Not ported yet (ROADMAP.md): the multi-device meshes.
+Data parallelism (``parallel.mesh``; the JAX package's sharded global-batch
+step): with a process group, every rank receives the global batch and
+trains on its own rows (all of them when the batch does not divide by the
+world size). Its noise is its rows of the global batch's draw
+(``RowNoise``), each loss term is its rows' sum over the global batch's
+count (``losses.loss_denominators``), and one flat buffer of [gradient,
+loss, metrics] is all-reduced per step and divided by the world size, so
+the skip-batch guard decides from the global values on every rank.
+Parameters start from rank 0's (``replicate``). With
+``cfg.parallel.zero_optimizer`` and more than one rank (ZeRO-1) each rank
+holds the moments of its slice of the flat parameter vector, runs clip and
+Adam there with the global gradient norm, and all-gathers the update. On
+NCCL the collectives are captured in the epoch's CUDA graph; gloo ranks
+run the same static step in a Python loop (gloo stages CUDA tensors
+through the host, which a graph cannot hold). Tensor parallelism
+(``model_devices > 1``) is not ported yet (ROADMAP.md A14b).
 """
 from __future__ import annotations
 
@@ -56,8 +71,18 @@ from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
 from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
 from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch, project_batch_h_bonds
+from coarsegrainingvae_tpu_torch.parallel.mesh import (
+    Mesh,
+    RowNoise,
+    all_gather_,
+    all_reduce_,
+    make_mesh,
+    replicate,
+    shard_rows,
+    zero_partition,
+)
 from coarsegrainingvae_tpu_torch.train.controller import EarlyStopping, LowessPlateauController
-from coarsegrainingvae_tpu_torch.train.losses import vae_loss
+from coarsegrainingvae_tpu_torch.train.losses import loss_denominators, vae_loss
 from coarsegrainingvae_tpu_torch.utils.rng import generator as derived_generator
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -101,8 +126,10 @@ class ScaleByAdamCompact:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.moment_dtype = moment_dtype
 
-    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
-        n = sum(p.numel() for p in params)
+    def init(self, params: Sequence[torch.Tensor], numel: Optional[int] = None) -> AdamState:
+        """Zero moments for ``params``, or for ``numel`` entries of them
+        (a ZeRO-1 slice)."""
+        n = sum(p.numel() for p in params) if numel is None else numel
         device = params[0].device
 
         def zeros():
@@ -132,8 +159,8 @@ class ClippedAdam:
     def __init__(self, grad_clip: float, adam: ScaleByAdamCompact):
         self.grad_clip, self.adam = grad_clip, adam
 
-    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
-        return self.adam.init(params)
+    def init(self, params: Sequence[torch.Tensor], numel: Optional[int] = None) -> AdamState:
+        return self.adam.init(params, numel)
 
     def update(self, g: torch.Tensor, state: AdamState,
                g_norm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, AdamState]:
@@ -158,14 +185,33 @@ def guarded_update(tx: ClippedAdam, params: Sequence[torch.Tensor],
     the parameters, the moments and their count as they were. Returns
     (moments, ok), with no host synchronisation."""
     with torch.no_grad():
-        g = flatten(grads)
+        return guarded_update_flat(tx, params, flatten(grads), loss, opt_state, lr, thresh)
+
+
+def guarded_update_flat(tx: ClippedAdam, params: Sequence[torch.Tensor], g: torch.Tensor,
+                        loss: torch.Tensor, opt_state: AdamState, lr, thresh: float,
+                        zero: Optional[Tuple[Mesh, slice, int]] = None
+                        ) -> Tuple[AdamState, torch.Tensor]:
+    """``guarded_update`` on the flat gradient ``g``. ``zero`` = (mesh,
+    this rank's slice, padded length) of ``zero_partition``: ZeRO-1, where
+    ``opt_state`` holds the moments of this rank's slice only, clip and
+    Adam run there with the norm of the whole ``g``, and the update is
+    all-gathered over the mesh."""
+    with torch.no_grad():
         g_norm = global_norm(g)
         ok = torch.isfinite(loss) & (loss < thresh) & torch.isfinite(g_norm)
         # a rejected batch's update and moments are discarded below with
         # torch.where, which passes over NaN and inf, so its gradient
         # need not be zeroed first
-        upd, new_opt = tx.update(g, opt_state, g_norm)
-        upd = torch.where(ok, -lr * upd, 0.0)
+        if zero is None:
+            upd, new_opt = tx.update(g, opt_state, g_norm)
+            upd = torch.where(ok, -lr * upd, 0.0)
+        else:
+            mesh, part, padded = zero
+            g_part = torch.nn.functional.pad(g, (0, padded - g.numel()))[part]
+            upd, new_opt = tx.update(g_part, opt_state, g_norm)
+            upd = all_gather_(torch.empty(padded, dtype=g.dtype, device=g.device),
+                              torch.where(ok, -lr * upd, 0.0), mesh)[:g.numel()]
         torch._foreach_add_(list(params), [u.view_as(p) for u, p in zip(
             torch.split(upd, [p.numel() for p in params]), params)])
         opt_state = AdamState(count=torch.where(ok, new_opt.count, opt_state.count),
@@ -349,15 +395,25 @@ class Trainer:
 
     steric_tables: (thresh (N, N), pair_mask (N, N)) from
     ``losses.build_steric_tables``, used when ``cfg.train.zeta`` is not 0;
-    copied to the device once, where the steps read them."""
+    copied to the device once, where the steps read them.
+
+    mesh: the data mesh (``parallel.mesh.make_mesh``); None takes
+    ``make_mesh(cfg.parallel.num_devices)``, which is every rank of an
+    initialised process group and otherwise this process alone. A mesh
+    with a process group trains data-parallel (module docstring); without
+    one every path is the single-device one."""
 
     def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig, device="cuda",
-                 steric_tables=None):
+                 steric_tables=None, mesh: Optional[Mesh] = None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.steric_tables = None if steric_tables is None else tuple(
             torch.as_tensor(np.asarray(t)).to(self.device) for t in steric_tables)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            cfg.parallel.num_devices, cfg.parallel.model_devices, device=self.device)
+        # ZeRO-1: (mesh, this rank's slice, padded length), set by init_state
+        self._zero: Optional[Tuple[Mesh, slice, int]] = None
         self.tx = make_optimizer(cfg.train.grad_clip, cfg.train.adam_moment_dtype)
         # static-buffer epoch programs by (DeviceDataset, train), and the two
         # chunk buffers of run_epoch_streamed; release_graphs frees them
@@ -379,9 +435,17 @@ class Trainer:
                 f"bead -- raise n_basis or use more CG beads"
             )
         params = dict(self.model.named_parameters())
+        numel = None
+        if self.mesh.group is not None:
+            replicate(list(params.values()), self.mesh)
+            if self.cfg.parallel.zero_optimizer and self.mesh.size > 1:
+                part, padded = zero_partition(sum(p.numel() for p in params.values()),
+                                              self.mesh)
+                self._zero = (self.mesh, part, padded)
+                numel = part.stop - part.start
         return TrainState(
             params=params,
-            opt_state=self.tx.init(list(params.values())),
+            opt_state=self.tx.init(list(params.values()), numel),
             step=torch.zeros((), dtype=torch.long, device=self.device),
             lr=torch.tensor(self.cfg.train.lr, dtype=torch.float32, device=self.device),
         )
@@ -394,13 +458,36 @@ class Trainer:
         return state
 
     # ----------------------------------------------------------------- steps
-    def _loss_fn(self, batch: CGBatch, generator=None, zeta_scale=None):
+    def _loss_fn(self, batch: CGBatch, generator=None, zeta_scale=None, denominators=None):
         tc = self.cfg.train
         out = self.model(batch, generator=generator)
         zeta = tc.zeta if zeta_scale is None else tc.zeta * zeta_scale
         return vae_loss(out, flatten_batch(batch), tc.beta, tc.gamma, zeta=zeta,
                         steric=self.steric_tables, h_bond_weight=tc.h_bond_weight,
-                        eta_h=tc.eta_h)
+                        eta_h=tc.eta_h, denominators=denominators)
+
+    def _shard(self, batch: CGBatch, generator):
+        """(this rank's rows of the global ``batch``, the stand-in for
+        ``generator`` that draws their noise, the loss denominators of the
+        global batch); the batch itself, the generator and None when every
+        rank computes every row."""
+        n = batch.z.shape[0]
+        rows = shard_rows(n, self.mesh)
+        if rows.stop - rows.start == n:
+            return batch, generator, None
+        tc = self.cfg.train
+        den = loss_denominators(flatten_batch(batch), n, tc.gamma, self.steric_tables,
+                                tc.h_bond_weight, tc.eta_h, shards=self.mesh.size)
+        local = CGBatch(**{f.name: None if getattr(batch, f.name) is None
+                           else getattr(batch, f.name)[rows]
+                           for f in dataclasses.fields(batch)})
+        return local, RowNoise(generator, n, rows), den
+
+    def _all_reduce(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The mean over the mesh of ``parts`` concatenated flat in f32:
+        one collective."""
+        buf = torch.cat([t.reshape(-1).to(torch.float32) for t in parts])
+        return all_reduce_(buf, self.mesh) / self.mesh.size
 
     def zeta_scale(self, state: TrainState) -> Optional[torch.Tensor]:
         """The zeta_warmup ramp min(step / warmup, 1) as a 0-d device
@@ -413,12 +500,12 @@ class Trainer:
         return torch.clamp(state.step.to(torch.float32) / warm, max=1.0)
 
     def loss_and_grads(self, state: TrainState, batch: CGBatch,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None, denominators=None):
         """(loss, metrics, gradients in ``state.params`` order) of one
         training batch, the steric weight on its warm-up ramp; metrics are
         detached 0-d device tensors."""
         params = list(state.params.values())
-        loss, metrics = self._loss_fn(batch, generator, self.zeta_scale(state))
+        loss, metrics = self._loss_fn(batch, generator, self.zeta_scale(state), denominators)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -429,6 +516,11 @@ class Trainer:
         if its loss is finite and below gamma * loss_skip_factor and its
         gradient norm is finite; a rejected batch leaves the parameters,
         the moments and their count as they were."""
+        with torch.no_grad():
+            return self._apply_flat(state, loss, flatten(grads))
+
+    def _apply_flat(self, state: TrainState, loss: torch.Tensor,
+                    g: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
         tc = self.cfg.train
         lr_eff = state.lr
         if tc.lr_warmup > 0:
@@ -436,17 +528,27 @@ class Trainer:
             lr_eff = lr_eff * torch.clamp(
                 (state.step.to(torch.float32) + 1.0) / tc.lr_warmup, max=1.0)
         thresh = tc.gamma * tc.loss_skip_factor if tc.gamma > 0 else math.inf
-        opt_state, ok = guarded_update(self.tx, list(state.params.values()), grads, loss,
-                                       state.opt_state, lr_eff, thresh)
+        opt_state, ok = guarded_update_flat(self.tx, list(state.params.values()), g, loss,
+                                            state.opt_state, lr_eff, thresh, self._zero)
         return dataclasses.replace(state, opt_state=opt_state, step=state.step + 1), ok
 
     def train_step(self, state: TrainState, batch: CGBatch,
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One optimizer step on ``batch`` (already on the device). Returns
+        """One optimizer step on ``batch`` (already on the device; under
+        data parallelism the global batch, the same on every rank). Returns
         the new state and the step's metrics as 0-d device tensors."""
-        loss, metrics, grads = self.loss_and_grads(state, batch, generator)
-        state, ok = self.apply_gradients(state, loss, grads)
+        if self.mesh.group is None:
+            loss, metrics, grads = self.loss_and_grads(state, batch, generator)
+            state, ok = self.apply_gradients(state, loss, grads)
+        else:
+            local, gen, den = self._shard(batch, generator)
+            loss, metrics, grads = self.loss_and_grads(state, local, gen, den)
+            keys = list(metrics)
+            buf = self._all_reduce([*grads, loss, *(metrics[k] for k in keys)])
+            p = buf.numel() - 1 - len(keys)
+            metrics = dict(zip(keys, buf[p + 1:]))
+            state, ok = self._apply_flat(state, buf[p], buf[:p])
         scale = ok.to(torch.float32)
         metrics.update(skipped=1.0 - scale, grad_ok=scale)
         return state, metrics
@@ -454,8 +556,21 @@ class Trainer:
     def eval_step(self, batch: CGBatch, generator: Optional[torch.Generator] = None
                   ) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
-            _, metrics = self._loss_fn(batch, generator)
-        return metrics
+            if self.mesh.group is None:
+                _, metrics = self._loss_fn(batch, generator)
+                return metrics
+            local, gen, den = self._shard(batch, generator)
+            _, metrics = self._loss_fn(local, gen, denominators=den)
+            keys = list(metrics)
+            return dict(zip(keys, self._all_reduce([metrics[k] for k in keys])))
+
+    @property
+    def captures(self) -> bool:
+        """Whether epoch programs replay a captured CUDA graph: on a card,
+        unless the mesh's collectives are gloo's, which stage CUDA tensors
+        through the host where no graph can hold them; then the same
+        static step runs in a Python loop."""
+        return self.device.type == "cuda" and self.mesh.backend in (None, "nccl")
 
     def _h_project_eval(self, xyz: torch.Tensor, batch: CGBatch) -> torch.Tensor:
         """The eval-only H bond-length projection (``h_project_eval``):
@@ -538,8 +653,7 @@ class Trainer:
         returned state's optimizer tensors are the program's static ones,
         updated in place by later epochs."""
         batches = epoch_index_batches(dds.n_frames, self.cfg.data.batch_size, shuffle_rng)
-        return self._run_program(state, dds, batches, generator, True,
-                                 self.device.type == "cuda")
+        return self._run_program(state, dds, batches, generator, True, self.captures)
 
     def run_epoch_scan_eval(self, params, dds: DeviceDataset,
                             generator: Optional[torch.Generator] = None) -> Dict[str, float]:
@@ -548,8 +662,7 @@ class Trainer:
         package's signature: the model evaluates its own parameters, which
         ``state.params`` holds."""
         batches = epoch_index_batches(dds.n_frames, self.cfg.data.batch_size, None)
-        return self._run_program(None, dds, batches, generator, False,
-                                 self.device.type == "cuda")[1]
+        return self._run_program(None, dds, batches, generator, False, self.captures)[1]
 
     def run_epoch_streamed(
         self, state: TrainState, dataset: CGDatasetArrays,
@@ -624,6 +737,37 @@ class Trainer:
         out["n_steps"] = n_steps
         return state, out
 
+    def _full_moments(self, state: TrainState) -> TrainState:
+        """``state`` with every rank's ZeRO-1 moments gathered (a
+        collective), as a checkpoint stores them; ``state`` itself without
+        ZeRO-1."""
+        if self._zero is None:
+            return state
+        mesh, _, padded = self._zero
+        n = sum(p.numel() for p in state.params.values())
+
+        def gather(t: torch.Tensor) -> torch.Tensor:
+            out = torch.empty(padded, dtype=torch.float32, device=t.device)
+            return all_gather_(out, t.to(torch.float32), mesh)[:n].to(t.dtype)
+
+        opt = state.opt_state
+        return dataclasses.replace(state, opt_state=AdamState(
+            count=opt.count, mu=gather(opt.mu), nu=gather(opt.nu)))
+
+    def _own_moments(self, state: TrainState) -> TrainState:
+        """The inverse of ``_full_moments``: this rank's slice of full
+        moments."""
+        if self._zero is None:
+            return state
+        _, part, padded = self._zero
+        opt = state.opt_state
+
+        def own(t: torch.Tensor) -> torch.Tensor:
+            return torch.nn.functional.pad(t, (0, padded - t.numel()))[part].clone()
+
+        return dataclasses.replace(state, opt_state=AdamState(
+            count=opt.count, mu=own(opt.mu), nu=own(opt.nu)))
+
     def release_graphs(self) -> None:
         """Free the captured graphs, their memory pools and the chunk
         buffers; the next epoch program captures anew."""
@@ -666,7 +810,9 @@ class Trainer:
         the next epoch. Epoch e draws its noise from generators seeded from
         (seed, e), as the JAX package folds e into its key; the shuffle
         order restarts from ``default_rng(seed)`` in every call, as the JAX
-        package's does."""
+        package's does. Under data parallelism every rank runs ``fit`` on
+        the same splits; rank 0 alone saves (ZeRO-1 moments gathered
+        first), and every rank restores."""
         tc = self.cfg.train
         seed = self.cfg.data.seed
         controller = LowessPlateauController(
@@ -692,7 +838,8 @@ class Trainer:
             dds_val = DeviceDataset.from_dataset(valset, self.device)
 
         if resume and ckpt is not None and ckpt.latest_step() is not None:
-            state, meta, _ = ckpt.restore(state)
+            state, meta, _ = ckpt.restore(self._full_moments(state))
+            state = self._own_moments(state)
             start_epoch = int(meta.get("epoch", -1)) + 1
             controller.load_state(meta.get("controller", {}))
             stopper.load_state(meta.get("stopper", {}))
@@ -750,12 +897,14 @@ class Trainer:
                     stop or epoch + 1 == n_epochs
                     or (tc.checkpoint_every > 0 and (epoch + 1) % tc.checkpoint_every == 0)
                 ):
-                    ckpt.save(epoch, state, metadata={
-                        "epoch": epoch,
-                        "controller": controller.save_state(),
-                        "stopper": stopper.save_state(),
-                        "history": history,
-                    })
+                    full = self._full_moments(state)
+                    if self.mesh.rank == 0:      # one writer; every rank reads on resume
+                        ckpt.save(epoch, full, metadata={
+                            "epoch": epoch,
+                            "controller": controller.save_state(),
+                            "stopper": stopper.save_state(),
+                            "history": history,
+                        })
                 if stop:
                     break
         finally:

@@ -328,3 +328,28 @@ def test_hpo_recipe_is_the_committed_demo():
     readme = (chip_smoke.DIFFPOOL_RECIPE.parent / "hpo_demo" / "README.md").read_text()
     command = readme.split("python -m coarsegrainingvae_tpu.cli.hpo", 1)[1].split("\n\n")[0]
     assert command.replace("\\", " ").split() == chip_smoke.HPO_RECIPE
+
+
+def test_multigpu_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain, capsys):
+    """The multigpu phase on the CPU at a tiny width: one gloo rank (in
+    place of the card's NCCL rank) bit for bit with the plain trainer, the
+    plain versions' calls of its epochs as counted; two spawned gloo ranks
+    against the one-rank run, ZeRO-1 bit for bit the replicated optimizer;
+    the halo stack on a 300-atom cloud against the unsharded stack."""
+    import numpy as np
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(0)
+    side = (300 / 0.05) ** (1 / 3)
+    cloud = (rng.uniform(0, 1, (300, 3)) * np.array([3 * side, side, side])).astype(np.float32)
+    paths = chip_smoke.multigpu_phase(
+        device="cpu", batches=(8,), steps=2, n_frames=16, train_batch=8,
+        model_kw=dict(n_basis=16, n_rbf=4, enc_nconv=1, dec_nconv=2),
+        halo_frame=(cloud, 3.0, 4, "swish", 8))
+    assert paths["multigpu"] == {"fused_message": 4, "fused_message_vjp": 4,
+                                 "fused_pseudo_message": 4, "fused_pseudo_vjp": 4}
+    out = capsys.readouterr().out
+    assert "bit for bit True" in out and "ZeRO-1 against the replicated optimizer: bit for " \
+        "bit True" in out
+    assert out.count("multigpu rank ") == chip_smoke.MULTIGPU_RANKS
+    assert "multigpu halo stack" in out

@@ -291,3 +291,45 @@ def test_cli_runs_on_the_card_by_default():
     assert args.device == "cuda"
     ref = jcli.build_parser().parse_args([])
     assert {k: v for k, v in vars(args).items() if k != "device"} == vars(ref)
+
+
+def _cv_rows(run):
+    import csv
+
+    with open(run / "cv_stats.csv") as f:
+        return list(csv.DictReader(f))
+
+
+def test_torchrun_two_ranks_match_one_process(runs, tmp_path, monkeypatch):
+    """run_cgvae under ``torch.distributed.run --nproc_per_node 2`` on the
+    CPU (gloo): one fold of one epoch, data-parallel. Rank 0 alone writes:
+    the run holds the one-process run's files and one row per fold and
+    epoch. Its cv_stats.csv row equals the one-process run's within 1e-3
+    (the default bf16 matmuls round each rank's half batch on its own;
+    the KL column, a bf16 sum, within 1e-2)."""
+    import subprocess
+    import sys
+
+    args = ARGS + ["-max_folds", "1", "-nepochs", "1", "--device", "cpu"]
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(runs["data"]))
+    run_cgvae.main(args + ["-logdir", str(tmp_path / "one" / "run")])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "-m", "coarsegrainingvae_tpu_torch.cli.run_cgvae", *args,
+         "-logdir", str(tmp_path / "two" / "run")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    one, two = _run_dir(tmp_path / "one"), _run_dir(tmp_path / "two")
+    assert _artifacts(two) == _artifacts(one)
+    with open(two / "fold0" / "train_log.csv") as f:
+        assert len(f.read().strip().splitlines()) == 2          # header and epoch 0
+    (got,), (want,) = _cv_rows(two), _cv_rows(one)
+    for k, v in want.items():
+        if k in ("fold", "epoch"):
+            assert got[k] == v
+        elif k != "wall_s":
+            np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-2 if k == "KL" else 1e-3,
+                                       err_msg=k)

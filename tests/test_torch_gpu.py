@@ -1053,3 +1053,144 @@ def test_diffpool_baseline_and_hpo_clis_run_on_card(cuda_device, tmp_path, monke
     assert not by_rbf[4]["failed"] and by_rbf[4]["value"] > 0
     with open(tmp_path / "hpo" / "log.csv", newline="") as f:
         assert {r["failed"] for r in csv.DictReader(f)} == {"True", "False"}
+
+
+# ------------------------------------------------ multi-GPU (A14) on one card
+def _dp_cfg(n_basis=24, compute_dtype="float32", batch=8, **parallel):
+    from coarsegrainingvae_tpu_torch.config import (DataConfig, ExperimentConfig,
+                                                    ParallelConfig, TrainConfig)
+
+    return ExperimentConfig(
+        model=ModelConfig(n_basis=n_basis, n_rbf=R, enc_nconv=2, dec_nconv=2, breaksym=True,
+                          compute_dtype=compute_dtype),
+        data=DataConfig(batch_size=batch),
+        train=TrainConfig(lr=1e-3, gamma=1.0, adam_moment_dtype="float32"),
+        parallel=ParallelConfig(**parallel))
+
+
+def _dp_dataset(n_frames=32):
+    from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=n_frames, seed=0, device="cpu")
+    return build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
+                         bonds, order=2)
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_captured_epoch_equals_the_plain_trainer_on_card(cuda_device, tmp_path):
+    """Trainer(mesh=make_mesh()) on one NCCL rank: its captured epoch, the
+    all-reduce in the graph, gives the plain trainer's bits from the same
+    weights and draws, at bf16 compute."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
+    from coarsegrainingvae_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    ds = _dp_dataset()
+    cfg = _dp_cfg(compute_dtype="bfloat16")
+    dds = DeviceDataset.from_dataset(ds, cuda_device)
+    batches = epoch_index_batches(dds.n_frames, 8, np.random.default_rng(0))
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        runs = []
+        for mesh in (Mesh(0, 1, None, None, torch.device("cuda")), make_mesh()):
+            tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                         device=cuda_device, mesh=mesh)
+            assert tr.captures
+            st = tr.init_state(ds.batch(np.arange(8)))
+            gen = torch.Generator(device=cuda_device).manual_seed(3)
+            st, m = tr._run_program(st, dds, batches, gen, True, True)
+            runs.append(([p.detach().clone() for p in st.params.values()]
+                         + [st.opt_state.mu.clone(), st.opt_state.nu.clone()],
+                         tr._programs[(id(dds), True)].metrics.clone()))
+            tr.release_graphs()
+    finally:
+        dist.destroy_process_group()
+    (a, ma), (b, mb) = runs
+    assert torch.equal(ma, mb)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_match_one_rank(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card: 3 f32 steps with noise against one
+    rank within 1e-4 of each tensor's largest entry, ZeRO-1 bit for bit the
+    replicated optimizer, each rank holding half the moments."""
+    import numpy as np
+    import torch_parallel_ranks as ranks
+
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+
+    ds = _dp_dataset()
+    batches = [ds.batch(np.arange(8 * i, 8 * i + 8)) for i in range(3)]
+    cfg = _dp_cfg()
+    cases = {"dp": (ranks.train_steps, dict(cfg=cfg, batches=batches, gen_seed=5,
+                                            device="cuda")),
+             "zero": (ranks.train_steps, dict(cfg=ranks.replace_parallel(cfg, zero_optimizer=True),
+                                              batches=batches, gen_seed=5, device="cuda"))}
+    got = spawn_ranks(ranks.run_all, 2, str(tmp_path / "store"), (cases,))
+    want = ranks.train_steps(cfg, batches, parallel=False, gen_seed=5, device="cuda")
+    n_params = want["moments"]
+    for r in got:
+        assert r["zero"]["moments"] == -(-n_params // 2)
+        for k, ref in want["params"].items():
+            err = np.abs(r["dp"]["params"][k] - ref).max() / max(np.abs(ref).max(), 1e-30)
+            assert err <= 1e-4, (k, err)
+            np.testing.assert_array_equal(r["zero"]["params"][k], r["dp"]["params"][k])
+
+
+@pytest.mark.gpu
+def test_halo_stack_on_two_gloo_ranks_matches_the_unsharded_stack_on_card(cuda_device,
+                                                                            tmp_path):
+    """The halo stack (2 layers, F 16) on two gloo ranks sharing the card
+    against the unsharded EquiStack on the card: forward, the input
+    gradient and the parameter gradients within 1e-4 of max|ref|."""
+    import numpy as np
+    import torch_parallel_ranks as ranks
+
+    from coarsegrainingvae_tpu_torch.data.neighbors import radius_graph_frames_dense
+    from coarsegrainingvae_tpu_torch.parallel import halo
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+
+    rng = np.random.default_rng(0)
+    n, cutoff = 600, 3.0
+    side = (n / 0.05) ** (1 / 3)
+    xyz = (rng.uniform(0, 1, (n, 3)) * np.array([3 * side, side, side])).astype(np.float32)
+    e, m = radius_graph_frames_dense(xyz[None], cutoff)
+    edges = e[0][m[0]]
+    kw = dict(n_conv=2, feat_dim=16, n_rbf=6, activation="swish", cutoff=cutoff)
+    stack = halo.EquiStack(**kw, generator=torch.Generator().manual_seed(0))
+    s = rng.normal(size=(n, 16)).astype(np.float32)
+    v = rng.normal(size=(n, 3, 16)).astype(np.float32)
+    case = dict(xyz=xyz, edges=edges, s=s, v=v, kw=kw, stack=True,
+                state_dict={k: t.numpy() for k, t in stack.state_dict().items()},
+                halo=halo.min_halo(xyz, edges, 2))
+    got = spawn_ranks(ranks.halo_cases, 2, str(tmp_path / "store"),
+                      ({"stack": case}, True, "cuda"))
+    stack.to(cuda_device)
+    s_in = torch.as_tensor(s, device=cuda_device).requires_grad_(True)
+    so, vo = stack(s_in, torch.as_tensor(v, device=cuda_device),
+                   torch.as_tensor(xyz, device=cuda_device),
+                   torch.as_tensor(edges, dtype=torch.long, device=cuda_device))
+    loss = (so ** 2).sum() + (vo ** 2).sum()
+    names = [k for k, _ in stack.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in stack.named_parameters()] + [s_in])
+    plan = halo.plan_halo(xyz, edges, 2, case["halo"])
+
+    def gathered(key):
+        return np.concatenate([r["stack"][key] for r in got])[plan.inv_order]
+
+    def close(a, b):
+        b = b.detach().cpu().numpy()
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+    close(gathered("s"), so)
+    close(gathered("v"), vo)
+    close(gathered("g_s"), grads[-1])
+    for k, g in zip(names, grads[:-1]):
+        close(got[0]["stack"]["grads"][k], g)

@@ -34,3 +34,21 @@ def test_port_sources_name_no_jax_module():
     hits = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
             if pattern.search(p.read_text())]
     assert hits == []
+
+
+def test_parallel_package_imports_no_jax():
+    """The multi-GPU modules (parallel.mesh, parallel.halo, parallel.launch)
+    load in a fresh process without JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "import coarsegrainingvae_tpu_torch.parallel.mesh\n"
+        "import coarsegrainingvae_tpu_torch.parallel.halo\n"
+        "import coarsegrainingvae_tpu_torch.parallel.launch\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert {p.name for p in (PKG / "parallel").glob("*.py")} >= {
+        "__init__.py", "mesh.py", "halo.py", "launch.py"}
