@@ -29,6 +29,13 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   model the fold trained, a resumed fold 0 (``--resume`` to 3 epochs, the
   restored state held bit for bit to the saved one) and one epoch of the
   default cross decoder;
+- runfiles: the JAX package's run files on the cv run's fold 0: its
+  checkpoint through ``convert.train_state_to_flax``, the flax msgpack
+  codec's bytes and back (every tensor and the re-written bytes bit for
+  bit), ``Backmapper.from_run`` of a copy holding that state against the
+  original fold (one request, bit for bit), and one epoch of
+  ``Trainer.fit(resume=True)`` from each (the parameters after, bit for
+  bit);
 - steric: the committed ``examples/results/steric_ab`` recipes. The
   ``dip_full_c6_hprojecteval`` step (zeta 100, h_project_eval, zeta_warmup
   cut to 50): one f32 step card vs CPU mid-ramp, an eager and a captured
@@ -51,7 +58,8 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
 - pcn: ``cli.run_pcn`` with the committed p7 and p7s recipes
   (``examples/results/pcn_demo``: n_basis 256, dec 4, cross, batch 8,
   zeta 20, bond_project, well-posed 50-80-residue proteins), cut to 80
-  proteins x 2 epochs, every artifact checked; the p7 step card vs CPU
+  proteins x 2 epochs, every artifact checked (``params.msgpack`` read
+  back into a fresh model on the card); the p7 step card vs CPU
   (f32 on the loss's smooth terms, float64 on the whole recipe), two
   steps from one state bit for bit, ms/step, device busy and peak memory;
 - covid: ``cli.run_cgvae`` with the committed covid recipe
@@ -88,17 +96,20 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   atoms, F 192, 2 layers) against the unsharded ``EquiStack``, with each
   rank's peak memory.
 
-Every phase raises on failure; there is no CPU fallback. Output, in order:
-the card's name and power limit (nvidia-smi), the build with each main-path
-kernel's ptxas registers and spills, each kernel against its plain version
-(with, at the main path's shapes, its time and the plain version's from CUDA
-graph replays, and its roofline bound from ``kernel_cost``; the wide kernels,
-R+1 > 16, at n_rbf 16, 20 and the largest each takes; the chignolin
-recipe's shapes), the serve, train, captured and cgae checks and timings,
-the cv phase's checks and its wall time by part, the steric, sparse,
-native, pcn, covid, diffpool, baseline, hpo and multigpu phases' checks
-and timings, one JSON line with one entry per kernel and timed shape, and last one JSON
-line ``{"ok": true, "device": {...}}``. The profiles' tables go to
+Every phase raises on failure; there is no CPU fallback. The phases that
+launch none of the four kernels (cgae, native, pcn, covid, diffpool,
+baseline) run first, while nvcc builds the kernels beside them. Output, in
+order: the card's name and power limit (nvidia-smi), those phases' checks
+and timings, the build with each main-path kernel's ptxas registers and
+spills, each kernel against its plain version (with, at the main path's
+shapes, its time and the plain version's from CUDA graph replays, and its
+roofline bound from ``kernel_cost``; the wide kernels, R+1 > 16, at n_rbf
+16, 20 and the largest each takes; the chignolin recipe's shapes), the
+serve, train and captured checks and timings, the cv phase's checks and
+its wall time by part, the runfiles, steric, sparse, hpo and multigpu
+phases' checks and timings, the seconds of every phase, one JSON line with
+one entry per kernel and timed shape, and last one JSON line ``{"ok":
+true, "device": {...}}``. The profiles' tables go to
 ``chiprun_out/train_profile.txt``, ``captured_profile_b{128,32}.txt`` and
 ``sparse_{pseudo,pseudo2}_profile_b{128,32}.txt``, ``pcn_profile.txt``,
 ``covid_profile_b2.txt``, ``diffpool_profile.txt`` and
@@ -223,6 +234,9 @@ HPO_DIR = Path("build") / "hpo_smoke"
 MULTIGPU_RANKS, MULTIGPU_STEPS, MULTIGPU_TRAIN_STEPS, HALO_LAYERS = 2, 20, 3, 2
 HALO_RTOL = 1e-4
 MULTIGPU_DIR = Path("build") / "multigpu_smoke"
+# runfiles: the served request of a converted fold, and its copies
+RUNFILES_SAMPLES = 64
+RUNFILES_DIR = Path("build") / "runfiles_smoke"
 
 
 def card_line() -> str:
@@ -1328,6 +1342,204 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
     return {"cv": launches, "cv_cross": cross_launches}
 
 
+def read_payload_tensors(payload: dict) -> list:
+    """(name, tensor) of every tensor of a checkpoint payload, in order."""
+    out = [(f"params/{k}", v) for k, v in payload["params"].items()]
+    out += [(f"opt_state/{k}", v) for k, v in payload["opt_state"].items()]
+    return out + [("step", payload["step"]), ("lr", payload["lr"])]
+
+
+def same_bits(a: dict, b: dict) -> list:
+    """Names of the tensors of payload ``a`` that ``b`` does not hold with
+    the same name, order, dtype, shape and bits."""
+    ta, tb = read_payload_tensors(a), read_payload_tensors(b)
+    if [n for n, _ in ta] != [n for n, _ in tb]:
+        return ["names or order"]
+    return [n for (n, x), (_, y) in zip(ta, tb)
+            if x.dtype != y.dtype or x.shape != y.shape or not torch_equal(x, y)]
+
+
+def torch_equal(x, y) -> bool:
+    """The same bits (a NaN equals a NaN of the same payload)."""
+    import torch
+
+    def bits(t):
+        if not t.is_floating_point():
+            return t
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+    return bool(torch.equal(bits(x), bits(y)))
+
+
+def state_round_trip(fold: Path, cfg) -> tuple:
+    """Runfiles (a): the fold's latest checkpoint through
+    ``train_state_to_flax``, the codec's bytes, back through the codec and
+    ``train_state_from_flax``. Raises unless every param, mu, nu, count,
+    step and lr comes back bit for bit and re-writing the read tree gives
+    the same bytes. Returns (payload read back, metadata, step, line)."""
+    from coarsegrainingvae_tpu_torch.convert import train_state_from_flax, train_state_to_flax
+    from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+    from coarsegrainingvae_tpu_torch.utils import flax_msgpack
+
+    payload, meta, step = CheckpointManager(str(fold / "ckpt")).read()
+    t0 = time.perf_counter()
+    data = flax_msgpack.dumps(train_state_to_flax(payload, cfg))
+    t1 = time.perf_counter()
+    tree = flax_msgpack.loads(data)
+    t2 = time.perf_counter()
+    rewritten = flax_msgpack.dumps(tree) == data
+    back = train_state_from_flax(tree, cfg)
+    t3 = time.perf_counter()
+    differ = same_bits(payload, back)
+    line = (f"runfiles (a): step {step} of {fold} ({len(payload['params'])} params, "
+            f"{sum(p.numel() for p in payload['params'].values())} entries, moments "
+            f"{payload['opt_state']['mu'].dtype}) -> JAX's TrainState tree -> {len(data) / 1e6:.1f} MB "
+            f"of flax msgpack in {t1 - t0:.3f} s, read {t2 - t1:.3f} s, back to the port "
+            f"{t3 - t2:.3f} s; every tensor bit for bit: {not differ}; re-written bytes "
+            f"identical: {rewritten}")
+    if differ or not rewritten:
+        raise RuntimeError(f"runfiles: the state round trip changed {differ[:8]} or the bytes")
+    return back, meta, step, line
+
+
+def copy_fold(run: Path, fold: str, dst: Path, step: int, payload=None, meta=None) -> Path:
+    """A copy of ``run/fold`` under ``dst`` (modelparams.json, mapping.json
+    and the checkpoint of ``step``): the checkpoint copied as it is, or
+    ``payload`` written in its place."""
+    from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+
+    shutil.rmtree(dst, ignore_errors=True)
+    (dst / fold / "ckpt").mkdir(parents=True)
+    shutil.copy(run / "modelparams.json", dst)
+    shutil.copy(run / fold / "mapping.json", dst / fold)
+    src = run / fold / "ckpt"
+    if payload is None:
+        shutil.copytree(src / str(step), dst / fold / "ckpt" / str(step))
+        if (src / f"meta_{step}.json").exists():
+            shutil.copy(src / f"meta_{step}.json", dst / fold / "ckpt")
+    else:
+        CheckpointManager(str(dst / fold / "ckpt")).save_payload(step, payload, meta)
+    return dst / fold
+
+
+def serve_converted(original: Path, converted: Path, device: str) -> tuple:
+    """Runfiles (b): one request (4 CG frames x RUNFILES_SAMPLES samples,
+    seed 3) served by ``Backmapper.from_run`` of the converted fold and of
+    the original; raises unless bit for bit. Returns (launches of the
+    converted fold's request, line)."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.dataset import _segment_mean_np
+    from coarsegrainingvae_tpu_torch.serve import Backmapper
+
+    def load(fold: Path):
+        return Backmapper.from_run(str(fold.parent / "modelparams.json"), str(fold),
+                                   device=device)
+
+    conv, orig = load(converted), load(original)
+    mapping = np.asarray(json.loads((original / "mapping.json").read_text()))
+    cg = _segment_mean_np(np.repeat(orig.ref_xyz[None], 4, 0)
+                          + np.random.default_rng(0).normal(size=(4,) + orig.ref_xyz.shape) * 0.2,
+                          mapping, orig.cfg.model.n_cgs)
+    reset_counts()
+    t = time.perf_counter()
+    got = conv.backmap(cg, n_samples=RUNFILES_SAMPLES, seed=3)
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    want = orig.backmap(cg, n_samples=RUNFILES_SAMPLES, seed=3)
+    same = got.shape == want.shape and bool(np.array_equal(got, want))
+    line = (f"runfiles (b): from_run of the converted fold served {got.shape} in {seconds:.3f} s; "
+            f"bit for bit the original fold's: {same}; launches {launches}")
+    if not (same and np.isfinite(got).all()):
+        raise RuntimeError("runfiles: the converted fold serves other bits than the original")
+    return launches, line
+
+
+def resume_one_epoch(fold: Path, device: str) -> tuple:
+    """``Trainer.fit(resume=True)`` of ``fold`` (a run directory's fold k)
+    for one epoch past its latest checkpoint, on the fold's own data as
+    ``run_cv`` builds it. Returns (parameters after, launches, seconds)."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli.run_cgvae import fold_datasets
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+    from coarsegrainingvae_tpu_torch.data.dataset import kfold_indices
+    from coarsegrainingvae_tpu_torch.data.proteins import load_frames
+    from coarsegrainingvae_tpu_torch.models.cgvae import build_flagship_model
+    from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    cfg = ExperimentConfig.load(str(fold.parent / "modelparams.json"))
+    k = int(fold.name[len("fold"):])
+    mapping = np.asarray(json.loads((fold / "mapping.json").read_text()), np.int32)
+    z, frames, bonds = load_frames(cfg.data.dataset, cfg.data.ndata, seed=cfg.data.seed,
+                                   device=device)
+    train_idx, test_idx = kfold_indices(frames.shape[0], cfg.data.nsplits, cfg.data.seed)[k]
+    ds_tr, ds_val, _ = fold_datasets(cfg, mapping, z, frames, bonds, train_idx, test_idx)
+    model = build_flagship_model(cfg.model,
+                                 generator=torch.Generator().manual_seed(cfg.data.seed))
+    trainer = Trainer(model, cfg, device=device)
+    state = trainer.init_state(ds_tr.batch(np.arange(min(cfg.data.batch_size, len(ds_tr)))))
+    ckpt = CheckpointManager(str(fold / "ckpt"))
+    step = ckpt.latest_step()
+    reset_counts()
+    t = time.perf_counter()
+    state, history = trainer.fit(state, ds_tr, ds_val, nepochs=step + 2, ckpt=ckpt, resume=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    if [h["epoch"] for h in history] != list(range(step + 2)):
+        raise RuntimeError(f"runfiles: resumed epochs {[h['epoch'] for h in history]}")
+    return {n: p.detach().cpu().clone() for n, p in state.params.items()}, launches, seconds
+
+
+def add_counts(*counts: dict) -> dict:
+    out = defaultdict(int)
+    for c in counts:
+        for k, v in c.items():
+            out[k] += v
+    return dict(out)
+
+
+def runfiles_phase(device: str = "cuda", run: Path = None) -> dict:
+    """The JAX package's run files on the fold the cv phase trained (its
+    ``run``, fold 0 at full width by default): (a) the train state through
+    JAX's tree and the flax msgpack codec and back, bit for bit; (b)
+    ``Backmapper.from_run`` of a copy of the fold holding (a)'s state
+    against the original fold, one request bit for bit; (c) one epoch of
+    ``Trainer.fit(resume=True)`` from (a)'s state and from the original,
+    the parameters after bit for bit. Counted as path ``runfiles``: the
+    converted fold's request (kernels 1 and 3) and resumed epoch (1-4).
+    Raises on any failed check."""
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+
+    t_phase = time.perf_counter()
+    if run is None:
+        (run,) = [p for p in CV_DIR.iterdir() if p.name.startswith("run")]
+    cfg = ExperimentConfig.load(str(run / "modelparams.json"))
+    back, meta, step, line = state_round_trip(run / "fold0", cfg)
+    print(line, flush=True)
+    original = copy_fold(run, "fold0", RUNFILES_DIR / "original", step)
+    converted = copy_fold(run, "fold0", RUNFILES_DIR / "converted", step, back, meta)
+    served, line = serve_converted(original, converted, device)
+    print(line, flush=True)
+    after_conv, resumed, conv_s = resume_one_epoch(converted, device)
+    after_orig, _, orig_s = resume_one_epoch(original, device)
+    same = set(after_conv) == set(after_orig) and all(
+        torch_equal(after_conv[k], after_orig[k]) for k in after_conv)
+    print(f"runfiles (c): fit(resume=True) one epoch past step {step}, from the converted state "
+          f"in {conv_s:.3f} s and from the original in {orig_s:.3f} s; parameters after bit for "
+          f"bit: {same}; launches {resumed}", flush=True)
+    if not same:
+        raise RuntimeError("runfiles: the epoch resumed from the converted state differs")
+    total = add_counts(served, resumed)
+    print(f"runfiles: {time.perf_counter() - t_phase:.1f} s for the phase; launches {total}",
+          flush=True)
+    return {"runfiles": total}
+
+
 def recipe_flags(name: str, directory: Path = STERIC_RECIPES) -> list:
     """run_cgvae flags of a committed recipe (``<name>_modelparams.json`` in
     ``directory``): its model, data and train fields, depth flags left to
@@ -1695,17 +1907,44 @@ def pcn_flags(name: str) -> list:
                              skip=("logdir", "data_pkl"), long=("dec_type",))
 
 
-def check_pcn_run(run: Path, stochastic: bool, n_epochs: int, n_dump: int) -> list:
+def check_params_file(path: Path, cfg, model, forward) -> None:
+    """A run's ``params.msgpack``: its bytes survive the port's codec read
+    then write; ``convert.load_params`` maps it (every leaf consumed, or it
+    raises) onto the fresh ``model`` (strict load, on its device), and
+    ``forward(model)`` is finite."""
+    import torch
+
+    from coarsegrainingvae_tpu_torch.convert import load_params
+    from coarsegrainingvae_tpu_torch.utils import flax_msgpack
+
+    data = path.read_bytes()
+    if flax_msgpack.dumps(flax_msgpack.loads(data)) != data:
+        raise RuntimeError(f"{path}: the bytes changed through the codec")
+    model.load_state_dict(load_params(str(path), cfg))
+    with torch.no_grad():
+        out = forward(model)
+    if not all(torch.isfinite(t).all() for t in out):
+        raise RuntimeError(f"{path}: the loaded model's forward is not finite")
+
+
+def check_pcn_run(run: Path, a, n_epochs: int, items, device: str) -> list:
     """The run's artifacts: every file, train_log.csv with one row per
     epoch, test_results.csv with the JAX package's columns and finite rows,
-    params.pt of plain tensors. Returns the test rows."""
+    params.msgpack read into a fresh model on ``device`` (its forward on
+    the first two proteins ``items``, finite). Returns the test rows."""
     import csv
     import math
 
     import torch
 
-    names = ["modelparams.json", "train_log.csv", "test_results.csv", "params.pt"] + [
-        f"recon_{i}.pdb" for i in range(n_dump)]
+    from coarsegrainingvae_tpu_torch.cli.run_pcn import model_config
+    from coarsegrainingvae_tpu_torch.data.sidechain import build_pcn_dataset
+    from coarsegrainingvae_tpu_torch.models.cgvae import PCN, StochasticPCN
+    from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch
+
+    stochastic = a.stochastic
+    names = ["modelparams.json", "train_log.csv", "test_results.csv", "params.msgpack"] + [
+        f"recon_{i}.pdb" for i in range(a.n_dump)]
     missing = [n for n in names if not (run / n).is_file()]
     if missing:
         raise RuntimeError(f"{run}: missing {missing}")
@@ -1721,9 +1960,14 @@ def check_pcn_run(run: Path, stochastic: bool, n_epochs: int, n_dump: int) -> li
     bad = [(r["protein"], k) for r in rows for k, v in r.items() if not math.isfinite(float(v))]
     if bad or not rows:
         raise RuntimeError(f"{run}: test_results.csv has values that are not finite: {bad}")
-    state = torch.load(run / "params.pt", weights_only=True)
-    if not state or not all(isinstance(v, torch.Tensor) for v in state.values()):
-        raise RuntimeError(f"{run}: params.pt does not hold plain tensors")
+    cfg = model_config(a)
+    model = (StochasticPCN if stochastic else PCN)(cfg).to(device)
+    batch, cam, _, _ = next(build_pcn_dataset(items[:2], cg_cutoff=a.cutoff).iter_batches(2))
+    g = flatten_batch(batch.to(device))
+    cam = torch.as_tensor(cam, dtype=torch.bool, device=device)
+    check_params_file(run / "params.msgpack", cfg, model,
+                      lambda m: (m(g, cam, generator=torch.Generator(device).manual_seed(0))
+                                 if stochastic else m(g, cam)).xyz_recon[None])
     return rows
 
 
@@ -1797,7 +2041,6 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
     from torch.profiler import ProfilerActivity, profile
 
     from coarsegrainingvae_tpu_torch.cli import run_pcn
-    from coarsegrainingvae_tpu_torch.config import ModelConfig
     from coarsegrainingvae_tpu_torch.data.sidechain import build_pcn_dataset
     from coarsegrainingvae_tpu_torch.models.cgvae import PCN
     from coarsegrainingvae_tpu_torch.train.pcn_trainer import PCNTrainer
@@ -1835,8 +2078,8 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
         finally:
             run_pcn.load_protein_items = real_load
         (run,) = list(PCN_DIR.glob(f"{name}_*"))
-        check_pcn_run(run, a.stochastic, epochs, a.n_dump)
         items, synth_s = loaded[name]
+        check_pcn_run(run, a, epochs, items, device)
         # epoch_time_s, the 11th column with or without the KL columns after it
         epoch_s = [round(float(line.split(",")[10]), 3)
                    for line in (run / "train_log.csv").read_text().splitlines()[1:]]
@@ -1858,8 +2101,7 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
     items = loaded["p7"][0]
     ds = build_pcn_dataset(items, cg_cutoff=a.cutoff)
     bs = a.batch_size
-    cfg = ModelConfig(dec_type=a.dec_type, n_basis=a.n_basis, n_rbf=a.n_rbf,
-                      atom_cutoff=a.cutoff, dec_nconv=a.dec_nconv, activation=a.activation)
+    cfg = run_pcn.model_config(a)
     kw = dict(gamma=a.gamma, kappa=a.kappa, lr=a.lr, grad_clip=a.grad_clip, seed=a.seed,
               aux_warmup=a.aux_warmup, zeta=a.zeta, steric_margin=a.steric_margin,
               zeta_warmup=a.zeta_warmup, bond_project=a.bond_project)
@@ -2154,12 +2396,6 @@ def check_finite_rows(path: Path, header: list, n_rows: int) -> list:
     return rows
 
 
-def check_plain_tensors(path: Path, keys) -> None:
-    import torch
-
-    state = torch.load(path, weights_only=True)
-    if set(state) != set(keys) or not all(isinstance(v, torch.Tensor) for v in state.values()):
-        raise RuntimeError(f"{path} does not hold the model's plain tensors")
 
 
 def timed_steps(step, batches, cuda: bool, label: str, profile_name: str) -> str:
@@ -2306,7 +2542,7 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
     check_finite_rows(run / "cv_stats.csv", DIFFPOOL_CV_COLUMNS, a.nsplits)
     z, frames, bonds = load_frames(a.dataset, a.ndata, seed=a.seed, device=device)
     n_atoms = z.shape[0]
-    keys = diffpool_trainer(a, n_atoms, "cpu", z, bonds).model.state_dict().keys()
+    sample_batch = build_diffpool_dataset(frames[:8], z, bonds).batch(np.arange(8))
     epoch_s = []
     for k in range(a.nsplits):
         fold = run / f"fold{k}"
@@ -2318,7 +2554,9 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
         if samples.shape != (8, n_atoms, 3) or not np.isfinite(samples).all():
             raise RuntimeError(f"{fold}/test_samples.npy: {samples.shape}, finite "
                                f"{np.isfinite(samples).all()}")
-        check_plain_tensors(fold / "params.pt", keys)
+        fresh = diffpool_trainer(a, n_atoms, device, z, bonds)
+        check_params_file(fold / "params.msgpack", fresh.cfg, fresh.model,
+                          lambda m: (fresh.sample(sample_batch, a.seed, a.sample_hard),))
     if not (run / "modelparams.json").is_file():
         raise RuntimeError(f"{run}: missing modelparams.json")
     print(f"diffpool run: {a.nsplits} folds x {a.nepochs} epochs (after {a.n_pretrain} "
@@ -2908,31 +3146,47 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    seconds = {}
+
+    def phase(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    # one nvcc per source, together, while the phases that launch none of
+    # the four kernels run on the card (their launch counts stay 0)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:         # one nvcc per source, together
-        list(pool.map(lambda ops: ops.build(), (message_ops, pseudo_ops)))
-    print(f"build: both kernel sources ready in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc: {', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.BUILD_SECONDS.items())})",
+    paths = {}
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(ops.build) for ops in (message_ops, pseudo_ops)]
+        phase("cgae", cgae_phase)
+        phase("native", native_phase)
+        paths.update(phase("pcn", pcn_phase))
+        paths.update(phase("covid", covid_phase))
+        paths.update(phase("diffpool", diffpool_phase))
+        paths.update(phase("baseline", baseline_phase))
+        for b in builds:
+            b.result()
+    print(f"build: both kernel sources ready {time.perf_counter() - t0:.2f} s after the start, "
+          f"beside the phases that launch no kernel (nvcc: "
+          f"{', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.BUILD_SECONDS.items())})",
           flush=True)
     for source, log in cuda_build.BUILD_LOG.items():
         print_ptxas(source, log)
 
-    timed = check_kernels()
-    paths = {"serve": serve()}
-    paths.update(train())
+    timed = phase("kernels", check_kernels)
+    paths["serve"] = phase("serve", serve)
+    paths.update(phase("train", train))
     reset_counts()
-    paths["captured"], dense = captured()
-    cgae_phase()
-    paths.update(cv())
-    paths.update(steric(dense))
-    paths.update(sparse(dense))
-    native_phase()
-    paths.update(pcn_phase())
-    paths.update(covid_phase())
-    paths.update(diffpool_phase())
-    paths.update(baseline_phase())
-    paths.update(hpo_phase())
-    paths.update(multigpu_phase(dense=dense))
+    paths["captured"], dense = phase("captured", captured)
+    paths.update(phase("cv", cv))
+    paths.update(phase("runfiles", runfiles_phase))
+    paths.update(phase("steric", steric, dense))
+    paths.update(phase("sparse", sparse, dense))
+    paths.update(phase("hpo", hpo_phase))
+    paths.update(phase("multigpu", multigpu_phase, dense=dense))
+    print(f"phase seconds: {seconds}; {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     source = "coarsegrainingvae_tpu_torch/csrc/"
     rows = {"message": ("fused_message", "fused_message.cu", "pallas_message.py:126"),

@@ -47,7 +47,8 @@ def load_run(modelparams: str, fold_dir: str, device="cuda"):
 
 
 def reevaluate(modelparams: str, fold_dir: str, graph_eval: bool = True,
-               n_ensemble: int = 8, nevals: int = 16, device="cuda") -> dict:
+               n_ensemble: int = 8, nevals: int = 16, device="cuda",
+               keep_xyz: bool = False) -> dict:
     cfg, trainer, _, _, ds = load_run(modelparams, fold_dir, device=device)
     seed = cfg.data.seed + 1234
     recon = reconstruct_all(trainer, ds, seed, batch_size=cfg.data.batch_size,
@@ -71,6 +72,9 @@ def reevaluate(modelparams: str, fold_dir: str, graph_eval: bool = True,
     if graph_eval:
         out.update({k: recon[k] for k in
                     ("all_valid_ratio", "heavy_valid_ratio", "all_ged", "heavy_ged")})
+    if keep_xyz:        # the true and generated frames, (T, N, 3) numpy
+        out.update(true_xyzs=np.asarray(recon["true_xyzs"]),
+                   sample_xyzs=np.asarray(samples["sample_xyzs"]).reshape(-1, ds.n_atoms, 3))
     return out
 
 

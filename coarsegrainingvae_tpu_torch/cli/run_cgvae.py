@@ -253,6 +253,29 @@ def _from_rank0(make):
     return box[0]
 
 
+def fold_datasets(cfg: ExperimentConfig, mapping, z, frames, bonds, train_idx, test_idx):
+    """(train, validation, test) datasets of one fold: the first val_frac
+    of the (shuffled) training frames validate, the test set is not
+    rotated and is padded to the training set's edge counts."""
+    aux = cfg.data.auxcutoff if cfg.data.auxcutoff > 0 else None
+    ds_train_full = build_dataset(
+        mapping, frames[train_idx], cfg.model.atom_cutoff,
+        cfg.model.cg_cutoff, z, bonds, order=cfg.data.edgeorder,
+        seed=cfg.data.seed, aux_cutoff=aux,
+    )
+    ds_test = build_dataset(
+        mapping, frames[test_idx], cfg.model.atom_cutoff,
+        cfg.model.cg_cutoff, z, bonds, order=cfg.data.edgeorder,
+        seed=cfg.data.seed, rotate=False,
+        max_atom_edges=ds_train_full.nbrs.shape[1],
+        max_cg_edges=ds_train_full.cg_nbrs.shape[1],
+        aux_cutoff=aux,
+    )
+    n_val = max(int(len(ds_train_full) * cfg.data.val_frac), 1)
+    return (ds_train_full.subset(np.arange(n_val, len(ds_train_full))),
+            ds_train_full.subset(np.arange(n_val)), ds_test)
+
+
 def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
            graph_eval: bool = False, reflection: bool = False,
            resume: bool = False, sparse: bool = False,
@@ -308,24 +331,8 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
             with open(os.path.join(split_dir, "mapping.json"), "w") as f:
                 json.dump([int(x) for x in mapping], f)
 
-        aux = cfg.data.auxcutoff if cfg.data.auxcutoff > 0 else None
-        ds_train_full = build_dataset(
-            mapping, frames[train_idx], cfg.model.atom_cutoff,
-            cfg.model.cg_cutoff, z, bonds, order=cfg.data.edgeorder,
-            seed=cfg.data.seed, aux_cutoff=aux,
-        )
-        ds_test = build_dataset(
-            mapping, frames[test_idx], cfg.model.atom_cutoff,
-            cfg.model.cg_cutoff, z, bonds, order=cfg.data.edgeorder,
-            seed=cfg.data.seed, rotate=False,
-            max_atom_edges=ds_train_full.nbrs.shape[1],
-            max_cg_edges=ds_train_full.cg_nbrs.shape[1],
-            aux_cutoff=aux,
-        )
-        n_val = max(int(len(ds_train_full) * cfg.data.val_frac), 1)
-        ds_val = ds_train_full.subset(np.arange(n_val))
-        ds_tr = ds_train_full.subset(np.arange(n_val, len(ds_train_full)))
-
+        ds_tr, ds_val, ds_test = fold_datasets(cfg, mapping, z, frames, bonds,
+                                               train_idx, test_idx)
         model = build_flagship_model(
             cfg.model, force_sparse=sparse,
             generator=torch.Generator().manual_seed(cfg.data.seed))

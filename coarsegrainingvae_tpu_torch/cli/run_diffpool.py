@@ -5,9 +5,9 @@ Workflow (run_diffpool.py:258-517): load frames -> the dense padded dataset
 -> optionally pretrain the learned assignment toward the Newman mapping
 (``-cg_method diff``) -> train with the exponential gumbel tau schedule ->
 per fold the test metrics, a prior sample dump and its validity. Per fold:
-``train_log.csv``, ``test_samples.npy`` and ``params.pt`` (one
-``torch.save`` of plain tensors, where the JAX package writes flax
-msgpack); per run: ``modelparams.json`` and ``cv_stats.csv``.
+``train_log.csv``, ``test_samples.npy`` and ``params.msgpack`` (flax
+msgpack in JAX's tree, as the JAX package writes it; ``convert.load_params``
+reads it back); per run: ``modelparams.json`` and ``cv_stats.csv``.
 
     python -m coarsegrainingvae_tpu_torch.cli.run_diffpool -logdir /tmp/dp \\
         -n_cgs 4 -num_features 16 -ndata 64 -nepochs 2 --device cpu
@@ -22,9 +22,9 @@ import json
 import os
 
 import numpy as np
-import torch
 
 from coarsegrainingvae_tpu_torch.config import DiffPoolConfig
+from coarsegrainingvae_tpu_torch.convert import save_params
 from coarsegrainingvae_tpu_torch.data.dataset import kfold_indices
 from coarsegrainingvae_tpu_torch.data.diffpool import build_diffpool_dataset
 from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
@@ -155,10 +155,8 @@ def main(argv=None):
                             a.sample_hard)
         samples = xs.cpu().numpy()
         np.save(os.path.join(split_dir, "test_samples.npy"), samples)
-        # the final parameters, as plain tensors (the JAX package writes
-        # flax msgpack); load with torch.load(..., weights_only=True)
-        torch.save({k: p.detach().cpu() for k, p in state.params.items()},
-                   os.path.join(split_dir, "params.pt"))
+        # the final parameters as flax msgpack in JAX's tree (run_diffpool.py:173-177)
+        save_params(os.path.join(split_dir, "params.msgpack"), state.params, cfg)
 
         # sample quality against the covalent bond graph (run_diffpool.py:46-113)
         ref_xyz = np.asarray(ds_test.xyz[0])

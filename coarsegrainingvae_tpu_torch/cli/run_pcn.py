@@ -8,8 +8,8 @@ dihedral-augmented loss (pcn_utils.py:185-193) -> per-protein test metrics
 (RMSD, dRMSD, GED, inference time) to ``test_results.csv`` and PDB dumps
 (save_selected_recon, run_pdb.py:33-75). The JAX CLI's flags and defaults,
 plus ``--device`` (default ``cuda``). The best validation parameters go to
-``params.pt`` (one ``torch.save`` of plain tensors), where the JAX package
-writes flax msgpack.
+``params.msgpack`` in JAX's tree, as the JAX package writes it
+(``convert.save_params``; ``convert.load_params`` reads it back).
 
     python -m coarsegrainingvae_tpu_torch.cli.run_pcn -logdir /tmp/pcn \
         -ndata 16 -n_basis 32 -dec_nconv 2 --device cpu
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from coarsegrainingvae_tpu_torch.config import ModelConfig
+from coarsegrainingvae_tpu_torch.convert import save_params
 from coarsegrainingvae_tpu_torch.data.sidechain import build_pcn_dataset
 from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_protein
 from coarsegrainingvae_tpu_torch.eval.metrics import bond_graphs_batch, graph_diff_ratio
@@ -141,6 +142,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def model_config(a) -> ModelConfig:
+    """The model config of the parsed flags ``a`` (also what reads the
+    run's params.msgpack back)."""
+    return ModelConfig(dec_type=a.dec_type, n_basis=a.n_basis, n_rbf=a.n_rbf,
+                       atom_cutoff=a.cutoff, dec_nconv=a.dec_nconv, activation=a.activation)
+
+
 def main(argv=None):
     a = build_parser().parse_args(argv)
     device = torch.device(a.device)
@@ -159,9 +167,7 @@ def main(argv=None):
     ds_val = ds.subset(np.arange(n_test, n_test + n_val))
     ds_tr = ds.subset(np.arange(n_test + n_val, n))
 
-    cfg = ModelConfig(dec_type=a.dec_type,
-                      n_basis=a.n_basis, n_rbf=a.n_rbf, atom_cutoff=a.cutoff,
-                      dec_nconv=a.dec_nconv, activation=a.activation)
+    cfg = model_config(a)
     gen = torch.Generator().manual_seed(a.seed)
     model = StochasticPCN(cfg, generator=gen) if a.stochastic else PCN(cfg, generator=gen)
     trainer = PCNTrainer(model, gamma=a.gamma, kappa=a.kappa, lr=a.lr,
@@ -181,10 +187,8 @@ def main(argv=None):
         lr_factor=a.lr_factor, min_lr=a.min_lr,
     )
 
-    # the best-val parameters, as plain tensors (the JAX package writes
-    # flax msgpack); load with torch.load(..., weights_only=True)
-    torch.save({k: p.detach().cpu() for k, p in state.params.items()},
-               os.path.join(logdir, "params.pt"))
+    # the best-val parameters as flax msgpack in JAX's tree (run_pcn.py:179-183)
+    save_params(os.path.join(logdir, "params.msgpack"), state.params, cfg)
 
     # per-protein test metrics (run_pdb.py:33-75)
     results = CSVLogger(os.path.join(logdir, "test_results.csv"))

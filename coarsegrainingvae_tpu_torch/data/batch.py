@@ -14,6 +14,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -53,3 +54,18 @@ def flatten_ids(local: torch.Tensor, stride: int) -> torch.Tensor:
     offsets = torch.arange(b, dtype=local.dtype, device=local.device) * stride
     out = local + offsets.reshape((b,) + (1,) * (local.ndim - 1))
     return out.reshape((-1,) + tuple(local.shape[2:]))
+
+
+def pad_edges(edges: np.ndarray, max_edges: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pad an (e, 2) int edge list to (max_edges, 2) with zeros and a mask
+    (the JAX package's helper, batch.py:82-91). Zero rows are not the
+    port's receiver-sorted ``(n-1, n-1)`` tail, so no receiver-sorted path
+    of the port uses it."""
+    e = edges.shape[0]
+    if e > max_edges:
+        raise ValueError(f"edge list of size {e} exceeds budget {max_edges}")
+    out = np.zeros((max_edges, 2), dtype=np.int32)
+    mask = np.zeros((max_edges,), dtype=bool)
+    out[:e] = edges
+    mask[:e] = True
+    return out, mask

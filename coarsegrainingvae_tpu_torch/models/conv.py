@@ -220,11 +220,12 @@ class EquiMessagePseudo2(_EdgeBlock):
         super().__init__(feat_dim, activation, n_rbf, cutoff, 4, False, dtype, generator)
         f = feat_dim
         self.dtype = dtype
-        # lecun_normal: variance 1 / fan_in
+        # lecun_normal: variance 1 / fan_in; in the compute dtype, as the
+        # JAX package declares them (conv.py:330-335)
         self.mix_dv = nn.Parameter(
-            torch.randn(3 * f, f, generator=generator) / math.sqrt(3 * f))
+            (torch.randn(3 * f, f, generator=generator) / math.sqrt(3 * f)).to(dtype))
         self.mix_dvbar = nn.Parameter(
-            torch.randn(4 * f, f, generator=generator) / math.sqrt(4 * f))
+            (torch.randn(4 * f, f, generator=generator) / math.sqrt(4 * f)).to(dtype))
 
     def forward(self, s, sbar, v, vbar, r_ij, edges, edge_mask=None):
         sp, unit = self.split(s, r_ij, edges)

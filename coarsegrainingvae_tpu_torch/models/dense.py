@@ -30,12 +30,16 @@ from coarsegrainingvae_tpu_torch.ops.geometry import EPS, dense_pairwise, radius
 
 
 def factored_filter(n_rbf: int, n_split: int, f: int,
-                    generator: Optional[torch.Generator] = None) -> nn.Parameter:
+                    generator: Optional[torch.Generator] = None,
+                    dtype: torch.dtype = torch.float32) -> nn.Parameter:
     """(R+1, S, F) filter weights, initialised like a Xavier Dense over
-    (R -> S*F) on the basis rows, with the bias row (last) at zero."""
+    (R -> S*F) on the basis rows, with the bias row (last) at zero, stored
+    in ``dtype``: the JAX package declares ``filter_w`` in the compute
+    dtype (dense.py:433, dense_cgvae.py:117), so at bf16 it trains a bf16
+    parameter."""
     limit = math.sqrt(6.0 / (n_rbf + n_split * f))
     w0 = torch.rand(n_rbf, n_split, f, generator=generator) * (2 * limit) - limit
-    return nn.Parameter(torch.cat([w0, torch.zeros(1, n_split, f)], dim=0))
+    return nn.Parameter(torch.cat([w0, torch.zeros(1, n_split, f)], dim=0).to(dtype))
 
 
 class DenseUpdateBlock(nn.Module):
@@ -77,7 +81,7 @@ class DenseFactoredEquiMessage(nn.Module):
         self.phi_in = Dense(f, f, activation=activation, dtype=dtype,
                             generator=generator)
         self.phi_out = Dense(f, self.n_split * f, dtype=dtype, generator=generator)
-        self.filter_w = factored_filter(n_rbf, self.n_split, f, generator)
+        self.filter_w = factored_filter(n_rbf, self.n_split, f, generator, dtype)
 
     def forward(self, s: torch.Tensor, v: torch.Tensor, xyz: torch.Tensor,
                 node_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -282,7 +286,9 @@ class DenseEquivariantDecoder(_DenseCGStack):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__(n_conv, feat_dim, n_rbf, activation, cutoff, cross, dtype, generator)
-        self.channel_pooler = nn.Parameter(torch.randn(n_atoms, feat_dim, generator=generator))
+        # in the compute dtype, as the JAX package declares it (dense.py:348)
+        self.channel_pooler = nn.Parameter(
+            torch.randn(n_atoms, feat_dim, generator=generator).to(dtype))
 
     def forward(self, H: torch.Tensor, cg_adj: torch.Tensor,
                 cg_xyz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

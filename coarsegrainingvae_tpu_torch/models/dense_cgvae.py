@@ -56,14 +56,15 @@ class DenseEquiMessagePseudo(nn.Module):
 
     def __init__(self, feat_dim: int, activation: str, n_rbf: int,
                  cutoff: float, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 filter_dtype: torch.dtype = torch.float32):
         super().__init__()
         f = feat_dim
         self.feat_dim, self.n_rbf, self.cutoff = f, n_rbf, cutoff
         self.phi_in = Dense(f, f, activation=activation, dtype=dtype,
                             generator=generator)
         self.phi_out = Dense(f, 9 * f, dtype=dtype, generator=generator)
-        self.filter_w = factored_filter(n_rbf, 9, f, generator)
+        self.filter_w = factored_filter(n_rbf, 9, f, generator, filter_dtype)
 
     def forward(self, s, sbar, v, vbar, xyz, node_mask):
         b, m, f = s.shape
@@ -127,6 +128,9 @@ class DenseCGVAE(nn.Module):
         self.cfg = c = cfg
         f, g = c.n_basis, generator
         dtype = _DTYPES[c.compute_dtype]
+        # the JAX pseudo block keeps filter_w in the compute dtype in its
+        # pallas tree and as float32 Dense params in its default tree
+        pseudo_filter_dtype = dtype if c.pseudo_impl == "pallas" else torch.float32
 
         def msg(cutoff, cross=False):
             return DenseFactoredEquiMessage(f, c.activation, c.n_rbf, cutoff,
@@ -151,7 +155,7 @@ class DenseCGVAE(nn.Module):
         if c.dec_type == "pseudo":
             self.dec_msgs = nn.ModuleList(
                 DenseEquiMessagePseudo(f, c.activation, c.n_rbf, c.atom_cutoff,
-                                       dtype, g)
+                                       dtype, g, filter_dtype=pseudo_filter_dtype)
                 for _ in range(c.dec_nconv)
             )
         else:

@@ -100,7 +100,9 @@ class CGpool(nn.Module):
         self.register_buffer("assign_idx", None if assign_idx is None else torch.as_tensor(
             np.asarray(assign_idx, np.int64)), persistent=False)
         if self.trainable_map:
-            self.assign_map = nn.Parameter(torch.randn(n_atoms, n_cgs, generator=generator))
+            # in the compute dtype, as the JAX package declares it (diffpool.py:107)
+            self.assign_map = nn.Parameter(
+                torch.randn(n_atoms, n_cgs, generator=generator).to(dtype))
         elif assign_idx is None:
             self.logits = MLP(feat_dim, [feat_dim, n_cgs], activation="Tanh", dtype=dtype,
                               generator=generator)

@@ -10,10 +10,13 @@ masked zero-length edges finite. ``dense_pairwise`` and
 use them as well as the DiffPool blocks of ``models/dense.py``, which run
 in plain torch (the dense CGVAE's messages go through the kernels, which
 rebuild the geometry on the card). ``dihedral`` and ``drmsd`` are the
-PCN loss's and metrics' (geometry.py:80-124 of the JAX package).
+PCN loss's and metrics' (geometry.py:80-124 of the JAX package);
+``rotation_matrix_from_axis_angle``, ``random_rotation_matrices``,
+``rotate`` and ``unaligned_rmsd`` its exported helpers (geometry.py:32-74).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -71,6 +74,46 @@ def pair_filter_basis(
     rbf = torch.cat([rbf, torch.ones_like(rbf[..., :1])], dim=-1)
     k = (adj * cosine_envelope(dist, cutoff))[..., None] * rbf
     return unit, adj, k
+
+
+def rotation_matrix_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation matrix. axis: (..., 3) unit, angle: (...) radians."""
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    c, s = torch.cos(angle), torch.sin(angle)
+    cc = 1.0 - c
+    row0 = torch.stack([c + x * x * cc, x * y * cc - z * s, x * z * cc + y * s], -1)
+    row1 = torch.stack([y * x * cc + z * s, c + y * y * cc, y * z * cc - x * s], -1)
+    row2 = torch.stack([z * x * cc - y * s, z * y * cc + x * s, c + z * z * cc], -1)
+    return torch.stack([row0, row1, row2], -2)
+
+
+def random_rotation_matrices(generator: torch.Generator, n: int,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(n, 3, 3) random rotations (axis ~ normal, angle ~ U(-pi, pi)) drawn
+    from ``generator`` on its device: the per-frame augmentation of the
+    original code's dataset build (datasets.py:65-71,475)."""
+    device = generator.device
+    vec = torch.randn(n, 3, generator=generator, dtype=dtype, device=device)
+    axis = vec / torch.linalg.norm(vec, dim=-1, keepdim=True)
+    angle = (torch.rand(n, generator=generator, dtype=dtype, device=device) * 2 - 1) * math.pi
+    return rotation_matrix_from_axis_angle(axis, angle)
+
+
+def rotate(xyz: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Apply rotation matrices. xyz: (..., N, 3), rot: (..., 3, 3)."""
+    return torch.einsum("...ni,...ij->...nj", xyz, rot.transpose(-1, -2))
+
+
+def unaligned_rmsd(x: torch.Tensor, y: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMSD without alignment, the original metric (sampling.py:220-239):
+    sqrt of the mean over atoms of the squared distance; ``mask`` (..., N)
+    keeps the atoms it marks."""
+    sq = torch.sum((x - y) ** 2, dim=-1)
+    if mask is None:
+        return torch.sqrt(torch.mean(sq, dim=-1))
+    m = mask.to(sq.dtype)
+    return torch.sqrt(torch.sum(sq * m, dim=-1) / torch.clamp(torch.sum(m, dim=-1), min=1.0))
 
 
 def dihedral(xyz: torch.Tensor, quads: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:

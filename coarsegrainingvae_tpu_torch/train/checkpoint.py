@@ -12,8 +12,12 @@ The format is the port's own, not orbax: ``<step>/state.pt`` is one
 ``torch.save`` of plain CPU tensors, which ``torch.load(...,
 weights_only=True)`` reads back. A step is written under a temporary name
 and renamed into place, so a save that is killed never becomes
-``latest_step()``. Reading a JAX (orbax) run directory is listed in
-ROADMAP.md.
+``latest_step()``. A step directory that the JAX package's orbax wrote
+(``_CHECKPOINT_METADATA``, ``default/``) raises
+``OrbaxCheckpointError``, which names the converter
+(``scripts/convert_run.py --to torch``, run where JAX is installed): a
+resume never starts afresh over it, and ``Backmapper.from_run`` and
+``cli/postanalysis`` never read past it.
 """
 from __future__ import annotations
 
@@ -27,6 +31,17 @@ import torch
 from coarsegrainingvae_tpu_torch.train.trainer import AdamState, TrainState
 
 STATE_FILE = "state.pt"
+ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "default")
+CONVERTER = "scripts/convert_run.py"
+
+
+class OrbaxCheckpointError(ValueError):
+    """A checkpoint directory holds the JAX package's orbax steps."""
+
+
+def _is_orbax_step(path: str) -> bool:
+    return (not os.path.isfile(os.path.join(path, STATE_FILE))
+            and any(os.path.exists(os.path.join(path, m)) for m in ORBAX_MARKERS))
 
 
 def _payload(state: TrainState) -> Dict:
@@ -58,17 +73,31 @@ class CheckpointManager:
         return os.path.join(self.directory, f"meta_{step}.json")
 
     def all_steps(self):
-        """Completed steps, oldest first."""
-        return sorted(int(d) for d in os.listdir(self.directory)
-                      if d.isdigit() and os.path.isfile(os.path.join(self.directory, d, STATE_FILE)))
+        """Completed steps, oldest first; raises OrbaxCheckpointError on a
+        step of the JAX package's."""
+        digits = [d for d in os.listdir(self.directory) if d.isdigit()]
+        orbax = [d for d in digits if _is_orbax_step(os.path.join(self.directory, d))]
+        if orbax:
+            fold = os.path.dirname(self.directory)
+            raise OrbaxCheckpointError(
+                f"{self.directory} holds orbax checkpoints of the JAX package "
+                f"(steps {sorted(orbax, key=int)}); convert the run first, where JAX "
+                f"is installed: python {CONVERTER} --to torch {fold}")
+        return sorted(int(d) for d in digits
+                      if os.path.isfile(os.path.join(self.directory, d, STATE_FILE)))
 
     def save(self, step: int, state: TrainState, metadata: Optional[Dict] = None) -> None:
         """Save the train state; metadata is a small JSON-able dict (epoch,
         controller counters, ...)."""
+        self.save_payload(step, _payload(state), metadata)
+
+    def save_payload(self, step: int, payload: Dict, metadata: Optional[Dict] = None) -> None:
+        """Save a payload of CPU tensors as ``read`` returns it (e.g. from
+        ``convert.train_state_from_flax``)."""
         tmp = os.path.join(self.directory, f".tmp_{step}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(_payload(state), os.path.join(tmp, STATE_FILE))
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
         if metadata is not None:
             meta_tmp = os.path.join(tmp, "meta.json")
             with open(meta_tmp, "w") as f:
@@ -90,8 +119,8 @@ class CheckpointManager:
     def read(self, step: Optional[int] = None) -> Tuple[Dict, Dict, int]:
         """(stored tensors on the CPU, metadata, step) of ``step`` or the
         latest one; raises FileNotFoundError when there is none."""
-        if step is None:
-            step = self.latest_step()
+        latest = self.latest_step()
+        step = latest if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         payload = torch.load(os.path.join(self._step_dir(step), STATE_FILE),

@@ -48,6 +48,7 @@ from coarsegrainingvae_tpu_torch.train.controller import EarlyStopping, LowessPl
 from coarsegrainingvae_tpu_torch.train.losses import kl_divergence, steric_active, steric_loss
 from coarsegrainingvae_tpu_torch.train.trainer import (
     AdamState,
+    add_updates_,
     flatten,
     guarded_update,
     make_optimizer,
@@ -241,7 +242,7 @@ class DiffPoolTrainer:
         with torch.no_grad():
             g = flatten([torch.zeros_like(p) if d is None else d for p, d in zip(params, grads)])
             upd, opt_state = self.tx.update(g, state.opt_state)
-            torch._foreach_add_(params, [(-state.lr * d).view_as(p) for d, p in zip(
+            add_updates_(params, [(-state.lr * d).view_as(p) for d, p in zip(
                 torch.split(upd, [p.numel() for p in params]), params)])
         return DiffPoolTrainState(params=state.params, opt_state=opt_state, step=state.step,
                                   lr=state.lr), loss.detach()

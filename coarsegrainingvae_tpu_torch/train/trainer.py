@@ -58,6 +58,7 @@ through the host, which a graph cannot hold). Tensor parallelism
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from dataclasses import dataclass
@@ -96,8 +97,26 @@ class AdamState:
 
 
 def flatten(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Concatenate tensors into one flat vector, in order."""
-    return torch.cat([t.reshape(-1) for t in tensors])
+    """Concatenate tensors into one flat vector, in order, in their promoted
+    dtype. The few bf16 ones are cast first: a cat over mixed dtypes copies
+    its inputs one launch each."""
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    return torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+
+
+def add_updates_(params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor]) -> None:
+    """params[i] += updates[i], in place. Parameters of the updates' dtype
+    take one foreach launch; the others (the compute-dtype filters, which
+    the JAX package keeps in bf16 at bf16 compute) one add each, computed
+    in float32 and rounded once to the parameter's dtype, as
+    ``optax.apply_updates`` does. One foreach over mixed dtypes would fall
+    back to a launch per parameter."""
+    same = [(p, u) for p, u in zip(params, updates) if p.dtype == u.dtype]
+    if same:
+        torch._foreach_add_([p for p, _ in same], [u for _, u in same])
+    for p, u in zip(params, updates):
+        if p.dtype != u.dtype:
+            p.add_(u)
 
 
 def global_norm(flat: torch.Tensor) -> torch.Tensor:
@@ -212,7 +231,7 @@ def guarded_update_flat(tx: ClippedAdam, params: Sequence[torch.Tensor], g: torc
             upd, new_opt = tx.update(g_part, opt_state, g_norm)
             upd = all_gather_(torch.empty(padded, dtype=g.dtype, device=g.device),
                               torch.where(ok, -lr * upd, 0.0), mesh)[:g.numel()]
-        torch._foreach_add_(list(params), [u.view_as(p) for u, p in zip(
+        add_updates_(params, [u.view_as(p) for u, p in zip(
             torch.split(upd, [p.numel() for p in params]), params)])
         opt_state = AdamState(count=torch.where(ok, new_opt.count, opt_state.count),
                               mu=torch.where(ok, new_opt.mu, opt_state.mu),

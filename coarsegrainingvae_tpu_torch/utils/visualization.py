@@ -5,8 +5,9 @@ the original code).
 ``xyz_grid_view`` tiles an ensemble of structures on a 2D grid in one
 frame; ``rotate_grid`` emits 360-degree rotation frames;
 ``save_grid_snapshots`` dumps the rotating movies for ensemble/data/recon/CG
-the way run_ala.py:407 does. All host-side numpy and plain xyz files.
-``plot_assignment`` belongs to DiffPool and is listed in ROADMAP.md.
+the way run_ala.py:407 does. All host-side numpy and plain xyz files;
+``plot_assignment`` draws DiffPool's soft assignment with matplotlib,
+imported only when it draws.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Optional
 
 import numpy as np
 
-from coarsegrainingvae_tpu_torch.utils.xyz import write_xyz
+from coarsegrainingvae_tpu_torch.utils.xyz import _SYMBOLS, write_xyz
 
 
 def xyz_grid_view(
@@ -85,3 +86,24 @@ def save_grid_snapshots(
     save_rotate_frames(recon, atomic_nums,
                        os.path.join(outdir, "rotate_recon.xyz"), n_frames)
     save_rotate_frames(cg, cg_nums, os.path.join(outdir, "rotate_cg.xyz"), n_frames)
+
+
+def plot_assignment(assign: np.ndarray, atomic_nums: Optional[np.ndarray], path: str) -> None:
+    """Soft-assignment heatmap (plot_map, run_diffpool.py:32-41 of the
+    original code): atoms x beads, atom rows labelled by element."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    assign = np.asarray(assign)
+    fig, ax = plt.subplots(figsize=(4, max(3, assign.shape[0] * 0.12)))
+    im = ax.imshow(assign, aspect="auto", cmap="viridis")
+    ax.set_xlabel("CG bead")
+    ax.set_ylabel("atom")
+    if atomic_nums is not None:
+        ax.set_yticks(range(assign.shape[0]))
+        ax.set_yticklabels([_SYMBOLS.get(int(z), "X") for z in atomic_nums], fontsize=5)
+    fig.colorbar(im, ax=ax, label="assignment weight")
+    fig.tight_layout()
+    fig.savefig(path, dpi=150)
+    plt.close(fig)

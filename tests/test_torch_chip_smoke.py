@@ -127,6 +127,23 @@ def test_cv_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
     assert (tmp_path / "chiprun_out" / "cv_data" / "dipeptide.npz").is_file()
 
 
+def test_runfiles_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain, capsys):
+    """The runfiles phase on a fold the cv phase trained at a small width:
+    the state round trip, the converted fold served and resumed bit for
+    bit; its counted launches are the converted request's (kernels 1 and
+    3) and the resumed epoch's (1-4)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))  # restored after
+    chip_smoke.cv(device="cpu", width=SMALL_WIDTH, n_frames=90)
+    paths = chip_smoke.runfiles_phase(device="cpu")
+    assert set(paths) == {"runfiles"} and min(paths["runfiles"].values()) > 0
+    out = capsys.readouterr().out
+    assert "every tensor bit for bit: True; re-written bytes identical: True" in out
+    assert "bit for bit the original fold's: True" in out
+    assert "parameters after bit for bit: True" in out
+    assert (tmp_path / "build" / "runfiles_smoke" / "converted" / "fold0" / "ckpt").is_dir()
+
+
 def test_cgae_phase_rehearses_on_the_cpu(monkeypatch):
     """The cgae phase's checks at a small depth on the CPU (both runs of the
     learn_map core on the CPU there: the same draws give the same logits)."""
@@ -261,7 +278,7 @@ def test_diffpool_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plai
     out = capsys.readouterr().out
     assert "bit for bit: True" in out and "ndata 2000 -> 24" in out
     (run,) = list((tmp_path / "build" / "diffpool_smoke").glob("v6_*"))
-    assert (run / "fold1" / "params.pt").is_file()
+    assert (run / "fold1" / "params.msgpack").is_file()
 
 
 def test_baseline_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain, capsys):
@@ -353,3 +370,24 @@ def test_multigpu_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plai
         "bit True" in out
     assert out.count("multigpu rank ") == chip_smoke.MULTIGPU_RANKS
     assert "multigpu halo stack" in out
+
+
+def test_learning_check_rehearses_on_the_cpu(tmp_path):
+    """scripts/learning_check.py's demo recipe cut to a few CPU seconds:
+    the flags parse, the run's files are collected and summarised."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "learning_check", Path(__file__).resolve().parents[1] / "scripts" / "learning_check.py")
+    lc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lc)
+    rc = lc.main(["--which", "demo", "--rehearse", "--runs", str(tmp_path / "runs"),
+                  "--out", str(tmp_path / "out")])
+    summary = json.loads((tmp_path / "out" / "summary.json").read_text())
+    demo = summary["runs"]["demo"]
+    assert rc == 0 and demo["rc"] == 0 and len(demo["folds"]) == 2
+    assert "-n_basis 128" in demo["command"] and set(demo["epochs"]) == {"fold0", "fold1"}
+    for name in ("cv_stats.csv", "modelparams.json", "fold0_train_log.csv"):
+        assert (tmp_path / "out" / "demo" / name).is_file()
+

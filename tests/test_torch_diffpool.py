@@ -31,7 +31,7 @@ from coarsegrainingvae_tpu.train import diffpool_trainer as jtrainer
 from coarsegrainingvae_tpu.train.losses import build_steric_tables
 from coarsegrainingvae_tpu_torch.cli import run_diffpool
 from coarsegrainingvae_tpu_torch.config import DiffPoolConfig
-from coarsegrainingvae_tpu_torch.convert import convert_diffpool_params
+from coarsegrainingvae_tpu_torch.convert import convert_diffpool_params, load_params
 from coarsegrainingvae_tpu_torch.data import diffpool as tdata
 from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
 from coarsegrainingvae_tpu_torch.models import dense
@@ -392,7 +392,7 @@ def _table(path):
 
 def test_cli_writes_the_jax_files_and_columns(tmp_path, monkeypatch, frames):
     """One run of each CLI on the same arguments and data: the same files
-    (``params.pt`` for ``params.msgpack``), headers and row counts, the
+    (``params.msgpack`` in JAX's tree too), headers and row counts, the
     JAX flags in modelparams.json plus ``device``, finite rows."""
     z, xyz, bonds = frames
     save_npz_traj(str(tmp_path / "dipeptide.npz"), z, xyz, bonds)
@@ -403,8 +403,7 @@ def test_cli_writes_the_jax_files_and_columns(tmp_path, monkeypatch, frames):
     assert len(trows) == len(jrows) == 2 and list(trows[0]) == list(jrows[0])
     (jrun,), (trun,) = (list((tmp_path / k).iterdir()) for k in ("jax", "port"))
     assert jrun.name == trun.name
-    files = {p.relative_to(jrun).as_posix().replace("params.msgpack", "params.pt")
-             for p in jrun.rglob("*") if p.is_file()}
+    files = {p.relative_to(jrun).as_posix() for p in jrun.rglob("*") if p.is_file()}
     assert files == {p.relative_to(trun).as_posix() for p in trun.rglob("*") if p.is_file()}
     for name in ("cv_stats.csv", "fold0/train_log.csv", "fold1/train_log.csv"):
         (jh, jr), (th, tr) = _table(jrun / name), _table(trun / name)
@@ -417,7 +416,7 @@ def test_cli_writes_the_jax_files_and_columns(tmp_path, monkeypatch, frames):
         {k: v for k, v in jp.items() if k != "logdir"} and tp["device"] == "cpu"
     samples = np.load(trun / "fold0" / "test_samples.npy")
     assert samples.shape == np.load(jrun / "fold0" / "test_samples.npy").shape == (8, N_ATOMS, 3)
-    state = torch.load(trun / "fold0" / "params.pt", weights_only=True)
-    assert set(state) == set(DiffPoolVAE(DiffPoolConfig(n_atoms=N_ATOMS, n_cgs=4, feat_dim=8,
-                                                        n_rbf=3, enc_nconv=1, dec_nconv=1)
-                                         ).state_dict())
+    cfg = DiffPoolConfig(n_atoms=N_ATOMS, n_cgs=4, feat_dim=8, n_rbf=3, enc_nconv=1,
+                         dec_nconv=1)
+    state = load_params(str(trun / "fold0" / "params.msgpack"), cfg)
+    assert set(state) == set(DiffPoolVAE(cfg).state_dict())

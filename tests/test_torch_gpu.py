@@ -1194,3 +1194,65 @@ def test_halo_stack_on_two_gloo_ranks_matches_the_unsharded_stack_on_card(cuda_d
     close(gathered("g_s"), grads[-1])
     for k, g in zip(names, grads[:-1]):
         close(got[0]["stack"]["grads"][k], g)
+
+
+# ------------------------------------------------------------------ run files
+@pytest.fixture(scope="module")
+def full_width_run(tmp_path_factory):
+    """One fold of chip_smoke's cv recipe at full width (n_basis 600, enc 4 /
+    dec 5, pseudo, bf16), one epoch on 320 frames, trained on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a "
+                    "and have no CPU or interpret mode")
+    import chip_smoke
+    from coarsegrainingvae_tpu_torch.cli import run_cgvae
+    from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+
+    base = tmp_path_factory.mktemp("runfiles")
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=320, seed=0)
+    save_npz_traj(str(base / "dipeptide.npz"), z, frames, bonds)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("COARSEGRAININGVAE_DATA", str(base))
+        run_cgvae.main(chip_smoke.CV_RECIPE + chip_smoke.CV_WIDTH + [
+            "-ndata", "320", "-nsplits", "5", "-max_folds", "1", "-nepochs", "1",
+            "-n_ensemble", "2", "-nevals", "2", "--dec_type", "pseudo",
+            "-logdir", str(base / "run")])
+        (run,) = [p for p in base.iterdir() if p.name.startswith("run")]
+        yield run
+
+
+@pytest.mark.gpu
+def test_full_width_state_round_trips_through_the_flax_tree_on_card(cuda_device,
+                                                                    full_width_run):
+    """(a) The fold's checkpoint through JAX's tree, the codec's bytes and
+    back: every tensor bit for bit, the re-written bytes identical."""
+    import chip_smoke
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.load(str(full_width_run / "modelparams.json"))
+    back, _, step, _ = chip_smoke.state_round_trip(full_width_run / "fold0", cfg)
+    assert step == 0 and back["opt_state"]["mu"].dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+def test_full_width_converted_fold_serves_and_resumes_bit_for_bit_on_card(
+        cuda_device, full_width_run, tmp_path):
+    """(b) from_run of the fold rewritten from (a)'s state serves the
+    original's bits through kernels 1 and 3; (c) an epoch resumed from it
+    gives the original's parameters, through kernels 1-4."""
+    import chip_smoke
+    from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.load(str(full_width_run / "modelparams.json"))
+    back, meta, step, _ = chip_smoke.state_round_trip(full_width_run / "fold0", cfg)
+    original = chip_smoke.copy_fold(full_width_run, "fold0", tmp_path / "original", step)
+    converted = chip_smoke.copy_fold(full_width_run, "fold0", tmp_path / "converted", step,
+                                     back, meta)
+    served, _ = chip_smoke.serve_converted(original, converted, "cuda")
+    assert served["fused_message"] > 0 and served["fused_pseudo_message"] > 0
+    assert served["fused_message_vjp"] == served["fused_pseudo_vjp"] == 0
+    after_conv, launches, _ = chip_smoke.resume_one_epoch(converted, "cuda")
+    after_orig, _, _ = chip_smoke.resume_one_epoch(original, "cuda")
+    assert min(launches.values()) > 0
+    assert all(chip_smoke.torch_equal(after_conv[k], after_orig[k]) for k in after_orig)

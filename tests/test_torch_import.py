@@ -1,4 +1,5 @@
-"""The PyTorch port never imports JAX, flax, optax, orbax or the JAX package."""
+"""The PyTorch port never imports JAX, flax, optax, orbax, msgpack or the
+JAX package (its flax msgpack codec is written by hand)."""
 import pathlib
 import re
 import subprocess
@@ -10,7 +11,7 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "coarsegrainingvae_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "coarsegrainingvae_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "coarsegrainingvae_tpu")
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
@@ -31,9 +32,30 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 def test_port_sources_name_no_jax_module():
     pattern = re.compile(r"^\s*(import|from)\s+(" + "|".join(FORBIDDEN) + r")\b", re.M)
-    hits = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+    hits = [str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
             if pattern.search(p.read_text())]
     assert hits == []
+
+
+def test_run_file_and_analysis_modules_import_no_jax_or_msgpack():
+    """The flax msgpack codec, the converters, profiling, VMD and analysis
+    load in a fresh process without msgpack, flax, JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "import coarsegrainingvae_tpu_torch.utils.flax_msgpack\n"
+        "import coarsegrainingvae_tpu_torch.convert\n"
+        "import coarsegrainingvae_tpu_torch.utils.profiling\n"
+        "import coarsegrainingvae_tpu_torch.utils.vmd\n"
+        "import coarsegrainingvae_tpu_torch.eval.analysis\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert {p.name for p in (PKG / "utils").glob("*.py")} >= {
+        "flax_msgpack.py", "profiling.py", "vmd.py"}
 
 
 def test_parallel_package_imports_no_jax():

@@ -29,6 +29,7 @@ from coarsegrainingvae_tpu.train.pcn_trainer import PCNTrainer as JaxPCNTrainer
 from coarsegrainingvae_tpu_torch import config as tcfg
 from coarsegrainingvae_tpu_torch.cli import run_pcn
 from coarsegrainingvae_tpu_torch.convert import convert_flax_params
+from coarsegrainingvae_tpu_torch.utils import flax_msgpack
 from coarsegrainingvae_tpu_torch.data import sidechain
 from coarsegrainingvae_tpu_torch.models.cgvae import (
     PCN,
@@ -381,9 +382,8 @@ def test_run_pcn_artifacts_match_the_jax_cli(tmp_path):
     (ddir,) = [d for d in tmp_path.glob("port_*") if d != sdir]
     jnames = sorted(p.name for p in jdir.iterdir())
     assert "params.msgpack" in jnames
-    want = sorted(n.replace("params.msgpack", "params.pt") for n in jnames)
-    assert sorted(p.name for p in sdir.iterdir()) == want
-    assert sorted(p.name for p in ddir.iterdir()) == want
+    assert sorted(p.name for p in sdir.iterdir()) == jnames
+    assert sorted(p.name for p in ddir.iterdir()) == jnames
     assert sdir.name[len("port_s"):] == jdir.name[len("jax"):]
 
     jparams = json.loads((jdir / "modelparams.json").read_text())
@@ -400,9 +400,9 @@ def test_run_pcn_artifacts_match_the_jax_cli(tmp_path):
         assert dhead == [c for c in jhead if c not in drop], name
         for row in srows + drows:
             assert all(np.isfinite(float(v)) for v in row.values()), (name, row)
-    state = torch.load(sdir / "params.pt", weights_only=True)
-    assert all(isinstance(v, torch.Tensor) for v in state.values())
-    assert "latent_mix.weight" in state
+    tree = flax_msgpack.loads((sdir / "params.msgpack").read_bytes())
+    assert set(tree) == set(flax_msgpack.loads((jdir / "params.msgpack").read_bytes()))
+    assert "latent_mix" in tree
 
 
 @pytest.mark.parametrize("masked", [False, True])
