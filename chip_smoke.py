@@ -83,7 +83,10 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
 - hpo: ``cli.hpo`` with the committed ``examples/results/hpo_demo`` recipe
   (ASHA, 6 trials, 8 epochs, 2 folds per trial run) on the card; it
   raises if a trial failed, and holds the message kernels' launches to the
-  count worked out from the trials' configs;
+  count worked out from the trials' configs; then the recipe cut to 2
+  trials x 2 epochs on one process and on two gloo ranks sharing the card
+  (each trial data-parallel), the same trial directories and rows, each
+  value within 1e-3;
 - multigpu: data-parallel training and the halo stack (``parallel/``) on
   the one card. One rank of an NCCL process group through
   ``Trainer(mesh=make_mesh())``: its captured epoch, the all-reduce in the
@@ -94,8 +97,14 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   replicated optimizer, each rank's kernel launches as counted; and on
   those ranks the halo stack on the covid stand-in's first frame (10,333
   atoms, F 192, 2 layers) against the unsharded ``EquiStack``, with each
-  rank's peak memory.
+  rank's peak memory;
+- tensor: tensor parallelism on a (1, 2) ('data', 'model') mesh of two gloo
+  ranks sharing the card, the dipeptide at full width (each rank's
+  message blocks run kernels 1-4 on F 300): 3 f32 steps at batch 128
+  against the one-rank run, each rank's launches as counted, its shards,
+  moments and peak memory.
 
+The kernel checks include the tensor-parallel slices (F 300 timed, F 150).
 Every phase raises on failure; there is no CPU fallback. The phases that
 launch none of the four kernels (cgae, native, pcn, covid, diffpool,
 baseline) run first, while nvcc builds the kernels beside them. Output, in
@@ -106,8 +115,8 @@ shapes, its time and the plain version's from CUDA graph replays, and its
 roofline bound from ``kernel_cost``; the wide kernels, R+1 > 16, at n_rbf
 16, 20 and the largest each takes; the chignolin recipe's shapes), the
 serve, train and captured checks and timings, the cv phase's checks and
-its wall time by part, the runfiles, steric, sparse, hpo and multigpu
-phases' checks and timings, the seconds of every phase, one JSON line with
+its wall time by part, the runfiles, steric, sparse, hpo, multigpu and
+tensor phases' checks and timings, the seconds of every phase, one JSON line with
 one entry per kernel and timed shape, and last one JSON line ``{"ok":
 true, "device": {...}}``. The profiles' tables go to
 ``chiprun_out/train_profile.txt``, ``captured_profile_b{128,32}.txt`` and
@@ -116,7 +125,8 @@ true, "device": {...}}``. The profiles' tables go to
 ``baseline_profile.txt``, the dipeptide data to ``chiprun_out/cv_data/``,
 the cv runs (the covid fold's too) to ``build/cv_smoke/``, the PCN, DiffPool,
 baseline and hpo runs to ``build/{pcn,diffpool,baseline,hpo}_smoke/``, the
-multigpu phase's stores and one-rank parameters to ``build/multigpu_smoke/``.
+multigpu and tensor phases' stores and one-rank parameters to
+``build/multigpu_smoke/`` and ``build/tensor_smoke/``.
 Needs one CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -234,6 +244,17 @@ HPO_DIR = Path("build") / "hpo_smoke"
 MULTIGPU_RANKS, MULTIGPU_STEPS, MULTIGPU_TRAIN_STEPS, HALO_LAYERS = 2, 20, 3, 2
 HALO_RTOL = 1e-4
 MULTIGPU_DIR = Path("build") / "multigpu_smoke"
+# the tensor phase (A14b): TENSOR_MESH = (data, model) ranks sharing the
+# card on gloo, the dipeptide at full width, so each model rank runs the
+# kernels on TENSOR_F = 600 / 2 features; MULTIGPU_TRAIN_STEPS f32 steps at
+# TRAIN_BATCH against the one-rank run (TRAIN_RTOL of each max |ref|)
+TENSOR_MESH, TENSOR_F = (1, 2), 300
+TENSOR_DIR = Path("build") / "tensor_smoke"
+# the hpo phase's search on MULTIGPU_RANKS gloo ranks sharing the card,
+# the recipe cut to HPO_RANKS_CUT, against one process (HPO_RANKS_RTOL,
+# the CLI test's tolerance for data-parallel bf16 runs)
+HPO_RANKS_CUT = ["-n_trials", "2", "-nepochs", "2"]
+HPO_RANKS_RTOL = 1e-3
 # runfiles: the served request of a converted fold, and its copies
 RUNFILES_SAMPLES = 64
 RUNFILES_DIR = Path("build") / "runfiles_smoke"
@@ -467,14 +488,25 @@ def check_kernels() -> list:
                   ("message", 6, 4, 12.0, "cross decoder train B=16 M=6 S=4 n_rbf=10"),
                   ("pseudo", 6, 9, 12.0, "pseudo size B=16 M=6 n_rbf=10"))
               for kind in (base, base + "_vjp")]
+    # tensor parallelism: each model rank runs the kernels on its F/m
+    # features, F 300 at m = 2 (the tensor phase's shapes, timed) and F 150
+    # at m = 4; neither is a multiple of the kernels' 32-feature block
+    cases += [(kind, (128, n, s, 8), cut, f"TP F={fs} {label}", fs == TENSOR_F, fs)
+              for fs in (TENSOR_F, 150)
+              for base, n, s, cut, label in (
+                  ("message", 27, 3, 9.5, "encoder train B=128 N=27 S=3"),
+                  ("message", 3, 3, 9.5, "prior train B=128 M=3 S=3"),
+                  ("pseudo", 3, 9, 8.5, "decoder train B=128 M=3"))
+              for kind in (base, base + "_vjp")]
     fns = {"message": (mo.fused_message, mo.message_reference),
            "pseudo": (po.fused_pseudo_message, po.pseudo_reference),
            "message_vjp": (mo.fused_message_vjp, mo.message_vjp_reference),
            "pseudo_vjp": (po.fused_pseudo_vjp, po.pseudo_vjp_reference)}
     timed = []
-    for seed, (kind, (b, n, s, r), cut, label, is_timed) in enumerate(cases):
+    for seed, (kind, (b, n, s, r), cut, label, is_timed, *width) in enumerate(cases):
         kern, plain = fns[kind]
-        args = kernel_inputs(kind, b, n, s, f, r, seed) + (cut, r)
+        fc = width[0] if width else f
+        args = kernel_inputs(kind, b, n, s, fc, r, seed) + (cut, r)
         with torch.no_grad():
             out = kern(*args)
             ref = plain(*args)
@@ -485,9 +517,9 @@ def check_kernels() -> list:
                 ms, plain_ms = cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))
                 pairs = int(pair_filter_basis(args[0], args[1], cut, r)[1].sum().item())
                 n_bytes, flops = kernel_cost(kind, b, n, s if kind.startswith("message") else 9,
-                                             f, r, pairs)
+                                             fc, r, pairs)
                 bound_ms, bound_by, resource = bound(n_bytes, flops)
-                timed.append({"kind": kind, "shape": label, "max_abs_err": err,
+                timed.append({"kind": kind, "shape": label, "f": fc, "max_abs_err": err,
                               "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                               "bytes": n_bytes, "flops": flops, "pairs": pairs,
                               "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2812,7 +2844,69 @@ def hpo_phase(device: str = "cuda", recipe: list = HPO_RECIPE, width: tuple = ()
                            "kernels launched")
     if device == "cuda":
         torch.cuda.synchronize()
-    return {"hpo": launches}
+    return {"hpo": launches, "hpo_ranks": hpo_on_ranks(device, list(recipe) + list(width))}
+
+
+def hpo_rank(flags: list, space: dict) -> dict:
+    """One rank of the hpo phase's spawned ranks (gloo): ``cli.hpo.main``
+    over the process group the launcher formed, in the parent's search
+    space; this rank's kernel launches and result."""
+    from coarsegrainingvae_tpu_torch.cli import hpo
+
+    hpo.CGVAE_SPACE = space
+    reset_counts()
+    best, value = hpo.main(flags)
+    return {"launches": read_counts(), "best": best, "value": value}
+
+
+def hpo_on_ranks(device: str, flags: list) -> dict:
+    """The hpo search cut to HPO_RANKS_CUT on one process, then on
+    MULTIGPU_RANKS gloo ranks sharing the device (each trial
+    data-parallel): the same trial directories and rows, each value within
+    HPO_RANKS_RTOL, written once. Returns the ranks' launches, summed."""
+    import torch
+
+    from coarsegrainingvae_tpu_torch.cli import hpo
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+
+    cut = flags + HPO_RANKS_CUT + ["--device", device]
+    one, many = HPO_DIR / "one", HPO_DIR / "ranks"
+    t = time.perf_counter()
+    hpo.main(cut + ["-logdir", str(one)])
+    one_s = time.perf_counter() - t
+    store = HPO_DIR / f"store_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    t = time.perf_counter()
+    ranks = spawn_ranks(hpo_rank, MULTIGPU_RANKS, str(store),
+                        (cut + ["-logdir", str(many)], hpo.CGVAE_SPACE), backend="gloo", threads=2)
+    ranks_s = time.perf_counter() - t
+    want, got = (read_csv(d / "hpo_asha_log.csv")[1] for d in (one, many))
+    dirs = [sorted(p.name for p in d.iterdir() if p.name.startswith("trial_")) for d in (one, many)]
+    worst = 0.0
+    if len(got) != len(want) or dirs[0] != dirs[1]:
+        raise RuntimeError(f"hpo on {MULTIGPU_RANKS} ranks wrote {len(got)} rows in {dirs[1]}, "
+                           f"one process {len(want)} in {dirs[0]}")
+    for g, w in zip(got, want):
+        if {k: v for k, v in g.items() if k not in ("value", "wall_s")} != \
+                {k: v for k, v in w.items() if k not in ("value", "wall_s")}:
+            raise RuntimeError(f"hpo on {MULTIGPU_RANKS} ranks ran {g}, one process {w}")
+        worst = max(worst, abs(float(g["value"]) - float(w["value"])) / abs(float(w["value"])))
+    total = dict.fromkeys(DENSE_PER_STEP, 0)
+    for r in ranks:
+        for k in total:
+            total[k] += r["launches"][k]
+    print(f"hpo on {MULTIGPU_RANKS} gloo ranks sharing the {device}, the recipe cut to "
+          f"{' '.join(HPO_RANKS_CUT)}: {len(got)} trial runs in {ranks_s:.1f} s (one process "
+          f"{one_s:.1f} s), the same trial directories {dirs[1]} and rows, values within "
+          f"{worst:.3e} of one process's (relative); best {[r['value'] for r in ranks]} on the "
+          f"ranks; launches per rank {[r['launches'] for r in ranks]}", flush=True)
+    if not worst <= HPO_RANKS_RTOL or len({r["value"] for r in ranks}) != 1:
+        raise RuntimeError(f"hpo on {MULTIGPU_RANKS} ranks disagrees with one process: {worst:.3e}")
+    if device == "cuda" and not all(r["launches"]["fused_message"] for r in ranks):
+        raise RuntimeError("hpo on ranks: a rank launched no message kernel")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return total
 
 
 def one_rank_mesh(device: str):
@@ -3125,6 +3219,155 @@ def multigpu_phase(device: str = "cuda", batches=CAPTURE_BATCHES, steps: int = M
     return {"multigpu": total}
 
 
+def tensor_rank(device: str, cfg, ds, order, n_steps: int, ref_path: str) -> dict:
+    """One rank of the tensor phase's spawned ranks (gloo): the dense
+    model on the ('data', 'model') mesh of ``cfg.parallel.model_devices``,
+    ``n_steps`` steps over ``ds``'s global batches in ``order`` against the
+    one-rank parameters at ``ref_path``; what the parent checks."""
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.parallel.mesh import make_mesh
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    cuda = device == "cuda"
+    mesh = make_mesh(model_devices=cfg.parallel.model_devices, device=device)
+    tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                 device=device, mesh=mesh)
+    bs = cfg.data.batch_size
+    st = tr.init_state(ds.batch(order[:bs]))
+    gen = torch.Generator(device=device).manual_seed(21)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms = []
+    for i in range(n_steps):
+        batch = ds.batch(order[i * bs:(i + 1) * bs]).to(device)
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, m = tr.train_step(st, batch, gen)
+        if cuda:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if float(m["grad_ok"]) != 1.0:
+            raise RuntimeError(f"rank {mesh.rank}: step {i} was rejected")
+    launches = read_counts()
+    ref = torch.load(ref_path, weights_only=True)
+    shards = tr.shards(st)
+    blocks = [mod.feature_split for mod in tr.model.modules()
+              if getattr(mod, "feature_split", None) is not None]
+    return {"rank": mesh.rank, "mesh": mesh.shape, "transport": mesh.transport, "ms": ms,
+            "launches": launches,
+            "err": worst_rel([st.params[k] for k in ref], [ref[k] for k in ref]),
+            "features": sorted({(b.lo, b.hi) for b in blocks}), "blocks": len(blocks),
+            "shards": len(shards), "shard_bytes": sum(t.numel() * t.element_size()
+                                                     for t in shards.values()),
+            "moments": st.opt_state.mu.numel(),
+            "moment_bytes": 2 * st.opt_state.mu.numel() * st.opt_state.mu.element_size(),
+            "param_bytes": int(np.sum([p.numel() * p.element_size()
+                                       for p in st.params.values()])),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+
+
+def tensor_phase(device: str = "cuda", model_kw=None, n_frames: int = TRAIN_FRAMES,
+                 train_batch: int = TRAIN_BATCH, mesh_shape=TENSOR_MESH) -> dict:
+    """Tensor parallelism (A14b) on one card: data * model gloo ranks
+    sharing it on a ('data', 'model') mesh (NCCL refuses two ranks on one
+    device), the dipeptide at full width, f32: MULTIGPU_TRAIN_STEPS steps
+    at ``train_batch`` against the one-rank run, each rank's kernel
+    launches against the count worked out from the model (every message
+    layer on the rank's F/m features), its shards, moments and peak
+    memory. Raises on any failed check; returns {"tensor": the ranks'
+    launches, summed}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from coarsegrainingvae_tpu_torch.config import ParallelConfig
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+    from coarsegrainingvae_tpu_torch.parallel.mesh import Mesh
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    data, model = mesh_shape
+    ds, _, _, _ = dipeptide_device_data(device, n_frames)
+    cfg = train_cfg(train_batch, compute_dtype="float32", **(model_kw or {}))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             adam_moment_dtype="float32"))
+    order = np.resize(np.random.default_rng(3).permutation(len(ds)),
+                      train_batch * MULTIGPU_TRAIN_STEPS)
+    tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                 device=device, mesh=Mesh(0, 1, None, None, torch.device(device)))
+    st = tr.init_state(ds.batch(order[:train_batch]))
+    gen = torch.Generator(device=device).manual_seed(21)
+    ref_ms = []
+    for i in range(MULTIGPU_TRAIN_STEPS):
+        batch = ds.batch(order[i * train_batch:(i + 1) * train_batch]).to(device)
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, _ = tr.train_step(st, batch, gen)
+        if cuda:
+            torch.cuda.synchronize()
+        ref_ms.append((time.perf_counter() - t) * 1e3)
+    TENSOR_DIR.mkdir(parents=True, exist_ok=True)
+    ref_path = TENSOR_DIR / "one_rank_params.pt"
+    torch.save({k: p.detach().cpu() for k, p in st.params.items()}, ref_path)
+    n_params = sum(p.numel() for p in st.params.values())
+    del tr, st
+    if cuda:
+        torch.cuda.empty_cache()
+
+    tp = dataclasses.replace(cfg, parallel=ParallelConfig(model_devices=model))
+    store = TENSOR_DIR / f"store_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    t = time.perf_counter()
+    ranks = spawn_ranks(tensor_rank, data * model, str(store),
+                        (device, tp, ds, order, MULTIGPU_TRAIN_STEPS, str(ref_path)),
+                        backend="gloo", threads=2)
+    spawn_s = time.perf_counter() - t
+    m = cfg.model
+    per_step = {"fused_message": 2 * m.enc_nconv, "fused_message_vjp": 2 * m.enc_nconv,
+                "fused_pseudo_message": m.dec_nconv, "fused_pseudo_vjp": m.dec_nconv}
+    expect = {k: v * MULTIGPU_TRAIN_STEPS * cuda for k, v in per_step.items()}
+    f = m.n_basis // model
+    total = dict.fromkeys(DENSE_PER_STEP, 0)
+    for r in ranks:
+        print(f"tensor rank {r['rank']} of mesh {r['mesh']} (data, model) sharing the {device} on "
+              f"{r['transport']}: {r['blocks']} message blocks on features {r['features']} "
+              f"(F/m {f}), {MULTIGPU_TRAIN_STEPS} f32 steps at batch {train_batch} against the "
+              f"one-rank run, max|err|/max|ref| {r['err']:.3e}; "
+              f"{', '.join(f'{x:.1f}' for x in r['ms'])} ms/step (one rank "
+              f"{', '.join(f'{x:.1f}' for x in ref_ms)}); {r['shards']} sharded tensors, "
+              f"{r['shard_bytes'] / 1e6:.1f} MB of shards; moments {r['moments']} of "
+              f"{n_params} ({r['moment_bytes'] / 1e6:.1f} MB); gathered parameters "
+              f"{r['param_bytes'] / 1e6:.1f} MB; peak "
+              + (f"{r['peak_gb']:.3f} GB" if r["peak_gb"] is not None else "n/a")
+              + f"; launches {r['launches']}", flush=True)
+        if not r["err"] <= TRAIN_RTOL:
+            raise RuntimeError(f"tensor: rank {r['rank']} disagrees with the one-rank run")
+        if r["mesh"] != (data, model) or r["blocks"] != sum(per_step.values()) // 2 \
+                or len(r["features"]) != 1 or r["features"][0][1] - r["features"][0][0] != f:
+            raise RuntimeError(f"tensor: rank {r['rank']} split {r['blocks']} blocks over "
+                               f"{r['features']}, expected F/m {f}")
+        if not r["shards"] or r["moments"] >= n_params:
+            raise RuntimeError(f"tensor: rank {r['rank']} holds {r['moments']} moments")
+        if r["launches"] != expect:
+            raise RuntimeError(f"tensor: rank {r['rank']} launched {r['launches']}, "
+                               f"expected {expect}")
+        for k in total:
+            total[k] += r["launches"][k]
+    print(f"tensor: {spawn_s:.1f} s for the spawned ranks, {time.perf_counter() - t_phase:.1f} s "
+          f"for the phase", flush=True)
+    return {"tensor": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -3186,6 +3429,7 @@ def main() -> int:
     paths.update(phase("sparse", sparse, dense))
     paths.update(phase("hpo", hpo_phase))
     paths.update(phase("multigpu", multigpu_phase, dense=dense))
+    paths.update(phase("tensor", tensor_phase))
     print(f"phase seconds: {seconds}; {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     source = "coarsegrainingvae_tpu_torch/csrc/"

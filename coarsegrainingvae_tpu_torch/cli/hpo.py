@@ -19,6 +19,21 @@ with it too.
 The run_cgvae CLI's flags (``--device`` included, default ``cuda``) plus
 ``-n_trials`` and ``-strategy``. Like the JAX package, a trial runs every
 fold: ``-max_folds`` does not reach the objective.
+
+Under ``torchrun`` (WORLD_SIZE set) every trial trains data-parallel over
+all the node's ranks, as the JAX CLI's trials train over every local chip
+(``run_cgvae.run_cv`` under a process group):
+
+    torchrun --nproc_per_node 4 -m coarsegrainingvae_tpu_torch.cli.hpo ...
+
+NCCL for ``--device cuda`` (rank r on cuda:LOCAL_RANK), gloo for
+``--device cpu``. Rank 0's draws are broadcast (each random draw, each
+ASHA rung's configs), every rank runs each trial in the same order (so
+the trial directories agree), a trial is failed on every rank when it
+failed on any (one all-gather of each rank's error after the trial), and
+rank 0 alone writes the logs and prints the best. A rank that raises
+inside a trial's collectives leaves its peers waiting there until the
+process group's timeout.
 """
 from __future__ import annotations
 
@@ -27,10 +42,14 @@ import itertools
 import math
 import os
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from coarsegrainingvae_tpu_torch.cli.run_cgvae import _from_rank0
+from coarsegrainingvae_tpu_torch.parallel.mesh import init_distributed, local_device
 from coarsegrainingvae_tpu_torch.utils.logging import CSVLogger
 
 # the search space of the main CGequiVAE HPO (opt.py:63-83)
@@ -64,32 +83,51 @@ def sample_config(space: Dict[str, Tuple], rng: np.random.Generator) -> Dict[str
     return out
 
 
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _evaluate(objective: Callable[..., float], cfg: Dict[str, Any], *args
               ) -> Tuple[Dict[str, Any], float, bool, float]:
     """(cfg, value, failed, wall seconds) of one trial; an exception is
-    data: the trial is failed and its cfg carries the error."""
+    data: the trial is failed and its cfg carries the error. Under a
+    process group the ranks agree: one all-gather of each rank's error
+    (None if it had none) fails the trial on every rank when any rank
+    failed, with the first rank's error."""
     t0 = time.monotonic()
+    error: Optional[str] = None
     try:
         val = float(objective(cfg, *args))
         failed = not np.isfinite(val)
     except Exception as e:  # noqa: BLE001 - a failed trial is data
         val, failed = float("nan"), True
-        cfg = dict(cfg, error=repr(e)[:200])
+        error = repr(e)[:200]
+    if dist.is_initialized():
+        errors: List[Optional[str]] = [None] * dist.get_world_size()
+        dist.all_gather_object(errors, error)
+        raised = [e for e in errors if e is not None]
+        if raised:
+            val, failed, error = float("nan"), True, raised[0]
+    if error is not None:
+        cfg = dict(cfg, error=error)
     return cfg, val, failed, round(time.monotonic() - t0, 3)
 
 
 def random_search(objective: Callable[[Dict[str, Any]], float], space: Dict[str, Tuple],
                   n_trials: int, seed: int = 0, log_path: str = "hpo_log.csv"
                   ) -> Tuple[Dict[str, Any], float, List[Dict]]:
-    """Minimise ``objective`` over ``n_trials`` draws."""
+    """Minimise ``objective`` over ``n_trials`` draws (rank 0's, and only
+    rank 0 logs, under a process group)."""
     rng = np.random.default_rng(seed)
-    logger = CSVLogger(log_path)
+    logger = CSVLogger(log_path) if _writer() else None
     best, best_val = None, math.inf
     rows = []
     for t in range(n_trials):
-        cfg, val, failed, wall = _evaluate(objective, sample_config(space, rng))
+        cfg, val, failed, wall = _evaluate(objective,
+                                           _from_rank0(lambda: sample_config(space, rng)))
         row = dict(cfg, trial=t, value=val, failed=failed, wall_s=wall)
-        logger.log(row)
+        if logger is not None:
+            logger.log(row)
         rows.append(row)
         if not failed and val < best_val:
             best, best_val = {k: v for k, v in cfg.items() if k in space}, val
@@ -102,18 +140,22 @@ def asha_search(objective: Callable[[Dict[str, Any], int], float], space: Dict[s
                 ) -> Tuple[Dict[str, Any], float, List[Dict]]:
     """Successive halving: every trial runs ``min_epochs``, the best
     1/reduction advance to reduction x the epochs, up to ``max_epochs``;
-    ``objective(cfg, epochs)`` is re-run from scratch at each budget."""
+    ``objective(cfg, epochs)`` is re-run from scratch at each budget. Under
+    a process group every rung runs rank 0's configs and only rank 0
+    logs."""
     rng = np.random.default_rng(seed)
-    logger = CSVLogger(log_path)
+    logger = CSVLogger(log_path) if _writer() else None
     trials = [sample_config(space, rng) for _ in range(n_trials)]
     epochs, rung = min_epochs, 0
     rows: List[Dict] = []
     while trials:
+        trials = _from_rank0(lambda: trials)
         scored = []
         for cfg in trials:
             cfg, val, failed, wall = _evaluate(objective, cfg, epochs)
             row = dict(cfg, rung=rung, epochs=epochs, value=val, failed=failed, wall_s=wall)
-            logger.log(row)
+            if logger is not None:
+                logger.log(row)
             rows.append(row)
             if not failed:
                 scored.append((val, {k: v for k, v in cfg.items() if k in space}))
@@ -128,9 +170,9 @@ def asha_search(objective: Callable[[Dict[str, Any], int], float], space: Dict[s
     return {}, math.inf, rows
 
 
-def _cv_objective(args: argparse.Namespace):
-    """The CLI's objective: a short CV run on ``args.device``, returning
-    the folds' mean test all-atom recon RMSD."""
+def _cv_objective(args: argparse.Namespace, device=None):
+    """The CLI's objective: a short CV run on ``device`` (``args.device``
+    by default), returning the folds' mean test all-atom recon RMSD."""
     from coarsegrainingvae_tpu_torch.cli.run_cgvae import params_to_config, run_cv
     from coarsegrainingvae_tpu_torch.config import ExperimentConfig
 
@@ -147,7 +189,8 @@ def _cv_objective(args: argparse.Namespace):
         exp = ExperimentConfig(
             model=exp.model, data=exp.data, train=exp.train, parallel=exp.parallel,
             logdir=os.path.join(args.logdir, f"trial_{next(trial_counter):04d}"))
-        rows = run_cv(exp, n_ensemble=2, nevals=4, graph_eval=False, device=args.device)
+        rows = run_cv(exp, n_ensemble=2, nevals=4, graph_eval=False,
+                      device=args.device if device is None else device)
         if not rows:
             return float("nan")
         return float(np.mean([r["test_all_recon_rmsd"] for r in rows]))
@@ -167,19 +210,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    os.makedirs(args.logdir, exist_ok=True)
-    obj = _cv_objective(args)
-    if args.strategy == "random":
-        best, val, _ = random_search(lambda c: obj(c), CGVAE_SPACE, args.n_trials,
-                                     seed=args.seed,
-                                     log_path=os.path.join(args.logdir, "hpo_log.csv"))
-    else:
-        best, val, _ = asha_search(obj, CGVAE_SPACE, args.n_trials, seed=args.seed,
-                                   min_epochs=max(args.nepochs // 4, 1),
-                                   max_epochs=args.nepochs,
-                                   log_path=os.path.join(args.logdir, "hpo_asha_log.csv"))
-    print({"best": best, "value": val})
-    return best, val
+    device = args.device
+    launched = init_distributed(torch.device(device).type)
+    if launched:
+        device = local_device(torch.device(device).type)
+    try:
+        if _writer():
+            os.makedirs(args.logdir, exist_ok=True)
+        obj = _cv_objective(args, device)
+        if args.strategy == "random":
+            best, val, _ = random_search(lambda c: obj(c), CGVAE_SPACE, args.n_trials,
+                                         seed=args.seed,
+                                         log_path=os.path.join(args.logdir, "hpo_log.csv"))
+        else:
+            best, val, _ = asha_search(obj, CGVAE_SPACE, args.n_trials, seed=args.seed,
+                                       min_epochs=max(args.nepochs // 4, 1),
+                                       max_epochs=args.nepochs,
+                                       log_path=os.path.join(args.logdir, "hpo_asha_log.csv"))
+        if _writer():
+            print({"best": best, "value": val})
+        return best, val
+    finally:
+        if launched:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -104,6 +104,19 @@ class Leaf:
         r, f = kernel.shape[0], bias.shape[0] // 9
         return torch.cat([kernel.reshape(r, 9, f), bias.reshape(1, 9, f)])
 
+    def layout(self, shape: Sequence[int]) -> Tuple[int, int, int]:
+        """The port tensor of ``shape`` viewed as (A, L, C), L the last
+        dimension of its flax leaves: what a column split of those leaves
+        splits."""
+        shape = tuple(shape)
+        if not shape:
+            return 1, 1, 1
+        if self.how == COPY:
+            return int(np.prod(shape[:-1])), shape[-1], 1
+        if self.how == TRANSPOSE:                               # (out, in)
+            return 1, shape[0], int(np.prod(shape[1:]))
+        return shape[0], int(np.prod(shape[1:])), 1             # (R+1, 9, F) -> 9F
+
     def to_flax(self, t: torch.Tensor) -> List[torch.Tensor]:
         if self.how == COPY:
             return [t]
@@ -397,6 +410,16 @@ def _flagship_rules_from_port(sd: Mapping, cfg: ModelConfig) -> _Table:
     if "embedding.weight" in sd:
         return _pcn_rules(cfg, stochastic="atom_embedding.weight" in sd)
     return _dense_cgvae_rules(cfg, pallas_pseudo=cfg.pseudo_impl == "pallas")
+
+
+def tensor_layouts(shapes: Mapping[str, Sequence[int]], cfg: ModelConfig
+                   ) -> Dict[str, Tuple[int, int, int]]:
+    """Each tensor of a flagship model's state_dict (``shapes``: name ->
+    shape) as (A, L, C), L the last dimension of the flax leaves it maps
+    to (``Leaf.layout``): what the JAX package's ``tensor_shardings``
+    decides a leaf's sharding by (``parallel.tensor``)."""
+    rules = {r.name: r for r in _flagship_rules_from_port(shapes, cfg)}
+    return {name: rules[name].layout(shape) for name, shape in shapes.items()}
 
 
 def convert_flax_params(params: Mapping, cfg: ModelConfig) -> StateDict:

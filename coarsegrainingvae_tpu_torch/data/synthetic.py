@@ -198,7 +198,11 @@ def relax_frames(
       bonds:      (d_ij - rest_ij)^2         -> keeps real bonds inside cutoff
       non-bonded: max(margin*cutoff - d, 0)^2 -> pushes clashes outside cutoff
     A fixed-iteration float32 loop over frame chunks on ``device``; the
-    decaying step damps oscillation. frames: (F, N, 3); returns a float64
+    decaying step damps oscillation. The bond forces go into their atoms
+    through ``segment_sum`` over the endpoints in a fixed order (not an
+    index-add, whose float atomics on a card sum in the order the threads
+    arrive and the 300 steps amplify), so the card gives the same bits on
+    every call and in every process. frames: (F, N, 3); returns a float64
     copy.
     """
     from coarsegrainingvae_tpu_torch.eval.metrics import COVALENT_RADII
@@ -210,6 +214,9 @@ def relax_frames(
     bi = torch.as_tensor(np.asarray(bonds[:, 0]), dtype=torch.long, device=device)
     bj = torch.as_tensor(np.asarray(bonds[:, 1]), dtype=torch.long, device=device)
     rest_t = torch.as_tensor(np.asarray(rest), dtype=torch.float32, device=device)
+    ends = torch.cat([bi, bj])
+    order = torch.argsort(ends, stable=True)
+    ends = ends[order]
 
     # pair threshold margin*1.3*(r_i + r_j), zero on bonded pairs and the
     # diagonal (those are held by the bond term / excluded)
@@ -230,7 +237,9 @@ def relax_frames(
             force = ((nb_viol / d)[..., None] * diff).sum(2)
             dbond = d[:, bi, bj]
             fb = ((dbond - rest_t) / dbond)[..., None] * diff[:, bi, bj]
-            force = force.index_add(1, bi, -fb).index_add(1, bj, fb)
+            # (2E, F, 3) rows sorted by atom -> (N, F, 3) sums -> (F, N, 3)
+            rows = torch.cat([-fb, fb], dim=1)[:, order].transpose(0, 1)
+            force = force + segment_sum(rows, ends, n, indices_are_sorted=True).transpose(0, 1)
             x = x + lr * force
         return x
 

@@ -68,6 +68,11 @@ class DenseFactoredEquiMessage(nn.Module):
     (xyz, node_mask, cutoff). The JAX package's three formulations
     (``message_impl`` einsum/qmat/pallas) share this parameter tree; the
     port always takes the kernel.
+
+    ``feature_split`` (``parallel.tensor.FeatureSplit``, set by
+    ``split_messages`` under tensor parallelism): the kernel runs on this
+    model rank's features only (``local``) and the outputs are gathered
+    along F.
     """
 
     def __init__(self, feat_dim: int, activation: str, n_rbf: int,
@@ -82,15 +87,30 @@ class DenseFactoredEquiMessage(nn.Module):
                             generator=generator)
         self.phi_out = Dense(f, self.n_split * f, dtype=dtype, generator=generator)
         self.filter_w = factored_filter(n_rbf, self.n_split, f, generator, dtype)
+        self.feature_split = None
 
     def forward(self, s: torch.Tensor, v: torch.Tensor, xyz: torch.Tensor,
                 node_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        split = self.feature_split
+        if split is not None:
+            ds, dv = self.local(s, v, xyz, node_mask, split)
+            return split.gather(ds), split.gather(dv)
         b, n, f = s.shape
         phi = self.phi_out(self.phi_in(s)).reshape(b, n, self.n_split, f)
         return fused_message(
             xyz.float().contiguous(), node_mask.float().contiguous(),
             phi.float().contiguous(), v.float().contiguous(),
             self.filter_w.float().contiguous(), self.cutoff, self.n_rbf,
+        )
+
+    def local(self, s, v, xyz, node_mask, split) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ds, dv) at the features of ``split`` alone: phi_out's columns
+        of the slice in each channel, the slices of v and filter_w."""
+        phi = split.columns(self.phi_out, split.copy(self.phi_in(s)), self.n_split)
+        return fused_message(
+            xyz.float().contiguous(), node_mask.float().contiguous(),
+            phi.float().contiguous(), split.slice(v.float()),
+            split.filter(self.filter_w.float()), self.cutoff, self.n_rbf,
         )
 
 

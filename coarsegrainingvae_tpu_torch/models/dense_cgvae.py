@@ -52,6 +52,11 @@ class DenseEquiMessagePseudo(nn.Module):
       dvbar = S(g5 vbar_j) + sbar_i * S(g6 v_j) + v_i x S(g7 v_j)
               + vbar_i x S(g8 vbar_j)
     with S(.) the filter-weighted sum over senders j.
+
+    Every output at feature f reads feature f of phi, s, sbar, v, vbar and
+    the filter alone, so under a ``feature_split`` (tensor parallelism)
+    the kernel runs on this model rank's features (``local``) and the
+    outputs are gathered along F.
     """
 
     def __init__(self, feat_dim: int, activation: str, n_rbf: int,
@@ -65,8 +70,13 @@ class DenseEquiMessagePseudo(nn.Module):
                             generator=generator)
         self.phi_out = Dense(f, 9 * f, dtype=dtype, generator=generator)
         self.filter_w = factored_filter(n_rbf, 9, f, generator, filter_dtype)
+        self.feature_split = None
 
     def forward(self, s, sbar, v, vbar, xyz, node_mask):
+        split = self.feature_split
+        if split is not None:
+            return tuple(split.gather(t) for t in self.local(s, sbar, v, vbar, xyz, node_mask,
+                                                             split))
         b, m, f = s.shape
         phi = self.phi_out(self.phi_in(s)).reshape(b, m, 9, f)
 
@@ -76,6 +86,18 @@ class DenseEquiMessagePseudo(nn.Module):
         return fused_pseudo_message(
             f32(xyz), f32(node_mask), f32(phi), f32(s), f32(sbar), f32(v),
             f32(vbar), f32(self.filter_w), self.cutoff, self.n_rbf,
+        )
+
+    def local(self, s, sbar, v, vbar, xyz, node_mask, split):
+        """(ds, dsbar, dv, dvbar) at the features of ``split`` alone."""
+        phi = split.columns(self.phi_out, split.copy(self.phi_in(s)), 9)
+
+        def f32(t):
+            return t.float().contiguous()
+
+        return fused_pseudo_message(
+            f32(xyz), f32(node_mask), f32(phi), *(split.slice(t.float()) for t in (s, sbar, v, vbar)),
+            split.filter(self.filter_w.float()), self.cutoff, self.n_rbf,
         )
 
 

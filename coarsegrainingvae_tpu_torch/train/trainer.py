@@ -52,8 +52,24 @@ holds the moments of its slice of the flat parameter vector, runs clip and
 Adam there with the global gradient norm, and all-gathers the update. On
 NCCL the collectives are captured in the epoch's CUDA graph; gloo ranks
 run the same static step in a Python loop (gloo stages CUDA tensors
-through the host, which a graph cannot hold). Tensor parallelism
-(``model_devices > 1``) is not ported yet (ROADMAP.md A14b).
+through the host, which a graph cannot hold).
+
+Tensor parallelism (``cfg.parallel.model_devices`` = m > 1, a (n / m, m)
+('data', 'model') mesh; ``parallel.tensor``): the rows are split over the
+data axis only, so the m ranks of a model group train on the same rows with
+the same noise. Each model rank holds the moments of its 1/m shard of every
+tensor the JAX package's ``tensor_shardings`` shards (and the whole of every
+other), and the gathered parameters the model computes with. In the dense
+model the message blocks run kernels 1-4 on the rank's F/m features and
+gather their outputs (``split_messages``); everything else computes on the
+gathered weights, alike on every rank of the group. Per step the partial
+gradients of the split blocks' phi_out and filter_w are all-reduced over the
+model group, the rank's local gradient (its shards, and the replicated
+tensors whole) with the loss and metrics over the data group, the clip reads
+the global norm (the shards' squares summed over the model group), Adam
+updates the local part, and the shards' updates are all-gathered over the
+model group into every parameter. ZeRO-1 is off under tensor parallelism, as
+in the JAX package. Checkpoints hold the one-process form (moments gathered).
 """
 from __future__ import annotations
 
@@ -68,6 +84,7 @@ import numpy as np
 import torch
 
 from coarsegrainingvae_tpu_torch.config import ExperimentConfig
+from coarsegrainingvae_tpu_torch.convert import tensor_layouts
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
 from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
@@ -82,6 +99,7 @@ from coarsegrainingvae_tpu_torch.parallel.mesh import (
     shard_rows,
     zero_partition,
 )
+from coarsegrainingvae_tpu_torch.parallel.tensor import TensorLayout, split_messages
 from coarsegrainingvae_tpu_torch.train.controller import EarlyStopping, LowessPlateauController
 from coarsegrainingvae_tpu_torch.train.losses import loss_denominators, vae_loss
 from coarsegrainingvae_tpu_torch.utils.rng import generator as derived_generator
@@ -209,15 +227,19 @@ def guarded_update(tx: ClippedAdam, params: Sequence[torch.Tensor],
 
 def guarded_update_flat(tx: ClippedAdam, params: Sequence[torch.Tensor], g: torch.Tensor,
                         loss: torch.Tensor, opt_state: AdamState, lr, thresh: float,
-                        zero: Optional[Tuple[Mesh, slice, int]] = None
+                        zero: Optional[Tuple[Mesh, slice, int]] = None,
+                        tensor: Optional[TensorLayout] = None
                         ) -> Tuple[AdamState, torch.Tensor]:
     """``guarded_update`` on the flat gradient ``g``. ``zero`` = (mesh,
     this rank's slice, padded length) of ``zero_partition``: ZeRO-1, where
     ``opt_state`` holds the moments of this rank's slice only, clip and
     Adam run there with the norm of the whole ``g``, and the update is
-    all-gathered over the mesh."""
+    all-gathered over the mesh. ``tensor``: tensor parallelism, where ``g``
+    and ``opt_state`` are this model rank's local part (``TensorLayout``),
+    the norm is the whole gradient's and the shards' updates are gathered
+    over the model group."""
     with torch.no_grad():
-        g_norm = global_norm(g)
+        g_norm = global_norm(g) if tensor is None else torch.sqrt(tensor.sq_norm(g))
         ok = torch.isfinite(loss) & (loss < thresh) & torch.isfinite(g_norm)
         # a rejected batch's update and moments are discarded below with
         # torch.where, which passes over NaN and inf, so its gradient
@@ -231,8 +253,11 @@ def guarded_update_flat(tx: ClippedAdam, params: Sequence[torch.Tensor], g: torc
             upd, new_opt = tx.update(g_part, opt_state, g_norm)
             upd = all_gather_(torch.empty(padded, dtype=g.dtype, device=g.device),
                               torch.where(ok, -lr * upd, 0.0), mesh)[:g.numel()]
-        add_updates_(params, [u.view_as(p) for u, p in zip(
-            torch.split(upd, [p.numel() for p in params]), params)])
+        if tensor is not None:
+            add_updates_(params, tensor.expand(upd))
+        else:
+            add_updates_(params, [u.view_as(p) for u, p in zip(
+                torch.split(upd, [p.numel() for p in params]), params)])
         opt_state = AdamState(count=torch.where(ok, new_opt.count, opt_state.count),
                               mu=torch.where(ok, new_opt.mu, opt_state.mu),
                               nu=torch.where(ok, new_opt.nu, opt_state.nu))
@@ -416,11 +441,12 @@ class Trainer:
     ``losses.build_steric_tables``, used when ``cfg.train.zeta`` is not 0;
     copied to the device once, where the steps read them.
 
-    mesh: the data mesh (``parallel.mesh.make_mesh``); None takes
-    ``make_mesh(cfg.parallel.num_devices)``, which is every rank of an
-    initialised process group and otherwise this process alone. A mesh
-    with a process group trains data-parallel (module docstring); without
-    one every path is the single-device one."""
+    mesh: the mesh (``parallel.mesh.make_mesh``); None takes
+    ``make_mesh(cfg.parallel.num_devices, cfg.parallel.model_devices)``,
+    which is every rank of an initialised process group and otherwise this
+    process alone. A mesh with a process group trains data-parallel, and
+    tensor-parallel over its model axis when it has one (module
+    docstring); without one every path is the single-device one."""
 
     def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig, device="cuda",
                  steric_tables=None, mesh: Optional[Mesh] = None):
@@ -433,6 +459,18 @@ class Trainer:
             cfg.parallel.num_devices, cfg.parallel.model_devices, device=self.device)
         # ZeRO-1: (mesh, this rank's slice, padded length), set by init_state
         self._zero: Optional[Tuple[Mesh, slice, int]] = None
+        # tensor parallelism: this model rank's part of the optimizer state,
+        # and (by parameter index) the parameters whose gradients are partial
+        # on each rank
+        self._tensor: Optional[TensorLayout] = None
+        self._partial: List[int] = []
+        if self.mesh.model_size > 1:
+            shapes = {n: p.shape for n, p in self.model.named_parameters()}
+            self._tensor = TensorLayout(list(shapes.items()),
+                                        tensor_layouts(shapes, cfg.model), self.mesh.model_axis)
+            names = list(shapes)
+            self._partial = [names.index(n) for n in split_messages(self.model,
+                                                                    self.mesh.model_axis)]
         self.tx = make_optimizer(cfg.train.grad_clip, cfg.train.adam_moment_dtype)
         # static-buffer epoch programs by (DeviceDataset, train), and the two
         # chunk buffers of run_epoch_streamed; release_graphs frees them
@@ -457,7 +495,9 @@ class Trainer:
         numel = None
         if self.mesh.group is not None:
             replicate(list(params.values()), self.mesh)
-            if self.cfg.parallel.zero_optimizer and self.mesh.size > 1:
+            if self._tensor is not None:
+                numel = self._tensor.numel
+            elif self.cfg.parallel.zero_optimizer and self.mesh.size > 1:
                 part, padded = zero_partition(sum(p.numel() for p in params.values()),
                                               self.mesh)
                 self._zero = (self.mesh, part, padded)
@@ -496,17 +536,31 @@ class Trainer:
             return batch, generator, None
         tc = self.cfg.train
         den = loss_denominators(flatten_batch(batch), n, tc.gamma, self.steric_tables,
-                                tc.h_bond_weight, tc.eta_h, shards=self.mesh.size)
+                                tc.h_bond_weight, tc.eta_h, shards=self.mesh.data_axis.size)
         local = CGBatch(**{f.name: None if getattr(batch, f.name) is None
                            else getattr(batch, f.name)[rows]
                            for f in dataclasses.fields(batch)})
         return local, RowNoise(generator, n, rows), den
 
     def _all_reduce(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The mean over the mesh of ``parts`` concatenated flat in f32:
-        one collective."""
+        """The mean over the mesh's data axis of ``parts`` concatenated flat
+        in f32: one collective."""
+        data = self.mesh.data_axis
         buf = torch.cat([t.reshape(-1).to(torch.float32) for t in parts])
-        return all_reduce_(buf, self.mesh) / self.mesh.size
+        return all_reduce_(buf, data) / data.size
+
+    def _local_gradient(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Under tensor parallelism: the partial gradients of the split
+        message blocks summed over the model group (one collective), then
+        this model rank's local part, flat in f32."""
+        if self._partial:
+            idx = self._partial
+            summed = all_reduce_(flatten([grads[i].to(torch.float32) for i in idx]),
+                                 self.mesh.model_axis)
+            grads = list(grads)
+            for i, part in zip(idx, torch.split(summed, [grads[i].numel() for i in idx])):
+                grads[i] = part.view(grads[i].shape)
+        return self._tensor.local([g.to(torch.float32) for g in grads])
 
     def zeta_scale(self, state: TrainState) -> Optional[torch.Tensor]:
         """The zeta_warmup ramp min(step / warmup, 1) as a 0-d device
@@ -548,7 +602,8 @@ class Trainer:
                 (state.step.to(torch.float32) + 1.0) / tc.lr_warmup, max=1.0)
         thresh = tc.gamma * tc.loss_skip_factor if tc.gamma > 0 else math.inf
         opt_state, ok = guarded_update_flat(self.tx, list(state.params.values()), g, loss,
-                                            state.opt_state, lr_eff, thresh, self._zero)
+                                            state.opt_state, lr_eff, thresh, self._zero,
+                                            self._tensor)
         return dataclasses.replace(state, opt_state=opt_state, step=state.step + 1), ok
 
     def train_step(self, state: TrainState, batch: CGBatch,
@@ -563,6 +618,8 @@ class Trainer:
         else:
             local, gen, den = self._shard(batch, generator)
             loss, metrics, grads = self.loss_and_grads(state, local, gen, den)
+            if self._tensor is not None:
+                grads = [self._local_gradient(grads)]
             keys = list(metrics)
             buf = self._all_reduce([*grads, loss, *(metrics[k] for k in keys)])
             p = buf.numel() - 1 - len(keys)
@@ -756,10 +813,24 @@ class Trainer:
         out["n_steps"] = n_steps
         return state, out
 
+    def shards(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """Under tensor parallelism, this model rank's shard of every
+        sharded parameter (a copy), by name; {} otherwise."""
+        if self._tensor is None:
+            return {}
+        params = list(state.params.values())
+        parts = self._tensor.split(self._tensor.local([p.detach() for p in params]))
+        return {n: part.clone() for n, part, spec in zip(
+            self._tensor.names, parts, self._tensor.specs) if spec is not None}
+
     def _full_moments(self, state: TrainState) -> TrainState:
-        """``state`` with every rank's ZeRO-1 moments gathered (a
-        collective), as a checkpoint stores them; ``state`` itself without
-        ZeRO-1."""
+        """``state`` with every rank's ZeRO-1 or tensor-parallel moments
+        gathered (a collective), as a checkpoint stores them; ``state``
+        itself otherwise."""
+        opt = state.opt_state
+        if self._tensor is not None:
+            return dataclasses.replace(state, opt_state=AdamState(
+                count=opt.count, mu=self._tensor.full(opt.mu), nu=self._tensor.full(opt.nu)))
         if self._zero is None:
             return state
         mesh, _, padded = self._zero
@@ -769,17 +840,19 @@ class Trainer:
             out = torch.empty(padded, dtype=torch.float32, device=t.device)
             return all_gather_(out, t.to(torch.float32), mesh)[:n].to(t.dtype)
 
-        opt = state.opt_state
         return dataclasses.replace(state, opt_state=AdamState(
             count=opt.count, mu=gather(opt.mu), nu=gather(opt.nu)))
 
     def _own_moments(self, state: TrainState) -> TrainState:
         """The inverse of ``_full_moments``: this rank's slice of full
         moments."""
+        opt = state.opt_state
+        if self._tensor is not None:
+            return dataclasses.replace(state, opt_state=AdamState(
+                count=opt.count, mu=self._tensor.own(opt.mu), nu=self._tensor.own(opt.nu)))
         if self._zero is None:
             return state
         _, part, padded = self._zero
-        opt = state.opt_state
 
         def own(t: torch.Tensor) -> torch.Tensor:
             return torch.nn.functional.pad(t, (0, padded - t.numel()))[part].clone()

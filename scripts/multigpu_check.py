@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Data-parallel training, ZeRO-1 and the halo stack across the GPUs of one
-host, one rank per card on NCCL.
+"""Data-parallel training, ZeRO-1, tensor parallelism, the halo stack and the
+hpo search across the GPUs of one host, one rank per card on NCCL.
 
     python3 -m torch.distributed.run --standalone --nproc_per_node 4 scripts/multigpu_check.py
 
@@ -9,19 +9,26 @@ mapping) and broadcasts the frames; then every rank runs, on its card:
 
 1. epochs of ``--steps`` steps at bench.py's width (``chip_smoke.train_cfg``)
    at batch 128 and 32, captured (``Trainer.run_epoch_scan``): the plain
-   single-card trainer over the whole batch, and data-parallel over every
-   rank with the replicated optimizer and with ZeRO-1; ZeRO-1 held bit for
-   bit to the replicated optimizer, then all three timed in turns (plain,
-   dp, zero, zero, dp, plain), with the kernels' launches per rank;
+   single-card trainer over the whole batch, data-parallel over every
+   rank with the replicated optimizer and with ZeRO-1, and tensor-parallel
+   on a (world / 2, 2) ('data', 'model') mesh, the collectives of both
+   subgroups in the graph; ZeRO-1 held bit for bit to the replicated
+   optimizer, the captured TP epoch bit for bit to the same epoch run
+   eagerly, then all four timed in turns (plain, dp, zero, tp, tp, zero,
+   dp, plain), with the kernels' launches per rank;
 2. ``chip_smoke.MULTIGPU_TRAIN_STEPS`` f32 steps at batch 128,
-   data-parallel, against the plain trainer on the same card
-   (``chip_smoke.TRAIN_RTOL`` of each parameter's max |ref|);
+   data-parallel and tensor-parallel, against the plain trainer on the
+   same card (``chip_smoke.TRAIN_RTOL`` of each parameter's max |ref|);
 3. the halo stack (``parallel.halo``: 2 layers, F 192, cutoff 5, the covid
    recipe's width) on a random box of 10,333 atoms with ~20 neighbours
    per atom (the covid stand-in's frame has 22), its NCCL point-to-point halos
    against the unsharded ``EquiStack`` on the same card, forward and
    parameter gradients (``chip_smoke.HALO_RTOL`` of max |ref|), both passes
-   timed in turns after one untimed pass each.
+   timed in turns after one untimed pass each;
+4. with ``--hpo``, ``cli.hpo`` with ``chip_smoke.HPO_RECIPE`` (the
+   committed hpo_demo search; ``--hpo='FLAGS'`` adds FLAGS after it) over
+   the same process group, every trial data-parallel over all the ranks,
+   its wall time and rows.
 
 Rank 0 prints the card, one line per check and writes them to ``--out``
 (default ``multigpu_check.json`` in ``chip_smoke.OUT_DIR``, the output
@@ -34,6 +41,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import shlex
 import sys
 import time
 from pathlib import Path
@@ -50,6 +59,9 @@ def parse(argv=None):
     p.add_argument("--n_basis", type=int, default=600)
     p.add_argument("--halo_atoms", type=int, default=10333)
     p.add_argument("--halo_width", type=int, default=192)
+    p.add_argument("--hpo", nargs="?", const="", default=None,
+                   help="run the hpo_demo search last; --hpo='FLAGS' adds FLAGS after the "
+                        "recipe's")
     p.add_argument("--out", default=None,
                    help="the report's path (default: multigpu_check.json in chip_smoke.OUT_DIR)")
     return p.parse_args(argv)
@@ -81,6 +93,7 @@ def main(argv=None) -> int:
     cuda = a.device == "cuda"
     device = local_device(a.device)
     mesh = make_mesh(device=device)
+    tp_mesh = make_mesh(model_devices=2, device=device)
     single = Mesh(0, 1, None, None, device)
     rank0 = mesh.rank == 0
     report = {"world": mesh.size, "backend": mesh.backend}
@@ -131,8 +144,9 @@ def main(argv=None) -> int:
             idx = epoch_index_batches(dds.n_frames, bs, np.random.default_rng(1))
             runs = {}
             for label, on, zero in (("plain", single, False), ("dp", mesh, False),
-                                    ("zero", mesh, True)):
-                c = dataclasses.replace(cfg, parallel=ParallelConfig(zero_optimizer=zero))
+                                    ("zero", mesh, True), ("tp", tp_mesh, False)):
+                c = dataclasses.replace(cfg, parallel=ParallelConfig(
+                    zero_optimizer=zero, model_devices=on.model_size))
                 tr = Trainer(DenseCGVAE(c.model, generator=torch.Generator().manual_seed(0)), c,
                              device=device, mesh=on)
                 st = tr.init_state(ds.batch(np.arange(bs)))
@@ -144,6 +158,16 @@ def main(argv=None) -> int:
                                    moments=st.opt_state.mu.numel())
             exact = all(torch.equal(x, y) for x, y in zip(runs["zero"]["params"],
                                                           runs["dp"]["params"]))
+            # the TP epoch again, eagerly, from the same weights and draws
+            c = dataclasses.replace(cfg, parallel=ParallelConfig(model_devices=2))
+            tr = Trainer(DenseCGVAE(c.model, generator=torch.Generator().manual_seed(0)), c,
+                         device=device, mesh=tp_mesh)
+            st = tr.init_state(ds.batch(np.arange(bs)))
+            st, _ = tr._run_program(st, dds, idx, torch.Generator(device=device).manual_seed(11),
+                                    True, False)
+            tp_exact = all(torch.equal(p.detach(), q) for p, q in zip(st.params.values(),
+                                                                      runs["tp"]["params"]))
+            del tr, st
             expect = {k: v * a.steps for k, v in per_step.items()} if cuda else \
                 dict.fromkeys(per_step, 0)
             for label, r in runs.items():
@@ -153,8 +177,11 @@ def main(argv=None) -> int:
             if not exact:
                 raise RuntimeError(f"rank {mesh.rank}: ZeRO-1 differs from the replicated "
                                    f"optimizer at batch {bs}")
+            if not tp_exact:
+                raise RuntimeError(f"rank {mesh.rank}: the captured TP epoch differs from the "
+                                   f"eager one at batch {bs}")
             times = {k: [] for k in runs}
-            for label in ("plain", "dp", "zero", "zero", "dp", "plain"):
+            for label in ("plain", "dp", "zero", "tp", "tp", "zero", "dp", "plain"):
                 r = runs[label]
                 gen = torch.Generator(device=device).manual_seed(12)
                 dist.barrier()
@@ -167,6 +194,10 @@ def main(argv=None) -> int:
             row = {"batch": bs, "rows_per_rank": bs // mesh.size, "ms_per_step": times,
                    "zero_equal": exact, "moments": {k: r["moments"] for k, r in runs.items()},
                    "launches_per_rank": runs["dp"]["launches"],
+                   "tp_launches_per_rank": runs["tp"]["launches"], "tp_captured_equal": tp_exact,
+                   "tp_mesh": tp_mesh.shape, "tp_shard_mb": sum(
+                       t.numel() * t.element_size()
+                       for t in runs["tp"]["tr"].shards(runs["tp"]["st"]).values()) / 1e6,
                    "captured": runs["dp"]["tr"].captures, "all_reduce_mb": 4 * n_params / 1e6}
             report["epochs"][bs] = row
             say(f"batch {bs} ({bs // mesh.size} rows per rank), {a.steps}-step epochs "
@@ -175,7 +206,11 @@ def main(argv=None) -> int:
                 f"{', '.join(f'{x:.3f}' for x in times['dp'])}; ZeRO-1 "
                 f"{', '.join(f'{x:.3f}' for x in times['zero'])} (bit for bit the replicated "
                 f"optimizer {exact}; moments per rank {runs['zero']['moments']} of {n_params}); "
-                f"launches per rank {row['launches_per_rank']}; all-reduce "
+                f"tensor-parallel on mesh {tp_mesh.shape} "
+                f"{', '.join(f'{x:.3f}' for x in times['tp'])} (captured bit for bit the eager "
+                f"epoch {tp_exact}; moments per rank {runs['tp']['moments']}, shards "
+                f"{row['tp_shard_mb']:.1f} MB); launches per rank {row['launches_per_rank']}, "
+                f"TP {row['tp_launches_per_rank']}; all-reduce "
                 f"{row['all_reduce_mb']:.1f} MB per step")
             for r in runs.values():
                 r["tr"].release_graphs()
@@ -191,8 +226,9 @@ def main(argv=None) -> int:
         order = np.resize(np.random.default_rng(3).permutation(len(ds)),
                           bs * cs.MULTIGPU_TRAIN_STEPS)
         params = {}
-        for label, on in (("plain", single), ("dp", mesh)):
-            tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+        for label, on in (("plain", single), ("dp", mesh), ("tp", tp_mesh)):
+            c = dataclasses.replace(cfg, parallel=ParallelConfig(model_devices=on.model_size))
+            tr = Trainer(DenseCGVAE(c.model, generator=torch.Generator().manual_seed(0)), c,
                          device=device, mesh=on)
             st = tr.init_state(ds.batch(order[:bs]))
             gen = torch.Generator(device=device).manual_seed(21)
@@ -201,11 +237,14 @@ def main(argv=None) -> int:
             params[label] = [p.detach().clone() for p in st.params.values()]
             del tr, st
         err = cs.worst_rel(params["dp"], params["plain"])
-        report["f32_steps_err"] = err
+        tp_err = cs.worst_rel(params["tp"], params["plain"])
+        report["f32_steps_err"], report["tp_f32_steps_err"] = err, tp_err
         say(f"{cs.MULTIGPU_TRAIN_STEPS} f32 steps at batch {bs} over {mesh.size} ranks against "
-            f"one card: max|err|/max|ref| {err:.3e}")
-        if not err <= cs.TRAIN_RTOL:
-            raise RuntimeError(f"rank {mesh.rank}: data-parallel f32 steps disagree ({err:.3e})")
+            f"one card: data-parallel max|err|/max|ref| {err:.3e}, tensor-parallel on mesh "
+            f"{tp_mesh.shape} {tp_err:.3e}")
+        if not max(err, tp_err) <= cs.TRAIN_RTOL:
+            raise RuntimeError(f"rank {mesh.rank}: f32 steps disagree (data-parallel {err:.3e}, "
+                               f"tensor-parallel {tp_err:.3e})")
 
         # 3. the halo stack on a random box at the covid stand-in's density
         rng = np.random.default_rng(0)
@@ -272,6 +311,32 @@ def main(argv=None) -> int:
             + (f"{peak:.3f} GB" if cuda else "n/a"))
         if not max(errs) <= cs.HALO_RTOL:
             raise RuntimeError(f"rank {mesh.rank}: the halo stack disagrees ({errs})")
+
+        # 4. the hpo search, every trial over all the ranks
+        if a.hpo is not None:
+            from coarsegrainingvae_tpu_torch.cli import hpo
+
+            logdir = ROOT / "build" / "multigpu_hpo"
+            flags = cs.HPO_RECIPE + shlex.split(a.hpo) + ["-logdir", str(logdir),
+                                                          "--device", a.device]
+            a_hpo = hpo.build_parser().parse_args(flags)
+            if rank0:
+                cs.dipeptide_data(str(device), a_hpo.ndata)
+            dist.barrier()
+            os.environ["COARSEGRAININGVAE_DATA"] = str(ROOT / cs.OUT_DIR / "cv_data")
+            sync()
+            t = time.perf_counter()
+            best, value = hpo.main(flags)
+            sync()
+            wall = time.perf_counter() - t
+            rows = cs.read_csv(logdir / "hpo_asha_log.csv")[1] if rank0 else []
+            report["hpo"] = {"seconds": wall, "best": best, "value": value, "rows": rows}
+            say(f"hpo over {mesh.size} ranks ({' '.join(flags)}): {len(rows)} trial runs in "
+                f"{wall:.1f} s; per run (rung, epochs, n_basis, value, wall s) "
+                f"{[(r['rung'], r['epochs'], r['n_basis'], r['value'], r['wall_s']) for r in rows]}"
+                f"; best {value:.4f}")
+            if rank0 and any(r["failed"] != "False" for r in rows):
+                raise RuntimeError("hpo over the ranks: a trial failed")
         dist.barrier()
         if rank0:
             out = Path(a.out) if a.out else ROOT / cs.OUT_DIR / "multigpu_check.json"

@@ -319,6 +319,10 @@ def test_hpo_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
     assert paths["hpo"] == chip_smoke.hpo_expected_launches(chip_smoke.HPO_DIR, rows, a)
     assert paths["hpo"]["fused_message"] > 0 and paths["hpo"]["fused_message_vjp"] > 0
     assert paths["hpo"]["fused_pseudo_message"] == 0
+    assert paths["hpo_ranks"] == dict.fromkeys(chip_smoke.DENSE_PER_STEP, 0)  # none on the CPU
+    _, one = chip_smoke.read_csv(chip_smoke.HPO_DIR / "one" / "hpo_asha_log.csv")
+    _, ranks = chip_smoke.read_csv(chip_smoke.HPO_DIR / "ranks" / "hpo_asha_log.csv")
+    assert len(ranks) == len(one) == 3                       # 2 trials, then the better
 
 
 def test_hpo_phase_raises_on_a_failed_trial(tmp_path, monkeypatch, counted_plain):
@@ -370,6 +374,21 @@ def test_multigpu_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plai
         "bit True" in out
     assert out.count("multigpu rank ") == chip_smoke.MULTIGPU_RANKS
     assert "multigpu halo stack" in out
+
+
+def test_tensor_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain, capsys):
+    """The tensor phase on the CPU at a tiny width: two spawned gloo ranks
+    on a (1, 2) mesh, every message block split on its half of the
+    features, 3 f32 steps against the one-rank run; no launch on the CPU,
+    where the wrappers run their plain versions."""
+    monkeypatch.chdir(tmp_path)
+    paths = chip_smoke.tensor_phase(
+        device="cpu", n_frames=16, train_batch=8,
+        model_kw=dict(n_basis=16, n_rbf=4, enc_nconv=1, dec_nconv=2))
+    assert paths["tensor"] == dict.fromkeys(chip_smoke.DENSE_PER_STEP, 0)
+    out = capsys.readouterr().out
+    assert out.count("tensor rank ") == 2
+    assert "features [(0, 8)] (F/m 8)" in out and "features [(8, 16)] (F/m 8)" in out
 
 
 def test_learning_check_rehearses_on_the_cpu(tmp_path):

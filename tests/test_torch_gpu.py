@@ -1256,3 +1256,83 @@ def test_full_width_converted_fold_serves_and_resumes_bit_for_bit_on_card(
     after_orig, _, _ = chip_smoke.resume_one_epoch(original, "cuda")
     assert min(launches.values()) > 0
     assert all(chip_smoke.torch_equal(after_conv[k], after_orig[k]) for k in after_orig)
+
+
+@pytest.mark.gpu
+def test_relaxed_frames_repeat_their_bits_on_card(cuda_device, tmp_path):
+    """relax_frames sums its bond forces in a fixed order: the synthetic
+    dipeptide's relaxed frames on the card have the same bits on a second
+    call and in two other processes, and agree with the CPU's within the
+    relaxation's float32 tolerance."""
+    import numpy as np
+    import torch_parallel_ranks as ranks
+
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+
+    runs = [ranks.synthetic_frames("cuda") for _ in range(2)]
+    np.testing.assert_array_equal(runs[0], runs[1])
+    for other in spawn_ranks(ranks.synthetic_frames, 2, str(tmp_path / "store"), ("cuda",)):
+        np.testing.assert_array_equal(other, runs[0])
+    np.testing.assert_allclose(runs[0], ranks.synthetic_frames("cpu"), rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["message", "pseudo"])
+def test_kernels_on_feature_slices_equal_the_whole_width_on_card(cuda_device, kind):
+    """Tensor parallelism's compute split: each kernel, forward and
+    backward, run on the two halves of F 600 and concatenated along F
+    gives the whole-width launch's bits (every output at feature f reads
+    feature f alone; d_w sums the batch per feature)."""
+    f, h = 600, 300
+    if kind == "message":
+        ins = _message_inputs(27, 4, seed=3, device=cuda_device, f=f, b=8)
+        cts = [torch.randn(8, 27, f, device=cuda_device), torch.randn(8, 27, 3, f, device=cuda_device)]
+        fwd, vjp, geo = fused_message, fused_message_vjp, 2
+    else:
+        ins = _pseudo_inputs(3, seed=3, device=cuda_device, f=f, b=8)
+        cts = [torch.randn(8, 3, f, device=cuda_device), torch.randn(8, 3, f, device=cuda_device),
+               torch.randn(8, 3, 3, f, device=cuda_device),
+               torch.randn(8, 3, 3, f, device=cuda_device)]
+        fwd, vjp, geo = fused_pseudo_message, fused_pseudo_vjp, 2
+
+    def halves(ts, lo):
+        return [t[..., lo:lo + h].contiguous() for t in ts]
+
+    with torch.no_grad():
+        whole = fwd(*ins, CUT, R)
+        parts = [fwd(*ins[:geo], *halves(ins[geo:], lo), CUT, R) for lo in (0, h)]
+        for a, p0, p1 in zip(whole, *parts):
+            assert torch.equal(a, torch.cat([p0, p1], -1))
+        whole = vjp(*ins, *cts, CUT, R)
+        parts = [vjp(*ins[:geo], *halves(ins[geo:], lo), *halves(cts, lo), CUT, R)
+                 for lo in (0, h)]
+        for a, p0, p1 in zip(whole, *parts):
+            assert torch.equal(a, torch.cat([p0, p1], -1))
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_gloo_ranks_on_one_card_match_one_rank(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card on a (1, 2) ('data', 'model') mesh:
+    3 f32 steps with noise, every message block's kernels on half the
+    features, against one rank within 1e-4 of each tensor's largest entry,
+    both ranks alike, each holding half the moments of the sharded
+    tensors."""
+    import numpy as np
+    import torch_parallel_ranks as ranks
+
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+
+    ds = _dp_dataset()
+    batches = [ds.batch(np.arange(8 * i, 8 * i + 8)) for i in range(3)]
+    cfg = _dp_cfg(n_basis=128, model_devices=2)
+    cases = {"tp": (ranks.train_steps, dict(cfg=cfg, batches=batches, gen_seed=5,
+                                            device="cuda"))}
+    got = spawn_ranks(ranks.run_all, 2, str(tmp_path / "store"), (cases,))
+    want = ranks.train_steps(ranks.replace_parallel(cfg, model_devices=1), batches,
+                             parallel=False, gen_seed=5, device="cuda")
+    for r in got:
+        assert r["tp"]["shards"] and r["tp"]["moments"] < want["moments"]
+        for k, ref in want["params"].items():
+            err = np.abs(r["tp"]["params"][k] - ref).max() / max(np.abs(ref).max(), 1e-30)
+            assert err <= 1e-4, (k, err)
+            np.testing.assert_array_equal(r["tp"]["params"][k], got[0]["tp"]["params"][k])

@@ -120,3 +120,85 @@ def test_one_real_trial_through_run_cv(tmp_path, monkeypatch):
         rows = list(csv.DictReader(f))
     assert len(rows) == 2                      # -max_folds does not reach the objective
     assert value == pytest.approx(np.mean([float(r["test_all_recon_rmsd"]) for r in rows]))
+
+
+def _asha_rows(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def test_torchrun_two_ranks_match_one_process(tmp_path, monkeypatch):
+    """The hpo CLI under ``torch.distributed.run --nproc_per_node 2`` on the
+    CPU (gloo): every trial trains data-parallel over both ranks. Rank 0
+    alone writes: the run holds the one-process run's trial directories
+    and hpo_asha_log.csv rows (two trials at 1 epoch, the better at 2),
+    each value within 1e-3 (the default bf16 matmuls round each rank's
+    half batch on its own), and each trial's cv_stats.csv one row per fold
+    within 1e-3 (KL, a bf16 sum, within 1e-2)."""
+    import os
+    import subprocess
+    import sys
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=32, seed=0)
+    save_npz_traj(str(tmp_path / "dipeptide.npz"), z, frames, bonds)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path))
+    args = ["-strategy", "asha", "-n_trials", "2", "-seed", "1764", "-ndata", "32",
+            "-batch_size", "8", "-nsplits", "2", "-cg_method", "newman", "-nepochs", "2",
+            "--device", "cpu"]
+    hpo.main(args + ["-logdir", str(tmp_path / "one")])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "-m", "coarsegrainingvae_tpu_torch.cli.hpo", *args, "-logdir", str(tmp_path / "two")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert res.stdout.count("'best'") == 1                  # rank 0 alone prints
+    one, two = tmp_path / "one", tmp_path / "two"
+    assert sorted(p.name for p in two.iterdir()) == sorted(p.name for p in one.iterdir())
+    got, want = _asha_rows(two / "hpo_asha_log.csv"), _asha_rows(one / "hpo_asha_log.csv")
+    assert len(want) == 3 and [r["rung"] for r in want] == ["0", "0", "1"]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for k in w:
+            if k == "value":
+                np.testing.assert_allclose(float(g[k]), float(w[k]), rtol=1e-3)
+            elif k != "wall_s":
+                assert g[k] == w[k], k
+    for trial in sorted(p.name for p in one.iterdir() if p.name.startswith("trial_")):
+        run_one, run_two = one / trial, two / trial
+        assert sorted(p.name for p in run_two.iterdir()) == sorted(p.name for p in run_one.iterdir())
+        rows_two, rows_one = (_asha_rows(r / "cv_stats.csv") for r in (run_two, run_one))
+        assert len(rows_two) == len(rows_one) == 2
+        for g, w in zip(rows_two, rows_one):
+            for k, v in w.items():
+                if k in ("fold", "epoch"):
+                    assert g[k] == v
+                elif k != "wall_s":
+                    np.testing.assert_allclose(float(g[k]), float(v), err_msg=k,
+                                               rtol=1e-2 if k == "KL" else 1e-3)
+
+
+def test_a_trial_failing_on_one_rank_fails_on_every_rank(tmp_path):
+    """A stub objective that raises on rank 1 alone: that trial is failed
+    on both ranks, with rank 1's error, the other trials run on, and
+    both searches finish on both ranks with the same rows; rank 0 alone
+    logs them."""
+    import torch_parallel_ranks as ranks
+
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+
+    (tmp_path / "logs").mkdir()
+    res = spawn_ranks(ranks.hpo_failing_rank, 2, str(tmp_path / "store"),
+                      (str(tmp_path / "logs"),), timeout=120)
+    for search, log in ((0, "hpo_log.csv"), (1, "hpo_asha_log.csv")):
+        rows0, rows1 = res[0][search], res[1][search]
+        assert _comparable(rows0) == _comparable(rows1)
+        failed = [r for r in rows0 if r["failed"]]
+        assert len(failed) == 1 and failed[0]["error"] == "RuntimeError('rank 1 fails')"
+        # ASHA: 4 trials at 1 epoch, the best of the 3 that ran at 2
+        assert len(rows0) == (4 if search == 0 else 5)
+        logged = _asha_rows(tmp_path / "logs" / log)
+        assert len(logged) == len(rows0)
+        assert [r["failed"] for r in logged] == [str(r["failed"]) for r in rows0]

@@ -222,15 +222,20 @@ def test_shard_rows_and_zero_partition():
 
 
 def test_model_devices_above_one_raises():
-    with pytest.raises(NotImplementedError, match="A14b"):
+    """Without a process group one device does not factor into a model
+    axis of 2: make_mesh and the Trainer raise JAX's ValueError (the
+    worlds that do factor train tensor-parallel, test_torch_tensor_parallel.py)."""
+    with pytest.raises(ValueError, match="1 devices do not factor into model_devices=2"):
         pmesh.make_mesh(model_devices=2)
     cfg = tcfg.ExperimentConfig(parallel=tcfg.ParallelConfig(model_devices=2))
     from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
-    with pytest.raises(NotImplementedError, match="A14b"):
+    with pytest.raises(ValueError, match="do not factor into model_devices=2"):
         Trainer(DenseCGVAE(tcfg.ModelConfig(n_basis=8, enc_nconv=1, dec_nconv=1)), cfg,
                 device="cpu")
+    with pytest.raises(ValueError, match="do not factor"):
+        jax_make_mesh(3, model_devices=2)
 
 
 def test_a_mesh_of_many_ranks_needs_a_process_group():

@@ -10,6 +10,7 @@ reference), so each case is written once.
 from __future__ import annotations
 
 import dataclasses
+import shutil
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -22,9 +23,10 @@ from coarsegrainingvae_tpu_torch.parallel.mesh import Mesh, make_mesh
 from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
 
-def _mesh(parallel: bool, device: str) -> Mesh:
-    return make_mesh(device=device) if parallel else Mesh(0, 1, None, None,
-                                                         torch.device(device))
+def _mesh(parallel: bool, device: str, model_devices: int = 1) -> Mesh:
+    if parallel:
+        return make_mesh(model_devices=model_devices, device=device)
+    return Mesh(0, 1, None, None, torch.device(device))
 
 
 def _trainer(cfg, mesh: Mesh, state_dict=None, seed: int = 0):
@@ -35,7 +37,7 @@ def _trainer(cfg, mesh: Mesh, state_dict=None, seed: int = 0):
 
 
 def _numpy_params(state) -> Dict[str, np.ndarray]:
-    return {k: p.detach().cpu().numpy().copy() for k, p in state.params.items()}
+    return {k: p.detach().float().cpu().numpy().copy() for k, p in state.params.items()}
 
 
 def train_steps(cfg, batches: List, parallel: bool, state_dict=None, seed: int = 0,
@@ -43,7 +45,7 @@ def train_steps(cfg, batches: List, parallel: bool, state_dict=None, seed: int =
     """``train_step`` over the global ``batches`` (every rank gets all of
     them) on ``device``; the parameters after, each step's metrics, the
     moments held."""
-    tr = _trainer(cfg, _mesh(parallel, device), state_dict, seed)
+    tr = _trainer(cfg, _mesh(parallel, device, cfg.parallel.model_devices), state_dict, seed)
     state = tr.init_state(batches[0])
     before = _numpy_params(state)
     gen = None if gen_seed is None else torch.Generator(device=device).manual_seed(gen_seed)
@@ -53,14 +55,16 @@ def train_steps(cfg, batches: List, parallel: bool, state_dict=None, seed: int =
         metrics.append({k: float(v) for k, v in m.items()})
     params = _numpy_params(state)
     return {"params": params, "metrics": metrics, "moments": state.opt_state.mu.numel(),
-            "unchanged": all(np.array_equal(params[k], before[k]) for k in params)}
+            "unchanged": all(np.array_equal(params[k], before[k]) for k in params),
+            "rank": tr.mesh.rank, "mesh": tr.mesh.shape,
+            "shards": {k: t.cpu().numpy() for k, t in tr.shards(state).items()}}
 
 
 def epoch(cfg, train_ds, val_ds, parallel: bool, seed: int = 0, gen_seed: int = 3,
           shuffle_seed: int = 4) -> dict:
     """One epoch of the static step (``run_epoch_scan``; the loop on the
     CPU) and one of the eval step over DeviceDatasets."""
-    tr = _trainer(cfg, _mesh(parallel, "cpu"), seed=seed)
+    tr = _trainer(cfg, _mesh(parallel, "cpu", cfg.parallel.model_devices), seed=seed)
     state = tr.init_state(train_ds.batch(np.arange(cfg.data.batch_size)))
     gen = torch.Generator().manual_seed(gen_seed)
     state, train_m = tr.run_epoch_scan(state, DeviceDataset.from_dataset(train_ds, "cpu"), gen,
@@ -70,25 +74,42 @@ def epoch(cfg, train_ds, val_ds, parallel: bool, seed: int = 0, gen_seed: int = 
     return {"params": _numpy_params(state), "train": train_m, "val": val_m}
 
 
-def fit_resume(cfg, train_ds, val_ds, ckpt_dir: str, parallel: bool) -> dict:
+def fit_resume(cfg, train_ds, val_ds, ckpt_dir: str, parallel: bool,
+               continued: bool = False) -> dict:
     """``fit`` one epoch with a checkpoint manager (rank 0 saves), then a
     new trainer from other weights resumed from it to two epochs: the
-    parameters and moments after, and the moments the checkpoint stored."""
+    parameters and moments after, the parameters after the first epoch,
+    and what the checkpoint stored; with ``continued`` also the parameters
+    of the first trainer, its epoch-0 state still in place, resumed to two
+    epochs from a copy of the checkpoint."""
     from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
 
-    mesh = _mesh(parallel, "cpu")
+    mesh = _mesh(parallel, "cpu", cfg.parallel.model_devices)
     first = train_ds.batch(np.arange(cfg.data.batch_size))
     tr = _trainer(cfg, mesh, seed=0)
-    tr.fit(tr.init_state(first), train_ds, val_ds, nepochs=1, ckpt=CheckpointManager(ckpt_dir))
+    state, _ = tr.fit(tr.init_state(first), train_ds, val_ds, nepochs=1,
+                      ckpt=CheckpointManager(ckpt_dir))
+    after_one = _numpy_params(state)
+    if continued and mesh.rank == 0:
+        shutil.copytree(ckpt_dir, ckpt_dir + "_copy")
     if mesh.group is not None:
         torch.distributed.barrier(group=mesh.group)
     stored, _, _ = CheckpointManager(ckpt_dir).read()
+    first_trainer = tr
     tr = _trainer(cfg, mesh, seed=1)
     state, _ = tr.fit(tr.init_state(first), train_ds, val_ds, nepochs=2,
                       ckpt=CheckpointManager(ckpt_dir), resume=True)
-    return {"params": _numpy_params(state), "mu": state.opt_state.mu.float().numpy(),
-            "stored_mu": stored["opt_state"]["mu"].float().numpy(),
-            "stored_nu": stored["opt_state"]["nu"].float().numpy()}
+    out = {"params": _numpy_params(state), "mu": state.opt_state.mu.float().numpy(),
+           "stored_mu": stored["opt_state"]["mu"].float().numpy(),
+           "stored_nu": stored["opt_state"]["nu"].float().numpy(),
+           "stored_params": {k: t.float().numpy() for k, t in stored["params"].items()},
+           "after_one": after_one}
+    if continued:
+        state, _ = first_trainer.fit(first_trainer.init_state(first), train_ds, val_ds,
+                                     nepochs=2, ckpt=CheckpointManager(ckpt_dir + "_copy"),
+                                     resume=True)
+        out["continued"] = _numpy_params(state)
+    return out
 
 
 def halo_cases(cases: dict, parallel: bool = True, device: str = "cpu") -> dict:
@@ -146,3 +167,50 @@ def fail_on(rank: int) -> None:
     if torch.distributed.get_rank() == rank:
         raise ValueError(f"rank {rank} fails")
     torch.distributed.barrier()
+
+
+def synthetic_frames(device: str, n_frames: int = 64, seed: int = 0) -> np.ndarray:
+    """The synthetic dipeptide's relaxed frames, made on ``device``."""
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+
+    return synthetic_peptide("dipeptide", n_frames=n_frames, seed=seed, device=device)[1]
+
+
+def hpo_failing_rank(log_dir: str, fail_rank: int = 1) -> list:
+    """``cli.hpo.random_search`` (4 trials) and ``asha_search`` (4 trials,
+    2 rungs) with a stub objective that raises on ``fail_rank`` alone for
+    its second trial; every rank's rows."""
+    import os
+
+    from coarsegrainingvae_tpu_torch.cli import hpo
+
+    calls = []
+
+    def objective(cfg, epochs=1):
+        calls.append(cfg)
+        if torch.distributed.get_rank() == fail_rank and len(calls) in (2, 6):
+            raise RuntimeError(f"rank {fail_rank} fails")
+        return cfg["lr"] * 1e3 + cfg["n_basis"] / 600 + 1.0 / epochs
+
+    _, _, random_rows = hpo.random_search(objective, hpo.CGVAE_SPACE, 4, seed=3,
+                                          log_path=os.path.join(log_dir, "hpo_log.csv"))
+    _, _, asha_rows = hpo.asha_search(objective, hpo.CGVAE_SPACE, 4, min_epochs=1, max_epochs=2,
+                                      reduction=2, seed=3,
+                                      log_path=os.path.join(log_dir, "hpo_asha_log.csv"))
+    return [random_rows, asha_rows]
+
+
+def reconstruct_generate(cfg, batch, parallel: bool, state_dict=None, seed: int = 0,
+                         gen_seed: int = 9) -> dict:
+    """``Trainer.reconstruct``, ``generate`` and ``eval_step`` on ``batch``
+    (every rank the whole batch) from ``state_dict``'s weights, each drawing
+    from a generator seeded ``gen_seed``."""
+    tr = _trainer(cfg, _mesh(parallel, "cpu", cfg.parallel.model_devices), state_dict, seed)
+    tr.init_state(batch)
+
+    def gen():
+        return torch.Generator().manual_seed(gen_seed)
+
+    return {"recon": tr.reconstruct(batch, gen()).numpy(),
+            "generate": tr.generate(batch, gen()).numpy(),
+            "eval": {k: float(v) for k, v in tr.eval_step(batch, gen()).items()}}
