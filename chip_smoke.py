@@ -102,7 +102,14 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   ranks sharing the card, the dipeptide at full width (each rank's
   message blocks run kernels 1-4 on F 300): 3 f32 steps at batch 128
   against the one-rank run, each rank's launches as counted, its shards,
-  moments and peak memory.
+  moments and peak memory;
+- examples: the JAX repo's example tools on the port (``examples/*_torch.py``)
+  through their importable functions, cut to fit 60 s: the kernel shape
+  table at its seven shapes (pseudo M 3, 6, 100, 300; message N 27, 209,
+  500; F 600, fwd+bwd, each row's kernels against the plain version and
+  timed), the quickstart at 2 epochs, the validity census on its test
+  reconstructions, the A/B harness (float32 and bfloat16+bf16adam) at 2
+  epochs, and the ablation's captured step and parts at the flagship width.
 
 The kernel checks include the tensor-parallel slices (F 300 timed, F 150).
 Every phase raises on failure; there is no CPU fallback. The phases that
@@ -115,8 +122,8 @@ shapes, its time and the plain version's from CUDA graph replays, and its
 roofline bound from ``kernel_cost``; the wide kernels, R+1 > 16, at n_rbf
 16, 20 and the largest each takes; the chignolin recipe's shapes), the
 serve, train and captured checks and timings, the cv phase's checks and
-its wall time by part, the runfiles, steric, sparse, hpo, multigpu and
-tensor phases' checks and timings, the seconds of every phase, one JSON line with
+its wall time by part, the runfiles, steric, sparse, hpo, multigpu,
+tensor and examples phases' checks and timings, the seconds of every phase, one JSON line with
 one entry per kernel and timed shape, and last one JSON line ``{"ok":
 true, "device": {...}}``. The profiles' tables go to
 ``chiprun_out/train_profile.txt``, ``captured_profile_b{128,32}.txt`` and
@@ -126,7 +133,9 @@ true, "device": {...}}``. The profiles' tables go to
 the cv runs (the covid fold's too) to ``build/cv_smoke/``, the PCN, DiffPool,
 baseline and hpo runs to ``build/{pcn,diffpool,baseline,hpo}_smoke/``, the
 multigpu and tensor phases' stores and one-rank parameters to
-``build/multigpu_smoke/`` and ``build/tensor_smoke/``.
+``build/multigpu_smoke/`` and ``build/tensor_smoke/``, the example tools'
+files to ``build/examples_smoke/`` and their rows to
+``chiprun_out/examples_smoke.json``.
 Needs one CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -258,6 +267,14 @@ HPO_RANKS_RTOL = 1e-3
 # runfiles: the served request of a converted fold, and its copies
 RUNFILES_SAMPLES = 64
 RUNFILES_DIR = Path("build") / "runfiles_smoke"
+# the examples phase: the JAX repo's example tools on the port
+# (examples/*_torch.py), cut to fit its budget: the kernel shape table's
+# graphs of EXAMPLES_KERNEL_STEPS steps, the quickstart and the A/B harness
+# at EXAMPLES_EPOCHS epochs, the ablation's step and parts at
+# EXAMPLES_FLAGSHIP_STEPS steps
+EXAMPLES_DIR = Path("build") / "examples_smoke"
+EXAMPLES_KERNEL_STEPS, EXAMPLES_EPOCHS, EXAMPLES_FLAGSHIP_STEPS = 2, 2, 5
+EXAMPLES_AB_VARIANTS = "float32,bfloat16+bf16adam"
 
 
 def card_line() -> str:
@@ -266,31 +283,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, per_graph: int = 20, replays: int = 5) -> float:
-    """ms per call of ``fn``: ``per_graph`` calls captured in one CUDA graph,
-    replayed ``replays`` times between two CUDA events, so the host's launch
-    cost stays out of the time (device time, also at the small shapes)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (per_graph * replays)
 
 
 def ptxas_summary(log: str) -> dict:
@@ -316,79 +308,9 @@ def print_ptxas(label: str, log: str, ra: int = 9) -> None:
             print(f"  ptxas {label} {kernel}: {line}", flush=True)
 
 
-def rel_err(out, ref) -> tuple:
-    import torch
-
-    worst_rel, worst_abs = 0.0, 0.0
-    for a, b in zip(out, ref):
-        if a.shape != b.shape or not torch.isfinite(a).all():
-            raise RuntimeError(f"kernel output shape {tuple(a.shape)} vs {tuple(b.shape)} or not finite")
-        err = (a - b).abs().max().item()
-        worst_abs = max(worst_abs, err)
-        worst_rel = max(worst_rel, err / max(b.abs().max().item(), 1e-30))
-    return worst_rel, worst_abs
-
-
-# published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s
-# and FP32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
-LIBRARY_NOTE = "no single PyTorch call computes this function"
-
-
-def kernel_cost(kind: str, b: int, n: int, s: int, f: int, n_rbf: int, pairs: int) -> tuple:
-    """(bytes, FLOPs) that one call of a kernel's function needs, whichever
-    kernel computes it: each f32 input read once and each output written
-    once (scratch not counted), and the least arithmetic over ``pairs``, the
-    ordered pairs with adj * env != 0 summed over the batch (the others
-    contribute nothing; adj and K are symmetric, so ``pairs`` is even);
-    FMA = 2 FLOPs. K[p,q] = K[q,p], so per unordered pair and feature the
-    filter filt_c = K.w_c is folded once for both directions (S (R+1) FMAs),
-    and a sum over pairs of K[p,q,r] x_c(p,q), as in d_w, is one (R+1)-long
-    FMA chain on x_c(p,q) + x_c(q,p) (S adds and S (R+1) FMAs).
-
-    message      per unordered pair the filters; per ordered pair 1 + 3 (S - 1)
-                 product FMAs and S - 1 multiplies; per node (S = 4) the
-                 receiver cross, 12.
-    message_vjp  per unordered pair the filters and d_w; per ordered pair S
-                 multiplies phi t and the cotangent terms, 22 (+ 19 when
-                 S = 4); per node phi_0 a_0, 3 (+ 30 when S = 4).
-    pseudo       (S = 9 channels) per unordered pair the filters; per ordered
-                 pair 9 multiplies and 55 aggregate FLOPs; per node 57.
-    pseudo_vjp   per unordered pair the filters and d_w; per ordered pair 161
-                 (9 multiplies phi dG, the dG terms 40, d_phi 18, the sender
-                 side g Gamma 44, the forward's sums 43, the dsbar path 7);
-                 per node 88 (s gs 1, the Gammas 33, d_s 1, d_sbar 11, the
-                 three receiver crosses 36, gsb t 6).
-    """
-    ra, nodes = n_rbf + 1, b * n
-    geometry = nodes * 4                        # xyz and mask
-    filters, d_w = 2 * s * ra, s + 2 * s * ra   # per unordered pair
-    if kind == "message":
-        node_io, w_io = (s + 3) + 4, ra * s * f
-        per_unordered, per_pair = filters, 2 + 7 * (s - 1)
-        per_node = 12 if s == 4 else 0
-    elif kind == "message_vjp":
-        node_io, w_io = (s + 3 + 4) + (s + 3), 2 * ra * s * f
-        per_unordered, per_pair = filters + d_w, s + 22 + (19 if s == 4 else 0)
-        per_node = 3 + (30 if s == 4 else 0)
-    elif kind == "pseudo":
-        node_io, w_io = (9 + 2 + 6) + 8, ra * 9 * f
-        per_unordered, per_pair, per_node = filters, 64, 57
-    elif kind == "pseudo_vjp":
-        node_io, w_io = (9 + 2 + 6 + 8) + (9 + 8), 2 * ra * 9 * f
-        per_unordered, per_pair, per_node = filters + d_w, 161, 88
-    else:
-        raise ValueError(f"unknown kernel {kind!r}")
-    n_bytes = 4 * (geometry + nodes * node_io * f + w_io)
-    return n_bytes, f * (pairs // 2 * per_unordered + pairs * per_pair + nodes * per_node)
-
-
-def bound(n_bytes: int, flops: int) -> tuple:
-    """(ms, "bytes" or "operations", "HBM" or "FP32"): the least time one
-    H100 could take, the larger of bytes over the HBM rate and FLOPs over
-    the FP32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes", "HBM") if t_bytes >= t_ops else (t_ops, "operations", "FP32")
+LIBRARY_NOTE = ("no single PyTorch call computes this function; the plain version under "
+                "torch.compile (examples/profile_kernels_torch.py --compile) is a yardstick, "
+                "not a port")
 
 
 def kernel_inputs(kind: str, b: int, n: int, s: int, f: int, r: int, seed: int):
@@ -414,16 +336,12 @@ def kernel_inputs(kind: str, b: int, n: int, s: int, f: int, r: int, seed: int):
     return args + cts if kind.endswith("vjp") else args
 
 
-def check_kernels() -> list:
-    """Every kernel against its plain version at each case; the timed cases'
-    numbers, one dict per (kernel, shape)."""
-    import torch
-
+def kernel_cases() -> list:
+    """(kernel, (B, N, S, n_rbf), cutoff, label, timed[, F]) of every case
+    ``check_kernels`` holds to its plain version; F is 600 unless given."""
     from coarsegrainingvae_tpu_torch.ops import fused_message as mo
     from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
-    from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
-    f = 600
     # (kernel, (B, N, S, n_rbf), cutoff, label, timed): the shapes the served
     # model (B = 64 samples) and the trained model (B = 128 frames) give each
     # kernel, the cross variant, N beyond one 32-partner chunk, the smallest
@@ -498,12 +416,38 @@ def check_kernels() -> list:
                   ("message", 3, 3, 9.5, "prior train B=128 M=3 S=3"),
                   ("pseudo", 3, 9, 8.5, "decoder train B=128 M=3"))
               for kind in (base, base + "_vjp")]
+    # the kernel shape table's new shapes (examples/profile_kernels_torch.py,
+    # timed there fwd+bwd): the pseudo kernels' chunked path at PCN-scale M
+    # 100 and 300, the message kernels at N 500, S 4; every output checked
+    cases += [(kind, (b, n, s, 8), cut, f"shape table B={b} {label}", False)
+              for base, b, n, s, cut, label in (
+                  ("pseudo", 4, 100, 9, 21.0, "M=100"), ("pseudo", 1, 300, 9, 21.0, "M=300"),
+                  ("message", 2, 500, 4, 9.5, "N=500 S=4"))
+              for kind in (base, base + "_vjp")]
+    return cases
+
+
+def check_kernels(cases=None, timer=None, extra=None) -> list:
+    """Every kernel against its plain version at each case of ``cases``
+    (``kernel_cases()``); the timed cases' numbers, one dict per (kernel,
+    shape). ``timer(fn)`` gives a call's ms (``graph_ms``); ``extra(plain,
+    args, ref)`` returns more columns for a timed row."""
+    import torch
+
+    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
+    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+    from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
+    from coarsegrainingvae_tpu_torch.utils.profiling import bound, graph_ms, kernel_cost, rel_err
+
+    f = 600
+    timer = timer or graph_ms
     fns = {"message": (mo.fused_message, mo.message_reference),
            "pseudo": (po.fused_pseudo_message, po.pseudo_reference),
            "message_vjp": (mo.fused_message_vjp, mo.message_vjp_reference),
            "pseudo_vjp": (po.fused_pseudo_vjp, po.pseudo_vjp_reference)}
     timed = []
-    for seed, (kind, (b, n, s, r), cut, label, is_timed, *width) in enumerate(cases):
+    for seed, (kind, (b, n, s, r), cut, label, is_timed, *width) in enumerate(
+            kernel_cases() if cases is None else cases):
         kern, plain = fns[kind]
         fc = width[0] if width else f
         args = kernel_inputs(kind, b, n, s, fc, r, seed) + (cut, r)
@@ -513,41 +457,39 @@ def check_kernels() -> list:
             torch.cuda.synchronize()
             rel, err = rel_err(out, ref)
             line = f"kernel {kind} [{label}]: max|err| {err:.3e}, max|err|/max|ref| {rel:.3e}"
+            if not rel <= KERNEL_RTOL:
+                raise RuntimeError(f"{kind} kernel [{label}] disagrees with its plain version: "
+                                   f"{rel:.3e} > {KERNEL_RTOL}")
             if is_timed:
-                ms, plain_ms = cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))
+                ms, plain_ms = timer(lambda: kern(*args)), timer(lambda: plain(*args))
                 pairs = int(pair_filter_basis(args[0], args[1], cut, r)[1].sum().item())
                 n_bytes, flops = kernel_cost(kind, b, n, s if kind.startswith("message") else 9,
                                              fc, r, pairs)
                 bound_ms, bound_by, resource = bound(n_bytes, flops)
-                timed.append({"kind": kind, "shape": label, "f": fc, "max_abs_err": err,
-                              "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                              "bytes": n_bytes, "flops": flops, "pairs": pairs,
-                              "bound_ms": bound_ms, "bound_by": bound_by,
-                              "bound_resource": resource, "share": bound_ms / ms})
+                timed.append({"kind": kind, "shape": label, "f": fc, "n_rbf": r,
+                              "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                              "plain_ms": plain_ms, "bytes": n_bytes, "flops": flops,
+                              "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by,
+                              "bound_resource": resource, "share": bound_ms / ms,
+                              **(extra(plain, args, ref) if extra else {})})
                 line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                          f"({resource}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP over "
                          f"{pairs} pairs), {100 * bound_ms / ms:.1f} % of it")
         print(line, flush=True)
-        if not rel <= KERNEL_RTOL:
-            raise RuntimeError(f"{kind} kernel disagrees with its plain version: {rel:.3e} > {KERNEL_RTOL}")
     return timed
 
 
 def reset_counts() -> None:
-    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
-    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+    from coarsegrainingvae_tpu_torch.ops import kernel_counters
 
-    for fn in (mo.fused_message, mo.fused_message_vjp, po.fused_pseudo_message,
-               po.fused_pseudo_vjp):
+    for fn in kernel_counters():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
-    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+    from coarsegrainingvae_tpu_torch.ops import kernel_counters
 
-    return {fn.__name__: fn.launches for fn in (
-        mo.fused_message, mo.fused_message_vjp, po.fused_pseudo_message, po.fused_pseudo_vjp)}
+    return {fn.__name__: fn.launches for fn in kernel_counters()}
 
 
 def dipeptide_model_cfg(**kw):
@@ -650,38 +592,6 @@ def window_starts(n_frames: int, bs: int, steps: int):
     return (np.arange(steps) * bs) % (n_frames - bs + 1)
 
 
-def device_profile(prof, wall_ms: float, steps: int) -> dict:
-    """Device busy time (union of kernel intervals), the top device items
-    and the device launches per step of a torch.profiler window."""
-    from collections import defaultdict
-
-    from torch.autograd import DeviceType
-
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    host_launches = sum(1 for e in prof.events()
-                        if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
-    return {"busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
-            "device_events_per_step": len(events) / steps,
-            "host_launch_calls_per_step": host_launches / steps,
-            "top": [(name[:70], us / 1e3 / steps, n // steps) for name, (us, n) in top]}
-
-
 def f32_step_card_vs_cpu(ds, cfg=None, build=None, tables=None, at_step: int = 0) -> tuple:
     """One f32 train step at full width (batch 8) on the card and on the
     CPU from the same parameters: (worst max|err|/max|ref| over every
@@ -744,6 +654,7 @@ def train() -> dict:
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
     from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+    from coarsegrainingvae_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
     # bench.py::dipeptide_dataset
@@ -824,7 +735,7 @@ def train() -> dict:
             state, _ = tr.train_step(state, dds.gather(idx[i]), gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    p = device_profile(prof, wall_ms, PROFILE_STEPS)
+    p = profiling.device_profile(prof, wall_ms, PROFILE_STEPS)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "train_profile.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
@@ -949,6 +860,8 @@ def timed_epochs(tr, state, dds, dds_prof, bs: int, per_step: dict, label: str,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from coarsegrainingvae_tpu_torch.utils import profiling
+
     steps = dds.n_frames // bs
     gen = torch.Generator(device="cuda").manual_seed(12)
     rng = np.random.default_rng(2)
@@ -988,7 +901,7 @@ def timed_epochs(tr, state, dds, dds_prof, bs: int, per_step: dict, label: str,
                 state, _ = tr.run_epoch_scan(state, dds_prof, gen)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        busy[kind] = device_profile(prof, wall_ms, PROFILE_STEPS)
+        busy[kind] = profiling.device_profile(prof, wall_ms, PROFILE_STEPS)
         busy[kind]["wall_ms"] = wall_ms / PROFILE_STEPS
         if kind == "captured" and profile_name:
             (OUT_DIR / profile_name).write_text(
@@ -2076,6 +1989,7 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
     from coarsegrainingvae_tpu_torch.data.sidechain import build_pcn_dataset
     from coarsegrainingvae_tpu_torch.models.cgvae import PCN
     from coarsegrainingvae_tpu_torch.train.pcn_trainer import PCNTrainer
+    from coarsegrainingvae_tpu_torch.utils import profiling
 
     cuda = device == "cuda"
 
@@ -2236,7 +2150,7 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
                 state, _ = tr.train_step(state, *b, aux)
             sync()
             wall_ms = (time.perf_counter() - t) * 1e3
-        p = device_profile(prof, wall_ms, PROFILE_STEPS)
+        p = profiling.device_profile(prof, wall_ms, PROFILE_STEPS)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "pcn_profile.txt").write_text(
             prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
@@ -2440,6 +2354,8 @@ def timed_steps(step, batches, cuda: bool, label: str, profile_name: str) -> str
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from coarsegrainingvae_tpu_torch.utils import profiling
+
     def sync():
         if cuda:
             torch.cuda.synchronize()
@@ -2466,7 +2382,7 @@ def timed_steps(step, batches, cuda: bool, label: str, profile_name: str) -> str
                 step(b)
             sync()
             wall_ms = (time.perf_counter() - t) * 1e3
-        p = device_profile(prof, wall_ms, PROFILE_STEPS)
+        p = profiling.device_profile(prof, wall_ms, PROFILE_STEPS)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / profile_name).write_text(
             prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
@@ -3368,6 +3284,119 @@ def tensor_phase(device: str = "cuda", model_kw=None, n_frames: int = TRAIN_FRAM
     return {"tensor": total}
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(device: str = "cuda", kernel_f: int = 600, n_basis: int = 600,
+                   ab_n_basis: int = 128, quick_ndata: int = 400,
+                   kernel_steps: int = EXAMPLES_KERNEL_STEPS, epochs: int = EXAMPLES_EPOCHS,
+                   flagship_steps: int = EXAMPLES_FLAGSHIP_STEPS) -> dict:
+    """The JAX repo's example tools on the port, each through its importable
+    functions: the kernel shape table at its seven shapes (``--f``
+    ``kernel_f``; each row's kernels checked against the plain version
+    inside the tool, timed, no ``--compile``), the quickstart cut to
+    ``epochs`` epochs, the census on its test reconstructions, the A/B
+    harness on EXAMPLES_AB_VARIANTS cut to ``epochs`` epochs, and the
+    ablation's step and parts (``--only step,parts``) at the flagship width.
+    Raises on a failed check; returns {"examples": the kernels' launches}."""
+    import contextlib
+    import math
+
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.utils.xyz import write_xyz
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    EXAMPLES_DIR.mkdir(parents=True)
+    dipeptide_data(device, CV_FRAMES)
+    reset_counts()
+    seconds, results = {}, {}
+
+    def finite(*xs) -> bool:
+        return all(x is not None and math.isfinite(x) for x in xs)
+
+    t = time.perf_counter()
+    rows = load_example("profile_kernels_torch").main(
+        ["--steps", str(kernel_steps), "--f", str(kernel_f), "--device", device])
+    kernel_rows = [r for r in rows if "_pallas_" in r["label"]]
+    if len(rows) != 14 or not all(finite(r["ms_per_step"], r["plain_ms"]) and
+                                  r["max_rel_err"] <= KERNEL_RTOL for r in kernel_rows):
+        raise RuntimeError(f"examples: the kernel shape table failed: {rows}")
+    results["profile_kernels"] = rows
+    seconds["profile_kernels"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    res = load_example("quickstart_torch").run(str(EXAMPLES_DIR / "quickstart"), quick_ndata,
+                                                epochs, device)
+    n_atoms = len(res.data.z)
+    if not (finite(res.recon["all_atom_rmsd"], res.recon["heavy_atom_rmsd"])
+            and res.ensemble.shape == (8, n_atoms, 3) and np.isfinite(res.ensemble).all()
+            and np.isfinite(res.samples["sample_xyzs"]).all()
+            and (EXAMPLES_DIR / "quickstart" / "ensemble.xyz").stat().st_size > 0):
+        raise RuntimeError("examples: the quickstart's outputs are not finite or misshapen")
+    recon_path = EXAMPLES_DIR / "quickstart" / "test_recon.xyz"
+    write_xyz(str(recon_path), res.recon["recon_xyzs"], res.data.z)
+    results["quickstart"] = {"rmsd": res.recon["all_atom_rmsd"],
+                             "heavy_rmsd": res.recon["heavy_atom_rmsd"],
+                             "ensemble": list(res.ensemble.shape),
+                             "val_recon": res.history[-1]["val_recon"]}
+    seconds["quickstart"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with open(EXAMPLES_DIR / "census.json", "w") as f, contextlib.redirect_stdout(f):
+        rep = load_example("validity_census_torch").main(
+            ["-xyz", str(recon_path), "-dataset", "dipeptide", "-ndata", str(quick_ndata),
+             "-seed", "0"])
+    if rep["frames"] != len(res.data.test) or not 0.0 <= rep["all_valid_ratio"] <= 1.0:
+        raise RuntimeError(f"examples: the census read {rep['frames']} frames")
+    results["census"] = {k: rep[k] for k in ("frames", "all_valid_ratio", "heavy_valid_ratio")}
+    seconds["census"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    ab = load_example("accuracy_ab_torch").main(
+        ["--variants", EXAMPLES_AB_VARIANTS, "--epochs", str(epochs), "--n_basis",
+         str(ab_n_basis), "--device", device])
+    if [r["variant"] for r in ab] != EXAMPLES_AB_VARIANTS.split(",") or not all(
+            r["epochs_ran"] == epochs and finite(r["test_rmsd_all_atom"], r["final_val_loss"])
+            for r in ab):
+        raise RuntimeError(f"examples: the A/B rows failed: {ab}")
+    results["accuracy_ab"] = ab
+    seconds["accuracy_ab"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    fl = load_example("profile_flagship_torch").main(
+        ["--only", "step,parts", "--steps", str(flagship_steps), "--device", device],
+        n_basis=n_basis)
+    labels = [r["label"] for r in fl]
+    if labels != ["shape", "train_step_full", "value_and_grad", "forward_loss"] or not all(
+            finite(r["ms_per_step"]) for r in fl[1:]) or not finite(fl[1]["loss"]):
+        raise RuntimeError(f"examples: the ablation rows failed: {fl}")
+    results["profile_flagship"] = fl
+    seconds["profile_flagship"] = time.perf_counter() - t
+
+    counts = read_counts()
+    if min(counts.values()) == 0:
+        raise RuntimeError(f"examples: a kernel was not launched on this path: {counts}")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "examples_smoke.json").write_text(json.dumps(
+        {"results": results, "seconds": seconds, "launches": counts}, indent=1))
+    print(f"examples: {time.perf_counter() - t_phase:.1f} s for the phase "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}); quickstart "
+          f"{epochs} epochs recon RMSD {res.recon['all_atom_rmsd']:.3f} A; census "
+          f"{rep['frames']} frames, all-atom valid {rep['all_valid_ratio']:.3f}; launches "
+          f"{counts}", flush=True)
+    return {"examples": counts}
+
+
 def main() -> int:
     try:
         import torch
@@ -3430,6 +3459,7 @@ def main() -> int:
     paths.update(phase("hpo", hpo_phase))
     paths.update(phase("multigpu", multigpu_phase, dense=dense))
     paths.update(phase("tensor", tensor_phase))
+    paths.update(phase("examples", examples_phase))
     print(f"phase seconds: {seconds}; {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     source = "coarsegrainingvae_tpu_torch/csrc/"

@@ -89,6 +89,7 @@ from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
 from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
 from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch, project_batch_h_bonds
+from coarsegrainingvae_tpu_torch.ops import kernel_counters
 from coarsegrainingvae_tpu_torch.parallel.mesh import (
     Mesh,
     RowNoise,
@@ -290,15 +291,6 @@ def _step_tensors(state: TrainState) -> tuple:
     return (state.opt_state.count, state.opt_state.mu, state.opt_state.nu, state.step)
 
 
-def _kernel_counters() -> tuple:
-    """The kernel wrappers whose ``launches`` attributes count launches."""
-    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
-    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
-
-    return (mo.fused_message, mo.fused_message_vjp, po.fused_pseudo_message,
-            po.fused_pseudo_vjp)
-
-
 class _EpochProgram:
     """One train or eval step over one DeviceDataset, written against
     static buffers: the (S_max, B) index table, the step counter, the
@@ -366,7 +358,7 @@ class _EpochProgram:
         gen = torch.Generator(device=device)
         gen.set_state(source.get_state())
         self._generator = gen
-        counters = _kernel_counters()
+        counters = kernel_counters()
         before = [fn.launches for fn in counters]
         changed = (*self.state.params.values(), *_step_tensors(self.state)) if self.train else ()
         saved = [t.detach().clone() for t in changed]
@@ -414,7 +406,7 @@ class _EpochProgram:
             if self.graph is None:
                 self._capture(source)
             self.graph_generator.set_state(source.get_state())
-            counters = _kernel_counters()
+            counters = kernel_counters()
             for _ in range(n_steps):
                 self.graph.replay()
                 for fn, n in zip(counters, self.launches):

@@ -15,7 +15,7 @@ partials per frame or ``fused_pseudo_bwd_partials(B, M)`` in all, where it
 exports that symbol, and one per frame otherwise) and the checkout's with
 nvcc, checks both against the plain versions at each shape, then times them
 in alternating order (parent, change, change, parent, ...), each run
-``--launches`` launches replayed from CUDA graphs (``chip_smoke.cuda_ms``),
+``--launches`` launches replayed from CUDA graphs (``utils.profiling.graph_ms``),
 so host launch cost stays out of the times. Prints the card, each library's
 ptxas summary, one line per (kernel, shape) with every run's ms per launch,
 and the SM clock and power read while the change's backward runs at the
@@ -39,6 +39,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from coarsegrainingvae_tpu_torch.utils import profiling  # noqa: E402
 
 F, N_RBF, RTOL = 600, 8, chip_smoke.KERNEL_RTOL
 PER_GRAPH = 100
@@ -152,7 +153,7 @@ def clocks_under_load(fn, seconds: float = 3.0) -> str:
     back to back for about ``seconds``."""
     import torch
 
-    ms = chip_smoke.cuda_ms(fn, PER_GRAPH, 2)
+    ms = profiling.graph_ms(fn, PER_GRAPH, 2)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(PER_GRAPH):
@@ -210,14 +211,14 @@ def main() -> int:
                 fn, outs = pair[k]
                 fn()
                 torch.cuda.synchronize()
-                errs[side] = chip_smoke.rel_err(outs, want[kernel])[0]
+                errs[side] = profiling.rel_err(outs, want[kernel])[0]
                 if not errs[side] <= RTOL:
                     raise RuntimeError(f"{side} {kernel} [{label}] disagrees with plain: "
                                        f"{errs[side]:.3e}")
             runs = {side: [] for side in sides}
             for i in range(args.pairs):         # parent, change, change, parent, ...
                 for side in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
-                    runs[side].append(chip_smoke.cuda_ms(sides[side][k][0], PER_GRAPH, replays))
+                    runs[side].append(profiling.graph_ms(sides[side][k][0], PER_GRAPH, replays))
             med = {side: statistics.median(v) for side, v in runs.items()}
             row = {"kernel": kernel, "shape": f"{label} B={b} N={n} S={s} F={F} R={N_RBF}",
                    "launches_per_run": PER_GRAPH * replays, "max_rel_err": errs,

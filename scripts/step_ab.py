@@ -35,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
 from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+from coarsegrainingvae_tpu_torch.utils.profiling import device_profile
 torch.backends.cuda.matmul.allow_tf32 = False
 ds, dataset, _, _ = cs.dipeptide_device_data()
 out = {}
@@ -58,7 +59,7 @@ for b in BATCHES:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, _ = tr.run_epoch_scan(state, dds_prof, gen)
         torch.cuda.synchronize()
-    p = cs.device_profile(prof, 1.0, 5)
+    p = device_profile(prof, 1.0, 5)
     out[b] = {"ms_per_step": ms, "loss": m["loss"],
               "device_events_per_step": p["device_events_per_step"],
               "busy_ms_per_step": p["busy_ms"] / 5}

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
+from coarsegrainingvae_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -59,21 +60,21 @@ torch.set_num_threads(1)
     ("pseudo_vjp", 9, 4 * 128, 81 + 2 * 161 + 2 * 88),
 ])
 def test_kernel_cost_matches_a_hand_count(kind, s, n_bytes, flops):
-    assert chip_smoke.kernel_cost(kind, 1, 2, s, 1, 1, pairs=2) == (n_bytes, flops)
+    assert profiling.kernel_cost(kind, 1, 2, s, 1, 1, pairs=2) == (n_bytes, flops)
 
 
 def test_bound_takes_the_slower_resource():
-    ms, by, resource = chip_smoke.bound(3.35e9, 1)
+    ms, by, resource = profiling.bound(3.35e9, 1)
     assert ms == pytest.approx(1.0) and (by, resource) == ("bytes", "HBM")
-    ms, by, resource = chip_smoke.bound(1, 67e9)
+    ms, by, resource = profiling.bound(1, 67e9)
     assert ms == pytest.approx(1.0) and (by, resource) == ("operations", "FP32")
     # the encoder's message backward at B 128, N 27 (702 ordered pairs
     # each), F 600, R 8: 133 MB (0.040 ms) and 4.35 GFLOP, 351 unordered
     # pairs x 111 + 702 x 25 per frame and feature and 3 per node, bound
     # by the FP32 rate at 0.0649 ms
-    n_bytes, flops = chip_smoke.kernel_cost("message_vjp", 128, 27, 3, 600, 8, 128 * 702)
+    n_bytes, flops = profiling.kernel_cost("message_vjp", 128, 27, 3, 600, 8, 128 * 702)
     assert flops == 600 * 128 * (351 * 111 + 702 * 25 + 27 * 3)
-    ms, by, _ = chip_smoke.bound(n_bytes, flops)
+    ms, by, _ = profiling.bound(n_bytes, flops)
     assert by == "operations" and ms == pytest.approx(0.0649, abs=1e-4)
 
 
@@ -410,3 +411,22 @@ def test_learning_check_rehearses_on_the_cpu(tmp_path):
     for name in ("cv_stats.csv", "modelparams.json", "fold0_train_log.csv"):
         assert (tmp_path / "out" / "demo" / name).is_file()
 
+
+
+def test_examples_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain, capsys):
+    """The examples phase's tools and checks on the CPU, narrow and cut in
+    depth: every tool's rows, the census on the quickstart's recon, every
+    kernel's plain version called on the path, the summary written."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))  # restored after
+    paths = chip_smoke.examples_phase(device="cpu", kernel_f=4, n_basis=16, ab_n_basis=16,
+                                      quick_ndata=200, kernel_steps=1, epochs=1,
+                                      flagship_steps=1)
+    assert set(paths) == {"examples"} and min(paths["examples"].values()) > 0
+    summary = json.loads((tmp_path / "chiprun_out" / "examples_smoke.json").read_text())
+    assert set(summary["seconds"]) == {"profile_kernels", "quickstart", "census",
+                                       "accuracy_ab", "profile_flagship"}
+    assert len(summary["results"]["profile_kernels"]) == 14
+    assert summary["results"]["census"]["frames"] == 20
+    assert (tmp_path / "build" / "examples_smoke" / "quickstart" / "ensemble.xyz").is_file()
+    assert "examples: " in capsys.readouterr().out

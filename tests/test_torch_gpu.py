@@ -345,6 +345,56 @@ def test_kernels_at_the_cv_shapes_on_card(cuda_device, kind, b, n, s):
     _close_rel(out, ref)
 
 
+# the kernel shape table's new shapes (examples/profile_kernels_torch.py):
+# the pseudo kernels' chunked path at PCN-scale M 100 (B 4) and M 300 (B 1),
+# the message kernels at N 500 (B 2, S 4), F 600, R 8, the table's cutoffs
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,n", [("pseudo", 4, 100), ("pseudo", 1, 300),
+                                      ("message", 2, 500)])
+@pytest.mark.parametrize("vjp", [False, True])
+def test_kernels_at_the_shape_table_shapes_on_card(cuda_device, kind, b, n, vjp):
+    if kind == "pseudo":
+        args = [*_pseudo_inputs(n, 12, cuda_device, f=600, r=8, b=b), 21.0, 8]
+        fwd, plain, bwd, plain_bwd = (fused_pseudo_message, pseudo_reference,
+                                      fused_pseudo_vjp, pseudo_vjp_reference)
+    else:
+        args = [*_message_inputs(n, 4, 13, cuda_device, f=600, r=8, b=b), 9.5, 8]
+        fwd, plain, bwd, plain_bwd = (fused_message, message_reference, fused_message_vjp,
+                                      message_vjp_reference)
+    if vjp:
+        cts = _cotangents(plain(*args), 14, cuda_device)
+        out, ref = bwd(*args[:-2], *cts, *args[-2:]), plain_bwd(*args[:-2], *cts, *args[-2:])
+    else:
+        out, ref = fwd(*args), plain(*args)
+    torch.cuda.synchronize()
+    _close_rel(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_graph,replays", [(1, 2), (5, 3)])
+def test_graph_ms_counts_only_launches_that_ran_on_card(cuda_device, per_graph, replays):
+    """Around ``graph_ms`` of fwd + bwd, each counter rises by the warm-up's
+    three calls and the 1 + ``replays`` replays of ``per_graph`` calls; the
+    capture launches nothing."""
+    from coarsegrainingvae_tpu_torch.ops import kernel_counters
+    from coarsegrainingvae_tpu_torch.utils.profiling import graph_ms
+
+    args = [*_message_inputs(27, 3, 15, cuda_device, f=64, r=8, b=4), 9.5, 8]
+    cts = _cotangents(message_reference(*args), 16, cuda_device)
+
+    def step():
+        fused_message(*args)
+        fused_message_vjp(*args[:-2], *cts, *args[-2:])
+
+    counters = kernel_counters()
+    before = [c.launches for c in counters]
+    graph_ms(step, per_graph, replays, counters)
+    rose = {c.__name__: c.launches - n for c, n in zip(counters, before)}
+    want = 3 + per_graph * (1 + replays)
+    assert rose == {"fused_message": want, "fused_message_vjp": want,
+                    "fused_pseudo_message": 0, "fused_pseudo_vjp": 0}
+
+
 def _tiny_train_cfg(dec_type="pseudo"):
     from coarsegrainingvae_tpu_torch.config import DataConfig, ExperimentConfig, TrainConfig
 
