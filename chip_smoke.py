@@ -418,12 +418,18 @@ def kernel_cases() -> list:
               for kind in (base, base + "_vjp")]
     # the kernel shape table's new shapes (examples/profile_kernels_torch.py,
     # timed there fwd+bwd): the pseudo kernels' chunked path at PCN-scale M
-    # 100 and 300, the message kernels at N 500, S 4; every output checked
-    cases += [(kind, (b, n, s, 8), cut, f"shape table B={b} {label}", False)
+    # 100 and 300 (timed here too), the message kernels at N 500, S 4
+    cases += [(kind, (b, n, s, 8), cut, f"shape table B={b} {label}", base == "pseudo")
               for base, b, n, s, cut, label in (
                   ("pseudo", 4, 100, 9, 21.0, "M=100"), ("pseudo", 1, 300, 9, 21.0, "M=300"),
                   ("message", 2, 500, 4, 9.5, "N=500 S=4"))
               for kind in (base, base + "_vjp")]
+    # the chunked path at the size users reach with the CLI: chignolin with
+    # ten beads (-n_cgs 10 or -cg_method alpha) at its recipe's batch,
+    # n_rbf and atom cutoff
+    cases += [(kind, (CHIG_BATCH, 10, 9, CHIG_RBF), 12.0,
+               "chignolin ten beads B=16 M=10 n_rbf=10", True)
+              for kind in ("pseudo", "pseudo_vjp")]
     return cases
 
 

@@ -120,16 +120,6 @@ constexpr int kBwdMaxWarps = 3;
 constexpr int kSymRows = 9;       // nodes per warp group (symmetric forward)
 constexpr int kSymGroups = 3;     // so it covers N <= 27
 
-// 4-byte asynchronous copy global -> shared (cp.async), its group commit
-// and the wait until at most n groups are in flight.
-__device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int n>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(n)); }
-
 // Stage one batch element's coordinates and mask, (x, y, z, m) per node.
 __device__ __forceinline__ void stage_nodes(float4* __restrict__ nodes,
                                             const float* __restrict__ xb,

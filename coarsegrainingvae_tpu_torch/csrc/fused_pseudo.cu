@@ -71,10 +71,50 @@
 //   feature), once. sum_over_batch adds the partials in a fixed order: no
 //   atomics, d_w is deterministic. fused_pseudo_bwd_partials(B, M) says how
 //   many partials the scratch holds.
-// Design, M > kRegMax (the chunked path): one block per (batch element,
-//   receiver) in the forward and per (batch element, 128 features) in the
-//   backward, threads striding over F, partners in chunks of 64 records in
-//   shared memory; the backward keeps one d_w partial per batch element.
+// Design, M > kRegMax (the chunked path: chignolin with ten beads, M 10;
+// the kernel shape table's PCN-scale M 100 and 300). Past a few beads both
+// functions are bound by operations: at B 4, M 100 and B 1, M 300 (F 600,
+// R+1 9, nearly every pair inside the cutoff) the forward needs 3.4 / 7.8
+// GFLOP (0.051 / 0.116 ms at 67 TFLOP/s) against 24 / 18 MB, the backward
+// 7.7 / 17.5 GFLOP (0.115 / 0.262 ms). At M 10, B 16 it is bytes again
+// (10 / 17 MB, 3 / 5 us) and a block's work is short.
+// - Grid (F / 32, node tiles, B). A block owns one batch element, a tile of
+//   up to 8 nodes (receivers in the forward, nodes p in the backward; M is
+//   split evenly, chunk_tiling) and 32 features, one per lane; each of its
+//   up to 4 warps holds kTileRows = 2 of the tile's nodes in registers.
+//   That is 722 blocks at B 1, M 300, 988 at B 4, M 100 and 608 at B 16,
+//   M 10, two per SM. Every per-node read and write is one coalesced
+//   128-byte line.
+// - Partners come in chunks of kFwdChunk = 32 (forward) or kBwdChunk = 16
+//   (backward). The block stages a chunk's partner rows in shared memory
+//   with cp.async, one copy per (partner, row, lane), while it builds the
+//   records of its (tile node, chunk partner) pairs, each once per chunk
+//   (pair_geometry.cuh::pair_record). Every warp reads a staged row, and it
+//   feeds both of a thread's nodes. Rows a thread holds past the tile or
+//   past M get zero records, so the two nodes run without a branch and
+//   interleave; a partner is skipped only when both records are zero.
+// - Forward: each thread holds w[:, :, f] ((R+1) x 9 registers) and 25 sums
+//   per node. Per (partner, node) it folds the nine filters, 9 (R+1) FMAs,
+//   and adds the channels' terms; the gates are applied once per node at
+//   the end.
+// - Backward: per chunk a thread walks the nine channels, and per channel
+//   the chunk's partners q: node p as the receiver of q (the forward's sums
+//   a_ch and t, whose gates are linear in them and are applied to the
+//   chunk's sum at the channel's end) and p as the sender to q (d_phi, the
+//   sender side of d_v and d_vbar, d_w). w[:, ch] comes from shared memory
+//   per (chunk, channel); the thread's d_w for the channel, one (R+1)-long
+//   FMA chain on phi[p, ch] dG per pair, goes into its own column of shared
+//   memory at the channel's end. So a thread holds its two nodes' inputs and
+//   sums (~80 registers), not w and d_w of all nine channels (2 x 81 at
+//   R+1 9), and reads each record from shared memory once per channel as a
+//   broadcast. The block adds its warps' columns in a fixed order and writes
+//   one partial per (batch element, node tile), once; sum_over_batch adds
+//   the partials in a fixed order: no atomics, d_w is deterministic. The
+//   partner loop is unrolled by two, so one partner's loads overlap the
+//   other's arithmetic.
+// - Each ordered pair's filters are folded once: K is symmetric, but a block
+//   writes only its own rows, so the other direction of a pair belongs to
+//   another block (the bound counts each unordered pair's filters once).
 // Design, R+1 > 16 (the wide kernels): R+1 is a runtime value; w, the pair's
 //   basis and the backward's d_w sums sit in shared memory, one column per
 //   lane (pair_geometry.cuh::wide_pair), and one warp walks every ordered
@@ -92,8 +132,27 @@
 //   0.0463 against 0.0381, measured before phi was loaded up front), and
 //   issuing a frame's loads before the staging of w and the geometry (no
 //   gain measured).
+// Measured, chunked path (scripts/kernel_ab.py against the previous chunked
+//   design, one block per (batch element, receiver) in the forward and per
+//   (batch element, 128 features) in the backward, threads striding over F,
+//   10 alternating pairs; scripts/kernel_table.py; one H100 80GB HBM3 at
+//   700.00 W; F 600, R 8 unless stated; PERF.md has the runs):
+//   backward 43.33 -> 0.714 ms at B 4, M 100 and 376.2 -> 1.533 ms at B 1,
+//   M 300 (16.3 / 17.3 % of the bound; the plain version under torch.compile
+//   takes 5.65 / 17.89 ms); forward 2.130 -> 0.182 ms and 6.169 -> 0.393 ms
+//   (28.3 / 29.6 %); chignolin with ten beads (B 16, M 10, R 10) forward
+//   0.181 -> 0.020 ms, backward 0.567 -> 0.094 ms. ptxas: forward 197
+//   registers at R+1 = 9 and 215 at 11, backward 199 and 222, no spills.
+//   Tried and not kept: a branch per node instead of per partner (1.29-1.31x
+//   slower backward, 1.17-1.18x slower forward), and the forward's partner
+//   loop unrolled by two (no gain, 17 more registers).
 // Left out, and why:
-// - Tensor cores: a contraction depth of M = 3 leaves them nothing.
+// - Tensor cores: a contraction depth of M = 3 leaves them nothing. On the
+//   chunked path the per-basis contraction K_r (M x M) @ payload has depth
+//   M = 100-300, but single-pass TF32 (~5e-4 relative) fails the 1e-4 gate,
+//   so it takes the 3xTF32 split, three MMAs per product; that becomes the
+//   lever once this design reaches about half its FP32 bound, as in
+//   fused_message.cu.
 // - M = 6 (chignolin) runs the register path at 255 registers in the
 //   backward, two blocks per SM, 0.09-0.12 ms at B 64: it holds six nodes'
 //   inputs and sums; a layout of its own waits for a benchmark cell at
@@ -113,8 +172,6 @@ constexpr int kCh = 9;
 constexpr int kLanes = 32;          // features per block, one per lane (register path)
 constexpr int kWarps = 4;           // warps per block, one frame each at a time
 constexpr int kRegMax = 6;          // the register path takes M <= kRegMax
-constexpr int kChunk = 64;          // chunked path: partners per shared-memory chunk
-constexpr int kChunkThreads = 128;  // chunked path: threads per block, striding over F
 
 // channels whose sender payload is v (the rest of 2..8 carry vbar)
 __host__ __device__ constexpr bool carries_v(int ch) { return ch == 2 || ch == 6 || ch == 7; }
@@ -537,8 +594,29 @@ fused_pseudo_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Chunked path, M > kRegMax. Dynamic shared memory: the frame's nodes
-// (x, y, z, mask), then one chunk's records and adjacency.
+// Chunked path, M > kRegMax (the design note at the top). A block owns one
+// batch element, a tile of `rows` nodes and 32 features, one per lane; warp w
+// holds the tile's nodes w * kTileRows .. w * kTileRows + kTileRows - 1 in
+// registers. Dynamic shared memory: the frame's nodes (x, y, z, mask), in the
+// backward w and each thread's d_w column, then one chunk of partner rows
+// (partner, slot, lane) and the records of (tile node, chunk partner) with
+// their adjacency.
+
+constexpr int kTileRows = 2;        // nodes per thread
+constexpr int kTileWarps = 4;       // warps per block at most, so tiles of up to 8 nodes
+constexpr int kFwdChunk = 32;       // partners per staged chunk, forward
+constexpr int kBwdChunk = 16;       // partners per staged chunk, backward
+// a partner's row in the forward: phi (9), v (3), vbar (3)
+constexpr int kFwdV = kCh, kFwdVb = kCh + 3, kFwdRow = kCh + 6;
+// channels whose forward sum a gate of the backward reads (a3, a4, a6, a7, a8)
+__host__ __device__ constexpr bool gated(int ch) { return ch == 3 || ch == 4 || ch >= 6; }
+// a partner's row in the backward: phi of channel 0 and of the gated
+// channels, then s, gs, sbar, gsb, v, vbar, gv, gvb
+constexpr int kBS = 6, kBGs = 7, kBSbar = 8, kBGsb = 9, kBV = 10, kBVb = 13, kBGv = 16,
+              kBGvb = 19, kBwdRow = 22;
+__host__ __device__ constexpr int phi_slot(int ch) {
+  return ch == 0 ? 0 : ch == 3 ? 1 : ch == 4 ? 2 : ch == 6 ? 3 : ch == 7 ? 4 : 5;
+}
 
 __device__ __forceinline__ void stage_frame(float4* nodes, const float* __restrict__ xb,
                                             const float* __restrict__ mb, int M) {
@@ -546,135 +624,171 @@ __device__ __forceinline__ void stage_frame(float4* nodes, const float* __restri
     nodes[n] = make_float4(xb[n * 3 + 0], xb[n * 3 + 1], xb[n * 3 + 2], mb[n]);
 }
 
+// The records of the rows the block's threads hold (kTileRows per thread)
+// against partners q0 .. q0 + nq - 1, built once per chunk. Rows past the
+// tile or past N get zero records, so a thread computes its rows without a
+// branch and a row it does not own adds exactly nothing.
 template <int RA>
-__device__ __forceinline__ void build_chunk(float* rec, float* adj, const float4* nodes,
-                                            int p, int q0, int nq, int M, float cutoff,
-                                            float pi_c) {
-  for (int qq = threadIdx.x; qq < nq; qq += blockDim.x)
-    adj[qq] = pair_record<RA>(rec + qq * record_width(RA), nodes, p, q0 + qq, M, cutoff, pi_c);
+__device__ __forceinline__ void build_tile(float* rec, float* adj, const float4* nodes, int p0,
+                                           int rows, int q0, int nq, int cols, int N,
+                                           float cutoff, float pi_c) {
+  const int held = blockDim.x / kLanes * kTileRows;
+  for (int e = threadIdx.x; e < held * nq; e += blockDim.x) {
+    const int rr = e / nq, qq = e % nq;
+    adj[rr * cols + qq] = pair_record<RA>(rec + (rr * cols + qq) * record_width(RA), nodes,
+                                          rr < rows ? p0 + rr : N, q0 + qq, N, cutoff, pi_c);
+  }
 }
 
-// One block per (batch element, receiver i), threads striding over F.
+// Rows of the tile that warp `warp` holds: 0 .. kTileRows.
+__device__ __forceinline__ int warp_rows(int warp, int rows, int p0, int N) {
+  return max(0, min(kTileRows, min(rows, N - p0) - warp * kTileRows));
+}
+
+// Grid (F / 32, node tiles, B).
 template <int RA>
-__global__ void __launch_bounds__(kChunkThreads)
+__global__ void __launch_bounds__(kLanes * kTileWarps, 2)
 fused_pseudo_chunk_kernel(
     const float* __restrict__ xyz, const float* __restrict__ mask,
     const float* __restrict__ phi, const float* __restrict__ s,
     const float* __restrict__ sbar, const float* __restrict__ v,
     const float* __restrict__ vbar, const float* __restrict__ w,
     float* __restrict__ ds, float* __restrict__ dsbar, float* __restrict__ dv,
-    float* __restrict__ dvbar, int M, int F, float cutoff) {
-  constexpr int W = record_width(RA);
+    float* __restrict__ dvbar, int M, int F, int rows, float cutoff) {
+  constexpr int W = record_width(RA), P = kFwdRow, TI = kTileRows;
   extern __shared__ float4 smem[];
-  float4* nodes = smem;
-  float* rec = reinterpret_cast<float*>(smem + M);
-  float* adj = rec + kChunk * W;
-
-  const int b = blockIdx.x / M;
-  const int i = blockIdx.x % M;
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int n_warps = blockDim.x / kLanes, cols = min(M, kFwdChunk);
+  const int b = blockIdx.z, i0 = blockIdx.y * rows, mine = warp_rows(warp, rows, i0, M);
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
   const float pi_c = kPi / cutoff;
-  const int n_chunks = (M + kChunk - 1) / kChunk;
-  stage_frame(nodes, xyz + (size_t)b * M * 3, mask + (size_t)b * M, M);
+  float4* nodes = smem;                                   // (M)
+  float* part = reinterpret_cast<float*>(smem + M);       // (cols, P, lane)
+  float* rec = part + cols * P * kLanes;                  // (n_warps * TI, cols, W)
+  float* adj = rec + n_warps * TI * cols * W;             // (n_warps * TI, cols)
+  const size_t n0 = (size_t)b * M;
+  const float* phib = phi + n0 * kCh * F + f;
+  const float* vb = v + n0 * 3 * F + f;
+  const float* vbb = vbar + n0 * 3 * F + f;
 
-  for (int f0 = 0; f0 < F; f0 += blockDim.x) {
-    const int f = f0 + threadIdx.x;
-    const bool active = f < F;
-    // sender sums: s0; t = sum adj vbar; dv direct (g1 unit + g2 v);
-    // a3, a4 (dv gates); dvbar direct (g5 vbar); a6, a7, a8 (dvbar gates)
-    float s0 = 0.f;
-    float t[3] = {0.f, 0.f, 0.f};
-    float dvd[3] = {0.f, 0.f, 0.f};
-    float a3[3] = {0.f, 0.f, 0.f}, a4[3] = {0.f, 0.f, 0.f};
-    float dvbd[3] = {0.f, 0.f, 0.f};
-    float a6[3] = {0.f, 0.f, 0.f}, a7[3] = {0.f, 0.f, 0.f};
-    float a8[3] = {0.f, 0.f, 0.f};
-
-    for (int c0 = 0; c0 < n_chunks; ++c0) {
-      const int j0 = c0 * kChunk;
-      const int nj = min(kChunk, M - j0);
-      if (n_chunks > 1 || f0 == 0) {
-        __syncthreads();
-        build_chunk<RA>(rec, adj, nodes, i, j0, nj, M, cutoff, pi_c);
-        __syncthreads();
-      }
-      if (!active) continue;
-
-      for (int jj = 0; jj < nj; ++jj) {
-        const size_t row = (size_t)b * M + j0 + jj;
-        const float a = adj[jj];
-        t[0] += a * vbar[(row * 3 + 0) * F + f];
-        t[1] += a * vbar[(row * 3 + 1) * F + f];
-        t[2] += a * vbar[(row * 3 + 2) * F + f];
-      }
-
-      for (int ch = 0; ch < kCh; ++ch) {
-        float wc[RA];
+  float wr[RA][kCh];
 #pragma unroll
-        for (int r = 0; r < RA; ++r) wc[r] = w[((size_t)r * kCh + ch) * F + f];
-        for (int jj = 0; jj < nj; ++jj) {
-          const float* g = rec + jj * W;
-          if (g[RA - 1] == 0.f) continue;       // adj * env == 0: no contribution
+  for (int r = 0; r < RA; ++r)
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) wr[r][ch] = w[((size_t)r * kCh + ch) * F + f];
+  // per node: s0; t = sum adj vbar; dv's direct sum (ch 1 unit, ch 2 v),
+  // dvbar's (ch 5 vbar); the gated sums a3, a4, a6, a7, a8
+  float s0[TI], t[TI][3], dvd[TI][3], dvbd[TI][3], a[TI][5][3];
+#pragma unroll
+  for (int k = 0; k < TI; ++k) {
+    s0[k] = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      t[k][d] = dvd[k][d] = dvbd[k][d] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 5; ++e) a[k][e][d] = 0.f;
+    }
+  }
+  stage_frame(nodes, xyz + n0 * 3, mask + n0, M);
+
+  for (int j0 = 0; j0 < M; j0 += kFwdChunk) {
+    const int nc = min(kFwdChunk, M - j0);
+    __syncthreads();                  // the nodes are staged; the previous chunk's readers are done
+    // the chunk's sender rows by cp.async, in flight while the records are built
+    for (int qq = warp; qq < nc; qq += n_warps) {
+      float* dst = part + qq * P * kLanes + lane;
+      const size_t q = j0 + qq;
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) cp_async4(dst + ch * kLanes, phib + (q * kCh + ch) * F);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        cp_async4(dst + (kFwdV + d) * kLanes, vb + (q * 3 + d) * F);
+        cp_async4(dst + (kFwdVb + d) * kLanes, vbb + (q * 3 + d) * F);
+      }
+    }
+    cp_async_commit();
+    build_tile<RA>(rec, adj, nodes, i0, rows, j0, nc, cols, M, cutoff, pi_c);
+    cp_async_wait<0>();
+    __syncthreads();
+
+#pragma unroll 1
+    for (int qq = 0; qq < nc; ++qq) {   // sender j against the thread's receivers
+      float pj[P], g[TI][W];
+      const float* src = part + qq * P * kLanes + lane;
+#pragma unroll
+      for (int e = 0; e < P; ++e) pj[e] = src[e * kLanes];
+      bool none = true;                 // adj * env == 0 at every row: no contribution
+#pragma unroll
+      for (int k = 0; k < TI; ++k) {
+        const int rr = warp * TI + k;
+        const float aj = adj[rr * cols + qq];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) t[k][d] = fmaf(aj, pj[kFwdVb + d], t[k][d]);
+        load_record(g[k], rec + (rr * cols + qq) * W);
+        none = none && g[k][RA - 1] == 0.f;
+      }
+      if (none) continue;
+#pragma unroll
+      for (int k = 0; k < TI; ++k) {
+        float gg[kCh];                          // g_ch = filt_ch phi[j, ch]
+#pragma unroll
+        for (int ch = 0; ch < kCh; ++ch) {
           float filt = 0.f;
 #pragma unroll
-          for (int r = 0; r < RA; ++r) filt = fmaf(g[r], wc[r], filt);
-          const size_t row = (size_t)b * M + j0 + jj;
-          const float gg = filt * phi[(row * kCh + ch) * F + f];
-          if (ch == 0) {
-            s0 += gg;
-            continue;
-          }
-          if (ch == 1) {
-            dvd[0] += gg * g[RA + 0];
-            dvd[1] += gg * g[RA + 1];
-            dvd[2] += gg * g[RA + 2];
-            continue;
-          }
-          const float* x = carries_v(ch) ? v : vbar;
-          const float x0 = gg * x[(row * 3 + 0) * F + f];
-          const float x1 = gg * x[(row * 3 + 1) * F + f];
-          const float x2 = gg * x[(row * 3 + 2) * F + f];
-          switch (ch) {
-            case 2: dvd[0] += x0; dvd[1] += x1; dvd[2] += x2; break;
-            case 3: a3[0] += x0; a3[1] += x1; a3[2] += x2; break;
-            case 4: a4[0] += x0; a4[1] += x1; a4[2] += x2; break;
-            case 5: dvbd[0] += x0; dvbd[1] += x1; dvbd[2] += x2; break;
-            case 6: a6[0] += x0; a6[1] += x1; a6[2] += x2; break;
-            case 7: a7[0] += x0; a7[1] += x1; a7[2] += x2; break;
-            default: a8[0] += x0; a8[1] += x1; a8[2] += x2; break;
-          }
+          for (int r = 0; r < RA; ++r) filt = fmaf(g[k][r], wr[r][ch], filt);
+          gg[ch] = filt * pj[ch];
+        }
+        s0[k] += gg[0];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const float vj = pj[kFwdV + d], vbj = pj[kFwdVb + d];
+          dvd[k][d] = fmaf(gg[1], g[k][RA + d], fmaf(gg[2], vj, dvd[k][d]));
+          a[k][0][d] = fmaf(gg[3], vbj, a[k][0][d]);
+          a[k][1][d] = fmaf(gg[4], vbj, a[k][1][d]);
+          dvbd[k][d] = fmaf(gg[5], vbj, dvbd[k][d]);
+          a[k][2][d] = fmaf(gg[6], vj, a[k][2][d]);
+          a[k][3][d] = fmaf(gg[7], vj, a[k][3][d]);
+          a[k][4][d] = fmaf(gg[8], vbj, a[k][4][d]);
         }
       }
     }
-    if (!active) continue;
+  }
+  if (f_out >= F) return;
 
-    const size_t row_i = (size_t)b * M + i;
-    const float si = s[row_i * F + f];
-    const float gi = sbar[row_i * F + f];
+#pragma unroll
+  for (int k = 0; k < TI; ++k) {
+    if (k >= mine) break;
+    const size_t row = n0 + i0 + warp * TI + k;
+    const float si = s[row * F + f], gi = sbar[row * F + f];
     float vi[3], vbi[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      vi[d] = v[(row_i * 3 + d) * F + f];
-      vbi[d] = vbar[(row_i * 3 + d) * F + f];
+      vi[d] = v[(row * 3 + d) * F + f];
+      vbi[d] = vbar[(row * 3 + d) * F + f];
     }
-    ds[row_i * F + f] = si * s0;
-    dsbar[row_i * F + f] = vi[0] * t[0] + vi[1] * t[1] + vi[2] * t[2];
+    ds[row * F + f] = si * s0[k];
+    dsbar[row * F + f] = dot3(vi, t[k]);
+    float o[3] = {dvd[k][0], dvd[k][1], dvd[k][2]};
+    float ob[3] = {dvbd[k][0], dvbd[k][1], dvbd[k][2]};
+    add_cross(o, vi, a[k][0]);
+    add_cross(ob, vi, a[k][3]);
+    add_cross(ob, vbi, a[k][4]);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      const int p = (d + 1) % 3, q = (d + 2) % 3;  // (a x b)_d = a_p b_q - a_q b_p
-      dv[(row_i * 3 + d) * F + f] =
-          dvd[d] + (vi[p] * a3[q] - vi[q] * a3[p]) + gi * a4[d];
-      dvbar[(row_i * 3 + d) * F + f] =
-          dvbd[d] + gi * a6[d] + (vi[p] * a7[q] - vi[q] * a7[p]) +
-          (vbi[p] * a8[q] - vbi[q] * a8[p]);
+      dv[(row * 3 + d) * F + f] = fmaf(gi, a[k][1][d], o[d]);
+      dvbar[(row * 3 + d) * F + f] = fmaf(gi, a[k][2][d], ob[d]);
     }
   }
 }
 
-// One block per (batch element, 128 features); each thread owns one feature
-// column and walks the nodes p, the nine channels and the partners q. Its
-// batch element's d_w partial is dw_part[b], accumulated over p.
+// Grid (F / 32, node tiles, B). Node p of the thread walks, per chunk, the
+// nine channels, and per channel the chunk's partners q: p as the receiver
+// of q (the forward's sums, gated at the channel's end) and p as the sender
+// to q (d_phi, the sender side of d_v and d_vbar, d_w). The block writes one
+// d_w partial, dw_part[b, tile].
 template <int RA>
-__global__ void __launch_bounds__(kChunkThreads)
+__global__ void __launch_bounds__(kLanes * kTileWarps, 2)
 fused_pseudo_bwd_chunk_kernel(
     const float* __restrict__ xyz, const float* __restrict__ mask,
     const float* __restrict__ phi, const float* __restrict__ s,
@@ -684,153 +798,217 @@ fused_pseudo_bwd_chunk_kernel(
     const float* __restrict__ gv, const float* __restrict__ gvb,
     float* __restrict__ dphi, float* __restrict__ d_s, float* __restrict__ d_sbar,
     float* __restrict__ d_v, float* __restrict__ d_vbar,
-    float* __restrict__ dw_part,      // (B, RA, 9, F)
-    int M, int F, float cutoff) {
-  constexpr int W = record_width(RA);
+    float* __restrict__ dw_part,      // (B, node tiles, RA, 9, F)
+    int M, int F, int rows, float cutoff) {
+  constexpr int W = record_width(RA), P = kBwdRow, TI = kTileRows;
   extern __shared__ float4 smem[];
-  float4* nodes = smem;
-  float* rec = reinterpret_cast<float*>(smem + M);
-  float* adjs = rec + kChunk * W;
-
-  const int b = blockIdx.x;
-  const int f = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = f < F;
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int n_warps = blockDim.x / kLanes, cols = min(M, kBwdChunk);
+  const int b = blockIdx.z, p0 = blockIdx.y * rows, mine = warp_rows(warp, rows, p0, M);
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
   const float pi_c = kPi / cutoff;
-  const int n_chunks = (M + kChunk - 1) / kChunk;
-  stage_frame(nodes, xyz + (size_t)b * M * 3, mask + (size_t)b * M, M);
+  float4* nodes = smem;                                   // (M)
+  float* ws = reinterpret_cast<float*>(smem + M);         // (RA * 9, lane)
+  float* dws = ws + RA * kCh * kLanes;                    // (RA * 9, thread)
+  float* part = dws + RA * kCh * blockDim.x;              // (cols, P, lane)
+  float* rec = part + cols * P * kLanes;                  // (n_warps * TI, cols, W)
+  float* adj = rec + n_warps * TI * cols * W;             // (n_warps * TI, cols)
+  const size_t n0 = (size_t)b * M;
 
-  for (int p = 0; p < M; ++p) {
-    const size_t row_p = (size_t)b * M + p;
-    float vp[3] = {0.f, 0.f, 0.f}, vbp[3] = {0.f, 0.f, 0.f};
-    float gvp[3] = {0.f, 0.f, 0.f}, gvbp[3] = {0.f, 0.f, 0.f};
-    if (active) {
+  stage_w<RA>(ws, w, F);
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        vp[d] = v[(row_p * 3 + d) * F + f];
-        vbp[d] = vbar[(row_p * 3 + d) * F + f];
-        gvp[d] = gv[(row_p * 3 + d) * F + f];
-        gvbp[d] = gvb[(row_p * 3 + d) * F + f];
-      }
-    }
-    float dvp[3] = {0.f, 0.f, 0.f}, dvbp[3] = {0.f, 0.f, 0.f};
-    float dsbp = 0.f;
+  for (int rc = 0; rc < RA * kCh; ++rc) dws[rc * blockDim.x + threadIdx.x] = 0.f;
+  stage_frame(nodes, xyz + n0 * 3, mask + n0, M);
 
-    for (int ch = 0; ch < kCh; ++ch) {
-      float wc[RA], G[RA];             // G[r] = sum_q K[p,q,r] dG_ch(q)
+  // the thread's nodes: their inputs, and their sums over the partners
+  // (dvs and dvbs take the sender side, the gates and the dsbar path)
+  float vp[TI][3], vbp[TI][3], php[TI][kCh], gvp[TI][3], gvbp[TI][3], gsbp[TI];
+  float dph[TI][kCh], dvs[TI][3], dvbs[TI][3], dsb[TI], s0[TI];
 #pragma unroll
-      for (int r = 0; r < RA; ++r) {
-        wc[r] = active ? w[((size_t)r * kCh + ch) * F + f] : 0.f;
-        G[r] = 0.f;
-      }
-      float dphi_c = 0.f;
-      float bx[3] = {0.f, 0.f, 0.f};   // sum_q filt Gamma_ch(q)
-      float fw[3] = {0.f, 0.f, 0.f};   // forward a_ch at p (or t_p, ch 0)
-      float s0 = 0.f;                  // forward s0 at p (ch 0)
-
-      for (int c0 = 0; c0 < n_chunks; ++c0) {
-        const int q0 = c0 * kChunk;
-        const int nq = min(kChunk, M - q0);
-        if (n_chunks > 1 || ch == 0) {
-          __syncthreads();
-          build_chunk<RA>(rec, adjs, nodes, p, q0, nq, M, cutoff, pi_c);
-          __syncthreads();
-        }
-        if (!active) continue;
-
-        for (int qq = 0; qq < nq; ++qq) {
-          const size_t row_q = (size_t)b * M + q0 + qq;
-          const float* g = rec + qq * W;
-          if (ch == 0 && adjs[qq] != 0.f) {
-            // dsbar path, both roles: t_p and d_vbar_p += adj gsb_q v_q
-            const float a = adjs[qq];
-            const float ag = a * gsb[row_q * F + f];
-#pragma unroll
-            for (int d = 0; d < 3; ++d) {
-              fw[d] += a * vbar[(row_q * 3 + d) * F + f];
-              dvbp[d] += ag * v[(row_q * 3 + d) * F + f];
-            }
-          }
-          if (g[RA - 1] == 0.f) continue;
-          float filt = 0.f;
-#pragma unroll
-          for (int r = 0; r < RA; ++r) filt = fmaf(g[r], wc[r], filt);
-          float dG;
-          if (ch == 0) {
-            dG = s[row_q * F + f] * gs[row_q * F + f];
-            s0 += filt * phi[(row_q * kCh) * F + f];
-          } else if (ch == 1) {
-            // unit of the pair (q <- p) is (x_p - x_q) / d = -unit in the record
-            dG = 0.f;
-#pragma unroll
-            for (int d = 0; d < 3; ++d) dG -= gv[(row_q * 3 + d) * F + f] * g[RA + d];
-          } else {
-            // Gamma_ch(q), the cotangent of a_ch at q
-            const float* gsrc = ch >= 5 ? gvb : gv;
-            float gam[3];
-#pragma unroll
-            for (int d = 0; d < 3; ++d) gam[d] = gsrc[(row_q * 3 + d) * F + f];
-            if (ch == 4 || ch == 6) {
-              const float sb = sbar[row_q * F + f];
-              gam[0] *= sb; gam[1] *= sb; gam[2] *= sb;
-            } else if (ch == 3 || ch == 7 || ch == 8) {
-              const float* xs = ch == 8 ? vbar : v;  // Gamma = g x v (x vbar for 8)
-              float u[3], c[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-              for (int d = 0; d < 3; ++d) u[d] = xs[(row_q * 3 + d) * F + f];
-              add_cross(c, gam, u);
-              gam[0] = c[0]; gam[1] = c[1]; gam[2] = c[2];
-            }
-            const float* xp = carries_v(ch) ? vp : vbp;
-            dG = gam[0] * xp[0] + gam[1] * xp[1] + gam[2] * xp[2];
-            bx[0] += filt * gam[0]; bx[1] += filt * gam[1]; bx[2] += filt * gam[2];
-            if (ch != 2 && ch != 5) {
-              // forward a_ch at p as the receiver
-              const float* x = carries_v(ch) ? v : vbar;
-              const float fp = filt * phi[(row_q * kCh + ch) * F + f];
-#pragma unroll
-              for (int d = 0; d < 3; ++d) fw[d] += fp * x[(row_q * 3 + d) * F + f];
-            }
-          }
-          dphi_c += filt * dG;
-#pragma unroll
-          for (int r = 0; r < RA; ++r) G[r] = fmaf(g[r], dG, G[r]);
-        }
-      }
-      if (!active) continue;
-
-      const float phic = phi[(row_p * kCh + ch) * F + f];
-      dphi[(row_p * kCh + ch) * F + f] = dphi_c;
-#pragma unroll
-      for (int r = 0; r < RA; ++r) {
-        float* out = dw_part + (((size_t)b * RA + r) * kCh + ch) * F + f;
-        *out = (p == 0 ? 0.f : *out) + G[r] * phic;
-      }
-      if (ch >= 2) {
-        float* dx = carries_v(ch) ? dvp : dvbp;
-        dx[0] += phic * bx[0]; dx[1] += phic * bx[1]; dx[2] += phic * bx[2];
-      }
-      switch (ch) {
-        case 0: {
-          const float gsbp = gsb[row_p * F + f];
-          d_s[row_p * F + f] = s0 * gs[row_p * F + f];
-          dvp[0] += gsbp * fw[0]; dvp[1] += gsbp * fw[1]; dvp[2] += gsbp * fw[2];
-          break;
-        }
-        case 3: add_cross(dvp, fw, gvp); break;
-        case 4: dsbp += fw[0] * gvp[0] + fw[1] * gvp[1] + fw[2] * gvp[2]; break;
-        case 6: dsbp += fw[0] * gvbp[0] + fw[1] * gvbp[1] + fw[2] * gvbp[2]; break;
-        case 7: add_cross(dvp, fw, gvbp); break;
-        case 8: add_cross(dvbp, fw, gvbp); break;
-        default: break;
-      }
-    }
-    if (!active) continue;
-    d_sbar[row_p * F + f] = dsbp;
+  for (int k = 0; k < TI; ++k) {
+    const size_t row = n0 + min(p0 + warp * TI + k, M - 1);
+    gsbp[k] = gsb[row * F + f];
+    dsb[k] = s0[k] = 0.f;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      d_v[(row_p * 3 + d) * F + f] = dvp[d];
-      d_vbar[(row_p * 3 + d) * F + f] = dvbp[d];
+      vp[k][d] = v[(row * 3 + d) * F + f];
+      vbp[k][d] = vbar[(row * 3 + d) * F + f];
+      gvp[k][d] = gv[(row * 3 + d) * F + f];
+      gvbp[k][d] = gvb[(row * 3 + d) * F + f];
+      dvs[k][d] = dvbs[k][d] = 0.f;
     }
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      php[k][ch] = phi[(row * kCh + ch) * F + f];
+      dph[k][ch] = 0.f;
+    }
+  }
+
+  for (int q0 = 0; q0 < M; q0 += kBwdChunk) {
+    const int nc = min(kBwdChunk, M - q0);
+    __syncthreads();                  // nodes, w, d_w staged; the previous chunk's readers are done
+    // the chunk's partner rows by cp.async, in flight while the records are built
+    for (int qq = warp; qq < nc; qq += n_warps) {
+      float* dst = part + qq * P * kLanes + lane;
+      const size_t q = n0 + q0 + qq;
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch)
+        if (ch == 0 || gated(ch))
+          cp_async4(dst + phi_slot(ch) * kLanes, phi + (q * kCh + ch) * F + f);
+      cp_async4(dst + kBS * kLanes, s + q * F + f);
+      cp_async4(dst + kBGs * kLanes, gs + q * F + f);
+      cp_async4(dst + kBSbar * kLanes, sbar + q * F + f);
+      cp_async4(dst + kBGsb * kLanes, gsb + q * F + f);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        cp_async4(dst + (kBV + d) * kLanes, v + (q * 3 + d) * F + f);
+        cp_async4(dst + (kBVb + d) * kLanes, vbar + (q * 3 + d) * F + f);
+        cp_async4(dst + (kBGv + d) * kLanes, gv + (q * 3 + d) * F + f);
+        cp_async4(dst + (kBGvb + d) * kLanes, gvb + (q * 3 + d) * F + f);
+      }
+    }
+    cp_async_commit();
+    build_tile<RA>(rec, adj, nodes, p0, rows, q0, nc, cols, M, cutoff, pi_c);
+    cp_async_wait<0>();
+    __syncthreads();
+
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      const bool on_v = carries_v(ch);
+      float wc[RA], dwc[RA], ac[TI][3];   // ac: the chunk's forward sum at p (t for ch 0)
+#pragma unroll
+      for (int r = 0; r < RA; ++r) {
+        wc[r] = ws[(r * kCh + ch) * kLanes + lane];
+        dwc[r] = 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < TI; ++k) ac[k][0] = ac[k][1] = ac[k][2] = 0.f;
+
+#pragma unroll 2
+      for (int qq = 0; qq < nc; ++qq) {
+        const float* src = part + qq * P * kLanes + lane;
+        // partner q's share of the channel: x_ch,q and phi[q, ch] for the
+        // forward's sum, Gamma_ch(q) (gv for ch 1) and s_q gs_q (ch 0)
+        float xq[3] = {0.f, 0.f, 0.f}, gam[3] = {0.f, 0.f, 0.f}, phq = 0.f, sig = 0.f;
+        if (ch == 0) {
+          phq = src[0];
+          sig = src[kBS * kLanes] * src[kBGs * kLanes];
+        } else {
+          const int gsrc = ch >= 5 ? kBGvb : kBGv;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) gam[d] = src[(gsrc + d) * kLanes];
+          if (gated(ch)) {
+            phq = src[phi_slot(ch) * kLanes];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) xq[d] = src[((on_v ? kBV : kBVb) + d) * kLanes];
+          }
+          if (ch == 4 || ch == 6) {
+            const float sb = src[kBSbar * kLanes];
+            gam[0] *= sb; gam[1] *= sb; gam[2] *= sb;
+          } else if (ch == 3 || ch == 7 || ch == 8) {   // Gamma = g x v (x vbar for 8)
+            float u[3], c[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+            for (int d = 0; d < 3; ++d) u[d] = src[((ch == 8 ? kBVb : kBV) + d) * kLanes];
+            add_cross(c, gam, u);
+            gam[0] = c[0]; gam[1] = c[1]; gam[2] = c[2];
+          }
+        }
+        float g[TI][W];
+        bool none = true;               // adj * env == 0 at every row: no contribution
+#pragma unroll
+        for (int k = 0; k < TI; ++k) {
+          const int rr = warp * TI + k;
+          if (ch == 0) {                  // the dsbar path, both roles
+            const float aq = adj[rr * cols + qq];
+            const float ag = aq * src[kBGsb * kLanes];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              ac[k][d] = fmaf(aq, src[(kBVb + d) * kLanes], ac[k][d]);
+              dvbs[k][d] = fmaf(ag, src[(kBV + d) * kLanes], dvbs[k][d]);
+            }
+          }
+          load_record(g[k], rec + (rr * cols + qq) * W);
+          none = none && g[k][RA - 1] == 0.f;
+        }
+        if (none) continue;
+#pragma unroll
+        for (int k = 0; k < TI; ++k) {
+          float filt = 0.f;
+#pragma unroll
+          for (int r = 0; r < RA; ++r) filt = fmaf(g[k][r], wc[r], filt);
+          float dG;                             // the cotangent of g_ch[q <- p]
+          if (ch == 0) {
+            dG = sig;
+            s0[k] = fmaf(filt, phq, s0[k]);
+          } else if (ch == 1) {                 // unit of (q <- p) is -unit of the record
+            dG = -dot3(gam, g[k] + RA);
+          } else {
+            dG = dot3(gam, on_v ? vp[k] : vbp[k]);
+            const float pf = filt * php[k][ch];
+            float* dx = on_v ? dvs[k] : dvbs[k];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) dx[d] = fmaf(pf, gam[d], dx[d]);
+            if (gated(ch)) {
+              const float fp = filt * phq;
+#pragma unroll
+              for (int d = 0; d < 3; ++d) ac[k][d] = fmaf(fp, xq[d], ac[k][d]);
+            }
+          }
+          dph[k][ch] = fmaf(filt, dG, dph[k][ch]);
+          const float X = php[k][ch] * dG;
+#pragma unroll
+          for (int r = 0; r < RA; ++r) dwc[r] = fmaf(g[k][r], X, dwc[r]);
+        }
+      }
+      // the channel's gates on the chunk's forward sums; d_w into the
+      // thread's column
+#pragma unroll
+      for (int k = 0; k < TI; ++k) {
+        switch (ch) {
+          case 0:
+#pragma unroll
+            for (int d = 0; d < 3; ++d) dvs[k][d] = fmaf(gsbp[k], ac[k][d], dvs[k][d]);
+            break;
+          case 3: add_cross(dvs[k], ac[k], gvp[k]); break;
+          case 4: dsb[k] += dot3(ac[k], gvp[k]); break;
+          case 6: dsb[k] += dot3(ac[k], gvbp[k]); break;
+          case 7: add_cross(dvs[k], ac[k], gvbp[k]); break;
+          case 8: add_cross(dvbs[k], ac[k], gvbp[k]); break;
+          default: break;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RA; ++r) dws[(r * kCh + ch) * blockDim.x + threadIdx.x] += dwc[r];
+    }
+  }
+
+  if (f_out < F) {
+#pragma unroll
+    for (int k = 0; k < TI; ++k) {
+      if (k >= mine) break;
+      const size_t row = n0 + p0 + warp * TI + k;
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) dphi[(row * kCh + ch) * F + f] = dph[k][ch];
+      d_s[row * F + f] = s0[k] * gs[row * F + f];
+      d_sbar[row * F + f] = dsb[k];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        d_v[(row * 3 + d) * F + f] = dvs[k][d];
+        d_vbar[(row * 3 + d) * F + f] = dvbs[k][d];
+      }
+    }
+  }
+
+  // the block's d_w: its warps' columns added in a fixed order, one partial
+  // per (batch element, node tile, feature)
+  __syncthreads();
+  float* out = dw_part + ((size_t)b * gridDim.y + blockIdx.y) * RA * kCh * F;
+  for (int e = threadIdx.x; e < RA * kCh * kLanes; e += blockDim.x) {
+    const int rc = e / kLanes, ln = e % kLanes, ff = blockIdx.x * kLanes + ln;
+    float acc = 0.f;
+    for (int wi = 0; wi < n_warps; ++wi) acc += dws[rc * blockDim.x + wi * kLanes + ln];
+    if (ff < F) out[(size_t)rc * F + ff] = acc;
   }
 }
 
@@ -1074,9 +1252,25 @@ fused_pseudo_bwd_wide_kernel(
 int frames_per_warp(int B) { return std::max(1, std::min(8, B / 64)); }
 int frame_groups(int B) { return (B + kWarps * frames_per_warp(B) - 1) / (kWarps * frames_per_warp(B)); }
 
-// Dynamic shared memory of the chunked path.
-size_t chunk_smem(int M, int RA) {
-  return sizeof(float4) * M + sizeof(float) * kChunk * (record_width(RA) + 1);
+// Node tiles of the chunked path: M split evenly into tiles of at most
+// kTileRows * kTileWarps nodes, kTileRows per thread.
+struct ChunkTiling {
+  int tiles, rows, warps;
+};
+ChunkTiling chunk_tiling(int M) {
+  constexpr int cap = kTileRows * kTileWarps;
+  const int tiles = (M + cap - 1) / cap, rows = (M + tiles - 1) / tiles;
+  return {tiles, rows, (rows + kTileRows - 1) / kTileRows};
+}
+
+// Dynamic shared memory of the chunked path (the kernels' layouts).
+size_t chunk_smem(int M, int RA, bool backward) {
+  const ChunkTiling t = chunk_tiling(M);
+  const int cols = std::min(M, backward ? kBwdChunk : kFwdChunk);
+  size_t floats = (size_t)cols * (backward ? kBwdRow : kFwdRow) * kLanes
+                  + (size_t)t.warps * kTileRows * cols * (record_width(RA) + 1);
+  if (backward) floats += (size_t)RA * kCh * kLanes * (1 + t.warps);   // w and d_w
+  return sizeof(float4) * M + sizeof(float) * floats;
 }
 
 }  // namespace
@@ -1117,21 +1311,24 @@ extern "C" int fused_pseudo_fwd(
       return args(fused_pseudo_kernel<kRA, kRegMax>)(grid, kLanes * kWarps, 0, B, M, F, fpw,
                                                      cutoff);
     }
-    const size_t smem = chunk_smem(M, kRA);
+    const ChunkTiling t = chunk_tiling(M);
+    const size_t smem = chunk_smem(M, kRA, false);
     static int allowed[kMaxDevices] = {};
     const int err = allow_smem(fused_pseudo_chunk_kernel<kRA>, smem, allowed);
     if (err != 0) return err;
-    return args(fused_pseudo_chunk_kernel<kRA>)(dim3((unsigned)(B * M)), kChunkThreads, smem,
-                                                M, F, cutoff);
+    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)t.tiles, (unsigned)B);
+    return args(fused_pseudo_chunk_kernel<kRA>)(grid, t.warps * kLanes, smem, M, F, t.rows,
+                                                cutoff);
   });
 }
 
 // d_w partials that fused_pseudo_bwd leaves in its scratch: one per frame
-// group on the register path, one per batch element on the chunked path.
+// group on the register path, one per (batch element, node tile) on the
+// chunked path.
 extern "C" int fused_pseudo_bwd_partials(int B, int M) {
   using namespace cgvae;
   if (B <= 0 || M <= 0) return 1;
-  return M <= kRegMax ? frame_groups(B) : B;
+  return M <= kRegMax ? frame_groups(B) : B * chunk_tiling(M).tiles;
 }
 
 // dw_part is scratch of fused_pseudo_bwd_partials(B, M) * RA * 9 * F
@@ -1185,12 +1382,14 @@ extern "C" int fused_pseudo_bwd(
       if (M <= 3) return launch(fused_pseudo_bwd_kernel<kRA, 3>, allowed3);
       return launch(fused_pseudo_bwd_kernel<kRA, kRegMax>, allowed6);
     }
-    const size_t smem = chunk_smem(M, kRA);
+    const ChunkTiling t = chunk_tiling(M);
+    const size_t smem = chunk_smem(M, kRA, true);
     static int allowed[kMaxDevices] = {};
     const int e = allow_smem(fused_pseudo_bwd_chunk_kernel<kRA>, smem, allowed);
     if (e != 0) return e;
-    const dim3 grid((unsigned)B, (unsigned)((F + kChunkThreads - 1) / kChunkThreads));
-    return args(fused_pseudo_bwd_chunk_kernel<kRA>)(grid, kChunkThreads, smem, M, F, cutoff);
+    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)t.tiles, (unsigned)B);
+    return args(fused_pseudo_bwd_chunk_kernel<kRA>)(grid, t.warps * kLanes, smem, M, F, t.rows,
+                                                    cutoff);
   });
   if (err != 0) return err;
   return launch_sum_over_batch((const float*)dw_part, (float*)dw,

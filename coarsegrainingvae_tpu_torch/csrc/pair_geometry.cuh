@@ -77,6 +77,16 @@ __device__ __forceinline__ float pair_record(float* __restrict__ rec,
   return adj;
 }
 
+// 4-byte asynchronous copy global -> shared (cp.async), its group commit
+// and the wait until at most n groups are in flight.
+__device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int n>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(n)); }
+
 template <int W>
 __device__ __forceinline__ void load_record(float (&g)[W], const float* rec) {
   const float4* r4 = reinterpret_cast<const float4*>(rec);

@@ -225,7 +225,7 @@ def fused_pseudo_vjp(
     d_sbar = torch.empty_like(d_s)
     d_v = torch.empty((b, m, 3, f), dtype=torch.float32, device=device)
     d_vbar = torch.empty_like(d_v)
-    # one partial d_w per frame group (M <= 6) or batch element (M > 6)
+    # one partial d_w per frame group (M <= 6) or (batch element, node tile) (M > 6)
     parts = lib.fused_pseudo_bwd_partials(b, m)
     dw_part = torch.empty((parts, r_aug, 9, f), dtype=torch.float32, device=device)
     d_w = torch.empty((r_aug, 9, f), dtype=torch.float32, device=device)

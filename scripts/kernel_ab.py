@@ -14,9 +14,10 @@ the partial count that the library exports, ``fused_message_bwd_tiles(N)``
 partials per frame or ``fused_pseudo_bwd_partials(B, M)`` in all, where it
 exports that symbol, and one per frame otherwise) and the checkout's with
 nvcc, checks both against the plain versions at each shape, then times them
-in alternating order (parent, change, change, parent, ...), each run
-``--launches`` launches replayed from CUDA graphs (``utils.profiling.graph_ms``),
-so host launch cost stays out of the times. Prints the card, each library's
+in alternating order (parent, change, change, parent, ...), each run up to
+``--launches`` launches (fewer for a slow kernel, so that a run takes about
+``RUN_MS``) replayed from CUDA graphs (``utils.profiling.graph_ms``), so
+host launch cost stays out of the times. Prints the card, each library's
 ptxas summary, one line per (kernel, shape) with every run's ms per launch,
 and the SM clock and power read while the change's backward runs at the
 first shape; writes the same to
@@ -41,18 +42,21 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from coarsegrainingvae_tpu_torch.utils import profiling  # noqa: E402
 
-F, N_RBF, RTOL = 600, 8, chip_smoke.KERNEL_RTOL
+F, RTOL = 600, chip_smoke.KERNEL_RTOL
 PER_GRAPH = 100
-# (label, B, N, S) per library: the message kernels at the encoder's and the
-# prior's train shapes, the served prior and the cross variant; the pseudo
-# kernels at the decoder's train and serve shapes and at chignolin's M = 6
+RUN_MS = 200.0        # a timed run's length, at most, where a kernel is slow
+# (label, B, N, S, cutoff, n_rbf) per library: the message kernels at the
+# encoder's and the prior's train shapes, the served prior and the cross
+# variant; the pseudo kernels at the decoder's train and serve shapes, at
+# chignolin's M = 6, and on their chunked path (M > 6) at chignolin with ten
+# beads and at the kernel shape table's PCN-scale M 100 and 300
 SHAPES = {
-    "message": [("encoder train", 128, 27, 3), ("prior train", 128, 3, 3),
-                ("prior serve", 64, 3, 3), ("cross", 64, 27, 4)],
-    "pseudo": [("decoder train", 128, 3, 9), ("decoder serve", 64, 3, 9),
-               ("decoder M=6", 64, 6, 9)],
+    "message": [("encoder train", 128, 27, 3, 9.5, 8), ("prior train", 128, 3, 3, 9.5, 8),
+                ("prior serve", 64, 3, 3, 9.5, 8), ("cross", 64, 27, 4, 9.5, 8)],
+    "pseudo": [("decoder train", 128, 3, 9, 8.5, 8), ("decoder serve", 64, 3, 9, 8.5, 8),
+               ("decoder M=6", 64, 6, 9, 8.5, 8), ("chignolin ten beads", 16, 10, 9, 12.0, 10),
+               ("shape table", 4, 100, 9, 21.0, 8), ("shape table", 1, 300, 9, 21.0, 8)],
 }
-CUTOFF = {"message": 9.5, "pseudo": 8.5}
 
 
 def ops(library: str):
@@ -87,23 +91,23 @@ def partials(library: str, lib, b: int, n: int) -> int:
     return lib.fused_pseudo_bwd_partials(b, n) if hasattr(lib, "fused_pseudo_bwd_partials") else b
 
 
-def inputs(library, b, n, s, seed):
+def inputs(library, b, n, s, n_rbf, seed):
     """The kernel's inputs and cotangents, as chip_smoke.kernel_inputs makes
     them, by name."""
     kind = "message_vjp" if library == "message" else "pseudo_vjp"
-    t = chip_smoke.kernel_inputs(kind, b, n, s, F, N_RBF, seed)
+    t = chip_smoke.kernel_inputs(kind, b, n, s, F, n_rbf, seed)
     names = (["xyz", "mask", "phi", "v", "w", "gs", "gv"] if library == "message" else
              ["xyz", "mask", "phi", "s", "sbar", "v", "vbar", "w", "gs", "gsb", "gv", "gvb"])
     return dict(zip(names, t))
 
 
-def launchers(library, lib, t):
+def launchers(library, lib, t, cut):
     """(forward, backward) closures that launch one library's kernels on
     preallocated outputs, each with its outputs."""
     import torch
 
     b, n, s, f = t["phi"].shape
-    ra, cut = N_RBF + 1, CUTOFF[library]
+    ra = t["w"].shape[0]
     p = {k: v.data_ptr() for k, v in t.items()}
 
     def empty_like(*names):
@@ -138,14 +142,33 @@ def launchers(library, lib, t):
     return (fwd, tuple(fwd_out)), (bwd, tuple(bwd_out) + (dw,))
 
 
-def plain(library, t):
+def plain(library, t, cut):
     """The plain versions' outputs, forward and backward."""
-    mod, cut = ops(library), CUTOFF[library]
+    mod, n_rbf = ops(library), t["w"].shape[0] - 1
     if library == "message":
-        fwd = mod.message_reference(t["xyz"], t["mask"], t["phi"], t["v"], t["w"], cut, N_RBF)
-        return {"forward": fwd, "backward": mod.message_vjp_reference(*t.values(), cut, N_RBF)}
-    fwd = mod.pseudo_reference(*list(t.values())[:8], cut, N_RBF)
-    return {"forward": fwd, "backward": mod.pseudo_vjp_reference(*t.values(), cut, N_RBF)}
+        fwd = mod.message_reference(t["xyz"], t["mask"], t["phi"], t["v"], t["w"], cut, n_rbf)
+        return {"forward": fwd, "backward": mod.message_vjp_reference(*t.values(), cut, n_rbf)}
+    fwd = mod.pseudo_reference(*list(t.values())[:8], cut, n_rbf)
+    return {"forward": fwd, "backward": mod.pseudo_vjp_reference(*t.values(), cut, n_rbf)}
+
+
+def run_size(fns, launches: int) -> tuple:
+    """(calls per graph, replays) of a timed run: up to ``launches`` calls,
+    fewer where the slowest of ``fns`` (timed once on the host after a warm
+    call) would take past ``RUN_MS``."""
+    import torch
+
+    one = 0.0
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        one = max(one, (time.perf_counter() - t) * 1e3)
+    calls = max(1, min(launches, int(RUN_MS / one)))
+    per_graph = min(PER_GRAPH, calls)
+    return per_graph, max(1, calls // per_graph)
 
 
 def clocks_under_load(fn, seconds: float = 3.0) -> str:
@@ -175,7 +198,7 @@ def main() -> int:
     ap.add_argument("--library", choices=sorted(SHAPES), default="message",
                     help="message: fused_message.cu; pseudo: fused_pseudo.cu")
     ap.add_argument("--pairs", type=int, default=4, help="alternating (parent, change) pairs")
-    ap.add_argument("--launches", type=int, default=1000, help="launches per timed run")
+    ap.add_argument("--launches", type=int, default=1000, help="launches per timed run, at most")
     args = ap.parse_args()
 
     import torch
@@ -197,14 +220,14 @@ def main() -> int:
         libs["parent"], logs["parent"] = parent.result()
     print(f"build: both libraries in {time.perf_counter() - t0:.2f} s", flush=True)
     for side, log in logs.items():
-        chip_smoke.print_ptxas(side, log, N_RBF + 1)
+        for ra in sorted({shape[5] + 1 for shape in SHAPES[library]}):
+            chip_smoke.print_ptxas(f"{side} R+1={ra}", log, ra)
 
-    replays = max(1, args.launches // PER_GRAPH)
     rows, load = [], None
-    for seed, (label, b, n, s) in enumerate(SHAPES[library]):
-        t = inputs(library, b, n, s, seed)
-        sides = {side: launchers(library, libs[side], t) for side in ("parent", "change")}
-        want = plain(library, t)
+    for seed, (label, b, n, s, cut, n_rbf) in enumerate(SHAPES[library]):
+        t = inputs(library, b, n, s, n_rbf, seed)
+        sides = {side: launchers(library, libs[side], t, cut) for side in ("parent", "change")}
+        want = plain(library, t, cut)
         for k, kernel in enumerate(("forward", "backward")):
             errs = {}
             for side, pair in sides.items():
@@ -215,13 +238,15 @@ def main() -> int:
                 if not errs[side] <= RTOL:
                     raise RuntimeError(f"{side} {kernel} [{label}] disagrees with plain: "
                                        f"{errs[side]:.3e}")
+            per_graph, replays = run_size([pair[k][0] for pair in sides.values()], args.launches)
             runs = {side: [] for side in sides}
             for i in range(args.pairs):         # parent, change, change, parent, ...
                 for side in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
-                    runs[side].append(profiling.graph_ms(sides[side][k][0], PER_GRAPH, replays))
+                    runs[side].append(profiling.graph_ms(sides[side][k][0], per_graph, replays))
             med = {side: statistics.median(v) for side, v in runs.items()}
-            row = {"kernel": kernel, "shape": f"{label} B={b} N={n} S={s} F={F} R={N_RBF}",
-                   "launches_per_run": PER_GRAPH * replays, "max_rel_err": errs,
+            row = {"kernel": kernel,
+                   "shape": f"{label} B={b} N={n} S={s} F={F} R={n_rbf} cutoff={cut}",
+                   "launches_per_run": per_graph * replays, "max_rel_err": errs,
                    "ms_runs": runs, "ms_median": med,
                    "speedup": med["parent"] / med["change"]}
             rows.append(row)

@@ -3,7 +3,7 @@
 every shape ``chip_smoke.py`` times, and kernel by kernel at the shapes of
 the kernel shape table (``examples/profile_kernels_torch.py``).
 
-    python3 scripts/kernel_table.py
+    python3 scripts/kernel_table.py [--kernel pseudo]
 
 Each row is ``chip_smoke.check_kernels``' on the inputs
 ``chip_smoke.kernel_inputs`` makes: the kernel's ms, the plain version's ms
@@ -16,10 +16,12 @@ against the plain version, and the compile's seconds. Raises if a kernel
 misses ``chip_smoke.KERNEL_RTOL``. Prints the card, a line per row as it
 goes and the rows as JSON lines, and writes them to
 ``chiprun_out/kernel_table.json``. Needs one CUDA device; imports nothing
-of JAX.
+of JAX. ``--kernel message`` or ``--kernel pseudo`` keeps one kernel
+family's rows (forward and backward).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -35,14 +37,16 @@ GRAPH_SECONDS, REPLAYS = 0.05, 3
 
 def table_cases() -> list:
     """chip_smoke's timed cases, then the shape table's shapes with each
-    kernel on its own (F 600; the message kernels at S 4, as the table)."""
+    kernel on its own (F 600; the message kernels at S 4, as the table),
+    each (kernel, shape, cutoff) once."""
     pk = chip_smoke.load_example("profile_kernels_torch")
-    cases = [c for c in chip_smoke.kernel_cases() if c[4]]
+    table = []
     for base, shapes, s, size in (("pseudo", pk.PSEUDO_SHAPES, 9, "M"),
                                   ("message", pk.MESSAGE_SHAPES, 4, "N")):
-        cases += [(kind, (b, n, s, pk.N_RBF), pk.CUTOFF[base], f"shape table B={b} {size}={n}",
+        table += [(kind, (b, n, s, pk.N_RBF), pk.CUTOFF[base], f"shape table B={b} {size}={n}",
                    True) for b, n in shapes for kind in (base, base + "_vjp")]
-    return cases
+    seen = {c[:3] for c in table}
+    return [c for c in chip_smoke.kernel_cases() if c[4] and c[:3] not in seen] + table
 
 
 def sized_ms(fn) -> float:
@@ -80,6 +84,10 @@ def compiled_columns(plain, args, ref) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("message", "pseudo"),
+                    help="only this kernel family's rows")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -87,7 +95,8 @@ def main() -> int:
         return 1
     print(chip_smoke.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = chip_smoke.check_kernels(table_cases(), sized_ms, compiled_columns)
+    cases = [c for c in table_cases() if args.kernel is None or c[0].startswith(args.kernel)]
+    rows = chip_smoke.check_kernels(cases, sized_ms, compiled_columns)
     for row in rows:
         print(json.dumps(row), flush=True)
     out_dir = ROOT / "chiprun_out"

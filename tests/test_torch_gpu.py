@@ -102,18 +102,25 @@ def test_message_kernel_matches_plain_on_card(cuda_device, n, s):
     assert float(out[0][masked].abs().max()) == 0.0 and float(out[1][masked].abs().max()) == 0.0
 
 
-# (M, F, n_rbf) of the pseudo kernels: M from one bead through the register
-# path's bound of 6 (3 and 6 instantiated, 2 and 4 predicated) to its first
-# chunked M, 7, and past one 64-partner chunk, 70; the decoder's width; F not
-# a multiple of 32; the templated R+1 at its ends
-PSEUDO_CASES = ([(m, F, R) for m in (1, 2, 3, 4, 6, 7, 70)]
-                + [(3, 600, 8), (6, 600, 8), (3, 40, 1), (6, 40, 15), (7, 40, 15), (70, 40, 1)])
+# (M, F, n_rbf, B) of the pseudo kernels: M from one bead through the
+# register path's bound of 6 (3 and 6 instantiated, 2 and 4 predicated) to its
+# first chunked M, 7; the decoder's width; F not a multiple of 32; the
+# templated R+1 at its ends. The chunked path (M > 6) at its edges: one node
+# tile of 8 and two (9), a 16-partner chunk of the backward and a 32-partner
+# chunk of the forward exactly, one short of it and one past it (15-17,
+# 31-33, 63-65), several chunks and tiles (70, 129); B 1, the fewest blocks;
+# with B > 1 the last frame is fully masked
+PSEUDO_CASES = ([(m, F, R, B) for m in (1, 2, 3, 4, 6, 7, 70)]
+                + [(3, 600, 8, B), (6, 600, 8, B), (3, 40, 1, B), (6, 40, 15, B),
+                   (7, 40, 15, B), (70, 40, 1, B)]
+                + [(m, 40, R, B) for m in (8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 129)]
+                + [(m, F, R, 1) for m in (7, 10, 65)])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,f,r", PSEUDO_CASES)
-def test_pseudo_kernel_matches_plain_on_card(cuda_device, m, f, r):
-    args = _pseudo_inputs(m, 6, cuda_device, f=f, r=r)
+@pytest.mark.parametrize("m,f,r,b", PSEUDO_CASES)
+def test_pseudo_kernel_matches_plain_on_card(cuda_device, m, f, r, b):
+    args = _pseudo_inputs(m, 6, cuda_device, f=f, r=r, b=b)
     before = fused_pseudo_message.launches
     out = fused_pseudo_message(*args, CUT, r)
     torch.cuda.synchronize()
@@ -180,9 +187,9 @@ def test_message_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,f,r", PSEUDO_CASES)
-def test_pseudo_vjp_kernel_matches_plain_on_card(cuda_device, m, f, r):
-    args = _pseudo_inputs(m, 10, cuda_device, f=f, r=r)
+@pytest.mark.parametrize("m,f,r,b", PSEUDO_CASES)
+def test_pseudo_vjp_kernel_matches_plain_on_card(cuda_device, m, f, r, b):
+    args = _pseudo_inputs(m, 10, cuda_device, f=f, r=r, b=b)
     cts = _cotangents(pseudo_reference(*args, CUT, r), 11, cuda_device)
     before = fused_pseudo_vjp.launches
     out = fused_pseudo_vjp(*args, *cts, CUT, r)
@@ -196,11 +203,11 @@ def test_pseudo_vjp_kernel_matches_plain_on_card(cuda_device, m, f, r):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,b", [(3, 128), (6, 64), (70, 8)])
+@pytest.mark.parametrize("m,b", [(3, 128), (6, 64), (70, 8), (10, 16), (100, 4), (300, 1)])
 def test_pseudo_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, m, b):
     """No atomics and a fixed order of summation (one partial per frame
-    group, or per batch element past M 6): two launches on the same inputs
-    give the same d_w, bit for bit."""
+    group, or per batch element and node tile past M 6): two launches on the
+    same inputs give the same d_w, bit for bit."""
     args = _pseudo_inputs(m, 18, cuda_device, f=600, r=8, b=b)
     g = torch.Generator().manual_seed(19)
     cts = [torch.randn(t.shape, generator=g).to(cuda_device)
@@ -208,6 +215,55 @@ def test_pseudo_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, m, b):
     first = fused_pseudo_vjp(*args, *cts, CUT, 8)
     second = fused_pseudo_vjp(*args, *cts, CUT, 8)
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,r,b", [(F, R, 1), (40, 8, 2)])
+def test_pseudo_kernels_match_plain_at_m300_on_card(cuda_device, f, r, b):
+    """M 300, the kernel shape table's PCN-scale size (38 node tiles, 10 and
+    19 partner chunks), forward and backward within 1e-4 of each output's
+    max |plain| (chip_smoke.KERNEL_RTOL). Each output sums up to 299
+    partners, so f32 rounding alone, in another order in each version,
+    reaches 1.5e-5 at an element near zero (3e-7 of the output's max), past
+    the elementwise atol of 1e-5 the smaller cases hold."""
+    args = _pseudo_inputs(300, 24, cuda_device, f=f, r=r, b=b)
+    before = (fused_pseudo_message.launches, fused_pseudo_vjp.launches)
+    out = fused_pseudo_message(*args, CUT, r)
+    ref = pseudo_reference(*args, CUT, r)
+    cts = _cotangents(ref, 25, cuda_device)
+    grads = fused_pseudo_vjp(*args, *cts, CUT, r)
+    torch.cuda.synchronize()
+    assert (fused_pseudo_message.launches, fused_pseudo_vjp.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    _close_rel(out, ref)
+    _close_rel(grads, pseudo_vjp_reference(*args, *cts, CUT, r))
+    masked = args[1] == 0
+    for t in out + grads[:5]:
+        assert float(t[masked].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_chunked_pseudo_kernels_replay_bit_for_bit_on_card(cuda_device):
+    """At M 100 (the chunked path, 13 node tiles, several partner chunks):
+    the forward and the backward replayed from a CUDA graph give the eager
+    calls' bits."""
+    args = _pseudo_inputs(100, 22, cuda_device, f=600, r=8, b=4)
+    g = torch.Generator().manual_seed(23)
+    cts = [torch.randn(t.shape, generator=g).to(cuda_device)
+           for t in (args[3], args[4], args[5], args[6])]
+
+    def both():
+        return fused_pseudo_message(*args, CUT, 8) + fused_pseudo_vjp(*args, *cts, CUT, 8)
+
+    eager = both()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, replayed):
         assert torch.equal(a, b)
 
 

@@ -32,6 +32,20 @@ def frames_per_warp(b):
     return max(1, min(8, b // 64))
 
 
+def radial_basis(d, inv_d, adj, n_rbf, cut):
+    """pair_geometry.cuh::pair_record's K (R+1 last): adj times the cosine
+    envelope times sin((k + 1) pi d / cut) / d for k < n_rbf, then adj times
+    the envelope, the sines by the angle-addition recurrence."""
+    s1, c1 = torch.sin(math.pi / cut * d), torch.cos(math.pi / cut * d)
+    ae = adj * (0.5 * (c1 + 1.0))
+    k, sk, ck = [], s1, c1
+    for _ in range(n_rbf):              # sin and cos of (k + 1) pi d / cutoff
+        k.append(ae * inv_d * sk)
+        sk, ck = sk * c1 + ck * s1, ck * c1 - sk * s1
+    k.append(ae)
+    return torch.stack(k, -1)
+
+
 def pair_records(xyz, mask, n_rbf):
     """pair_geometry.cuh::pair_record for every unordered pair (a < c):
     (pairs, K (B, P, R+1), unit (B, P, 3), adj (B, P))."""
@@ -44,14 +58,7 @@ def pair_records(xyz, mask, n_rbf):
     inv_d = torch.rsqrt(d2)
     d = d2 * inv_d
     adj = (d < CUT).to(xyz.dtype) * mask[:, ia] * mask[:, ic]
-    s1, c1 = torch.sin(math.pi / CUT * d), torch.cos(math.pi / CUT * d)
-    ae = adj * (0.5 * (c1 + 1.0))
-    k, sk, ck = [], s1, c1
-    for _ in range(n_rbf):              # sin and cos of (k + 1) pi d / cutoff
-        k.append(ae * inv_d * sk)
-        sk, ck = sk * c1 + ck * s1, ck * c1 - sk * s1
-    k.append(ae)
-    return pairs, torch.stack(k, -1), r * inv_d[..., None], adj
+    return pairs, radial_basis(d, inv_d, adj, n_rbf, CUT), r * inv_d[..., None], adj
 
 
 def cross(a, b):
