@@ -382,8 +382,10 @@ def kernel_cases() -> list:
               ] + [(kind, (16, 70, 9, 8), 8.5, "chunked path B=16 M=70", False)
                    for kind in ("pseudo", "pseudo_vjp")]
     # the wide kernels (R+1 > 16): n_rbf 16, 20 and the largest each takes,
-    # timed at n_rbf 20 at the training shapes
-    cases += [(kind, (b, 27, s, r), 9.5, f"wide B={b} N=27 S={s} n_rbf={r}", False)
+    # timed at n_rbf 20 at the training shapes and, for the message
+    # kernels, at the largest basis
+    cases += [(kind, (b, 27, s, r), 9.5, f"wide B={b} N=27 S={s} n_rbf={r}",
+               s == 3 and r == mo.MAX_RBF)
               for kind in ("message", "message_vjp") for s in (3, 4)
               for b, r in ((64, 16), (64, 20), (16, mo.MAX_RBF))]
     cases += [(kind, (b, m, 9, r), 8.5, f"wide B={b} M={m} n_rbf={r}", False)
@@ -395,6 +397,14 @@ def kernel_cases() -> list:
                   ("message_vjp", 27, 3, 9.5, "encoder train B=128 N=27 S=3"),
                   ("pseudo", 3, 9, 8.5, "decoder train B=128 M=3"),
                   ("pseudo_vjp", 3, 9, 8.5, "decoder train B=128 M=3"))]
+    # the message kernels' wide path (chunked basis) at the prior's and the
+    # cross decoder's train shapes and at chignolin's encoder, timed
+    cases += [(kind, (b, n, s, WIDE_RBF), cut, f"wide {label} n_rbf={WIDE_RBF}", True)
+              for b, n, s, cut, label in (
+                  (128, 3, 3, 9.5, "prior train B=128 M=3 S=3"),
+                  (128, 3, 4, 8.5, "cross decoder train B=128 M=3 S=4"),
+                  (CHIG_BATCH, 209, 3, 25.0, "chignolin encoder B=16 N=209 S=3"))
+              for kind in ("message", "message_vjp")]
     # the chignolin recipe's shapes (chig_full_z200w: batch 16, n_rbf 10):
     # the encoder at N 209 under the CG cutoff 25, the prior at M 6 and the
     # cross decoder at M 6, S 4 under the atom cutoff 12; the pseudo kernels

@@ -41,7 +41,7 @@
 // no padded basis, no global or L2 traffic on the pair loop's critical path,
 // independent work in each warp.
 //
-// Design, all three kernels:
+// Design, all the kernels:
 // - A block owns one batch element b, a tile of rows (receivers in the
 //   forward, nodes p in the backward) and 32 features, one per lane. Warps
 //   run along f, so each per-node read is one coalesced 128-byte line and
@@ -59,12 +59,30 @@
 //   in 2..16 and S in {3, 4}): the basis loops unroll with no zero padding
 //   and w[:, :, f] lives in registers.
 // - R+1 > 16 (the wide kernels, fused_message_wide_kernel and
-//   fused_message_bwd_wide_kernel): R+1 is a runtime value, and w, the
-//   pair's basis and the backward's d_w sums sit in shared memory, one
-//   column per lane (pair_geometry.cuh::wide_pair). One warp per (32
-//   features, batch element) walks every ordered pair; simple and correct,
-//   not tuned. Shared memory bounds it: the backward at S = 4 holds
-//   9 (R+1) floats per lane, so R+1 <= 201 in the 227 KB of one block.
+//   fused_message_bwd_wide_kernel): R+1 is a runtime value, cut into the
+//   fewest chunks of at most kWideChunk = 12 functions, all of one width C
+//   in 9..12 (a template parameter; the last chunk zero-padded: R+1 = 21 is
+//   two chunks of 11). The message is linear in the filter, so each chunk
+//   adds its share to the node sums, which stay in registers across the
+//   chunks; w[:, :, f] and the backward's d_w sums of one chunk live in
+//   registers as in the templated kernels. Each chunk's records are built
+//   once per block by pair_geometry.cuh::chunk_record: an accurate
+//   sincospif at the chunk's first angle, then at most 11 recurrence steps,
+//   so the error does not grow with R. The forward is the tiled forward
+//   below, chunk by chunk. The backward gives each warp kBwdTogether = 3
+//   nodes (3 warps, 9 nodes per block), so their sums stay in registers
+//   across the chunks, and writes one d_w partial per (b, node tile of 9,
+//   feature) chunk by chunk: fused_message_bwd_partials sizes the scratch.
+//   Nothing per basis function sits in shared memory, so the card sets no
+//   bound on R+1; ops/fused_message.py::MAX_RBF is the range the tests
+//   hold. ptxas at C = 11: forward 128 / 164 registers (S = 3 / 4),
+//   backward 168 / 228, no spills (126-168 and 154-233 over C = 9..12). At
+//   B 128, N 27, S 3, n_rbf 20 the forward takes 0.332 ms and the backward
+//   0.682 ms, 15 / 14 % of their FP32 bound, where the earlier wide
+//   kernels (one warp per (32 features, frame), the pair's basis rebuilt
+//   per lane with one sinf per function, w and d_w in shared memory) took
+//   3.466 / 6.595 ms (scripts/kernel_ab.py, one H100 80GB HBM3 at 700 W;
+//   PERF.md).
 // Forward, S = 3 and N <= 27 (the encoder and the prior; fused_message_sym_
 //   kernel): K is symmetric and unit antisymmetric, so each unordered pair's
 //   folded filter serves both directions: 3 (R+1) + 18 FMAs per pair instead
@@ -119,6 +137,7 @@ constexpr int kBwdTogether = 3;   // of which a warp takes this many at once
 constexpr int kBwdMaxWarps = 3;
 constexpr int kSymRows = 9;       // nodes per warp group (symmetric forward)
 constexpr int kSymGroups = 3;     // so it covers N <= 27
+constexpr int kWideBwdWarps = 3;  // warps per block of the wide backward, kBwdTogether nodes each
 
 // Stage one batch element's coordinates and mask, (x, y, z, m) per node.
 __device__ __forceinline__ void stage_nodes(float4* __restrict__ nodes,
@@ -597,168 +616,346 @@ fused_message_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Wide basis, RA > kTemplateMaxRA (pair_geometry.cuh): one warp per (32
-// features, batch element), each lane one feature walking every pair. Its
-// shared memory holds the lane's columns of w (RA, S) and of the pair's basis
-// (RA), and in the backward of its d_w sums (RA, S); each lane reads and
-// writes only its own column, so no barrier is needed.
+// Wide basis, RA > kTemplateMaxRA (the note at the top): the basis in chunks
+// of C <= kWideChunk functions (pair_geometry.cuh::chunk_record), each
+// chunk's w[:, :, f] and, in the backward, its d_w sums in registers. The
+// message is linear in the filter, so the node sums stay in registers
+// across the chunks and each chunk adds its share.
 
-size_t wide_fwd_smem(int S, int RA) { return sizeof(float) * kLanes * RA * (S + 1); }
-size_t wide_bwd_smem(int S, int RA) { return sizeof(float) * kLanes * RA * (2 * S + 1); }
-
-template <int S>
-__global__ void __launch_bounds__(kLanes)
+// Forward: fused_message_kernel's blocking (kFwdRows receivers per thread, a
+// cp.async ring of senders per warp, partner chunks of kCols), with the
+// records and the weights taken one basis chunk at a time.
+template <int C, int S>
+__global__ void __launch_bounds__(kLanes * kFwdMaxWarps, 2)
 fused_message_wide_kernel(
-    const float* __restrict__ xyz, const float* __restrict__ mask,
-    const float* __restrict__ phi, const float* __restrict__ v,
-    const float* __restrict__ w, float* __restrict__ ds, float* __restrict__ dv,
+    const float* __restrict__ xyz,    // (B, N, 3)
+    const float* __restrict__ mask,   // (B, N)
+    const float* __restrict__ phi,    // (B, N, S, F)
+    const float* __restrict__ v,      // (B, N, 3, F)
+    const float* __restrict__ w,      // (RA, S, F)
+    float* __restrict__ ds,           // (B, N, F)
+    float* __restrict__ dv,           // (B, N, 3, F)
     int N, int F, int RA, float cutoff) {
-  extern __shared__ float wide_smem[];
-  const int lane = threadIdx.x, b = blockIdx.y;
+  constexpr int W = record_width(C);
+  constexpr int P = S + 3;            // payload floats per sender: phi[j, :], v[j, :]
+  constexpr int kCross = S == 4 ? kFwdRows : 1;
+  extern __shared__ float4 smem[];
+
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int rows = blockDim.x / kLanes * kFwdRows;
+  const int cols = min(N, kCols);
+  const int b = blockIdx.z, i0 = blockIdx.y * rows;
   const int f_out = blockIdx.x * kLanes + lane;
-  if (f_out >= F) return;
-  float* wcol = wide_smem + lane;                     // (RA, S, lane)
-  float* kcol = wide_smem + kLanes * RA * S + lane;   // (RA, lane)
-  for (int e = 0; e < RA * S; ++e) wcol[e * kLanes] = w[(size_t)e * F + f_out];
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float inv_cut = 1.f / cutoff;
+  float4* nodes = smem;                               // (N): x, y, z, mask
+  float* geo = reinterpret_cast<float*>(smem + N);    // (rows, chunk, W)
+  // this warp's ring of sender payloads, (slot, P, lane), at this lane
+  float* ring = geo + rows * cols * W + warp * kRing * P * kLanes + lane;
   const float* xb = xyz + (size_t)b * N * 3;
   const float* mb = mask + (size_t)b * N;
-  const float* phib = phi + (size_t)b * N * S * F + f_out;
-  const float* vb = v + (size_t)b * N * 3 * F + f_out;
+  const float* phib = phi + (size_t)b * N * S * F + f;
+  const float* vb = v + (size_t)b * N * 3 * F + f;
 
-  for (int i = 0; i < N; ++i) {
-    float acc_s = 0.f, acc_v[3] = {0.f, 0.f, 0.f}, acc_w3[3] = {0.f, 0.f, 0.f};
-    for (int j = 0; j < N; ++j) {
-      const WidePair pr = wide_pair(kcol, kLanes, xb, mb, i, j, RA, cutoff);
-      if (pr.ke == 0.f) continue;
-      float filt[S];
+  float acc_s[kFwdRows], acc_v[kFwdRows][3], acc_w3[kCross][3];
 #pragma unroll
-      for (int c = 0; c < S; ++c) filt[c] = wide_fold(kcol, wcol, c, S, RA, kLanes);
-      float vj[3];
+  for (int k = 0; k < kFwdRows; ++k) {
+    acc_s[k] = 0.f;
+    acc_v[k][0] = acc_v[k][1] = acc_v[k][2] = 0.f;
+  }
 #pragma unroll
-      for (int d = 0; d < 3; ++d) vj[d] = vb[((size_t)j * 3 + d) * F];
-      acc_s = fmaf(filt[1], phib[((size_t)j * S + 1) * F], acc_s);
-      const float p0 = filt[0] * phib[((size_t)j * S) * F];
-      const float p2 = filt[2] * phib[((size_t)j * S + 2) * F];
+  for (int k = 0; k < kCross; ++k) acc_w3[k][0] = acc_w3[k][1] = acc_w3[k][2] = 0.f;
+
+  stage_nodes(nodes, xb, mb, N);
+  for (int j0 = 0; j0 < N; j0 += kCols) {
+    const int nc = min(kCols, N - j0);
+    // sender jj's payload into ring slot jj % kRing, one commit group each
+    auto stage = [&](int jj) {
+      if (jj < nc) {
+        float* dst = ring + (jj % kRing) * P * kLanes;
+        const size_t j = j0 + jj;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) acc_v[d] = fmaf(p2, pr.unit[d], fmaf(p0, vj[d], acc_v[d]));
-      if constexpr (S == 4) {
-        const float p3 = filt[3] * phib[((size_t)j * S + 3) * F];
+        for (int c = 0; c < S; ++c) cp_async4(dst + c * kLanes, phib + (j * S + c) * F);
 #pragma unroll
-        for (int d = 0; d < 3; ++d) acc_w3[d] = fmaf(p3, vj[d], acc_w3[d]);
+        for (int d = 0; d < 3; ++d) cp_async4(dst + (S + d) * kLanes, vb + (j * 3 + d) * F);
+      }
+      cp_async_commit();
+    };
+    for (int r0 = 0; r0 < RA; r0 += C) {
+      float wr[C][S];                 // this chunk's weights, zero past RA
+#pragma unroll
+      for (int r = 0; r < C; ++r)
+#pragma unroll
+        for (int c = 0; c < S; ++c)
+          wr[r][c] = r0 + r < RA ? w[((size_t)(r0 + r) * S + c) * F + f] : 0.f;
+      __syncthreads();                // the nodes are staged; the previous chunk's readers are done
+#pragma unroll
+      for (int jj = 0; jj < kRing - 1; ++jj) stage(jj);   // in flight while the records are built
+      for (int t = threadIdx.x; t < rows * nc; t += blockDim.x)
+        chunk_record<C>(geo + t * W, nodes, i0 + t / nc, j0 + t % nc, N, r0, RA, cutoff,
+                        inv_cut);
+      __syncthreads();
+
+      const float* rec0 = geo + warp * kFwdRows * nc * W;
+      for (int jj = 0; jj < nc; ++jj) {
+        stage(jj + kRing - 1);
+        cp_async_wait<kRing - 1>();   // sender jj has landed (each lane reads its own copies)
+        float pay[P];
+        const float* src = ring + (jj % kRing) * P * kLanes;
+#pragma unroll
+        for (int e = 0; e < P; ++e) pay[e] = src[e * kLanes];
+#pragma unroll
+        for (int k = 0; k < kFwdRows; ++k) {
+          float g[W];
+          load_record(g, rec0 + (k * nc + jj) * W);
+          float filt[S];
+          fold<C, S>(filt, g, wr);
+          acc_s[k] = fmaf(filt[1], pay[1], acc_s[k]);
+          const float p0 = filt[0] * pay[0], p2 = filt[2] * pay[2];
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            acc_v[k][d] = fmaf(p2, g[C + d], fmaf(p0, pay[S + d], acc_v[k][d]));
+          if constexpr (S == 4) {
+            const float p3 = filt[3] * pay[3];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) acc_w3[k][d] = fmaf(p3, pay[S + d], acc_w3[k][d]);
+          }
+        }
       }
     }
-    const size_t row = (size_t)b * N + i;
-    if constexpr (S == 4) {
-      const float* vi = vb + (size_t)i * 3 * F;
-      const float a0 = vi[0], a1 = vi[F], a2 = vi[2 * F];
-      acc_v[0] += a1 * acc_w3[2] - a2 * acc_w3[1];
-      acc_v[1] += a2 * acc_w3[0] - a0 * acc_w3[2];
-      acc_v[2] += a0 * acc_w3[1] - a1 * acc_w3[0];
-    }
-    ds[row * F + f_out] = acc_s;
+  }
+  if (f_out >= F) return;
+
 #pragma unroll
-    for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f_out] = acc_v[d];
+  for (int k = 0; k < kFwdRows; ++k) {
+    const int i = i0 + warp * kFwdRows + k;
+    if (i >= N) break;
+    const size_t row = (size_t)b * N + i;
+    float o[3] = {acc_v[k][0], acc_v[k][1], acc_v[k][2]};
+    if constexpr (S == 4) {
+      // dv_i += v_i x w3_i (the cross product commutes with the sum over j)
+      const float a0 = v[(row * 3 + 0) * F + f];
+      const float a1 = v[(row * 3 + 1) * F + f];
+      const float a2 = v[(row * 3 + 2) * F + f];
+      o[0] += a1 * acc_w3[k][2] - a2 * acc_w3[k][1];
+      o[1] += a2 * acc_w3[k][0] - a0 * acc_w3[k][2];
+      o[2] += a0 * acc_w3[k][1] - a1 * acc_w3[k][0];
+    }
+    ds[row * F + f] = acc_s[k];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f] = o[d];
   }
 }
 
-// One d_w partial per batch element: dw_part[b] (RA, S, F).
-template <int S>
-__global__ void __launch_bounds__(kLanes)
+// Backward: each warp owns kBwdTogether nodes p, taken together against
+// every partner q, so their sums stay in registers across the basis chunks;
+// the partners' cotangent rows are staged as in fused_message_bwd_kernel
+// (once when one chunk holds all partners). After each basis chunk the
+// block adds its warps' d_w sums in a fixed order and writes that chunk's
+// rows of its partial, one per (b, node tile, feature). Grid (F/32, node
+// tiles, B).
+template <int C, int S>
+__global__ void __launch_bounds__(kLanes * kWideBwdWarps, 2)
 fused_message_bwd_wide_kernel(
-    const float* __restrict__ xyz, const float* __restrict__ mask,
-    const float* __restrict__ phi, const float* __restrict__ v,
-    const float* __restrict__ w, const float* __restrict__ gs,
-    const float* __restrict__ gv, float* __restrict__ dphi, float* __restrict__ dv,
-    float* __restrict__ dw_part, int N, int F, int RA, float cutoff) {
-  extern __shared__ float wide_smem[];
-  const int lane = threadIdx.x, b = blockIdx.y;
+    const float* __restrict__ xyz,    // (B, N, 3)
+    const float* __restrict__ mask,   // (B, N)
+    const float* __restrict__ phi,    // (B, N, S, F)
+    const float* __restrict__ v,      // (B, N, 3, F)
+    const float* __restrict__ w,      // (RA, S, F)
+    const float* __restrict__ gs,     // (B, N, F)
+    const float* __restrict__ gv,     // (B, N, 3, F)
+    float* __restrict__ dphi,         // (B, N, S, F)
+    float* __restrict__ dv,           // (B, N, 3, F)
+    float* __restrict__ dw_part,      // (B, node tiles, RA, S, F)
+    int N, int F, int RA, float cutoff) {
+  constexpr int W = record_width(C);
+  constexpr int kSim = kBwdTogether;
+  constexpr int kCross = S == 4 ? kSim : 1;
+  extern __shared__ float4 smem[];
+
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int n_warps = blockDim.x / kLanes, rows = n_warps * kSim;
+  const int b = blockIdx.z, p0 = blockIdx.y * rows, pw = p0 + warp * kSim;
   const int f_out = blockIdx.x * kLanes + lane;
-  if (f_out >= F) return;
-  float* wcol = wide_smem + lane;                         // (RA, S, lane)
-  float* dwcol = wide_smem + kLanes * RA * S + lane;      // (RA, S, lane)
-  float* kcol = wide_smem + 2 * kLanes * RA * S + lane;   // (RA, lane)
-  for (int e = 0; e < RA * S; ++e) {
-    wcol[e * kLanes] = w[(size_t)e * F + f_out];
-    dwcol[e * kLanes] = 0.f;
-  }
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const int cols = min(N, kCols);
+  const float inv_cut = 1.f / cutoff;
+  float4* nodes = smem;                               // (N): x, y, z, mask
+  // (rows, chunk, W) records; after each basis chunk's walk the d_w
+  // reduction (warp, C, S, lane)
+  float* geo = reinterpret_cast<float*>(smem + N);
+  const int geo_f4 = max(rows * cols * W, n_warps * C * S * kLanes) / 4;
+  // partner rows, float4 (e, chunk, lane), as in fused_message_bwd_kernel
+  float4* part = smem + N + geo_f4;
   const float* xb = xyz + (size_t)b * N * 3;
   const float* mb = mask + (size_t)b * N;
-  const float* phib = phi + (size_t)b * N * S * F + f_out;
-  const float* vb = v + (size_t)b * N * 3 * F + f_out;
-  const float* gsb = gs + (size_t)b * N * F + f_out;
-  const float* gvb = gv + (size_t)b * N * 3 * F + f_out;
+  const float* phib = phi + (size_t)b * N * S * F + f;
+  const float* vb = v + (size_t)b * N * 3 * F + f;
+  const float* gsb = gs + (size_t)b * N * F + f;
+  const float* gvb = gv + (size_t)b * N * 3 * F + f;
 
-  for (int p = 0; p < N; ++p) {
-    float vp[3], php[S], dph[S], a0[3] = {0.f, 0.f, 0.f}, a3[3] = {0.f, 0.f, 0.f},
-          w3[3] = {0.f, 0.f, 0.f};
+  float vp[kSim][3], php[kSim][S], dph[kSim][S], a0[kSim][3], a3[kCross][3], w3[kCross][3];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) vp[d] = vb[((size_t)p * 3 + d) * F];
+  for (int s = 0; s < kSim; ++s) {
+    const int pc = min(pw + s, N - 1);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      vp[s][d] = vb[((size_t)pc * 3 + d) * F];
+      a0[s][d] = 0.f;
+    }
 #pragma unroll
     for (int c = 0; c < S; ++c) {
-      php[c] = phib[((size_t)p * S + c) * F];
-      dph[c] = 0.f;
+      php[s][c] = phib[((size_t)pc * S + c) * F];
+      dph[s][c] = 0.f;
     }
-    for (int q = 0; q < N; ++q) {
-      const WidePair pr = wide_pair(kcol, kLanes, xb, mb, p, q, RA, cutoff);
-      if (pr.ke == 0.f) continue;
-      float gq[3];
+  }
 #pragma unroll
-      for (int d = 0; d < 3; ++d) gq[d] = gvb[((size_t)q * 3 + d) * F];
-      float filt[S], t[S];
+  for (int s = 0; s < kCross; ++s)
 #pragma unroll
-      for (int c = 0; c < S; ++c) filt[c] = wide_fold(kcol, wcol, c, S, RA, kLanes);
-      t[1] = gsb[(size_t)q * F];
-      // unit of the pair (q <- p) is (x_p - x_q) / d = -unit of the record
-      t[2] = -(gq[0] * pr.unit[0] + gq[1] * pr.unit[1] + gq[2] * pr.unit[2]);
-      t[0] = gq[0] * vp[0] + gq[1] * vp[1] + gq[2] * vp[2];
+    for (int d = 0; d < 3; ++d) a3[s][d] = w3[s][d] = 0.f;
+  const int n_chunks = (N + kCols - 1) / kCols;
+  stage_nodes(nodes, xb, mb, N);      // read after the first __syncthreads below
+  float* out = dw_part + ((size_t)b * gridDim.y + blockIdx.y) * RA * S * F;
+
+  for (int r0 = 0; r0 < RA; r0 += C) {
+    float wr[C][S], dw[C][S];         // this chunk's weights (zero past RA) and d_w sums
 #pragma unroll
-      for (int d = 0; d < 3; ++d) a0[d] = fmaf(filt[0], gq[d], a0[d]);
-      if constexpr (S == 4) {
-        float vq[3];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) vq[d] = vb[((size_t)q * 3 + d) * F];
-        const float e[3] = {gq[1] * vq[2] - gq[2] * vq[1], gq[2] * vq[0] - gq[0] * vq[2],
-                            gq[0] * vq[1] - gq[1] * vq[0]};     // gv_q x v_q
-        const float ph3 = phib[((size_t)q * S + 3) * F];
-        t[3] = e[0] * vp[0] + e[1] * vp[1] + e[2] * vp[2];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          a3[d] = fmaf(filt[3], e[d], a3[d]);
-          w3[d] = fmaf(filt[3], ph3 * vq[d], w3[d]);
-        }
-      }
+    for (int r = 0; r < C; ++r)
 #pragma unroll
       for (int c = 0; c < S; ++c) {
-        dph[c] = fmaf(filt[c], t[c], dph[c]);
-        const float x = php[c] * t[c];
-        for (int r = 0; r < RA; ++r)
-          dwcol[(r * S + c) * kLanes] = fmaf(kcol[r * kLanes], x, dwcol[(r * S + c) * kLanes]);
+        wr[r][c] = r0 + r < RA ? w[((size_t)(r0 + r) * S + c) * F + f] : 0.f;
+        dw[r][c] = 0.f;
+      }
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int q0 = ci * kCols, nc = min(kCols, N - q0);
+      const bool restage = n_chunks > 1 || r0 == 0;
+      __syncthreads();                // the previous chunk's readers are done
+      if (restage) {                  // partner rows by cp.async, in flight while the records are built
+        for (int qq = warp; qq < nc; qq += n_warps) {
+          const size_t q = q0 + qq;
+          float* e0 = reinterpret_cast<float*>(part + qq * kLanes + lane);
+          cp_async4(e0 + 0, gsb + q * F);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) cp_async4(e0 + 1 + d, gvb + (q * 3 + d) * F);
+          if constexpr (S == 4) {     // raw v_q and phi[q, 3]; turned into products below
+            float* e1 = reinterpret_cast<float*>(part + (cols + qq) * kLanes + lane);
+#pragma unroll
+            for (int d = 0; d < 3; ++d) cp_async4(e1 + d, vb + (q * 3 + d) * F);
+            cp_async4(e1 + 3, phib + (q * S + 3) * F);
+          }
+        }
+        cp_async_commit();
+      }
+      for (int t = threadIdx.x; t < rows * nc; t += blockDim.x)
+        chunk_record<C>(geo + t * W, nodes, p0 + t / nc, q0 + t % nc, N, r0, RA, cutoff,
+                        inv_cut);
+      if (restage) {
+        cp_async_wait<0>();
+        if constexpr (S == 4) {       // each thread rewrites the entries it copied
+          for (int qq = warp; qq < nc; qq += n_warps) {
+            const float4 g = part[qq * kLanes + lane];
+            const float4 u = part[(cols + qq) * kLanes + lane];
+            part[(cols + qq) * kLanes + lane] =
+                make_float4(g.z * u.z - g.w * u.y, g.w * u.x - g.y * u.z,
+                            g.y * u.y - g.z * u.x, u.w * u.x);
+            part[(2 * cols + qq) * kLanes + lane] = make_float4(u.w * u.y, u.w * u.z, 0.f, 0.f);
+          }
+        }
+      }
+      __syncthreads();
+      if (pw >= N) continue;
+
+      const float* rec0 = geo + warp * kSim * nc * W;
+#pragma unroll 1
+      for (int qq = 0; qq < nc; ++qq) {    // partner q against the kSim nodes
+        const float4 a = part[qq * kLanes + lane];
+        float4 e, h;
+        if constexpr (S == 4) {
+          e = part[(cols + qq) * kLanes + lane];
+          h = part[(2 * cols + qq) * kLanes + lane];
+        }
+#pragma unroll
+        for (int s = 0; s < kSim; ++s) {
+          float g[W];
+          load_record(g, rec0 + (s * nc + qq) * W);
+          float filt[S];
+          fold<C, S>(filt, g, wr);
+          float t[S];
+          t[1] = a.x;
+          // unit of the pair (q <- p) is (x_p - x_q) / d = -unit in the record
+          t[2] = -(a.y * g[C] + a.z * g[C + 1] + a.w * g[C + 2]);
+          t[0] = a.y * vp[s][0] + a.z * vp[s][1] + a.w * vp[s][2];
+          a0[s][0] = fmaf(filt[0], a.y, a0[s][0]);
+          a0[s][1] = fmaf(filt[0], a.z, a0[s][1]);
+          a0[s][2] = fmaf(filt[0], a.w, a0[s][2]);
+          if constexpr (S == 4) {
+            t[3] = e.x * vp[s][0] + e.y * vp[s][1] + e.z * vp[s][2];
+            a3[s][0] = fmaf(filt[3], e.x, a3[s][0]);
+            a3[s][1] = fmaf(filt[3], e.y, a3[s][1]);
+            a3[s][2] = fmaf(filt[3], e.z, a3[s][2]);
+            w3[s][0] = fmaf(filt[3], e.w, w3[s][0]);
+            w3[s][1] = fmaf(filt[3], h.x, w3[s][1]);
+            w3[s][2] = fmaf(filt[3], h.y, w3[s][2]);
+          }
+#pragma unroll
+          for (int c = 0; c < S; ++c) {
+            dph[s][c] = fmaf(filt[c], t[c], dph[s][c]);
+            const float x = php[s][c] * t[c];
+#pragma unroll
+            for (int r = 0; r < C; ++r) dw[r][c] = fmaf(g[r], x, dw[r][c]);
+          }
+        }
       }
     }
+    // this chunk's d_w: the warps' sums added in a fixed order
+    __syncthreads();                  // every warp is done with the records
+#pragma unroll
+    for (int r = 0; r < C; ++r)
+#pragma unroll
+      for (int c = 0; c < S; ++c) geo[((warp * C + r) * S + c) * kLanes + lane] = dw[r][c];
+    __syncthreads();
+    for (int t = threadIdx.x; t < C * S * kLanes; t += blockDim.x) {
+      const int rc = t / kLanes, ln = t % kLanes, ff = blockIdx.x * kLanes + ln;
+      float acc = 0.f;
+      for (int wi = 0; wi < n_warps; ++wi) acc += geo[(wi * C * S + rc) * kLanes + ln];
+      if (r0 + rc / S < RA && ff < F) out[(size_t)(r0 * S + rc) * F + ff] = acc;
+    }
+  }
+
+  if (f_out >= F) return;
+#pragma unroll
+  for (int s = 0; s < kSim; ++s) {
+    const int p = pw + s;
+    if (p >= N) break;
     const size_t row = (size_t)b * N + p;
 #pragma unroll
-    for (int c = 0; c < S; ++c) dphi[(row * S + c) * F + f_out] = dph[c];
-    float o[3] = {php[0] * a0[0], php[0] * a0[1], php[0] * a0[2]};
+    for (int c = 0; c < S; ++c) dphi[(row * S + c) * F + f] = dph[s][c];
+    float o[3] = {php[s][0] * a0[s][0], php[s][0] * a0[s][1], php[s][0] * a0[s][2]};
     if constexpr (S == 4) {
       // receiver side of dv_p += v_p x w3_p: d v_p = w3_p x gv_p
       const float h0 = gvb[((size_t)p * 3 + 0) * F], h1 = gvb[((size_t)p * 3 + 1) * F],
                   h2 = gvb[((size_t)p * 3 + 2) * F];
-      o[0] += php[3] * a3[0] + (w3[1] * h2 - w3[2] * h1);
-      o[1] += php[3] * a3[1] + (w3[2] * h0 - w3[0] * h2);
-      o[2] += php[3] * a3[2] + (w3[0] * h1 - w3[1] * h0);
+      o[0] += php[s][3] * a3[s][0] + (w3[s][1] * h2 - w3[s][2] * h1);
+      o[1] += php[s][3] * a3[s][1] + (w3[s][2] * h0 - w3[s][0] * h2);
+      o[2] += php[s][3] * a3[s][2] + (w3[s][0] * h1 - w3[s][1] * h0);
     }
 #pragma unroll
-    for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f_out] = o[d];
+    for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f] = o[d];
   }
-  float* out = dw_part + (size_t)b * RA * S * F + f_out;
-  for (int e = 0; e < RA * S; ++e) out[(size_t)e * F] = dwcol[e * kLanes];
 }
 
 // Warps of a block: kFwdRows receivers (forward) and kBwdRows nodes
-// (backward) per warp.
+// (backward) per warp; the wide backward's kBwdTogether nodes per warp.
 int fwd_warps(int N) { return std::min(kFwdMaxWarps, (N + kFwdRows - 1) / kFwdRows); }
 int bwd_warps(int N) { return std::min(kBwdMaxWarps, (N + kBwdRows - 1) / kBwdRows); }
 int bwd_tiles(int N) { return (N + bwd_warps(N) * kBwdRows - 1) / (bwd_warps(N) * kBwdRows); }
+int wide_bwd_warps(int N) {
+  return std::min(kWideBwdWarps, (N + kBwdTogether - 1) / kBwdTogether);
+}
+int wide_bwd_tiles(int N) {
+  const int rows = wide_bwd_warps(N) * kBwdTogether;
+  return (N + rows - 1) / rows;
+}
 
 // Run fn(integral_constant<S>, integral_constant<RA>) for the runtime S and
 // RA; the kernels exist for S in {3, 4} and RA in 2..16.
@@ -768,6 +965,27 @@ int with_shape(int S, int RA, Fn&& fn) {
     return with_ra(RA, [&](auto ra_c) { return fn(std::integral_constant<int, 3>{}, ra_c); });
   if (S == 4)
     return with_ra(RA, [&](auto ra_c) { return fn(std::integral_constant<int, 4>{}, ra_c); });
+  return (int)cudaErrorInvalidValue;
+}
+
+// Run fn(integral_constant<S>, integral_constant<C>) for the runtime S and
+// the chunk width C of a wide basis of RA: the fewest chunks of at most
+// kWideChunk functions, of equal width (the last one zero-padded). For RA >
+// 16 that is C in 9..12.
+template <typename Fn>
+int with_wide(int S, int RA, Fn&& fn) {
+  const int n = (RA + kWideChunk - 1) / kWideChunk;
+  auto with_c = [&](auto s_c) {
+    switch ((RA + n - 1) / n) {
+      case 9: return fn(s_c, std::integral_constant<int, 9>{});
+      case 10: return fn(s_c, std::integral_constant<int, 10>{});
+      case 11: return fn(s_c, std::integral_constant<int, 11>{});
+      case 12: return fn(s_c, std::integral_constant<int, 12>{});
+    }
+    return (int)cudaErrorInvalidValue;
+  };
+  if (S == 3) return with_c(std::integral_constant<int, 3>{});
+  if (S == 4) return with_c(std::integral_constant<int, 4>{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -781,20 +999,22 @@ extern "C" int fused_message_fwd(
   using namespace cgvae;
   if (B <= 0 || N <= 0) return 0;
   if (RA > kTemplateMaxRA) {
-    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)B);
-    const size_t smem = wide_fwd_smem(S, RA);
-    auto launch = [&](auto kernel, int (&allowed)[kMaxDevices]) {
-      const int err = allow_smem(kernel, smem, allowed);
+    const int warps = fwd_warps(N), rows = warps * kFwdRows;
+    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)((N + rows - 1) / rows),
+                    (unsigned)B);
+    return with_wide(S, RA, [&](auto s_c, auto c_c) {
+      constexpr int kS = decltype(s_c)::value, kC = decltype(c_c)::value;
+      const size_t smem = sizeof(float4) * N
+                          + sizeof(float) * rows * std::min(N, kCols) * record_width(kC)
+                          + sizeof(float) * warps * kRing * (kS + 3) * kLanes;
+      static int allowed[kMaxDevices] = {};
+      const int err = allow_smem(fused_message_wide_kernel<kC, kS>, smem, allowed);
       if (err != 0) return err;
-      kernel<<<grid, kLanes, smem, (cudaStream_t)stream>>>(
+      fused_message_wide_kernel<kC, kS><<<grid, warps * kLanes, smem, (cudaStream_t)stream>>>(
           (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
           (const float*)w, (float*)ds, (float*)dv, N, F, RA, cutoff);
       return (int)cudaGetLastError();
-    };
-    static int allowed3[kMaxDevices] = {}, allowed4[kMaxDevices] = {};
-    if (S == 3) return launch(fused_message_wide_kernel<3>, allowed3);
-    if (S == 4) return launch(fused_message_wide_kernel<4>, allowed4);
-    return (int)cudaErrorInvalidValue;
+    });
   }
   if (S == 3 && N <= kSymRows * kSymGroups) {
     const int groups = (N + kSymRows - 1) / kSymRows;
@@ -832,11 +1052,20 @@ extern "C" int fused_message_fwd(
   });
 }
 
-// Node tiles of the backward grid: dw_part holds B * tiles partial sums.
+// Node tiles of the templated backward's grid (R+1 <= 16): its dw_part
+// holds B * tiles partial sums.
 extern "C" int fused_message_bwd_tiles(int N) { return N <= 0 ? 1 : cgvae::bwd_tiles(N); }
 
-// dw_part is scratch of B * fused_message_bwd_tiles(N) * RA * S * F floats;
-// dw receives its sum.
+// Partial sums of d_w that the backward writes for (B, N, R+1), one per
+// (batch element, node tile) of either path's grid.
+extern "C" int fused_message_bwd_partials(int B, int N, int RA) {
+  using namespace cgvae;
+  if (B <= 0 || N <= 0) return 0;
+  return B * (RA > kTemplateMaxRA ? wide_bwd_tiles(N) : bwd_tiles(N));
+}
+
+// dw_part is scratch of fused_message_bwd_partials(B, N, RA) * RA * S * F
+// floats; dw receives its sum.
 extern "C" int fused_message_bwd(
     const void* xyz, const void* mask, const void* phi, const void* v,
     const void* w, const void* gs, const void* gv, void* dphi, void* dv,
@@ -846,24 +1075,26 @@ extern "C" int fused_message_bwd(
   const cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || N <= 0)
     return (int)cudaMemsetAsync(dw, 0, sizeof(float) * RA * S * F, st);
-  if (RA > kTemplateMaxRA) {        // one partial per batch element, B <= B * tiles
-    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)B);
-    const size_t smem = wide_bwd_smem(S, RA);
-    auto launch = [&](auto kernel, int (&allowed)[kMaxDevices]) {
-      const int e = allow_smem(kernel, smem, allowed);
+  if (RA > kTemplateMaxRA) {
+    const int warps = wide_bwd_warps(N), tiles = wide_bwd_tiles(N);
+    const int rows = warps * kBwdTogether, cols = std::min(N, kCols);
+    const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)tiles, (unsigned)B);
+    const int err = with_wide(S, RA, [&](auto s_c, auto c_c) {
+      constexpr int kS = decltype(s_c)::value, kC = decltype(c_c)::value;
+      const size_t geo = std::max(rows * cols * record_width(kC), warps * kC * kS * kLanes);
+      const size_t smem = sizeof(float4) * N + sizeof(float) * geo
+                          + sizeof(float4) * (kS == 4 ? 3 : 1) * cols * kLanes;
+      static int allowed[kMaxDevices] = {};
+      const int e = allow_smem(fused_message_bwd_wide_kernel<kC, kS>, smem, allowed);
       if (e != 0) return e;
-      kernel<<<grid, kLanes, smem, st>>>(
+      fused_message_bwd_wide_kernel<kC, kS><<<grid, warps * kLanes, smem, st>>>(
           (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
           (const float*)w, (const float*)gs, (const float*)gv, (float*)dphi, (float*)dv,
           (float*)dw_part, N, F, RA, cutoff);
       return (int)cudaGetLastError();
-    };
-    static int allowed3[kMaxDevices] = {}, allowed4[kMaxDevices] = {};
-    const int err = S == 3 ? launch(fused_message_bwd_wide_kernel<3>, allowed3)
-                  : S == 4 ? launch(fused_message_bwd_wide_kernel<4>, allowed4)
-                           : (int)cudaErrorInvalidValue;
+    });
     if (err != 0) return err;
-    return launch_sum_over_batch((const float*)dw_part, (float*)dw, B, RA * S * F, st);
+    return launch_sum_over_batch((const float*)dw_part, (float*)dw, B * tiles, RA * S * F, st);
   }
   const int warps = bwd_warps(N), tiles = bwd_tiles(N);
   const int rows = warps * kBwdRows, cols = std::min(N, kCols);

@@ -98,17 +98,78 @@ __device__ __forceinline__ void load_record(float (&g)[W], const float* rec) {
 }
 
 // ---------------------------------------------------------------------------
-// The wide-basis path, RA > kTemplateMaxRA. RA is a runtime value there, so a
-// block keeps the filter weights of its 32 features, and each thread the
-// basis of its current pair, in shared memory, one column per lane, not in
-// register arrays. Each basis function is its own sin with every rounding as
-// in the plain version (ops/geometry.py::pair_filter_basis: no contraction
-// into FMAs, IEEE sqrt and division), so that a basis of a hundred functions
-// and more stays inside the 1e-4 gate, where the recurrence of pair_record
-// would not. Its bound is the shared memory of one block; the wrappers name
-// it (ops/fused_message.py, ops/fused_pseudo.py).
+// The wide-basis path, RA > kTemplateMaxRA, where RA is a runtime value.
+//
+// The message kernels (fused_message.cu) split the basis into chunks of at
+// most kWideChunk functions and build each chunk's records once per block
+// with chunk_record, as pair_record builds the templated ones: an accurate
+// sin and cos (sincospif, ~1 ulp) at the chunk's first angle and at the
+// step, then at most kWideChunk - 1 = 11 steps of the angle-addition
+// recurrence, whatever RA is. So the recurrence's error does not grow with
+// the basis, where one recurrence over a hundred functions and more would
+// leave the 1e-4 gate: tests/test_torch_message_wide.py finds the chunked
+// f32 basis within 1.40e-5 of each function's max |K| of the float64 plain
+// basis at n_rbf 200, as close as the plain f32 basis itself (1.26e-5; the
+// f32 distance through an angle of up to 200 pi sets both), and within
+// 1.7e-6 up to n_rbf 32. The chunked records keep no per-basis state in
+// shared memory, so the card sets them no bound on RA (the kernels' ptxas
+// and times: fused_message.cu's note).
+//
+// The pseudo kernels (fused_pseudo.cu) keep the first wide design: the filter
+// weights of a block's 32 features and each thread's basis of its current
+// pair sit in shared memory, one column per lane (wide_pair, wide_fold).
+// Each basis function is its own sin with every rounding as in the plain
+// version (ops/geometry.py::pair_filter_basis: no contraction into FMAs,
+// IEEE sqrt and division). Its bound is the shared memory of one block;
+// ops/fused_pseudo.py names it.
 
 constexpr int kTemplateMaxRA = 16;
+constexpr int kWideChunk = 12;   // basis functions per chunk of the message kernels, at most
+
+// The record of row node p against partner q for the basis functions r0 ..
+// r0 + C - 1 of a basis of RA: K[r0 + k] (zero past RA), then unit =
+// (x_q - x_p) / d, written as float4 like pair_record's. inv_cut =
+// 1 / cutoff.
+template <int C>
+__device__ __forceinline__ void chunk_record(float* __restrict__ rec,
+                                             const float4* __restrict__ nodes, int p, int q,
+                                             int N, int r0, int RA, float cutoff,
+                                             float inv_cut) {
+  constexpr int W = record_width(C);
+  float out[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) out[k] = 0.f;
+  if (p < N && q < N) {
+    const float4 a = nodes[p], c = nodes[q];
+    const float r0x = c.x - a.x, r0y = c.y - a.y, r0z = c.z - a.z;
+    const float d2 = r0x * r0x + r0y * r0y + r0z * r0z + kEps;
+    const float inv_d = rsqrtf(d2);
+    const float d = d2 * inv_d;
+    out[C + 0] = r0x * inv_d;
+    out[C + 1] = r0y * inv_d;
+    out[C + 2] = r0z * inv_d;
+    if (d < cutoff && p != q) {
+      const float u = d * inv_cut;        // the angle pi d / cutoff, in units of pi
+      float s1, c1, sk, ck;               // sin and cos of it and of (r0 + 1) pi u
+      sincospif(u, &s1, &c1);
+      sincospif((float)(r0 + 1) * u, &sk, &ck);
+      const float ae = a.w * c.w * (0.5f * (c1 + 1.f));
+      const float ae_d = ae * inv_d;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int r = r0 + k;
+        out[k] = r < RA - 1 ? ae_d * sk : (r == RA - 1 ? ae : 0.f);
+        const float sn = sk * c1 + ck * s1;
+        ck = ck * c1 - sk * s1;
+        sk = sn;
+      }
+    }
+  }
+  float4* r4 = reinterpret_cast<float4*>(rec);
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k)
+    r4[k] = make_float4(out[4 * k], out[4 * k + 1], out[4 * k + 2], out[4 * k + 3]);
+}
 
 struct WidePair {
   float adj;       // the plain adjacency

@@ -29,13 +29,14 @@ import torch
 from coarsegrainingvae_tpu_torch.ops import cuda_build
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
-# dynamic shared memory one block may take on the H100 (sm_90: 227 KB)
-SMEM_PER_BLOCK = 227 * 1024
-# the kernels are built for R+1 in 2..16; past it the wide kernels keep, per
-# lane of a 32-feature block, w (R+1, S), the pair's basis (R+1) and the
-# backward's d_w sums (R+1, S) in shared memory, so the backward at S = 4
-# sets the bound (csrc/fused_message.cu)
-MAX_RBF = SMEM_PER_BLOCK // (4 * 32 * (2 * 4 + 1)) - 1
+# the kernels are built for R+1 in 2..16; past it the wide kernels take the
+# basis in chunks of at most 12 functions and keep nothing per basis
+# function in shared memory, so the card sets them no bound. The wrapper
+# takes n_rbf up to the largest basis the card tests and
+# tests/test_torch_message_wide.py hold them to (csrc/fused_message.cu), the
+# bound that one block's shared memory set the wide kernels before the
+# chunked design, so nothing that ran before is refused
+MAX_RBF = 200
 
 
 def message_reference(
@@ -126,6 +127,7 @@ _SYMBOLS = {
         ctypes.c_int,
     ),
     "fused_message_bwd_tiles": ([ctypes.c_int], ctypes.c_int),
+    "fused_message_bwd_partials": ([ctypes.c_int] * 3, ctypes.c_int),
 }
 
 
@@ -144,9 +146,8 @@ def _check_cuda_inputs(args: dict, n_rbf: int) -> Tuple[int, int, int, int]:
         raise ValueError(f"phi must have S = 3 or 4 channels, got {s}")
     if not 1 <= n_rbf <= MAX_RBF:
         raise ValueError(
-            f"n_rbf must be in [1, {MAX_RBF}], got {n_rbf}: past R+1 = 16 the "
-            f"message kernels hold w and d_w in the {SMEM_PER_BLOCK // 1024} KB of "
-            f"shared memory of one block")
+            f"n_rbf must be in [1, {MAX_RBF}], got {n_rbf}: the message kernels "
+            f"are tested up to n_rbf {MAX_RBF}")
     expected = {"xyz": (b, n, 3), "mask": (b, n), "v": (b, n, 3, f),
                 "w": (n_rbf + 1, s, f), "gs": (b, n, f), "gv": (b, n, 3, f)}
     for name, t in args.items():
@@ -199,8 +200,8 @@ def fused_message_vjp(
     d_phi = torch.empty((b, n, s, f), dtype=torch.float32, device=device)
     d_v = torch.empty((b, n, 3, f), dtype=torch.float32, device=device)
     # one partial d_w per (batch element, node tile of the grid)
-    tiles = lib.fused_message_bwd_tiles(n)
-    dw_part = torch.empty((b * tiles, r_aug, s, f), dtype=torch.float32, device=device)
+    parts = lib.fused_message_bwd_partials(b, n, r_aug)
+    dw_part = torch.empty((parts, r_aug, s, f), dtype=torch.float32, device=device)
     d_w = torch.empty((r_aug, s, f), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

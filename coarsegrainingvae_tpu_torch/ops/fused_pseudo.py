@@ -30,9 +30,10 @@ from typing import Tuple
 import torch
 
 from coarsegrainingvae_tpu_torch.ops import cuda_build
-from coarsegrainingvae_tpu_torch.ops.fused_message import SMEM_PER_BLOCK
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
+# dynamic shared memory one block may take on the H100 (sm_90: 227 KB)
+SMEM_PER_BLOCK = 227 * 1024
 # past R+1 = 16 the wide kernels keep, per lane, w (R+1, 9), the pair's basis
 # (R+1) and the backward's d_w sums (R+1, 9) in shared memory
 # (csrc/fused_pseudo.cu); the backward sets the bound

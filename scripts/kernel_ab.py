@@ -10,9 +10,10 @@ one GPU.
     python3 scripts/kernel_ab.py --parent build/parent --library pseudo   # fused_pseudo.cu
 
 Builds the other source (any version with a backward: its d_w scratch holds
-the partial count that the library exports, ``fused_message_bwd_tiles(N)``
-partials per frame or ``fused_pseudo_bwd_partials(B, M)`` in all, where it
-exports that symbol, and one per frame otherwise) and the checkout's with
+the partial count that the library exports, ``fused_message_bwd_partials(B,
+N, R+1)`` or ``fused_pseudo_bwd_partials(B, M)`` in all, or
+``fused_message_bwd_tiles(N)`` partials per frame, where it exports that
+symbol, and one per frame otherwise) and the checkout's with
 nvcc, checks both against the plain versions at each shape, then times them
 in alternating order (parent, change, change, parent, ...), each run up to
 ``--launches`` launches (fewer for a slow kernel, so that a run takes about
@@ -47,12 +48,20 @@ PER_GRAPH = 100
 RUN_MS = 200.0        # a timed run's length, at most, where a kernel is slow
 # (label, B, N, S, cutoff, n_rbf) per library: the message kernels at the
 # encoder's and the prior's train shapes, the served prior and the cross
-# variant; the pseudo kernels at the decoder's train and serve shapes, at
-# chignolin's M = 6, and on their chunked path (M > 6) at chignolin with ten
-# beads and at the kernel shape table's PCN-scale M 100 and 300
+# variant, and on their wide path (n_rbf >= 16) at the encoder's, the
+# prior's and the cross decoder's train shapes, chignolin's encoder and the
+# largest basis the wrapper takes; the pseudo kernels at the decoder's train
+# and serve shapes, at chignolin's M = 6, and on their chunked path (M > 6)
+# at chignolin with ten beads and at the kernel shape table's PCN-scale M
+# 100 and 300
 SHAPES = {
     "message": [("encoder train", 128, 27, 3, 9.5, 8), ("prior train", 128, 3, 3, 9.5, 8),
-                ("prior serve", 64, 3, 3, 9.5, 8), ("cross", 64, 27, 4, 9.5, 8)],
+                ("prior serve", 64, 3, 3, 9.5, 8), ("cross", 64, 27, 4, 9.5, 8),
+                ("wide encoder train", 128, 27, 3, 9.5, 20),
+                ("wide prior train", 128, 3, 3, 9.5, 20),
+                ("wide cross decoder train", 128, 3, 4, 8.5, 20),
+                ("wide chignolin encoder", 16, 209, 3, 25.0, 20),
+                ("widest basis", 16, 27, 3, 9.5, 200)],
     "pseudo": [("decoder train", 128, 3, 9, 8.5, 8), ("decoder serve", 64, 3, 9, 8.5, 8),
                ("decoder M=6", 64, 6, 9, 8.5, 8), ("chignolin ten beads", 16, 10, 9, 12.0, 10),
                ("shape table", 4, 100, 9, 21.0, 8), ("shape table", 1, 300, 9, 21.0, 8)],
@@ -84,9 +93,11 @@ def build_parent(library: str, src: Path):
     return lib, res.stderr
 
 
-def partials(library: str, lib, b: int, n: int) -> int:
+def partials(library: str, lib, b: int, n: int, ra: int) -> int:
     """d_w partials that the library's backward writes."""
     if library == "message":
+        if hasattr(lib, "fused_message_bwd_partials"):
+            return lib.fused_message_bwd_partials(b, n, ra)
         return b * (lib.fused_message_bwd_tiles(n) if hasattr(lib, "fused_message_bwd_tiles") else 1)
     return lib.fused_pseudo_bwd_partials(b, n) if hasattr(lib, "fused_pseudo_bwd_partials") else b
 
@@ -122,7 +133,7 @@ def launchers(library, lib, t, cut):
         fwd_out = empty_like("s", "sbar", "v", "vbar")
         bwd_in, bwd_out = tuple(t), empty_like("phi", "s", "sbar", "v", "vbar")
         fwd_fn, bwd_fn, shape = lib.fused_pseudo_fwd, lib.fused_pseudo_bwd, (b, n, f)
-    part = torch.empty(partials(library, lib, b, n), ra, s, f, device="cuda")
+    part = torch.empty(partials(library, lib, b, n, ra), ra, s, f, device="cuda")
     dw = torch.empty(ra, s, f, device="cuda")
 
     def fwd():

@@ -563,6 +563,76 @@ def test_wide_message_kernels_match_plain_on_card(cuda_device, n, s, r):
                message_vjp_reference(*args, gs, gv, CUT, r))
 
 
+# the message kernels' chunked wide path (csrc/fused_message.cu: the fewest
+# chunks of at most 12 basis functions, all of one width): R+1 = 17 and 18
+# (two chunks of 9, the first case with a padded tail), 20 (two of 10), 32
+# and 33 (three of 11, padded and not), 48 (four of 12) and the largest the
+# wrapper takes (201: seventeen of 12, padded); one node, the encoder's 27
+# and chignolin's 209 (past one 32-partner chunk and one 9-node tile),
+# masked tail nodes and a fully masked frame
+WIDE_RBFS = [16, 17, 19, 31, 32, 47, "max"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", WIDE_RBFS)
+@pytest.mark.parametrize("n,s", [(n, s) for n in (3, 27, 209) for s in (3, 4)])
+def test_wide_message_kernels_at_the_chunk_edges_on_card(cuda_device, n, s, r):
+    from coarsegrainingvae_tpu_torch.ops.fused_message import MAX_RBF
+
+    r = MAX_RBF if r == "max" else r
+    args = _message_inputs(n, s, 26, cuda_device, f=40, r=r)
+    before = (fused_message.launches, fused_message_vjp.launches)
+    out = fused_message(*args, CUT, r)
+    ref = message_reference(*args, CUT, r)
+    gs, gv = _cotangents(ref, 27, cuda_device)
+    grads = fused_message_vjp(*args, gs, gv, CUT, r)
+    torch.cuda.synchronize()
+    assert (fused_message.launches, fused_message_vjp.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    _close_rel(out, ref)
+    _close_rel(grads, message_vjp_reference(*args, gs, gv, CUT, r))
+    # masked nodes, the whole last batch element among them, get exact zeros
+    masked = args[1] == 0
+    for t in out + grads[:2]:
+        assert float(t[masked].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,b", [(27, 128), (209, 16)])
+def test_wide_message_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, n, b):
+    """The wide backward writes one d_w partial per (frame, node tile) and
+    basis chunk, summed in a fixed order: two launches give the same d_w,
+    bit for bit."""
+    args = _message_inputs(n, 3, 28, cuda_device, f=600, r=20, b=b)
+    gs, gv = _cotangents(message_reference(*args, CUT, 20), 29, cuda_device)
+    first = fused_message_vjp(*args, gs, gv, CUT, 20)
+    second = fused_message_vjp(*args, gs, gv, CUT, 20)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_wide_message_kernels_replay_bit_for_bit_on_card(cuda_device):
+    """At the encoder's shape with n_rbf 20 (two basis chunks of 11): the
+    forward and the backward replayed from a CUDA graph give the eager
+    calls' bits."""
+    args = _message_inputs(27, 3, 30, cuda_device, f=600, r=20, b=128)
+    gs, gv = _cotangents(message_reference(*args, CUT, 20), 31, cuda_device)
+
+    def both():
+        return fused_message(*args, CUT, 20) + fused_message_vjp(*args, gs, gv, CUT, 20)
+
+    eager = both()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, replayed):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("r", [16, 20, "max"])
 @pytest.mark.parametrize("m", [3, 6])
@@ -583,7 +653,7 @@ def test_wrappers_name_the_wide_bound_on_card(cuda_device):
     from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
 
     args = _message_inputs(5, 3, 7, cuda_device, r=mo.MAX_RBF + 1)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match=f"tested up to n_rbf {mo.MAX_RBF}"):
         fused_message(*args, CUT, mo.MAX_RBF + 1)
     args = _pseudo_inputs(3, 7, cuda_device, r=po.MAX_RBF + 1)
     with pytest.raises(ValueError, match="shared memory"):
