@@ -165,8 +165,10 @@ TRAIN_RTOL = 1e-4
 N_REQUESTS, FRAMES_PER_REQUEST, N_SAMPLES = 4, 4, 64
 ENCODER_LAYERS, PRIOR_LAYERS, DECODER_LAYERS = 4, 4, 5
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS, PROFILE_STEPS = 128, 256, 100, 5
-# the wide kernels' timed basis size (R+1 = 21 > 16)
-WIDE_RBF = 20
+# the wide kernels' timed basis size (R+1 = 21 > 16); the largest basis the
+# smoke holds them to; the basis of the train phase's second f32 step card
+# vs CPU, past the n_rbf 94 that the pseudo wrappers once refused
+WIDE_RBF, WIDEST_RBF, WIDE_TRAIN_RBF = 20, 512, 120
 # the captured phase: bench.py's batch and the README quickstart's, an
 # epoch of CAPTURE_STEPS steps timed eager and captured
 CAPTURE_BATCHES, CAPTURE_STEPS = (128, 32), 100
@@ -339,9 +341,6 @@ def kernel_inputs(kind: str, b: int, n: int, s: int, f: int, r: int, seed: int):
 def kernel_cases() -> list:
     """(kernel, (B, N, S, n_rbf), cutoff, label, timed[, F]) of every case
     ``check_kernels`` holds to its plain version; F is 600 unless given."""
-    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
-    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
-
     # (kernel, (B, N, S, n_rbf), cutoff, label, timed): the shapes the served
     # model (B = 64 samples) and the trained model (B = 128 frames) give each
     # kernel, the cross variant, N beyond one 32-partner chunk, the smallest
@@ -381,16 +380,19 @@ def kernel_cases() -> list:
               for kind in ("pseudo", "pseudo_vjp") for m in (3, 6) for r in (1, 15)
               ] + [(kind, (16, 70, 9, 8), 8.5, "chunked path B=16 M=70", False)
                    for kind in ("pseudo", "pseudo_vjp")]
-    # the wide kernels (R+1 > 16): n_rbf 16, 20 and the largest each takes,
-    # timed at n_rbf 20 at the training shapes and, for the message
-    # kernels, at the largest basis
+    # the wide kernels (R+1 > 16): n_rbf 16 and 20, the message kernels at
+    # 200 (timed at S 3) and 512, the pseudo kernels at 200 and 512 (an
+    # earlier design of theirs refused past 94) on their register layout (M
+    # 3), on their node tiles at one tile (M 6) and at several tiles and
+    # partner chunks (M 10 and 70)
     cases += [(kind, (b, 27, s, r), 9.5, f"wide B={b} N=27 S={s} n_rbf={r}",
-               s == 3 and r == mo.MAX_RBF)
+               s == 3 and r == 200)
               for kind in ("message", "message_vjp") for s in (3, 4)
-              for b, r in ((64, 16), (64, 20), (16, mo.MAX_RBF))]
+              for b, r in ((64, 16), (64, 20), (16, 200), (4, WIDEST_RBF))]
     cases += [(kind, (b, m, 9, r), 8.5, f"wide B={b} M={m} n_rbf={r}", False)
-              for kind in ("pseudo", "pseudo_vjp") for m in (3, 6)
-              for b, r in ((64, 16), (64, 20), (16, po.MAX_RBF))]
+              for kind in ("pseudo", "pseudo_vjp") for m in (3, 6, 10, 70)
+              for b, r in zip((64, 64, 16, 16) if m <= 10 else (4, 4, 2, 2),
+                              (16, 20, 200, WIDEST_RBF))]
     cases += [(kind, (128, n, s, WIDE_RBF), cut, f"wide {label} n_rbf={WIDE_RBF}", True)
               for kind, n, s, cut, label in (
                   ("message", 27, 3, 9.5, "encoder train B=128 N=27 S=3"),
@@ -436,9 +438,10 @@ def kernel_cases() -> list:
               for kind in (base, base + "_vjp")]
     # the chunked path at the size users reach with the CLI: chignolin with
     # ten beads (-n_cgs 10 or -cg_method alpha) at its recipe's batch,
-    # n_rbf and atom cutoff
-    cases += [(kind, (CHIG_BATCH, 10, 9, CHIG_RBF), 12.0,
-               "chignolin ten beads B=16 M=10 n_rbf=10", True)
+    # n_rbf and atom cutoff, and there the wide path at n_rbf 20
+    cases += [(kind, (CHIG_BATCH, 10, 9, r), 12.0,
+               f"{wide}chignolin ten beads B=16 M=10 n_rbf={r}", True)
+              for wide, r in (("", CHIG_RBF), ("wide ", WIDE_RBF))
               for kind in ("pseudo", "pseudo_vjp")]
     return cases
 
@@ -768,6 +771,23 @@ def train() -> dict:
           f"(tolerance {TRAIN_RTOL:g})", flush=True)
     if not max(grad_err, param_err) <= TRAIN_RTOL:
         raise RuntimeError("the f32 train step on the card disagrees with the CPU")
+    # the same step at n_rbf WIDE_TRAIN_RBF: all four kernels on their wide path
+    before = read_counts()
+    grad_err, param_err = f32_step_card_vs_cpu(ds, cfg=ExperimentConfig(
+        model=dipeptide_model_cfg(compute_dtype="float32", det=True, n_rbf=WIDE_TRAIN_RBF),
+        data=DataConfig(batch_size=8),
+        train=TrainConfig(lr=3.2e-4, beta=0.05, gamma=25.0, grad_clip=0.01,
+                          adam_moment_dtype="bfloat16")))
+    wide_launches = {k: v - before[k] for k, v in read_counts().items()}
+    print(f"train f32 step card vs CPU at n_rbf {WIDE_TRAIN_RBF} (batch 8): every gradient "
+          f"max|err|/max|ref| {grad_err:.3e}, every updated parameter {param_err:.3e} "
+          f"(tolerance {TRAIN_RTOL:g}); launches {wide_launches}", flush=True)
+    if not max(grad_err, param_err) <= TRAIN_RTOL:
+        raise RuntimeError(f"the f32 train step at n_rbf {WIDE_TRAIN_RBF} on the card disagrees "
+                           "with the CPU")
+    if wide_launches != per_step:             # one step, forward and backward
+        raise RuntimeError(f"the n_rbf {WIDE_TRAIN_RBF} step's launches {wide_launches}, "
+                           f"expected {per_step}")
 
     # Trainer.fit, 2 epochs on a 224/32 split
     reset_counts()

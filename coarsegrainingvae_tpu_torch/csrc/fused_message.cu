@@ -68,14 +68,16 @@
 //   registers as in the templated kernels. Each chunk's records are built
 //   once per block by pair_geometry.cuh::chunk_record: an accurate
 //   sincospif at the chunk's first angle, then at most 11 recurrence steps,
-//   so the error does not grow with R. The forward is the tiled forward
+//   so the error does not grow with R; past R+1 = 32 each function rounded
+//   as the plain version rounds it (the template flag E; the header says
+//   why). The forward is the tiled forward
 //   below, chunk by chunk. The backward gives each warp kBwdTogether = 3
 //   nodes (3 warps, 9 nodes per block), so their sums stay in registers
 //   across the chunks, and writes one d_w partial per (b, node tile of 9,
 //   feature) chunk by chunk: fused_message_bwd_partials sizes the scratch.
 //   Nothing per basis function sits in shared memory, so the card sets no
-//   bound on R+1; ops/fused_message.py::MAX_RBF is the range the tests
-//   hold. ptxas at C = 11: forward 128 / 164 registers (S = 3 / 4),
+//   bound on R+1: the wrapper takes any, and the tests hold the kernels up
+//   to R+1 = 513. ptxas at C = 11: forward 128 / 164 registers (S = 3 / 4),
 //   backward 168 / 228, no spills (126-168 and 154-233 over C = 9..12). At
 //   B 128, N 27, S 3, n_rbf 20 the forward takes 0.332 ms and the backward
 //   0.682 ms, 15 / 14 % of their FP32 bound, where the earlier wide
@@ -625,7 +627,7 @@ fused_message_bwd_kernel(
 // Forward: fused_message_kernel's blocking (kFwdRows receivers per thread, a
 // cp.async ring of senders per warp, partner chunks of kCols), with the
 // records and the weights taken one basis chunk at a time.
-template <int C, int S>
+template <int C, int S, bool E>
 __global__ void __launch_bounds__(kLanes * kFwdMaxWarps, 2)
 fused_message_wide_kernel(
     const float* __restrict__ xyz,    // (B, N, 3)
@@ -692,7 +694,7 @@ fused_message_wide_kernel(
 #pragma unroll
       for (int jj = 0; jj < kRing - 1; ++jj) stage(jj);   // in flight while the records are built
       for (int t = threadIdx.x; t < rows * nc; t += blockDim.x)
-        chunk_record<C>(geo + t * W, nodes, i0 + t / nc, j0 + t % nc, N, r0, RA, cutoff,
+        chunk_record<C, E>(geo + t * W, nodes, i0 + t / nc, j0 + t % nc, N, r0, RA, cutoff,
                         inv_cut);
       __syncthreads();
 
@@ -754,7 +756,7 @@ fused_message_wide_kernel(
 // block adds its warps' d_w sums in a fixed order and writes that chunk's
 // rows of its partial, one per (b, node tile, feature). Grid (F/32, node
 // tiles, B).
-template <int C, int S>
+template <int C, int S, bool E>
 __global__ void __launch_bounds__(kLanes * kWideBwdWarps, 2)
 fused_message_bwd_wide_kernel(
     const float* __restrict__ xyz,    // (B, N, 3)
@@ -847,7 +849,7 @@ fused_message_bwd_wide_kernel(
         cp_async_commit();
       }
       for (int t = threadIdx.x; t < rows * nc; t += blockDim.x)
-        chunk_record<C>(geo + t * W, nodes, p0 + t / nc, q0 + t % nc, N, r0, RA, cutoff,
+        chunk_record<C, E>(geo + t * W, nodes, p0 + t / nc, q0 + t % nc, N, r0, RA, cutoff,
                         inv_cut);
       if (restage) {
         cp_async_wait<0>();
@@ -1003,17 +1005,21 @@ extern "C" int fused_message_fwd(
     const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)((N + rows - 1) / rows),
                     (unsigned)B);
     return with_wide(S, RA, [&](auto s_c, auto c_c) {
-      constexpr int kS = decltype(s_c)::value, kC = decltype(c_c)::value;
-      const size_t smem = sizeof(float4) * N
-                          + sizeof(float) * rows * std::min(N, kCols) * record_width(kC)
-                          + sizeof(float) * warps * kRing * (kS + 3) * kLanes;
-      static int allowed[kMaxDevices] = {};
-      const int err = allow_smem(fused_message_wide_kernel<kC, kS>, smem, allowed);
-      if (err != 0) return err;
-      fused_message_wide_kernel<kC, kS><<<grid, warps * kLanes, smem, (cudaStream_t)stream>>>(
-          (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
-          (const float*)w, (float*)ds, (float*)dv, N, F, RA, cutoff);
-      return (int)cudaGetLastError();
+      return with_exact(RA, [&](auto e_c) {
+        constexpr int kS = decltype(s_c)::value, kC = decltype(c_c)::value;
+        constexpr bool kE = decltype(e_c)::value;
+        const size_t smem = sizeof(float4) * N
+                            + sizeof(float) * rows * std::min(N, kCols) * record_width(kC)
+                            + sizeof(float) * warps * kRing * (kS + 3) * kLanes;
+        static int allowed[kMaxDevices] = {};
+        const int err = allow_smem(fused_message_wide_kernel<kC, kS, kE>, smem, allowed);
+        if (err != 0) return err;
+        fused_message_wide_kernel<kC, kS, kE>
+            <<<grid, warps * kLanes, smem, (cudaStream_t)stream>>>(
+                (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
+                (const float*)w, (float*)ds, (float*)dv, N, F, RA, cutoff);
+        return (int)cudaGetLastError();
+      });
     });
   }
   if (S == 3 && N <= kSymRows * kSymGroups) {
@@ -1080,18 +1086,21 @@ extern "C" int fused_message_bwd(
     const int rows = warps * kBwdTogether, cols = std::min(N, kCols);
     const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)tiles, (unsigned)B);
     const int err = with_wide(S, RA, [&](auto s_c, auto c_c) {
-      constexpr int kS = decltype(s_c)::value, kC = decltype(c_c)::value;
-      const size_t geo = std::max(rows * cols * record_width(kC), warps * kC * kS * kLanes);
-      const size_t smem = sizeof(float4) * N + sizeof(float) * geo
-                          + sizeof(float4) * (kS == 4 ? 3 : 1) * cols * kLanes;
-      static int allowed[kMaxDevices] = {};
-      const int e = allow_smem(fused_message_bwd_wide_kernel<kC, kS>, smem, allowed);
-      if (e != 0) return e;
-      fused_message_bwd_wide_kernel<kC, kS><<<grid, warps * kLanes, smem, st>>>(
-          (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
-          (const float*)w, (const float*)gs, (const float*)gv, (float*)dphi, (float*)dv,
-          (float*)dw_part, N, F, RA, cutoff);
-      return (int)cudaGetLastError();
+      return with_exact(RA, [&](auto e_c) {
+        constexpr int kS = decltype(s_c)::value, kC = decltype(c_c)::value;
+        constexpr bool kE = decltype(e_c)::value;
+        const size_t geo = std::max(rows * cols * record_width(kC), warps * kC * kS * kLanes);
+        const size_t smem = sizeof(float4) * N + sizeof(float) * geo
+                            + sizeof(float4) * (kS == 4 ? 3 : 1) * cols * kLanes;
+        static int allowed[kMaxDevices] = {};
+        const int e = allow_smem(fused_message_bwd_wide_kernel<kC, kS, kE>, smem, allowed);
+        if (e != 0) return e;
+        fused_message_bwd_wide_kernel<kC, kS, kE><<<grid, warps * kLanes, smem, st>>>(
+            (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
+            (const float*)w, (const float*)gs, (const float*)gv, (float*)dphi, (float*)dv,
+            (float*)dw_part, N, F, RA, cutoff);
+        return (int)cudaGetLastError();
+      });
     });
     if (err != 0) return err;
     return launch_sum_over_batch((const float*)dw_part, (float*)dw, B * tiles, RA * S * F, st);

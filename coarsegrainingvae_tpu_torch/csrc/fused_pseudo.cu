@@ -115,12 +115,53 @@
 // - Each ordered pair's filters are folded once: K is symmetric, but a block
 //   writes only its own rows, so the other direction of a pair belongs to
 //   another block (the bound counts each unordered pair's filters once).
-// Design, R+1 > 16 (the wide kernels): R+1 is a runtime value; w, the pair's
-//   basis and the backward's d_w sums sit in shared memory, one column per
-//   lane (pair_geometry.cuh::wide_pair), and one warp walks every ordered
-//   pair of its batch elements. Simple and correct, not tuned. Shared memory
-//   bounds it: the backward holds 19 (R+1) floats per lane, so R+1 <= 95 in
-//   the 227 KB of one block.
+// Design, R+1 > 16 (the wide kernels): R+1 is a runtime value, cut into the
+//   fewest chunks of at most kPseudoChunk = 9 functions, all of one width C
+//   in 7..9 (a template parameter; the last chunk zero-padded: R+1 = 21 is
+//   three chunks of 7). Each chunk's records come from
+//   pair_geometry.cuh::chunk_record (an accurate sincospif at the chunk's
+//   first angle, then at most 8 recurrence steps, so the error does not grow
+//   with R; past R+1 = 32 each function rounded as the plain version rounds
+//   it, the template flag E). Every
+//   output is linear in the filter, so the node sums stay in registers
+//   across the chunks and each chunk adds its share; the gates are linear in
+//   their sums and take each chunk's share as it comes; the adjacency sums
+//   (t, the dsbar path) come with the first chunk. Nothing per basis
+//   function sits in shared memory, so the card sets no bound on R+1.
+// - M <= kWideRegMax = 3 (fused_pseudo_wide_reg_kernel,
+//   fused_pseudo_bwd_wide_reg_kernel): the register path's layout, one
+//   frame per warp, 4 per block. Per chunk the block stages the chunk's w
+//   (C x 9 per lane) with cp.async and each warp builds its frame's chunk
+//   records; each pair's filter is folded once for both directions. The
+//   backward keeps d_phi of all nine channels (27 sums) in registers across
+//   the chunks and each thread's d_w column of one chunk in shared memory;
+//   at a chunk's end the block adds its warps' columns in a fixed order and
+//   writes that chunk's rows of its partial, one per 4 frames.
+// - M > 3 (fused_pseudo_wide_chunk_kernel, fused_pseudo_bwd_wide_chunk_
+//   kernel): the chunked path's node tiles and cp.async-staged partner
+//   chunks, each record built once per (tile, partner chunk, basis chunk).
+//   The forward holds one chunk's w (C x 9) in registers. The backward walks,
+//   per frame, the basis chunks, and per chunk the partner chunks and
+//   channels as the chunked backward does, with that chunk's w and each
+//   thread's d_w column in shared memory, and writes each chunk's rows of
+//   its one partial per (frame, node tile).
+// - Why chunks of at most 9, fewer than the message kernels' 12: a thread
+//   holds two nodes' inputs and 25 sums (chunked forward) or ~78 values
+//   (chunked backward) beside the chunk's w, and the register backward its
+//   frame's inputs and sums (phi and d_phi in shared memory, private to the
+//   thread, keep it without spills).
+// - Measured (scripts/kernel_ab.py against the one-warp wide kernels that
+//   came before, 10 alternating pairs; one H100 80GB HBM3 at 700.00 W;
+//   PERF.md has the runs), F 600, n_rbf 20: B 128, M 3 forward 0.1016 ->
+//   0.0270 ms, backward 0.5959 -> 0.0816 (26 / 15 % of the bound); B 16,
+//   M 10 0.6215 -> 0.0455 / 1.0716 -> 0.1829; B 4, M 100 67.30 -> 0.519 /
+//   115.9 -> 1.887. ptxas at C 7-9, no spills: register forward 127-128,
+//   register backward 237-243, chunked forward 196-222, chunked backward
+//   183-201. Tried and not kept: the node tiles at M <= 3 (backward 0.499 ms
+//   at B 128, M 3: one frame's short work per block, three barriers per
+//   chunk), and frame groups re-reading one d_w partial per group (dropped
+//   for one partial per frame once M <= 3 took the register layout: none
+//   of the timed shapes grouped frames any more).
 // Measured (scripts/kernel_ab.py against the previous design, one block per
 //   (frame, receiver) or per (frame, 128 features) with threads striding
 //   over F and the basis padded to 16; one H100 80GB HBM3 at 700 W; PERF.md
@@ -172,6 +213,8 @@ constexpr int kCh = 9;
 constexpr int kLanes = 32;          // features per block, one per lane (register path)
 constexpr int kWarps = 4;           // warps per block, one frame each at a time
 constexpr int kRegMax = 6;          // the register path takes M <= kRegMax
+constexpr int kPseudoChunk = 9;     // basis functions per chunk of the wide kernels, at most
+constexpr int kWideRegMax = 3;      // the wide register kernels take M <= kWideRegMax
 
 // channels whose sender payload is v (the rest of 2..8 carry vbar)
 __host__ __device__ constexpr bool carries_v(int ch) { return ch == 2 || ch == 6 || ch == 7; }
@@ -1013,96 +1056,194 @@ fused_pseudo_bwd_chunk_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Wide basis, RA > kTemplateMaxRA (pair_geometry.cuh): one warp per (32
-// features, batch element) in the forward and per (32 features, group of
-// batch elements) in the backward, each lane one feature walking every
-// ordered pair. Shared memory holds the lane's columns of w (RA, 9) and of
-// the pair's basis (RA), and in the backward of its d_w sums (RA, 9); each
-// lane reads and writes only its own column, so no barrier is needed.
+// Wide basis, RA > kTemplateMaxRA (the note at the top), at M <= kWideRegMax:
+// the register path's layout with the basis in chunks of C <= kPseudoChunk
+// functions (pair_geometry.cuh::chunk_record). A block owns 32 features and
+// kWarps frames, one per warp, so a thread holds its frame's nodes, inputs
+// and sums in registers across the chunks and each chunk adds its share;
+// the adjacency sums (dsbar and its path in the backward) are taken with the
+// first chunk only. Per chunk the block stages that chunk's w in shared
+// memory and each warp builds its frame's chunk records, one lane per
+// unordered pair. A warp past B computes nothing but takes the barriers.
 
-size_t wide_fwd_smem(int RA) { return sizeof(float) * kLanes * RA * (kCh + 1); }
-size_t wide_bwd_smem(int RA) { return sizeof(float) * kLanes * RA * (2 * kCh + 1); }
+// Stage w[r0 .. r0 + C - 1, :, the block's 32 features] as (C * 9, lane),
+// zero past RA, by cp.async (one commit group); the idle lanes of the last
+// tile repeat F - 1.
+template <int C>
+__device__ __forceinline__ void stage_w_chunk(float* ws, const float* __restrict__ w, int F,
+                                              int r0, int RA) {
+  for (int t = threadIdx.x; t < C * kCh * kLanes; t += blockDim.x) {
+    const int rc = t / kLanes;
+    if (r0 + rc / kCh < RA)
+      cp_async4(ws + t, w + (size_t)(r0 * kCh + rc) * F +
+                            min((int)blockIdx.x * kLanes + t % kLanes, F - 1));
+    else
+      ws[t] = 0.f;
+  }
+  cp_async_commit();
+}
 
-__global__ void __launch_bounds__(kLanes)
-fused_pseudo_wide_kernel(
+// The warp's frame: its nodes (lanes < M), before the first chunk.
+template <int C, int MC>
+__device__ __forceinline__ void stage_frame_nodes(FrameGeo<C, MC>& geo, const float* xb,
+                                                  const float* mb, int M, int lane) {
+  if (lane < M)
+    geo.nodes[lane] = make_float4(xb[lane * 3 + 0], xb[lane * 3 + 1], xb[lane * 3 + 2], mb[lane]);
+}
+
+// The warp's records of a basis chunk, one lane per unordered pair.
+template <int C, bool E, int MC>
+__device__ __forceinline__ void build_frame_chunk(FrameGeo<C, MC>& geo, int M, int lane, int r0,
+                                                  int RA, float cutoff, float inv_cut) {
+  if (lane < n_pairs(MC)) {
+    int a = 0, e = lane;
+    while (e >= MC - 1 - a) e -= MC - 1 - a, ++a;
+    geo.adj[lane] = chunk_record<C, E>(geo.rec[lane], geo.nodes, a, a + 1 + e, M, r0, RA, cutoff,
+                                       inv_cut);
+  }
+}
+
+// Grid (F / 32, frame groups of kWarps).
+template <int C, bool E>
+__global__ void __launch_bounds__(kLanes * kWarps, 4)
+fused_pseudo_wide_reg_kernel(
     const float* __restrict__ xyz, const float* __restrict__ mask,
     const float* __restrict__ phi, const float* __restrict__ s,
     const float* __restrict__ sbar, const float* __restrict__ v,
     const float* __restrict__ vbar, const float* __restrict__ w,
     float* __restrict__ ds, float* __restrict__ dsbar, float* __restrict__ dv,
-    float* __restrict__ dvbar, int M, int F, int RA, float cutoff) {
-  extern __shared__ float wide_smem[];
-  const int lane = threadIdx.x, b = blockIdx.y;
-  const int f = blockIdx.x * kLanes + lane;
-  if (f >= F) return;
-  float* wcol = wide_smem + lane;                       // (RA, 9, lane)
-  float* kcol = wide_smem + kLanes * RA * kCh + lane;   // (RA, lane)
-  for (int e = 0; e < RA * kCh; ++e) wcol[e * kLanes] = w[(size_t)e * F + f];
-  const float* xb = xyz + (size_t)b * M * 3;
-  const float* mb = mask + (size_t)b * M;
+    float* __restrict__ dvbar, int B, int M, int F, int RA, float cutoff) {
+  constexpr int MC = kWideRegMax, W = record_width(C);
+  __shared__ float ws[C * kCh * kLanes];
+  __shared__ FrameGeo<C, MC> frames[kWarps];
 
-  for (int i = 0; i < M; ++i) {
-    // as fused_pseudo_chunk_kernel: s0; t = sum adj vbar; dv direct (g1 unit
-    // + g2 v); a3, a4 (dv gates); dvbar direct (g5 vbar); a6, a7, a8
-    float s0 = 0.f, t[3] = {0.f, 0.f, 0.f}, dvd[3] = {0.f, 0.f, 0.f};
-    float a3[3] = {0.f, 0.f, 0.f}, a4[3] = {0.f, 0.f, 0.f}, dvbd[3] = {0.f, 0.f, 0.f};
-    float a6[3] = {0.f, 0.f, 0.f}, a7[3] = {0.f, 0.f, 0.f}, a8[3] = {0.f, 0.f, 0.f};
-    for (int j = 0; j < M; ++j) {
-      const WidePair pr = wide_pair(kcol, kLanes, xb, mb, i, j, RA, cutoff);
-      const size_t row = (size_t)b * M + j;
-      float vj[3], vbj[3];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float inv_cut = 1.f / cutoff;
+  const int b = blockIdx.y * kWarps + warp;
+  const bool live = b < B;
+  const size_t n0 = (size_t)min(b, B - 1) * M;
+  FrameGeo<C, MC>& geo = frames[warp];
+  stage_frame_nodes<C, MC>(geo, xyz + n0 * 3, mask + n0, M, lane);
+
+  // the frame's payloads: x[0] = v, x[1] = vbar
+  float sv[MC], sb[MC], x[2][MC][3], phv[kCh][MC];
+  float o_ds[MC], o_dsb[MC], o_dv[MC][3], o_dvb[MC][3];
+#pragma unroll
+  for (int a = 0; a < MC; ++a) {
+    const bool on = a < M;
+    sv[a] = on ? s[(n0 + a) * F + f] : 0.f;
+    sb[a] = on ? sbar[(n0 + a) * F + f] : 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      x[0][a][d] = on ? v[((n0 + a) * 3 + d) * F + f] : 0.f;
+      x[1][a][d] = on ? vbar[((n0 + a) * 3 + d) * F + f] : 0.f;
+      o_dv[a][d] = o_dvb[a][d] = 0.f;
+    }
+    o_ds[a] = o_dsb[a] = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) phv[ch][a] = on ? phi[((n0 + a) * kCh + ch) * F + f] : 0.f;
+  }
+
+  for (int r0 = 0; r0 < RA; r0 += C) {
+    __syncthreads();                  // the nodes are staged; the previous chunk's readers are done
+    stage_w_chunk<C>(ws, w, F, r0, RA);
+    build_frame_chunk<C, E, MC>(geo, M, lane, r0, RA, cutoff, inv_cut);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!live) continue;
+    if (r0 == 0)                      // dsbar_a = v_a . sum_c adj vbar_c, both directions
+#pragma unroll
+      for (int a = 0; a < MC - 1; ++a)
+#pragma unroll
+        for (int c = a + 1; c < MC; ++c) {
+          if (c >= M) break;
+          const float adj = geo.adj[pair_index(MC, a, c)];
+          o_dsb[a] = fmaf(adj, dot3(x[0][a], x[1][c]), o_dsb[a]);
+          o_dsb[c] = fmaf(adj, dot3(x[0][c], x[1][a]), o_dsb[c]);
+        }
+
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      float wc[C], acc[MC][3];
+#pragma unroll
+      for (int r = 0; r < C; ++r) wc[r] = ws[(r * kCh + ch) * kLanes + lane];
+#pragma unroll
+      for (int a = 0; a < MC; ++a) acc[a][0] = acc[a][1] = acc[a][2] = 0.f;
+#pragma unroll
+      for (int a = 0; a < MC - 1; ++a)
+#pragma unroll
+        for (int c = a + 1; c < MC; ++c) {
+          if (c >= M) break;
+          float g[W];
+          load_record(g, geo.rec[pair_index(MC, a, c)]);
+          float filt = 0.f;
+#pragma unroll
+          for (int r = 0; r < C; ++r) filt = fmaf(g[r], wc[r], filt);
+          const float ga = filt * phv[ch][c], gc = filt * phv[ch][a];  // receiver a, receiver c
+          if (ch == 0) {
+            acc[a][0] += ga;
+            acc[c][0] += gc;
+          } else if (ch == 1) {               // unit_ca = -unit_ac
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              acc[a][d] = fmaf(ga, g[C + d], acc[a][d]);
+              acc[c][d] = fmaf(-gc, g[C + d], acc[c][d]);
+            }
+          } else {
+            const int xi = carries_v(ch) ? 0 : 1;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              acc[a][d] = fmaf(ga, x[xi][c][d], acc[a][d]);
+              acc[c][d] = fmaf(gc, x[xi][a][d], acc[c][d]);
+            }
+          }
+        }
+      // the channel's gate on this chunk's share, once per node
+#pragma unroll
+      for (int a = 0; a < MC; ++a) {
+        float* A = acc[a];
+        switch (ch) {
+          case 0: o_ds[a] = fmaf(sv[a], A[0], o_ds[a]); break;
+          case 1:
+          case 2: o_dv[a][0] += A[0]; o_dv[a][1] += A[1]; o_dv[a][2] += A[2]; break;
+          case 3: add_cross(o_dv[a], x[0][a], A); break;
+          case 4: for (int d = 0; d < 3; ++d) o_dv[a][d] = fmaf(sb[a], A[d], o_dv[a][d]); break;
+          case 5: o_dvb[a][0] += A[0]; o_dvb[a][1] += A[1]; o_dvb[a][2] += A[2]; break;
+          case 6: for (int d = 0; d < 3; ++d) o_dvb[a][d] = fmaf(sb[a], A[d], o_dvb[a][d]); break;
+          case 7: add_cross(o_dvb[a], x[0][a], A); break;
+          default: add_cross(o_dvb[a], x[1][a], A); break;
+        }
+      }
+    }
+  }
+
+  if (live && f_out < F) {
+#pragma unroll
+    for (int a = 0; a < MC; ++a) {
+      if (a >= M) break;
+      ds[(n0 + a) * F + f] = o_ds[a];
+      dsbar[(n0 + a) * F + f] = o_dsb[a];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        vj[d] = v[(row * 3 + d) * F + f];
-        vbj[d] = vbar[(row * 3 + d) * F + f];
-        t[d] += pr.adj * vbj[d];
+        dv[((n0 + a) * 3 + d) * F + f] = o_dv[a][d];
+        dvbar[((n0 + a) * 3 + d) * F + f] = o_dvb[a][d];
       }
-      if (pr.ke == 0.f) continue;
-#pragma unroll
-      for (int ch = 0; ch < kCh; ++ch) {
-        const float gg = wide_fold(kcol, wcol, ch, kCh, RA, kLanes) * phi[(row * kCh + ch) * F + f];
-        if (ch == 0) {
-          s0 += gg;
-          continue;
-        }
-        if (ch == 1) {
-#pragma unroll
-          for (int d = 0; d < 3; ++d) dvd[d] += gg * pr.unit[d];
-          continue;
-        }
-        const float* x = carries_v(ch) ? vj : vbj;
-        float* acc = ch == 2 ? dvd : ch == 3 ? a3 : ch == 4 ? a4 : ch == 5 ? dvbd
-                   : ch == 6 ? a6 : ch == 7 ? a7 : a8;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) acc[d] += gg * x[d];
-      }
-    }
-    const size_t row_i = (size_t)b * M + i;
-    const float si = s[row_i * F + f], gi = sbar[row_i * F + f];
-    float vi[3], vbi[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      vi[d] = v[(row_i * 3 + d) * F + f];
-      vbi[d] = vbar[(row_i * 3 + d) * F + f];
-    }
-    ds[row_i * F + f] = si * s0;
-    dsbar[row_i * F + f] = vi[0] * t[0] + vi[1] * t[1] + vi[2] * t[2];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int p = (d + 1) % 3, q = (d + 2) % 3;  // (a x b)_d = a_p b_q - a_q b_p
-      dv[(row_i * 3 + d) * F + f] = dvd[d] + (vi[p] * a3[q] - vi[q] * a3[p]) + gi * a4[d];
-      dvbar[(row_i * 3 + d) * F + f] = dvbd[d] + gi * a6[d] + (vi[p] * a7[q] - vi[q] * a7[p]) +
-                                       (vbi[p] * a8[q] - vbi[q] * a8[p]);
     }
   }
 }
 
-// The walk of fused_pseudo_bwd_chunk_kernel with the partners outside the
-// channels: per node p and partner q the basis once, then the nine channels.
-// Block (x, g) takes batch elements g, g + G, ... (G = gridDim.y) and writes
-// d_w partial g.
-__global__ void __launch_bounds__(kLanes)
-fused_pseudo_bwd_wide_kernel(
+// Grid (F / 32, frame groups of kWarps). Dynamic shared memory: the chunk's
+// w as (C * 9, lane), then each thread's d_w column of the chunk, (C * 9,
+// thread), and its frame's phi and d_phi sums, (9 * kWideRegMax, thread)
+// each: a thread reads and writes only its own columns, and holding phi and
+// d_phi there keeps the rest in registers without spills. After each chunk
+// the block adds its warps' d_w columns in a fixed order and writes that
+// chunk's rows of its partial, dw_part[frame group], once.
+template <int C, bool E>
+__global__ void __launch_bounds__(kLanes * kWarps, 2)
+fused_pseudo_bwd_wide_reg_kernel(
     const float* __restrict__ xyz, const float* __restrict__ mask,
     const float* __restrict__ phi, const float* __restrict__ s,
     const float* __restrict__ sbar, const float* __restrict__ v,
@@ -1111,138 +1252,618 @@ fused_pseudo_bwd_wide_kernel(
     const float* __restrict__ gv, const float* __restrict__ gvb,
     float* __restrict__ dphi, float* __restrict__ d_s, float* __restrict__ d_sbar,
     float* __restrict__ d_v, float* __restrict__ d_vbar,
-    float* __restrict__ dw_part,      // (G, RA, 9, F)
+    float* __restrict__ dw_part,      // (frame groups, RA, 9, F)
     int B, int M, int F, int RA, float cutoff) {
-  extern __shared__ float wide_smem[];
-  const int lane = threadIdx.x, g = blockIdx.y, G = gridDim.y;
-  const int f = blockIdx.x * kLanes + lane;
-  if (f >= F) return;
-  float* wcol = wide_smem + lane;                           // (RA, 9, lane)
-  float* dwcol = wide_smem + kLanes * RA * kCh + lane;      // (RA, 9, lane)
-  float* kcol = wide_smem + 2 * kLanes * RA * kCh + lane;   // (RA, lane)
-  for (int e = 0; e < RA * kCh; ++e) {
-    wcol[e * kLanes] = w[(size_t)e * F + f];
-    dwcol[e * kLanes] = 0.f;
+  constexpr int MC = kWideRegMax, W = record_width(C), kThreads = kLanes * kWarps;
+  extern __shared__ float4 smem[];
+  __shared__ FrameGeo<C, MC> frames[kWarps];
+
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float inv_cut = 1.f / cutoff;
+  const int b = blockIdx.y * kWarps + warp;
+  const bool live = b < B;
+  const size_t n0 = (size_t)min(b, B - 1) * M;
+  float* ws = reinterpret_cast<float*>(smem);
+  float* dws = ws + C * kCh * kLanes + threadIdx.x;      // this thread's columns, stride kThreads
+  float* phs = dws + C * kCh * kThreads;                 // phi[a, ch] at (ch * MC + a)
+  float* dphs = phs + kCh * MC * kThreads;               // d_phi[a, ch] likewise
+  float* out = dw_part + (size_t)blockIdx.y * RA * kCh * F;
+  FrameGeo<C, MC>& geo = frames[warp];
+  stage_frame_nodes<C, MC>(geo, xyz + n0 * 3, mask + n0, M, lane);
+
+  // the frame's inputs: x[0] = v, x[1] = vbar; sig = s gs (dG_0)
+  float x[2][MC][3], gvv[MC][3], gvbv[MC][3], sb[MC], sig[MC];
+  // the sums: dx[0] = d_v, dx[1] = d_vbar; s0 (d_s / gs), d_sbar
+  float dx[2][MC][3], s0[MC], dsb[MC];
+#pragma unroll
+  for (int a = 0; a < MC; ++a) {
+    const bool on = a < M;
+    const size_t n = n0 + a;
+    sb[a] = on ? sbar[n * F + f] : 0.f;
+    sig[a] = on ? s[n * F + f] * gs[n * F + f] : 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      x[0][a][d] = on ? v[(n * 3 + d) * F + f] : 0.f;
+      x[1][a][d] = on ? vbar[(n * 3 + d) * F + f] : 0.f;
+      gvv[a][d] = on ? gv[(n * 3 + d) * F + f] : 0.f;
+      gvbv[a][d] = on ? gvb[(n * 3 + d) * F + f] : 0.f;
+      dx[0][a][d] = dx[1][a][d] = 0.f;
+    }
+    s0[a] = dsb[a] = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      phs[(ch * MC + a) * kThreads] = on ? phi[(n * kCh + ch) * F + f] : 0.f;
+      dphs[(ch * MC + a) * kThreads] = 0.f;
+    }
   }
 
-  for (int b = g; b < B; b += G) {
-    const float* xb = xyz + (size_t)b * M * 3;
-    const float* mb = mask + (size_t)b * M;
-    for (int p = 0; p < M; ++p) {
-      const size_t row_p = (size_t)b * M + p;
-      float vp[3], vbp[3], gvp[3], gvbp[3], php[kCh];
+  for (int r0 = 0; r0 < RA; r0 += C) {
+    __syncthreads();                  // the nodes are staged; the previous chunk's readers are done
+    stage_w_chunk<C>(ws, w, F, r0, RA);
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        vp[d] = v[(row_p * 3 + d) * F + f];
-        vbp[d] = vbar[(row_p * 3 + d) * F + f];
-        gvp[d] = gv[(row_p * 3 + d) * F + f];
-        gvbp[d] = gvb[(row_p * 3 + d) * F + f];
-      }
+    for (int rc = 0; rc < C * kCh; ++rc) dws[rc * kThreads] = 0.f;
+    build_frame_chunk<C, E, MC>(geo, M, lane, r0, RA, cutoff, inv_cut);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (live) {
+      if (r0 == 0) {                  // the dsbar path, both directions of each pair
+        float gsbv[MC];
 #pragma unroll
-      for (int ch = 0; ch < kCh; ++ch) php[ch] = phi[(row_p * kCh + ch) * F + f];
-      // per channel: d_phi's sum, sum_q filt Gamma_ch(q) (bx), and the
-      // forward's a_ch at p (fw; t_p for channel 0)
-      float dphi_c[kCh], bx[kCh][3], fw[kCh][3];
+        for (int a = 0; a < MC; ++a) gsbv[a] = a < M ? gsb[(n0 + a) * F + f] : 0.f;
 #pragma unroll
-      for (int ch = 0; ch < kCh; ++ch) {
-        dphi_c[ch] = 0.f;
-        bx[ch][0] = bx[ch][1] = bx[ch][2] = 0.f;
-        fw[ch][0] = fw[ch][1] = fw[ch][2] = 0.f;
-      }
-      float s0 = 0.f, dvp[3] = {0.f, 0.f, 0.f}, dvbp[3] = {0.f, 0.f, 0.f};
-
-      for (int q = 0; q < M; ++q) {
-        const WidePair pr = wide_pair(kcol, kLanes, xb, mb, p, q, RA, cutoff);
-        const size_t row_q = (size_t)b * M + q;
-        float vq[3], vbq[3];
+        for (int a = 0; a < MC - 1; ++a)
 #pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          vq[d] = v[(row_q * 3 + d) * F + f];
-          vbq[d] = vbar[(row_q * 3 + d) * F + f];
-        }
-        if (pr.adj != 0.f) {
-          // dsbar path, both roles: t_p and d_vbar_p += adj gsb_q v_q
-          const float ag = pr.adj * gsb[row_q * F + f];
+          for (int c = a + 1; c < MC; ++c) {
+            if (c >= M) break;
+            const float adj = geo.adj[pair_index(MC, a, c)];
+            const float ga = adj * gsbv[a], gc = adj * gsbv[c];
 #pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            fw[0][d] += pr.adj * vbq[d];
-            dvbp[d] += ag * vq[d];
-          }
-        }
-        if (pr.ke == 0.f) continue;
-        float gvq[3], gvbq[3];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          gvq[d] = gv[(row_q * 3 + d) * F + f];
-          gvbq[d] = gvb[(row_q * 3 + d) * F + f];
-        }
-        const float sbq = sbar[row_q * F + f];
-#pragma unroll
-        for (int ch = 0; ch < kCh; ++ch) {
-          const float filt = wide_fold(kcol, wcol, ch, kCh, RA, kLanes);
-          float dG;
-          if (ch == 0) {
-            dG = s[row_q * F + f] * gs[row_q * F + f];
-            s0 += filt * phi[(row_q * kCh) * F + f];
-          } else if (ch == 1) {
-            // unit of the pair (q <- p) is (x_p - x_q) / d = -unit of the record
-            dG = -(gvq[0] * pr.unit[0] + gvq[1] * pr.unit[1] + gvq[2] * pr.unit[2]);
-          } else {
-            // Gamma_ch(q), the cotangent of a_ch at q
-            const float* gsrc = ch >= 5 ? gvbq : gvq;
-            float gam[3] = {gsrc[0], gsrc[1], gsrc[2]};
-            if (ch == 4 || ch == 6) {
-              gam[0] *= sbq; gam[1] *= sbq; gam[2] *= sbq;
-            } else if (ch == 3 || ch == 7 || ch == 8) {
-              float c[3] = {0.f, 0.f, 0.f};
-              add_cross(c, gam, ch == 8 ? vbq : vq);  // Gamma = g x v (x vbar for 8)
-              gam[0] = c[0]; gam[1] = c[1]; gam[2] = c[2];
-            }
-            dG = dot3(gam, carries_v(ch) ? vp : vbp);
-#pragma unroll
-            for (int d = 0; d < 3; ++d) bx[ch][d] += filt * gam[d];
-            if (ch != 2 && ch != 5) {
-              // forward a_ch at p as the receiver
-              const float fp = filt * phi[(row_q * kCh + ch) * F + f];
-              const float* x = carries_v(ch) ? vq : vbq;
-#pragma unroll
-              for (int d = 0; d < 3; ++d) fw[ch][d] += fp * x[d];
+            for (int d = 0; d < 3; ++d) {
+              dx[0][a][d] = fmaf(ga, x[1][c][d], dx[0][a][d]);
+              dx[0][c][d] = fmaf(gc, x[1][a][d], dx[0][c][d]);
+              dx[1][a][d] = fmaf(gc, x[0][c][d], dx[1][a][d]);
+              dx[1][c][d] = fmaf(ga, x[0][a][d], dx[1][c][d]);
             }
           }
-          dphi_c[ch] += filt * dG;
-          const float x = dG * php[ch];
-          for (int r = 0; r < RA; ++r)
-            dwcol[(r * kCh + ch) * kLanes] =
-                fmaf(kcol[r * kLanes], x, dwcol[(r * kCh + ch) * kLanes]);
-        }
       }
 
 #pragma unroll
       for (int ch = 0; ch < kCh; ++ch) {
-        dphi[(row_p * kCh + ch) * F + f] = dphi_c[ch];
-        if (ch >= 2) {
-          float* dx = carries_v(ch) ? dvp : dvbp;
+        const int xi = carries_v(ch) ? 0 : 1;
+        float wc[C], gam[MC][3], ph[MC], dph[MC];
+        // fa: this chunk's share of the forward's sum at each receiver (of
+        // s0 in fa[.][0] for ch 0); bx: of sum_i filt Gamma_ch(i) at each
+        // sender
+        float fa[MC][3], bx[MC][3], dwc[C];
 #pragma unroll
-          for (int d = 0; d < 3; ++d) dx[d] += php[ch] * bx[ch][d];
+        for (int r = 0; r < C; ++r) {
+          wc[r] = ws[(r * kCh + ch) * kLanes + lane];
+          dwc[r] = 0.f;
         }
-      }
-      const float gsbp = gsb[row_p * F + f];
-      d_s[row_p * F + f] = s0 * gs[row_p * F + f];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) dvp[d] += gsbp * fw[0][d];
-      add_cross(dvp, fw[3], gvp);
-      add_cross(dvp, fw[7], gvbp);
-      add_cross(dvbp, fw[8], gvbp);
-      d_sbar[row_p * F + f] = dot3(fw[4], gvp) + dot3(fw[6], gvbp);
+        for (int a = 0; a < MC; ++a) {
+          ph[a] = phs[(ch * MC + a) * kThreads];
+          dph[a] = 0.f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) fa[a][d] = bx[a][d] = 0.f;
+          switch (ch) {                   // Gamma_ch(a)
+            case 2: case 5: {
+              const float* g = ch == 2 ? gvv[a] : gvbv[a];
+              gam[a][0] = g[0]; gam[a][1] = g[1]; gam[a][2] = g[2];
+              break;
+            }
+            case 4: case 6: {
+              const float* g = ch == 4 ? gvv[a] : gvbv[a];
+              for (int d = 0; d < 3; ++d) gam[a][d] = sb[a] * g[d];
+              break;
+            }
+            case 3: case 7: case 8: {
+              const float* g = ch == 3 ? gvv[a] : gvbv[a];
+              const float* u = ch == 8 ? x[1][a] : x[0][a];
+              gam[a][0] = gam[a][1] = gam[a][2] = 0.f;
+              add_cross(gam[a], g, u);
+              break;
+            }
+            default: gam[a][0] = gam[a][1] = gam[a][2] = 0.f; break;
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < MC - 1; ++a)
+#pragma unroll
+          for (int c = a + 1; c < MC; ++c) {
+            if (c >= M) break;
+            float g[W];
+            load_record(g, geo.rec[pair_index(MC, a, c)]);
+            float filt = 0.f;
+#pragma unroll
+            for (int r = 0; r < C; ++r) filt = fmaf(g[r], wc[r], filt);
+            float dac, dca;                 // dG[a, c] (receiver a), dG[c, a]
+            if (ch == 0) {
+              dac = sig[a];
+              dca = sig[c];
+              fa[a][0] = fmaf(filt, ph[c], fa[a][0]);
+              fa[c][0] = fmaf(filt, ph[a], fa[c][0]);
+            } else if (ch == 1) {           // unit_ca = -unit_ac
+              dac = dot3(gvv[a], g + C);
+              dca = -dot3(gvv[c], g + C);
+            } else {
+              dac = dot3(gam[a], x[xi][c]);
+              dca = dot3(gam[c], x[xi][a]);
+#pragma unroll
+              for (int d = 0; d < 3; ++d) {
+                bx[c][d] = fmaf(filt, gam[a][d], bx[c][d]);
+                bx[a][d] = fmaf(filt, gam[c][d], bx[a][d]);
+              }
+              if (ch != 2 && ch != 5) {     // the forward's a_ch, needed by a gate
+                const float ga = filt * ph[c], gc = filt * ph[a];
+#pragma unroll
+                for (int d = 0; d < 3; ++d) {
+                  fa[a][d] = fmaf(ga, x[xi][c][d], fa[a][d]);
+                  fa[c][d] = fmaf(gc, x[xi][a][d], fa[c][d]);
+                }
+              }
+            }
+            dph[c] = fmaf(filt, dac, dph[c]);
+            dph[a] = fmaf(filt, dca, dph[a]);
+            const float X = fmaf(ph[c], dac, ph[a] * dca);
+#pragma unroll
+            for (int r = 0; r < C; ++r) dwc[r] = fmaf(g[r], X, dwc[r]);
+          }
+        // per node: the sender side and the receiver gates, on this
+        // chunk's shares (linear in them)
+#pragma unroll
+        for (int a = 0; a < MC; ++a) {
+          dphs[(ch * MC + a) * kThreads] += dph[a];
+          if (ch >= 2)
+#pragma unroll
+            for (int d = 0; d < 3; ++d) dx[xi][a][d] = fmaf(ph[a], bx[a][d], dx[xi][a][d]);
+          switch (ch) {
+            case 0: s0[a] += fa[a][0]; break;
+            case 3: add_cross(dx[0][a], fa[a], gvv[a]); break;
+            case 4: dsb[a] += dot3(fa[a], gvv[a]); break;
+            case 6: dsb[a] += dot3(fa[a], gvbv[a]); break;
+            case 7: add_cross(dx[0][a], fa[a], gvbv[a]); break;
+            case 8: add_cross(dx[1][a], fa[a], gvbv[a]); break;
+            default: break;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < C; ++r) dws[(r * kCh + ch) * kThreads] += dwc[r];
+      }
+    }
+    // this chunk's d_w: the warps' columns added in a fixed order, its rows
+    // of the block's partial written once
+    __syncthreads();
+    const float* cols = ws + C * kCh * kLanes;
+    for (int t = threadIdx.x; t < C * kCh * kLanes; t += kThreads) {
+      const int rc = t / kLanes, ln = t % kLanes, ff = blockIdx.x * kLanes + ln;
+      if (r0 + rc / kCh >= RA || ff >= F) continue;
+      float acc = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < kWarps; ++wi) acc += cols[rc * kThreads + wi * kLanes + ln];
+      out[(size_t)(r0 * kCh + rc) * F + ff] = acc;
+    }
+  }
+
+  if (live && f_out < F) {
+#pragma unroll
+    for (int a = 0; a < MC; ++a) {
+      if (a >= M) break;
+      const size_t n = n0 + a;
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch)
+        dphi[(n * kCh + ch) * F + f] = dphs[(ch * MC + a) * kThreads];
+      d_s[n * F + f] = s0[a] * gs[n * F + f];
+      d_sbar[n * F + f] = dsb[a];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        d_v[(row_p * 3 + d) * F + f] = dvp[d];
-        d_vbar[(row_p * 3 + d) * F + f] = dvbp[d];
+        d_v[(n * 3 + d) * F + f] = dx[0][a][d];
+        d_vbar[(n * 3 + d) * F + f] = dx[1][a][d];
       }
     }
   }
-  float* out = dw_part + (size_t)g * RA * kCh * F + f;
-  for (int e = 0; e < RA * kCh; ++e) out[(size_t)e * F] = dwcol[e * kLanes];
+}
+
+// ---------------------------------------------------------------------------
+// Wide basis, RA > kTemplateMaxRA (the note at the top): the chunked path's
+// tiling for every M, the basis in chunks of C <= kPseudoChunk functions
+// (pair_geometry.cuh::chunk_record). Every output is linear in the filter,
+// so the node sums stay in registers across the basis chunks and each chunk
+// adds its share; the adjacency sums (t, the dsbar path) are taken with the
+// first basis chunk only. A partner is skipped where adj is 0 at every row
+// the thread holds (then its whole basis is 0).
+
+// Grid (F / 32, node tiles, B), as fused_pseudo_chunk_kernel. Per partner
+// chunk the block stages the partner rows once; per basis chunk each thread
+// loads that chunk's w[:, :, f] into registers and the block builds the
+// chunk's (tile node, partner) records.
+template <int C, bool E>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 2)
+fused_pseudo_wide_chunk_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ mask,
+    const float* __restrict__ phi, const float* __restrict__ s,
+    const float* __restrict__ sbar, const float* __restrict__ v,
+    const float* __restrict__ vbar, const float* __restrict__ w,
+    float* __restrict__ ds, float* __restrict__ dsbar, float* __restrict__ dv,
+    float* __restrict__ dvbar, int M, int F, int rows, int RA, float cutoff) {
+  constexpr int W = record_width(C), P = kFwdRow, TI = kTileRows;
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int n_warps = blockDim.x / kLanes, cols = min(M, kFwdChunk), held = n_warps * TI;
+  const int b = blockIdx.z, i0 = blockIdx.y * rows, mine = warp_rows(warp, rows, i0, M);
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float inv_cut = 1.f / cutoff;
+  float4* nodes = smem;                                   // (M)
+  float* part = reinterpret_cast<float*>(smem + M);       // (cols, P, lane)
+  float* rec = part + cols * P * kLanes;                  // (held, cols, W)
+  float* adj = rec + held * cols * W;                     // (held, cols)
+  const size_t n0 = (size_t)b * M;
+  const float* phib = phi + n0 * kCh * F + f;
+  const float* vb = v + n0 * 3 * F + f;
+  const float* vbb = vbar + n0 * 3 * F + f;
+
+  // per node, as fused_pseudo_chunk_kernel: s0, t, the direct sums and the
+  // gated sums a3, a4, a6, a7, a8
+  float s0[TI], t[TI][3], dvd[TI][3], dvbd[TI][3], a[TI][5][3];
+#pragma unroll
+  for (int k = 0; k < TI; ++k) {
+    s0[k] = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      t[k][d] = dvd[k][d] = dvbd[k][d] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 5; ++e) a[k][e][d] = 0.f;
+    }
+  }
+  stage_frame(nodes, xyz + n0 * 3, mask + n0, M);
+
+  for (int j0 = 0; j0 < M; j0 += kFwdChunk) {
+    const int nc = min(kFwdChunk, M - j0);
+    for (int r0 = 0; r0 < RA; r0 += C) {
+      float wr[C][kCh];               // this basis chunk's weights, zero past RA
+#pragma unroll
+      for (int r = 0; r < C; ++r)
+#pragma unroll
+        for (int ch = 0; ch < kCh; ++ch)
+          wr[r][ch] = r0 + r < RA ? w[((size_t)(r0 + r) * kCh + ch) * F + f] : 0.f;
+      __syncthreads();                // the nodes are staged; the previous readers are done
+      if (r0 == 0) {                  // the sender rows, in flight while the records are built
+        for (int qq = warp; qq < nc; qq += n_warps) {
+          float* dst = part + qq * P * kLanes + lane;
+          const size_t q = j0 + qq;
+#pragma unroll
+          for (int ch = 0; ch < kCh; ++ch) cp_async4(dst + ch * kLanes, phib + (q * kCh + ch) * F);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            cp_async4(dst + (kFwdV + d) * kLanes, vb + (q * 3 + d) * F);
+            cp_async4(dst + (kFwdVb + d) * kLanes, vbb + (q * 3 + d) * F);
+          }
+        }
+        cp_async_commit();
+      }
+      for (int e = threadIdx.x; e < held * nc; e += blockDim.x) {
+        const int rr = e / nc, qq = e % nc;
+        adj[rr * cols + qq] = chunk_record<C, E>(rec + (rr * cols + qq) * W, nodes,
+                                              rr < rows ? i0 + rr : M, j0 + qq, M, r0, RA,
+                                              cutoff, inv_cut);
+      }
+      if (r0 == 0) cp_async_wait<0>();
+      __syncthreads();
+
+#pragma unroll 1
+      for (int qq = 0; qq < nc; ++qq) {   // sender j against the thread's receivers
+        float pj[P], g[TI][W];
+        const float* src = part + qq * P * kLanes + lane;
+#pragma unroll
+        for (int e = 0; e < P; ++e) pj[e] = src[e * kLanes];
+        bool none = true;
+#pragma unroll
+        for (int k = 0; k < TI; ++k) {
+          const int rr = warp * TI + k;
+          const float aj = adj[rr * cols + qq];
+          if (r0 == 0)
+#pragma unroll
+            for (int d = 0; d < 3; ++d) t[k][d] = fmaf(aj, pj[kFwdVb + d], t[k][d]);
+          load_record(g[k], rec + (rr * cols + qq) * W);
+          none = none && aj == 0.f;
+        }
+        if (none) continue;
+#pragma unroll
+        for (int k = 0; k < TI; ++k) {
+          float gg[kCh];                          // this chunk's share of g_ch
+#pragma unroll
+          for (int ch = 0; ch < kCh; ++ch) {
+            float filt = 0.f;
+#pragma unroll
+            for (int r = 0; r < C; ++r) filt = fmaf(g[k][r], wr[r][ch], filt);
+            gg[ch] = filt * pj[ch];
+          }
+          s0[k] += gg[0];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float vj = pj[kFwdV + d], vbj = pj[kFwdVb + d];
+            dvd[k][d] = fmaf(gg[1], g[k][C + d], fmaf(gg[2], vj, dvd[k][d]));
+            a[k][0][d] = fmaf(gg[3], vbj, a[k][0][d]);
+            a[k][1][d] = fmaf(gg[4], vbj, a[k][1][d]);
+            dvbd[k][d] = fmaf(gg[5], vbj, dvbd[k][d]);
+            a[k][2][d] = fmaf(gg[6], vj, a[k][2][d]);
+            a[k][3][d] = fmaf(gg[7], vj, a[k][3][d]);
+            a[k][4][d] = fmaf(gg[8], vbj, a[k][4][d]);
+          }
+        }
+      }
+    }
+  }
+  if (f_out >= F) return;
+
+#pragma unroll
+  for (int k = 0; k < TI; ++k) {
+    if (k >= mine) break;
+    const size_t row = n0 + i0 + warp * TI + k;
+    const float si = s[row * F + f], gi = sbar[row * F + f];
+    float vi[3], vbi[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      vi[d] = v[(row * 3 + d) * F + f];
+      vbi[d] = vbar[(row * 3 + d) * F + f];
+    }
+    ds[row * F + f] = si * s0[k];
+    dsbar[row * F + f] = dot3(vi, t[k]);
+    float o[3] = {dvd[k][0], dvd[k][1], dvd[k][2]};
+    float ob[3] = {dvbd[k][0], dvbd[k][1], dvbd[k][2]};
+    add_cross(o, vi, a[k][0]);
+    add_cross(ob, vi, a[k][3]);
+    add_cross(ob, vbi, a[k][4]);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      dv[(row * 3 + d) * F + f] = fmaf(gi, a[k][1][d], o[d]);
+      dvbar[(row * 3 + d) * F + f] = fmaf(gi, a[k][2][d], ob[d]);
+    }
+  }
+}
+
+// Grid (F / 32, node tiles, B), as fused_pseudo_bwd_chunk_kernel. Per basis
+// chunk the block stages the chunk's w in shared memory with cp.async and
+// walks the partner chunks and channels as that kernel does (the partner
+// rows staged once when one chunk holds every partner). At the end of a
+// basis chunk the block adds its warps' d_w columns in a fixed order and
+// writes that chunk's rows of its partial, dw_part[b, tile], once.
+template <int C, bool E>
+__global__ void __launch_bounds__(kLanes * kTileWarps, 2)
+fused_pseudo_bwd_wide_chunk_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ mask,
+    const float* __restrict__ phi, const float* __restrict__ s,
+    const float* __restrict__ sbar, const float* __restrict__ v,
+    const float* __restrict__ vbar, const float* __restrict__ w,
+    const float* __restrict__ gs, const float* __restrict__ gsb,
+    const float* __restrict__ gv, const float* __restrict__ gvb,
+    float* __restrict__ dphi, float* __restrict__ d_s, float* __restrict__ d_sbar,
+    float* __restrict__ d_v, float* __restrict__ d_vbar,
+    float* __restrict__ dw_part,      // (B, node tiles, RA, 9, F)
+    int M, int F, int rows, int RA, float cutoff) {
+  constexpr int W = record_width(C), P = kBwdRow, TI = kTileRows;
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int n_warps = blockDim.x / kLanes, cols = min(M, kBwdChunk), held = n_warps * TI;
+  const int b = blockIdx.z, p0 = blockIdx.y * rows, mine = warp_rows(warp, rows, p0, M);
+  const int f_out = blockIdx.x * kLanes + lane;
+  const int f = min(f_out, F - 1);    // idle lanes of the last tile repeat F - 1
+  const float inv_cut = 1.f / cutoff;
+  const bool one_chunk = M <= kBwdChunk;
+  float4* nodes = smem;                                   // (M)
+  float* ws = reinterpret_cast<float*>(smem + M);         // (C * 9, lane)
+  float* dws = ws + C * kCh * kLanes;                     // (C * 9, thread)
+  float* part = dws + C * kCh * blockDim.x;               // (cols, P, lane)
+  float* rec = part + cols * P * kLanes;                  // (held, cols, W)
+  float* adj = rec + held * cols * W;                     // (held, cols)
+  float* out = dw_part + ((size_t)b * gridDim.y + blockIdx.y) * RA * kCh * F;
+  const size_t n0 = (size_t)b * M;
+  stage_frame(nodes, xyz + n0 * 3, mask + n0, M);
+
+  // the thread's nodes: their inputs, and their sums over the partners
+  // and the basis chunks (dvs and dvbs take the sender side, the gates
+  // and the dsbar path)
+  float vp[TI][3], vbp[TI][3], php[TI][kCh], gvp[TI][3], gvbp[TI][3], gsbp[TI];
+  float dph[TI][kCh], dvs[TI][3], dvbs[TI][3], dsb[TI], s0[TI];
+#pragma unroll
+  for (int k = 0; k < TI; ++k) {
+    const size_t row = n0 + min(p0 + warp * TI + k, M - 1);
+    gsbp[k] = gsb[row * F + f];
+    dsb[k] = s0[k] = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      vp[k][d] = v[(row * 3 + d) * F + f];
+      vbp[k][d] = vbar[(row * 3 + d) * F + f];
+      gvp[k][d] = gv[(row * 3 + d) * F + f];
+      gvbp[k][d] = gvb[(row * 3 + d) * F + f];
+      dvs[k][d] = dvbs[k][d] = 0.f;
+    }
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      php[k][ch] = phi[(row * kCh + ch) * F + f];
+      dph[k][ch] = 0.f;
+    }
+  }
+
+  for (int r0 = 0; r0 < RA; r0 += C) {
+    for (int q0 = 0; q0 < M; q0 += kBwdChunk) {
+      const int nc = min(kBwdChunk, M - q0);
+      const bool restage = !one_chunk || r0 == 0;
+      __syncthreads();              // the previous readers of ws, part, rec and dws are done
+      if (q0 == 0) {                // the basis chunk's w (zero past RA); the d_w column zeroed
+        stage_w_chunk<C>(ws, w, F, r0, RA);
+#pragma unroll
+        for (int rc = 0; rc < C * kCh; ++rc) dws[rc * blockDim.x + threadIdx.x] = 0.f;
+      }
+      if (restage) {                // partner rows by cp.async, in flight while the records are built
+        for (int qq = warp; qq < nc; qq += n_warps) {
+          float* dst = part + qq * P * kLanes + lane;
+          const size_t q = n0 + q0 + qq;
+#pragma unroll
+          for (int ch = 0; ch < kCh; ++ch)
+            if (ch == 0 || gated(ch))
+              cp_async4(dst + phi_slot(ch) * kLanes, phi + (q * kCh + ch) * F + f);
+          cp_async4(dst + kBS * kLanes, s + q * F + f);
+          cp_async4(dst + kBGs * kLanes, gs + q * F + f);
+          cp_async4(dst + kBSbar * kLanes, sbar + q * F + f);
+          cp_async4(dst + kBGsb * kLanes, gsb + q * F + f);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            cp_async4(dst + (kBV + d) * kLanes, v + (q * 3 + d) * F + f);
+            cp_async4(dst + (kBVb + d) * kLanes, vbar + (q * 3 + d) * F + f);
+            cp_async4(dst + (kBGv + d) * kLanes, gv + (q * 3 + d) * F + f);
+            cp_async4(dst + (kBGvb + d) * kLanes, gvb + (q * 3 + d) * F + f);
+          }
+        }
+        cp_async_commit();
+      }
+      for (int e = threadIdx.x; e < held * nc; e += blockDim.x) {
+        const int rr = e / nc, qq = e % nc;
+        adj[rr * cols + qq] = chunk_record<C, E>(rec + (rr * cols + qq) * W, nodes,
+                                              rr < rows ? p0 + rr : M, q0 + qq, M, r0, RA,
+                                              cutoff, inv_cut);
+      }
+      if (restage || q0 == 0) cp_async_wait<0>();
+      __syncthreads();
+
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) {
+        const bool on_v = carries_v(ch);
+        float wc[C], dwc[C], ac[TI][3];   // ac: this chunk's forward sum at p (t for ch 0)
+#pragma unroll
+        for (int r = 0; r < C; ++r) {
+          wc[r] = ws[(r * kCh + ch) * kLanes + lane];
+          dwc[r] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < TI; ++k) ac[k][0] = ac[k][1] = ac[k][2] = 0.f;
+
+#pragma unroll 2
+        for (int qq = 0; qq < nc; ++qq) {
+          const float* src = part + qq * P * kLanes + lane;
+          float xq[3] = {0.f, 0.f, 0.f}, gam[3] = {0.f, 0.f, 0.f}, phq = 0.f, sig = 0.f;
+          if (ch == 0) {
+            phq = src[0];
+            sig = src[kBS * kLanes] * src[kBGs * kLanes];
+          } else {
+            const int gsrc = ch >= 5 ? kBGvb : kBGv;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) gam[d] = src[(gsrc + d) * kLanes];
+            if (gated(ch)) {
+              phq = src[phi_slot(ch) * kLanes];
+#pragma unroll
+              for (int d = 0; d < 3; ++d) xq[d] = src[((on_v ? kBV : kBVb) + d) * kLanes];
+            }
+            if (ch == 4 || ch == 6) {
+              const float sb = src[kBSbar * kLanes];
+              gam[0] *= sb; gam[1] *= sb; gam[2] *= sb;
+            } else if (ch == 3 || ch == 7 || ch == 8) {   // Gamma = g x v (x vbar for 8)
+              float u[3], c[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+              for (int d = 0; d < 3; ++d) u[d] = src[((ch == 8 ? kBVb : kBV) + d) * kLanes];
+              add_cross(c, gam, u);
+              gam[0] = c[0]; gam[1] = c[1]; gam[2] = c[2];
+            }
+          }
+          float g[TI][W];
+          bool none = true;
+#pragma unroll
+          for (int k = 0; k < TI; ++k) {
+            const int rr = warp * TI + k;
+            const float aq = adj[rr * cols + qq];
+            if (ch == 0 && r0 == 0) {       // the dsbar path, both roles
+              const float ag = aq * src[kBGsb * kLanes];
+#pragma unroll
+              for (int d = 0; d < 3; ++d) {
+                ac[k][d] = fmaf(aq, src[(kBVb + d) * kLanes], ac[k][d]);
+                dvbs[k][d] = fmaf(ag, src[(kBV + d) * kLanes], dvbs[k][d]);
+              }
+            }
+            load_record(g[k], rec + (rr * cols + qq) * W);
+            none = none && aq == 0.f;
+          }
+          if (none) continue;
+#pragma unroll
+          for (int k = 0; k < TI; ++k) {
+            float filt = 0.f;
+#pragma unroll
+            for (int r = 0; r < C; ++r) filt = fmaf(g[k][r], wc[r], filt);
+            float dG;                           // the cotangent of g_ch[q <- p]
+            if (ch == 0) {
+              dG = sig;
+              s0[k] = fmaf(filt, phq, s0[k]);
+            } else if (ch == 1) {               // unit of (q <- p) is -unit of the record
+              dG = -dot3(gam, g[k] + C);
+            } else {
+              dG = dot3(gam, on_v ? vp[k] : vbp[k]);
+              const float pf = filt * php[k][ch];
+              float* dx = on_v ? dvs[k] : dvbs[k];
+#pragma unroll
+              for (int d = 0; d < 3; ++d) dx[d] = fmaf(pf, gam[d], dx[d]);
+              if (gated(ch)) {
+                const float fp = filt * phq;
+#pragma unroll
+                for (int d = 0; d < 3; ++d) ac[k][d] = fmaf(fp, xq[d], ac[k][d]);
+              }
+            }
+            dph[k][ch] = fmaf(filt, dG, dph[k][ch]);
+            const float X = php[k][ch] * dG;
+#pragma unroll
+            for (int r = 0; r < C; ++r) dwc[r] = fmaf(g[k][r], X, dwc[r]);
+          }
+        }
+        // the channel's gates on this chunk's forward sums (linear in
+        // them, so the chunks' shares add up); d_w into the thread's column
+#pragma unroll
+        for (int k = 0; k < TI; ++k) {
+          switch (ch) {
+            case 0:
+#pragma unroll
+              for (int d = 0; d < 3; ++d) dvs[k][d] = fmaf(gsbp[k], ac[k][d], dvs[k][d]);
+              break;
+            case 3: add_cross(dvs[k], ac[k], gvp[k]); break;
+            case 4: dsb[k] += dot3(ac[k], gvp[k]); break;
+            case 6: dsb[k] += dot3(ac[k], gvbp[k]); break;
+            case 7: add_cross(dvs[k], ac[k], gvbp[k]); break;
+            case 8: add_cross(dvbs[k], ac[k], gvbp[k]); break;
+            default: break;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < C; ++r) dws[(r * kCh + ch) * blockDim.x + threadIdx.x] += dwc[r];
+      }
+    }
+    // this basis chunk's d_w: the warps' columns added in a fixed order,
+    // its rows of the partial written once
+    __syncthreads();
+    for (int e = threadIdx.x; e < C * kCh * kLanes; e += blockDim.x) {
+      const int rc = e / kLanes, ln = e % kLanes, ff = blockIdx.x * kLanes + ln;
+      if (r0 + rc / kCh >= RA || ff >= F) continue;
+      float acc = 0.f;
+      for (int wi = 0; wi < n_warps; ++wi) acc += dws[rc * blockDim.x + wi * kLanes + ln];
+      out[(size_t)(r0 * kCh + rc) * F + ff] = acc;
+    }
+  }
+
+  if (f_out < F) {
+#pragma unroll
+    for (int k = 0; k < TI; ++k) {
+      if (k >= mine) break;
+      const size_t row = n0 + p0 + warp * TI + k;
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) dphi[(row * kCh + ch) * F + f] = dph[k][ch];
+      d_s[row * F + f] = s0[k] * gs[row * F + f];
+      d_sbar[row * F + f] = dsb[k];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        d_v[(row * 3 + d) * F + f] = dvs[k][d];
+        d_vbar[(row * 3 + d) * F + f] = dvbs[k][d];
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1263,7 +1884,8 @@ ChunkTiling chunk_tiling(int M) {
   return {tiles, rows, (rows + kTileRows - 1) / kTileRows};
 }
 
-// Dynamic shared memory of the chunked path (the kernels' layouts).
+// Dynamic shared memory of the chunked path (the kernels' layouts); of the
+// wide kernels with the chunk width C for RA.
 size_t chunk_smem(int M, int RA, bool backward) {
   const ChunkTiling t = chunk_tiling(M);
   const int cols = std::min(M, backward ? kBwdChunk : kFwdChunk);
@@ -1271,6 +1893,20 @@ size_t chunk_smem(int M, int RA, bool backward) {
                   + (size_t)t.warps * kTileRows * cols * (record_width(RA) + 1);
   if (backward) floats += (size_t)RA * kCh * kLanes * (1 + t.warps);   // w and d_w
   return sizeof(float4) * M + sizeof(float) * floats;
+}
+
+// Run fn(integral_constant<C>) for the chunk width C of a wide basis of RA:
+// the fewest chunks of at most kPseudoChunk functions, of equal width (the
+// last one zero-padded). For RA > 16 that is C in 7..9.
+template <typename Fn>
+int with_wide(int RA, Fn&& fn) {
+  const int n = (RA + kPseudoChunk - 1) / kPseudoChunk;
+  switch ((RA + n - 1) / n) {
+    case 7: return fn(std::integral_constant<int, 7>{});
+    case 8: return fn(std::integral_constant<int, 8>{});
+    case 9: return fn(std::integral_constant<int, 9>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1293,14 +1929,25 @@ extern "C" int fused_pseudo_fwd(
       return (int)cudaGetLastError();
     };
   };
-  if (RA > kTemplateMaxRA) {
-    const size_t smem = wide_fwd_smem(RA);
-    static int allowed[kMaxDevices] = {};
-    const int err = allow_smem(fused_pseudo_wide_kernel, smem, allowed);
-    if (err != 0) return err;
-    return args(fused_pseudo_wide_kernel)(
-        dim3((unsigned)((F + kLanes - 1) / kLanes), (unsigned)B), kLanes, smem, M, F, RA, cutoff);
-  }
+  if (RA > kTemplateMaxRA)
+    return with_wide(RA, [&](auto c_c) {
+      return with_exact(RA, [&](auto e_c) {
+        constexpr int kC = decltype(c_c)::value;
+        constexpr bool kE = decltype(e_c)::value;
+        if (M <= kWideRegMax)
+          return args(fused_pseudo_wide_reg_kernel<kC, kE>)(
+              dim3((unsigned)((F + kLanes - 1) / kLanes), (unsigned)((B + kWarps - 1) / kWarps)),
+              kLanes * kWarps, 0, B, M, F, RA, cutoff);
+        const ChunkTiling t = chunk_tiling(M);
+        const size_t smem = chunk_smem(M, kC, false);
+        static int allowed[kMaxDevices] = {};
+        const int err = allow_smem(fused_pseudo_wide_chunk_kernel<kC, kE>, smem, allowed);
+        if (err != 0) return err;
+        const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)t.tiles, (unsigned)B);
+        return args(fused_pseudo_wide_chunk_kernel<kC, kE>)(grid, t.warps * kLanes, smem, M, F,
+                                                            t.rows, RA, cutoff);
+      });
+    });
   return with_ra(RA, [&](auto ra_c) {
     constexpr int kRA = decltype(ra_c)::value;
     if (M <= kRegMax) {
@@ -1322,16 +1969,19 @@ extern "C" int fused_pseudo_fwd(
   });
 }
 
-// d_w partials that fused_pseudo_bwd leaves in its scratch: one per frame
-// group on the register path, one per (batch element, node tile) on the
-// chunked path.
-extern "C" int fused_pseudo_bwd_partials(int B, int M) {
+// d_w partials that fused_pseudo_bwd leaves in its scratch for a basis of
+// RA: one per frame group on the register path (one per kWarps frames on
+// its wide layout), one per (batch element, node tile) on the chunked
+// paths.
+extern "C" int fused_pseudo_bwd_partials(int B, int M, int RA) {
   using namespace cgvae;
   if (B <= 0 || M <= 0) return 1;
-  return M <= kRegMax ? frame_groups(B) : B * chunk_tiling(M).tiles;
+  if (RA > kTemplateMaxRA && M <= kWideRegMax) return (B + kWarps - 1) / kWarps;
+  if (RA <= kTemplateMaxRA && M <= kRegMax) return frame_groups(B);
+  return B * chunk_tiling(M).tiles;
 }
 
-// dw_part is scratch of fused_pseudo_bwd_partials(B, M) * RA * 9 * F
+// dw_part is scratch of fused_pseudo_bwd_partials(B, M, RA) * RA * 9 * F
 // floats; dw receives its sum.
 extern "C" int fused_pseudo_bwd(
     const void* xyz, const void* mask, const void* phi, const void* s,
@@ -1355,17 +2005,35 @@ extern "C" int fused_pseudo_bwd(
       return (int)cudaGetLastError();
     };
   };
-  const int parts = fused_pseudo_bwd_partials(B, M);
-  if (RA > kTemplateMaxRA) {        // one d_w partial per group of batch elements
-    const size_t smem = wide_bwd_smem(RA);
-    static int allowed[kMaxDevices] = {};
-    const int e = allow_smem(fused_pseudo_bwd_wide_kernel, smem, allowed);
-    if (e != 0) return e;
-    const int err = args(fused_pseudo_bwd_wide_kernel)(
-        dim3((unsigned)((F + kLanes - 1) / kLanes), (unsigned)parts), kLanes, smem,
-        B, M, F, RA, cutoff);
+  if (RA > kTemplateMaxRA) {
+    const int err = with_wide(RA, [&](auto c_c) {
+      return with_exact(RA, [&](auto e_c) {
+        constexpr int kC = decltype(c_c)::value;
+        constexpr bool kE = decltype(e_c)::value;
+        if (M <= kWideRegMax) {
+          const size_t smem =
+              sizeof(float) * kCh * kLanes * kWarps * (kC + 2 * kWideRegMax) +
+              sizeof(float) * kCh * kC * kLanes;
+          static int allowed[kMaxDevices] = {};
+          const int e = allow_smem(fused_pseudo_bwd_wide_reg_kernel<kC, kE>, smem, allowed);
+          if (e != 0) return e;
+          return args(fused_pseudo_bwd_wide_reg_kernel<kC, kE>)(
+              dim3((unsigned)((F + kLanes - 1) / kLanes), (unsigned)((B + kWarps - 1) / kWarps)),
+              kLanes * kWarps, smem, B, M, F, RA, cutoff);
+        }
+        const ChunkTiling t = chunk_tiling(M);
+        const size_t smem = chunk_smem(M, kC, true);
+        static int allowed[kMaxDevices] = {};
+        const int e = allow_smem(fused_pseudo_bwd_wide_chunk_kernel<kC, kE>, smem, allowed);
+        if (e != 0) return e;
+        const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)t.tiles, (unsigned)B);
+        return args(fused_pseudo_bwd_wide_chunk_kernel<kC, kE>)(grid, t.warps * kLanes, smem, M,
+                                                                F, t.rows, RA, cutoff);
+      });
+    });
     if (err != 0) return err;
-    return launch_sum_over_batch((const float*)dw_part, (float*)dw, parts, RA * kCh * F, st);
+    return launch_sum_over_batch((const float*)dw_part, (float*)dw,
+                                 fused_pseudo_bwd_partials(B, M, RA), RA * kCh * F, st);
   }
   const int err = with_ra(RA, [&](auto ra_c) {
     constexpr int kRA = decltype(ra_c)::value;
@@ -1393,5 +2061,5 @@ extern "C" int fused_pseudo_bwd(
   });
   if (err != 0) return err;
   return launch_sum_over_batch((const float*)dw_part, (float*)dw,
-                               fused_pseudo_bwd_partials(B, M), RA * kCh * F, st);
+                               fused_pseudo_bwd_partials(B, M, RA), RA * kCh * F, st);
 }

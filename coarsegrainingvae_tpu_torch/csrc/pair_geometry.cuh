@@ -111,27 +111,55 @@ __device__ __forceinline__ void load_record(float (&g)[W], const float* rec) {
 // f32 basis within 1.40e-5 of each function's max |K| of the float64 plain
 // basis at n_rbf 200, as close as the plain f32 basis itself (1.26e-5; the
 // f32 distance through an angle of up to 200 pi sets both), and within
-// 1.7e-6 up to n_rbf 32. The chunked records keep no per-basis state in
-// shared memory, so the card sets them no bound on RA (the kernels' ptxas
-// and times: fused_message.cu's note).
+// 1.7e-6 up to n_rbf 32. But the f32 angle of function r carries a relative
+// rounding error of a few 1e-7, in the kernels as in the plain version, so
+// its absolute error grows as r: ~1e-4 rad at r 120, the size of the 1e-4
+// gate on the weight gradient's rows (a train step at n_rbf 120 read
+// 9.0e-5 on the card) and past it by r 200. A basis of more than kExactFrom
+// = 32 functions is therefore built as the plain version builds its
+// functions (ops/basis.py::painn_radial_basis: the IEEE distance,
+// coefficient and angle in the plain version's order, and the sine within
+// ~5e-7, sin_reduced), so that the records carry the plain version's
+// rounding and not a second one; the template flag E of chunk_record
+// selects it (with_exact). The chunked
+// records keep no per-basis state in shared memory, so the card sets them
+// no bound on RA (the kernels' ptxas and times: fused_message.cu's note).
 //
-// The pseudo kernels (fused_pseudo.cu) keep the first wide design: the filter
-// weights of a block's 32 features and each thread's basis of its current
-// pair sit in shared memory, one column per lane (wide_pair, wide_fold).
-// Each basis function is its own sin with every rounding as in the plain
-// version (ops/geometry.py::pair_filter_basis: no contraction into FMAs,
-// IEEE sqrt and division). Its bound is the shared memory of one block;
-// ops/fused_pseudo.py names it.
+// The pseudo kernels (fused_pseudo.cu) take the same records for their
+// wide path, in chunks of at most kPseudoChunk functions (their note says
+// why fewer): each record built once per (node tile, partner chunk, basis
+// chunk), w and the backward's d_w sums of one chunk only. Nothing per basis
+// function sits in shared memory there either.
 
 constexpr int kTemplateMaxRA = 16;
 constexpr int kWideChunk = 12;   // basis functions per chunk of the message kernels, at most
+constexpr int kExactFrom = 32;   // a longer basis follows the plain version's rounding
+
+// sin x for 0 <= x < 2^16 (the basis' angles stay below (R+1) pi): x less
+// the nearest multiple of 2 pi, in three parts (Cody and Waite; the first
+// part, 201 / 32, makes an exact product and difference), then the hardware
+// sine, within ~5e-7 of sin x. sinf's own reduction, for any x, keeps a
+// stack frame in every kernel that inlines it.
+__device__ __forceinline__ float sin_reduced(float x) {
+  constexpr float kInv2Pi = 0.159154943091895335769f;
+  constexpr float kC1 = 6.28125f;                       // 2 pi in three parts
+  constexpr float kC2 = 1.9353071693331003e-3f;
+  constexpr float kC3 = 1.0253131677018246e-11f;
+  const float n = rintf(x * kInv2Pi);
+  float y = fmaf(-n, kC1, x);
+  y = fmaf(-n, kC2, y);
+  y = fmaf(-n, kC3, y);
+  return __sinf(y);
+}
 
 // The record of row node p against partner q for the basis functions r0 ..
 // r0 + C - 1 of a basis of RA: K[r0 + k] (zero past RA), then unit =
 // (x_q - x_p) / d, written as float4 like pair_record's. inv_cut =
-// 1 / cutoff.
-template <int C>
-__device__ __forceinline__ void chunk_record(float* __restrict__ rec,
+// 1 / cutoff. Returns the plain adjacency adj, as pair_record does. E:
+// each function as the plain version rounds it (RA > kExactFrom), else
+// the recurrence.
+template <int C, bool E = false>
+__device__ __forceinline__ float chunk_record(float* __restrict__ rec,
                                              const float4* __restrict__ nodes, int p, int q,
                                              int N, int r0, int RA, float cutoff,
                                              float inv_cut) {
@@ -139,6 +167,7 @@ __device__ __forceinline__ void chunk_record(float* __restrict__ rec,
   float out[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) out[k] = 0.f;
+  float adj = 0.f;
   if (p < N && q < N) {
     const float4 a = nodes[p], c = nodes[q];
     const float r0x = c.x - a.x, r0y = c.y - a.y, r0z = c.z - a.z;
@@ -153,15 +182,30 @@ __device__ __forceinline__ void chunk_record(float* __restrict__ rec,
       float s1, c1, sk, ck;               // sin and cos of it and of (r0 + 1) pi u
       sincospif(u, &s1, &c1);
       sincospif((float)(r0 + 1) * u, &sk, &ck);
-      const float ae = a.w * c.w * (0.5f * (c1 + 1.f));
+      adj = a.w * c.w;
+      const float ae = adj * (0.5f * (c1 + 1.f));
       const float ae_d = ae * inv_d;
+      if constexpr (E) {                  // as ops/basis.py::painn_radial_basis rounds
+        const float dp = __fsqrt_rn(__fadd_rn(
+            __fadd_rn(__fadd_rn(__fmul_rn(r0x, r0x), __fmul_rn(r0y, r0y)), __fmul_rn(r0z, r0z)),
+            kEps));
+        const float inv_dp = __frcp_rn(dp);
 #pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int r = r0 + k;
-        out[k] = r < RA - 1 ? ae_d * sk : (r == RA - 1 ? ae : 0.f);
-        const float sn = sk * c1 + ck * s1;
-        ck = ck * c1 - sk * s1;
-        sk = sn;
+        for (int k = 0; k < C; ++k) {
+          const int r = r0 + k;
+          const float coef = __fdiv_rn(__fmul_rn((float)(r + 1), kPi), cutoff);
+          out[k] = r < RA - 1 ? ae * (sin_reduced(__fmul_rn(coef, dp)) * inv_dp)
+                              : (r == RA - 1 ? ae : 0.f);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          const int r = r0 + k;
+          out[k] = r < RA - 1 ? ae_d * sk : (r == RA - 1 ? ae : 0.f);
+          const float sn = sk * c1 + ck * s1;
+          ck = ck * c1 - sk * s1;
+          sk = sn;
+        }
       }
     }
   }
@@ -169,50 +213,13 @@ __device__ __forceinline__ void chunk_record(float* __restrict__ rec,
 #pragma unroll
   for (int k = 0; k < W / 4; ++k)
     r4[k] = make_float4(out[4 * k], out[4 * k + 1], out[4 * k + 2], out[4 * k + 3]);
+  return adj;
 }
 
-struct WidePair {
-  float adj;       // the plain adjacency
-  float ke;        // adj * env(d): 0 when the pair contributes no filter
-  float unit[3];   // (x_q - x_p) / d
-};
-
-// The pair (p, q) of one batch element (xb (N, 3), mb (N)); when ke != 0 the
-// basis K[r], r < RA, goes to kcol[r * stride].
-__device__ __forceinline__ WidePair wide_pair(float* kcol, int stride, const float* xb,
-                                              const float* mb, int p, int q, int RA,
-                                              float cutoff) {
-  WidePair out;
-  const float r0 = __fsub_rn(xb[q * 3 + 0], xb[p * 3 + 0]);
-  const float r1 = __fsub_rn(xb[q * 3 + 1], xb[p * 3 + 1]);
-  const float r2 = __fsub_rn(xb[q * 3 + 2], xb[p * 3 + 2]);
-  const float d2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(r0, r0), __fmul_rn(r1, r1)),
-                                       __fmul_rn(r2, r2)), kEps);
-  const float d = __fsqrt_rn(d2);
-  out.unit[0] = __fdiv_rn(r0, d);
-  out.unit[1] = __fdiv_rn(r1, d);
-  out.unit[2] = __fdiv_rn(r2, d);
-  out.adj = (d < cutoff && p != q) ? __fmul_rn(mb[p], mb[q]) : 0.f;
-  out.ke = 0.f;
-  if (out.adj != 0.f) {
-    const float env = __fmul_rn(0.5f, __fadd_rn(cosf(__fdiv_rn(__fmul_rn(kPi, d), cutoff)), 1.f));
-    out.ke = __fmul_rn(out.adj, env);
-    for (int r = 0; r < RA - 1; ++r) {
-      const float coef = __fdiv_rn(__fmul_rn((float)(r + 1), kPi), cutoff);
-      kcol[r * stride] = __fmul_rn(out.ke, __fdiv_rn(sinf(__fmul_rn(coef, d)), d));
-    }
-    kcol[(RA - 1) * stride] = out.ke;
-  }
-  return out;
-}
-
-// filt = sum_r K[r] w[r][c] for the lane's columns: kcol (RA, stride),
-// wcol (RA, S, stride).
-__device__ __forceinline__ float wide_fold(const float* kcol, const float* wcol, int c,
-                                           int S, int RA, int stride) {
-  float acc = 0.f;
-  for (int r = 0; r < RA; ++r) acc = fmaf(kcol[r * stride], wcol[(r * S + c) * stride], acc);
-  return acc;
+// Run fn(bool_constant<RA > kExactFrom>): chunk_record's E for a wide basis.
+template <typename Fn>
+int with_exact(int RA, Fn&& fn) {
+  return RA > kExactFrom ? fn(std::true_type{}) : fn(std::false_type{});
 }
 
 // Run fn(integral_constant<RA>) for the runtime RA; the templated kernels

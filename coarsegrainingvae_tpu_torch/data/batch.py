@@ -43,8 +43,16 @@ class CGBatch:
                           for f in dataclasses.fields(self)})
 
     @property
+    def batch_size(self) -> int:
+        return self.z.shape[0]
+
+    @property
     def n_atoms(self) -> int:
         return self.z.shape[1]
+
+    @property
+    def n_cgs(self) -> int:
+        return self.cg_z.shape[1]
 
 
 def flatten_ids(local: torch.Tensor, stride: int) -> torch.Tensor:

@@ -4,8 +4,9 @@ These quantities depend only on the molecular topology and the CG mapping,
 so they are computed once on the host with numpy: the bonded adjacency, the
 high-order bonded edges of the graph loss, the bond-contracted CG graph,
 the per-bead channel index of every atom (CG2ChannelIdx, cgvae.py:451-460 of
-the original code) and its largest count, and the bonded angle and dihedral
-index tuples of the DiffPool dataset.
+the original code) and its largest count, the CG graph's connectivity
+check, and the bonded angle and dihedral index tuples of the DiffPool
+dataset.
 """
 from __future__ import annotations
 
@@ -76,6 +77,26 @@ def channel_index_from_mapping(mapping: np.ndarray) -> np.ndarray:
 def max_atoms_per_bead(mapping: np.ndarray) -> int:
     _, counts = np.unique(np.asarray(mapping), return_counts=True)
     return int(counts.max())
+
+
+def check_cg_connected(cg_edges: np.ndarray, n_cgs: int) -> bool:
+    """Whether the CG graph of ``n_cgs`` beads with edges ``cg_edges``
+    (any (e, 2) int array) is connected: union-find with path halving, as
+    topology.py:91 of the JAX package (check_CGgraph of the original code's
+    scripts/utils.py:40-52, there with networkx)."""
+    parent = list(range(n_cgs))
+
+    def find(a: int) -> int:
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    for i, j in np.asarray(cg_edges).reshape(-1, 2):
+        ri, rj = find(int(i)), find(int(j))
+        if ri != rj:
+            parent[ri] = rj
+    return len({find(i) for i in range(n_cgs)}) == 1
 
 
 def _neighbours(bonds: np.ndarray, n_atoms: int) -> list:

@@ -12,6 +12,10 @@ adjacency, per-basis filters) stays inside the kernels
     backward: the same + gs (B,N,F), gv (B,N,3,F)
               -> d_phi (B,N,S,F), d_v (B,N,3,F), d_w (R+1,S,F) summed over B
 
+The kernels take any n_rbf >= 1: R+1 in 2..16 as a template parameter,
+past it on the wide path, whose basis comes in chunks of at most 12
+functions and which keeps nothing per basis function in shared memory.
+
 ``fused_message`` is differentiable: one ``torch.autograd.Function`` pairs
 the forward kernel with the backward kernel (``fused_message_vjp``) for
 CUDA tensors, and ``message_reference`` with ``message_vjp_reference`` for
@@ -28,15 +32,6 @@ import torch
 
 from coarsegrainingvae_tpu_torch.ops import cuda_build
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
-
-# the kernels are built for R+1 in 2..16; past it the wide kernels take the
-# basis in chunks of at most 12 functions and keep nothing per basis
-# function in shared memory, so the card sets them no bound. The wrapper
-# takes n_rbf up to the largest basis the card tests and
-# tests/test_torch_message_wide.py hold them to (csrc/fused_message.cu), the
-# bound that one block's shared memory set the wide kernels before the
-# chunked design, so nothing that ran before is refused
-MAX_RBF = 200
 
 
 def message_reference(
@@ -144,10 +139,8 @@ def _check_cuda_inputs(args: dict, n_rbf: int) -> Tuple[int, int, int, int]:
     b, n, s, f = args["phi"].shape
     if s not in (3, 4):
         raise ValueError(f"phi must have S = 3 or 4 channels, got {s}")
-    if not 1 <= n_rbf <= MAX_RBF:
-        raise ValueError(
-            f"n_rbf must be in [1, {MAX_RBF}], got {n_rbf}: the message kernels "
-            f"are tested up to n_rbf {MAX_RBF}")
+    if n_rbf < 1:
+        raise ValueError(f"n_rbf must be at least 1, got {n_rbf}")
     expected = {"xyz": (b, n, 3), "mask": (b, n), "v": (b, n, 3, f),
                 "w": (n_rbf + 1, s, f), "gs": (b, n, f), "gv": (b, n, 3, f)}
     for name, t in args.items():

@@ -17,6 +17,10 @@ Filter parameterization is the factored form: w[r, ch, f] with the last
 basis row the bias, filt_ch(d) = env(d) * (sum_r rbf_r(d) w[r,ch] + w[R,ch]),
 exactly DistanceEmbed's function class on one (R+1, 9, F) tensor.
 
+The kernels take any n_rbf >= 1: R+1 in 2..16 as a template parameter,
+past it on the wide path, whose basis comes in chunks of at most 9 functions
+and which keeps nothing per basis function in shared memory.
+
 ``fused_pseudo_message`` is differentiable: one ``torch.autograd.Function``
 pairs the forward kernel with the backward kernel (``fused_pseudo_vjp``) for
 CUDA tensors, and ``pseudo_reference`` with ``pseudo_vjp_reference`` for CPU
@@ -31,13 +35,6 @@ import torch
 
 from coarsegrainingvae_tpu_torch.ops import cuda_build
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
-
-# dynamic shared memory one block may take on the H100 (sm_90: 227 KB)
-SMEM_PER_BLOCK = 227 * 1024
-# past R+1 = 16 the wide kernels keep, per lane, w (R+1, 9), the pair's basis
-# (R+1) and the backward's d_w sums (R+1, 9) in shared memory
-# (csrc/fused_pseudo.cu); the backward sets the bound
-MAX_RBF = SMEM_PER_BLOCK // (4 * 32 * (2 * 9 + 1)) - 1
 
 # the sender payload of channels 2..8 (pallas_pseudo.py:54)
 _CARRIES_V = {2: True, 3: False, 4: False, 5: False, 6: True, 7: True, 8: False}
@@ -143,7 +140,7 @@ _SYMBOLS = {
         + [ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    "fused_pseudo_bwd_partials": ([ctypes.c_int] * 2, ctypes.c_int),
+    "fused_pseudo_bwd_partials": ([ctypes.c_int] * 3, ctypes.c_int),
 }
 
 
@@ -157,11 +154,8 @@ def _check_cuda_inputs(args: dict, n_rbf: int) -> Tuple[int, int, int]:
     take."""
     cuda_build.check_inputs(args, args["xyz"].device)
     b, m, _, f = args["phi"].shape
-    if not 1 <= n_rbf <= MAX_RBF:
-        raise ValueError(
-            f"n_rbf must be in [1, {MAX_RBF}], got {n_rbf}: past R+1 = 16 the "
-            f"pseudo kernels hold w and d_w in the {SMEM_PER_BLOCK // 1024} KB of "
-            f"shared memory of one block")
+    if n_rbf < 1:
+        raise ValueError(f"n_rbf must be at least 1, got {n_rbf}")
     node, vec = (b, m, f), (b, m, 3, f)
     expected = {"xyz": (b, m, 3), "mask": (b, m), "phi": (b, m, 9, f),
                 "s": node, "sbar": node, "v": vec, "vbar": vec,
@@ -226,8 +220,9 @@ def fused_pseudo_vjp(
     d_sbar = torch.empty_like(d_s)
     d_v = torch.empty((b, m, 3, f), dtype=torch.float32, device=device)
     d_vbar = torch.empty_like(d_v)
-    # one partial d_w per frame group (M <= 6) or (batch element, node tile) (M > 6)
-    parts = lib.fused_pseudo_bwd_partials(b, m)
+    # one partial d_w per frame group (M <= 6), per (batch element, node tile)
+    # (M > 6) or, past R+1 = 16, per (frame group, node tile)
+    parts = lib.fused_pseudo_bwd_partials(b, m, r_aug)
     dw_part = torch.empty((parts, r_aug, 9, f), dtype=torch.float32, device=device)
     d_w = torch.empty((r_aug, 9, f), dtype=torch.float32, device=device)
     outs = (d_phi, d_s, d_sbar, d_v, d_vbar, dw_part, d_w)

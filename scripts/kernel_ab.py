@@ -11,7 +11,7 @@ one GPU.
 
 Builds the other source (any version with a backward: its d_w scratch holds
 the partial count that the library exports, ``fused_message_bwd_partials(B,
-N, R+1)`` or ``fused_pseudo_bwd_partials(B, M)`` in all, or
+N, R+1)`` or ``fused_pseudo_bwd_partials(B, M, R+1)`` in all, or
 ``fused_message_bwd_tiles(N)`` partials per frame, where it exports that
 symbol, and one per frame otherwise) and the checkout's with
 nvcc, checks both against the plain versions at each shape, then times them
@@ -53,7 +53,11 @@ RUN_MS = 200.0        # a timed run's length, at most, where a kernel is slow
 # largest basis the wrapper takes; the pseudo kernels at the decoder's train
 # and serve shapes, at chignolin's M = 6, and on their chunked path (M > 6)
 # at chignolin with ten beads and at the kernel shape table's PCN-scale M
-# 100 and 300
+# 100 and 300, and on their wide path (n_rbf >= 16) at the decoder's train
+# shape, chignolin with ten beads, the shape table's M 100, the largest
+# basis an earlier wide design took (n_rbf 94) and n_rbf 200, which that
+# design refuses (a side whose launch is refused is recorded as such and
+# not timed)
 SHAPES = {
     "message": [("encoder train", 128, 27, 3, 9.5, 8), ("prior train", 128, 3, 3, 9.5, 8),
                 ("prior serve", 64, 3, 3, 9.5, 8), ("cross", 64, 27, 4, 9.5, 8),
@@ -64,7 +68,12 @@ SHAPES = {
                 ("widest basis", 16, 27, 3, 9.5, 200)],
     "pseudo": [("decoder train", 128, 3, 9, 8.5, 8), ("decoder serve", 64, 3, 9, 8.5, 8),
                ("decoder M=6", 64, 6, 9, 8.5, 8), ("chignolin ten beads", 16, 10, 9, 12.0, 10),
-               ("shape table", 4, 100, 9, 21.0, 8), ("shape table", 1, 300, 9, 21.0, 8)],
+               ("shape table", 4, 100, 9, 21.0, 8), ("shape table", 1, 300, 9, 21.0, 8),
+               ("wide decoder train", 128, 3, 9, 8.5, 20),
+               ("wide chignolin ten beads", 16, 10, 9, 12.0, 20),
+               ("wide shape table", 4, 100, 9, 21.0, 20),
+               ("wide largest basis before", 16, 3, 9, 8.5, 94),
+               ("wide n_rbf 200", 16, 3, 9, 8.5, 200)],
 }
 
 
@@ -99,7 +108,11 @@ def partials(library: str, lib, b: int, n: int, ra: int) -> int:
         if hasattr(lib, "fused_message_bwd_partials"):
             return lib.fused_message_bwd_partials(b, n, ra)
         return b * (lib.fused_message_bwd_tiles(n) if hasattr(lib, "fused_message_bwd_tiles") else 1)
-    return lib.fused_pseudo_bwd_partials(b, n) if hasattr(lib, "fused_pseudo_bwd_partials") else b
+    if not hasattr(lib, "fused_pseudo_bwd_partials"):
+        return b
+    # the partial count takes R+1 since the wide path's frame groups; an
+    # earlier source's (B, M) export ignores the third argument
+    return lib.fused_pseudo_bwd_partials(b, n, ra)
 
 
 def inputs(library, b, n, s, n_rbf, seed):
@@ -240,31 +253,41 @@ def main() -> int:
         sides = {side: launchers(library, libs[side], t, cut) for side in ("parent", "change")}
         want = plain(library, t, cut)
         for k, kernel in enumerate(("forward", "backward")):
-            errs = {}
+            errs, refused = {}, {}
             for side, pair in sides.items():
                 fn, outs = pair[k]
-                fn()
+                try:
+                    fn()
+                except RuntimeError as e:     # the parent's launch refused: recorded, not timed
+                    if side != "parent":
+                        raise
+                    refused[side] = str(e)
+                    continue
                 torch.cuda.synchronize()
                 errs[side] = profiling.rel_err(outs, want[kernel])[0]
                 if not errs[side] <= RTOL:
                     raise RuntimeError(f"{side} {kernel} [{label}] disagrees with plain: "
                                        f"{errs[side]:.3e}")
-            per_graph, replays = run_size([pair[k][0] for pair in sides.values()], args.launches)
-            runs = {side: [] for side in sides}
+            timed = [side for side in sides if side not in refused]
+            per_graph, replays = run_size([sides[side][k][0] for side in timed], args.launches)
+            runs = {side: [] for side in timed}
             for i in range(args.pairs):         # parent, change, change, parent, ...
                 for side in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
-                    runs[side].append(profiling.graph_ms(sides[side][k][0], per_graph, replays))
+                    if side in runs:
+                        runs[side].append(profiling.graph_ms(sides[side][k][0], per_graph,
+                                                             replays))
             med = {side: statistics.median(v) for side, v in runs.items()}
             row = {"kernel": kernel,
                    "shape": f"{label} B={b} N={n} S={s} F={F} R={n_rbf} cutoff={cut}",
                    "launches_per_run": per_graph * replays, "max_rel_err": errs,
-                   "ms_runs": runs, "ms_median": med,
-                   "speedup": med["parent"] / med["change"]}
+                   "ms_runs": runs, "ms_median": med, "refused": refused,
+                   "speedup": med["parent"] / med["change"] if "parent" in med else None}
             rows.append(row)
             print(f"{kernel} [{row['shape']}]: " + "; ".join(
-                f"{side} {med[side]:.4f} ms ({med['parent'] / med[side]:.2f}x; runs "
+                f"{side} {med[side]:.4f} ms ({med.get('parent', med[side]) / med[side]:.2f}x; runs "
                 f"{', '.join(f'{x:.4f}' for x in runs[side])}; rel err {errs[side]:.2e})"
-                for side in sides), flush=True)
+                for side in timed) + "".join(f"; {side} refused: {why}"
+                                             for side, why in refused.items()), flush=True)
         if load is None:
             load = sides["change"][1][0]
     clocks = clocks_under_load(load)

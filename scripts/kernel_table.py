@@ -17,7 +17,8 @@ misses ``chip_smoke.KERNEL_RTOL``. Prints the card, a line per row as it
 goes and the rows as JSON lines, and writes them to
 ``chiprun_out/kernel_table.json``. Needs one CUDA device; imports nothing
 of JAX. ``--kernel message`` or ``--kernel pseudo`` keeps one kernel
-family's rows (forward and backward).
+family's rows (forward and backward); ``--match TEXT`` the rows whose shape
+label holds TEXT (``--match wide``: the wide path's).
 """
 from __future__ import annotations
 
@@ -38,9 +39,13 @@ GRAPH_SECONDS, REPLAYS = 0.05, 3
 def table_cases() -> list:
     """chip_smoke's timed cases, then the shape table's shapes with each
     kernel on its own (F 600; the message kernels at S 4, as the table),
-    each (kernel, shape, cutoff) once."""
+    then the pseudo kernels' wide path at the shape table's M 100 and at
+    n_rbf 200, each (kernel, shape, cutoff) once."""
     pk = chip_smoke.load_example("profile_kernels_torch")
-    table = []
+    table = [(kind, (b, m, 9, r), cut, f"wide table B={b} M={m} n_rbf={r}", True)
+             for b, m, r, cut in ((4, 100, chip_smoke.WIDE_RBF, pk.CUTOFF["pseudo"]),
+                                  (16, 3, 200, 8.5))
+             for kind in ("pseudo", "pseudo_vjp")]
     for base, shapes, s, size in (("pseudo", pk.PSEUDO_SHAPES, 9, "M"),
                                   ("message", pk.MESSAGE_SHAPES, 4, "N")):
         table += [(kind, (b, n, s, pk.N_RBF), pk.CUTOFF[base], f"shape table B={b} {size}={n}",
@@ -87,6 +92,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=("message", "pseudo"),
                     help="only this kernel family's rows")
+    ap.add_argument("--match", default="", help="only the rows whose shape label holds this")
     args = ap.parse_args()
     import torch
 
@@ -95,7 +101,8 @@ def main() -> int:
         return 1
     print(chip_smoke.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [c for c in table_cases() if args.kernel is None or c[0].startswith(args.kernel)]
+    cases = [c for c in table_cases()
+             if (args.kernel is None or c[0].startswith(args.kernel)) and args.match in c[3]]
     rows = chip_smoke.check_kernels(cases, sized_ms, compiled_columns)
     for row in rows:
         print(json.dumps(row), flush=True)

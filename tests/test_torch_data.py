@@ -88,3 +88,70 @@ def test_synthetic_dipeptide_matches_jax(dipeptide):
     assert tframes.dtype == np.float32 and tframes.shape == frames.shape
     np.testing.assert_allclose(tframes, frames, rtol=0, atol=RELAX_ATOL)
     assert (tsyn.graph_violations(tz, tframes, tbonds) == 0).all()
+
+
+# CG graphs: a chain, a ring with a chord, the dipeptide's bond-contracted
+# graph, two disconnected parts, an isolated bead, one bead alone (with and
+# without a self edge), and edges given in both directions
+CG_GRAPHS = {
+    "chain": (np.array([[0, 1], [1, 2], [2, 3]]), 4),
+    "ring_chord": (np.array([[0, 1], [1, 2], [2, 3], [3, 4], [4, 0], [1, 3]]), 5),
+    "two_parts": (np.array([[0, 1], [2, 3]]), 4),
+    "isolated_bead": (np.array([[0, 1], [1, 2]]), 4),
+    "one_bead": (np.zeros((0, 2), np.int32), 1),
+    "one_bead_self_edge": (np.array([[0, 0]]), 1),
+    "both_directions": (np.array([[0, 1], [1, 0], [2, 1], [1, 2]]), 3),
+    "no_edges": (np.zeros((0, 2), np.int32), 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CG_GRAPHS))
+def test_check_cg_connected_matches_jax(name):
+    from coarsegrainingvae_tpu.data.topology import check_cg_connected as jax_check
+    from coarsegrainingvae_tpu_torch.data.topology import check_cg_connected
+
+    edges, n = CG_GRAPHS[name]
+    got = check_cg_connected(edges, n)
+    assert got is jax_check(edges, n)
+    assert got is (name not in ("two_parts", "isolated_bead", "no_edges"))
+
+
+def test_check_cg_connected_on_the_dipeptide_graph_matches_jax(dipeptide):
+    from coarsegrainingvae_tpu.data.topology import cg_graph_from_bonds as jax_cg_graph
+    from coarsegrainingvae_tpu.data.topology import check_cg_connected as jax_check
+    from coarsegrainingvae_tpu_torch.data.topology import cg_graph_from_bonds, check_cg_connected
+
+    z, _, bonds = dipeptide
+    for n_cgs in (1, 3, 6):
+        mapping = jmap.newman_mapping(bonds, z.shape[0], n_cgs, seed=0)
+        edges = cg_graph_from_bonds(bonds, mapping, z.shape[0], n_cgs)
+        np.testing.assert_array_equal(edges, jax_cg_graph(bonds, mapping, z.shape[0], n_cgs))
+        assert check_cg_connected(edges, n_cgs) is jax_check(edges, n_cgs) is True
+        # drop every edge of bead 0: it is cut off from the rest
+        cut = edges[(edges != 0).all(1)]
+        assert check_cg_connected(cut, n_cgs) is jax_check(cut, n_cgs) is (n_cgs == 1)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1, 1), (4, 27, 3), (2, 209, 6)])
+def test_cg_batch_sizes_match_jax(b, n, m):
+    """batch_size, n_atoms and n_cgs of the port's CGBatch against the JAX
+    CGBatch's on the same shapes, one bead and one atom included."""
+    import jax.numpy as jnp
+
+    from coarsegrainingvae_tpu.data.batch import CGBatch as JaxBatch
+    from coarsegrainingvae_tpu_torch.data.batch import CGBatch
+
+    def ints(*shape):
+        return np.zeros(shape, np.int32)
+
+    arrs = dict(z=ints(b, n), xyz=np.zeros((b, n, 3), np.float32),
+                atom_mask=np.ones((b, n), bool), cg_z=ints(b, m),
+                cg_xyz=np.zeros((b, m, 3), np.float32), cg_mask=np.ones((b, m), bool),
+                mapping=ints(b, n), channel_idx=ints(b, n))
+    jb = JaxBatch(**{k: jnp.asarray(v) for k, v in arrs.items()},
+                  nbrs=jnp.zeros((b, 1, 2), jnp.int32), nbr_mask=jnp.zeros((b, 1), bool),
+                  cg_nbrs=jnp.zeros((b, 1, 2), jnp.int32), cg_nbr_mask=jnp.zeros((b, 1), bool),
+                  bonds=jnp.zeros((b, 1, 2), jnp.int32), bond_mask=jnp.zeros((b, 1), bool))
+    tb = CGBatch(**{k: torch.as_tensor(v) for k, v in arrs.items()})
+    assert (tb.batch_size, tb.n_atoms, tb.n_cgs) == (jb.batch_size, jb.n_atoms, jb.n_cgs)
+    assert (tb.batch_size, tb.n_atoms, tb.n_cgs) == (b, n, m)

@@ -327,13 +327,12 @@ def test_generate_on_card_matches_cpu(cuda_device):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.gpu
-def test_train_step_on_card_matches_cpu(cuda_device):
-    """One f32 train step of a small DenseCGVAE on the card (kernels forward
-    and backward) against the same step on the CPU (plain versions and plain
-    VJPs): every gradient and every updated parameter within 1e-4 of the
-    tensor's max |ref|; each message layer's backward kernel launches
-    once."""
+def _train_step_card_vs_cpu(cuda_device, n_rbf):
+    """One f32 train step of a small DenseCGVAE (pseudo decoder) at n_rbf on
+    the card (kernels forward and backward) against the same step on the
+    CPU (plain versions and plain VJPs): every gradient and every updated
+    parameter within 1e-4 of the tensor's max |ref|; each message layer's
+    backward kernel launches once."""
     import numpy as np
 
     from coarsegrainingvae_tpu_torch.config import DataConfig, ExperimentConfig, TrainConfig
@@ -346,7 +345,7 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     ds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
                        bonds, order=2)
     cfg = ExperimentConfig(
-        model=ModelConfig(n_cgs=3, n_basis=F, n_rbf=R, enc_nconv=2, dec_nconv=2,
+        model=ModelConfig(n_cgs=3, n_basis=F, n_rbf=n_rbf, enc_nconv=2, dec_nconv=2,
                           breaksym=True, det=True, compute_dtype="float32"),
         data=DataConfig(batch_size=8),
         train=TrainConfig(lr=3e-4, gamma=25.0, adam_moment_dtype="bfloat16"))
@@ -374,6 +373,23 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for name, want in state_cpu.params.items():
         got = state.params[name].detach().cpu()
         assert float((got - want.detach()).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One f32 train step of a small DenseCGVAE on the card against the same
+    step on the CPU, within 1e-4 of each tensor's max |ref|."""
+    _train_step_card_vs_cpu(cuda_device, R)
+
+
+@pytest.mark.gpu
+def test_pseudo_decoder_at_n_rbf_120_trains_on_card(cuda_device):
+    """Fault C1: at n_rbf 120 (R+1 121) the pseudo wrappers once refused the
+    dense model on the card (their wide kernels held w and d_w in one
+    block's shared memory, up to n_rbf 94). Now its f32 train step on the
+    card, all four kernels on their wide path, is within 1e-4 of each
+    tensor's max |ref| (chip_smoke.TRAIN_RTOL) of the step on the CPU."""
+    _train_step_card_vs_cpu(cuda_device, 120)
 
 
 # the cv workflow's new kernel shapes: sample_ensemble reconstructs one frame
@@ -549,12 +565,9 @@ def test_from_run_on_card_serves_the_trained_model(cuda_device, tmp_path, monkey
 # largest each wrapper takes, at the encoder's N 27 (S 3 and 4) and the
 # decoder's M 3 and 6
 @pytest.mark.gpu
-@pytest.mark.parametrize("r", [16, 20, "max"])
+@pytest.mark.parametrize("r", [16, 20, 200, 201, 512])
 @pytest.mark.parametrize("n,s", [(27, 3), (27, 4)])
 def test_wide_message_kernels_match_plain_on_card(cuda_device, n, s, r):
-    from coarsegrainingvae_tpu_torch.ops.fused_message import MAX_RBF
-
-    r = MAX_RBF if r == "max" else r
     args = _message_inputs(n, s, 20, cuda_device, f=40, r=r)
     ref = message_reference(*args, CUT, r)
     _close_rel(fused_message(*args, CUT, r), ref)
@@ -566,20 +579,18 @@ def test_wide_message_kernels_match_plain_on_card(cuda_device, n, s, r):
 # the message kernels' chunked wide path (csrc/fused_message.cu: the fewest
 # chunks of at most 12 basis functions, all of one width): R+1 = 17 and 18
 # (two chunks of 9, the first case with a padded tail), 20 (two of 10), 32
-# and 33 (three of 11, padded and not), 48 (four of 12) and the largest the
-# wrapper takes (201: seventeen of 12, padded); one node, the encoder's 27
-# and chignolin's 209 (past one 32-partner chunk and one 9-node tile),
-# masked tail nodes and a fully masked frame
-WIDE_RBFS = [16, 17, 19, 31, 32, 47, "max"]
+# and 33 (three of 11, padded and not), 48 (four of 12), 201 (seventeen of
+# 12, padded), 202 (past the 200 the wrapper once took) and 513 (the widest
+# basis the tests hold); one node, the encoder's 27 and chignolin's 209
+# (past one 32-partner chunk and one 9-node tile), masked tail nodes and a
+# fully masked frame
+WIDE_RBFS = [16, 17, 19, 31, 32, 47, 200, 201, 512]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r", WIDE_RBFS)
 @pytest.mark.parametrize("n,s", [(n, s) for n in (3, 27, 209) for s in (3, 4)])
 def test_wide_message_kernels_at_the_chunk_edges_on_card(cuda_device, n, s, r):
-    from coarsegrainingvae_tpu_torch.ops.fused_message import MAX_RBF
-
-    r = MAX_RBF if r == "max" else r
     args = _message_inputs(n, s, 26, cuda_device, f=40, r=r)
     before = (fused_message.launches, fused_message_vjp.launches)
     out = fused_message(*args, CUT, r)
@@ -633,31 +644,75 @@ def test_wide_message_kernels_replay_bit_for_bit_on_card(cuda_device):
         assert torch.equal(a, b)
 
 
+# the pseudo kernels' wide path (csrc/fused_pseudo.cu: the basis in the
+# fewest chunks of at most 9 functions, all of one width; the register
+# layout at M <= 3, node tiles past it): R+1 = 17 and 18 (two chunks of 9,
+# padded and not), 19 and 22 (three of 7 and of 8), 21 (n_rbf 20: three of
+# 7), 27 (three of 9), 28 (four of 7), 32 and 33 (the last basis on the
+# recurrence and the first rounded as the plain version), 96 (past the 95 an
+# earlier design's shared memory allowed), 201 and 513; M 3 (the register
+# layout), 6 (one node tile), 10 (two) and 70 (nine, several partner
+# chunks); masked tail nodes and a fully masked frame
+WIDE_PSEUDO_RBFS = [16, 17, 18, 20, 21, 26, 27, 31, 32, 95, 200, 512]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("r", [16, 20, "max"])
-@pytest.mark.parametrize("m", [3, 6])
+@pytest.mark.parametrize("r", WIDE_PSEUDO_RBFS)
+@pytest.mark.parametrize("m", [3, 6, 10, 70])
 def test_wide_pseudo_kernels_match_plain_on_card(cuda_device, m, r):
-    from coarsegrainingvae_tpu_torch.ops.fused_pseudo import MAX_RBF
-
-    r = MAX_RBF if r == "max" else r
     args = _pseudo_inputs(m, 22, cuda_device, f=40, r=r, b=8)
+    before = (fused_pseudo_message.launches, fused_pseudo_vjp.launches)
+    out = fused_pseudo_message(*args, CUT, r)
     ref = pseudo_reference(*args, CUT, r)
-    _close_rel(fused_pseudo_message(*args, CUT, r), ref)
     cts = _cotangents(ref, 23, cuda_device)
-    _close_rel(fused_pseudo_vjp(*args, *cts, CUT, r), pseudo_vjp_reference(*args, *cts, CUT, r))
+    grads = fused_pseudo_vjp(*args, *cts, CUT, r)
+    torch.cuda.synchronize()
+    assert (fused_pseudo_message.launches, fused_pseudo_vjp.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    _close_rel(out, ref)
+    _close_rel(grads, pseudo_vjp_reference(*args, *cts, CUT, r))
+    # masked nodes, the whole last batch element among them, get exact zeros
+    masked = args[1] == 0
+    for t in out + grads[:5]:
+        assert float(t[masked].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
-def test_wrappers_name_the_wide_bound_on_card(cuda_device):
-    from coarsegrainingvae_tpu_torch.ops import fused_message as mo
-    from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+@pytest.mark.parametrize("m,b", [(3, 128), (3, 5), (10, 16), (70, 8)])
+def test_wide_pseudo_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, m, b):
+    """The wide backward writes one d_w partial per 4 frames (M <= 3) or
+    per (frame, node tile), basis chunk by basis chunk, from its warps in
+    a fixed order, and the partials are summed in a fixed order: two
+    launches give the same d_w (and every other output), bit for bit. B 5
+    at M 3 leaves three warps of the last block without a frame."""
+    args = _pseudo_inputs(m, 32, cuda_device, f=600, r=20, b=b)
+    cts = _cotangents((args[3], args[4], args[5], args[6]), 33, cuda_device)
+    first = fused_pseudo_vjp(*args, *cts, CUT, 20)
+    second = fused_pseudo_vjp(*args, *cts, CUT, 20)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
-    args = _message_inputs(5, 3, 7, cuda_device, r=mo.MAX_RBF + 1)
-    with pytest.raises(ValueError, match=f"tested up to n_rbf {mo.MAX_RBF}"):
-        fused_message(*args, CUT, mo.MAX_RBF + 1)
-    args = _pseudo_inputs(3, 7, cuda_device, r=po.MAX_RBF + 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_pseudo_message(*args, CUT, po.MAX_RBF + 1)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,b", [(3, 128), (10, 16)])
+def test_wide_pseudo_kernels_replay_bit_for_bit_on_card(cuda_device, m, b):
+    """At n_rbf 20 (three basis chunks of 7): the forward and the backward
+    replayed from a CUDA graph give the eager calls' bits."""
+    args = _pseudo_inputs(m, 34, cuda_device, f=600, r=20, b=b)
+    cts = _cotangents((args[3], args[4], args[5], args[6]), 35, cuda_device)
+
+    def both():
+        return fused_pseudo_message(*args, CUT, 20) + fused_pseudo_vjp(*args, *cts, CUT, 20)
+
+    eager = both()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, replayed):
+        assert torch.equal(a, b)
 
 
 def _epoch_setup(cuda_device, n_frames=32, det=False, sparse=False, zeta=0.0,
@@ -1193,9 +1248,9 @@ def test_baseline_step_on_card_matches_cpu(cuda_device, name):
 def test_diffpool_baseline_and_hpo_clis_run_on_card(cuda_device, tmp_path, monkeypatch):
     """run_diffpool, run_baseline and one hpo trial at a tiny size with
     --device cuda, each writing its files; and an hpo trial that fails on
-    the card (a basis beyond the wide kernels' bound raises in the
-    wrapper, before any launch) is reported as failed while the next
-    trial runs."""
+    the card (n_rbf 0, a basis no kernel takes, raises in the wrapper
+    before any launch; the plain versions on the CPU run it) is reported
+    as failed while the next trial runs."""
     import csv
 
     from coarsegrainingvae_tpu_torch.cli import hpo, run_baseline, run_cgvae, run_diffpool
@@ -1221,11 +1276,11 @@ def test_diffpool_baseline_and_hpo_clis_run_on_card(cuda_device, tmp_path, monke
     space = {k: ("choice", (v,), None) for k, v in dict(
         lr=3e-4, beta=0.05, gamma=5.0, n_basis=16, enc_nconv=1, dec_nconv=1, atom_cutoff=8.0,
         cg_cutoff=9.0).items()}
-    space["n_rbf"] = ("choice", (300, 4), None)
+    space["n_rbf"] = ("choice", (0, 4), None)
     _, _, trials = hpo.random_search(lambda c: objective(c, 1), space, 6, seed=0,
                                      log_path=str(tmp_path / "hpo" / "log.csv"))
     by_rbf = {r["n_rbf"]: r for r in trials}
-    assert by_rbf[300]["failed"] and "200" in by_rbf[300]["error"]
+    assert by_rbf[0]["failed"] and "at least 1" in by_rbf[0]["error"]
     assert not by_rbf[4]["failed"] and by_rbf[4]["value"] > 0
     with open(tmp_path / "hpo" / "log.csv", newline="") as f:
         assert {r["failed"] for r in csv.DictReader(f)} == {"True", "False"}

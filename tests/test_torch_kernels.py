@@ -214,15 +214,15 @@ def test_wrapper_backward_passes_gradcheck_in_float64():
     pytest.param("pseudo", 0, id="pseudo-0"), pytest.param("pseudo", 16, id="pseudo-16")])
 def test_message_wrapper_refuses_basis_sizes_without_a_kernel(wrapper, n_rbf):
     """The CUDA kernels, message and pseudo, exist for R+1 in 2..16 (a
-    template parameter) and, past 16, as the wide kernels up to the bound
-    that one block's shared memory sets (``MAX_RBF``); each wrapper's input
-    check refuses n_rbf 0 and n_rbf past the bound before a build or a
-    launch, and takes n_rbf 16. The check runs on CPU tensors here as it
-    does on CUDA ones."""
+    template parameter) and for every R+1 past 16 (the wide kernels, whose
+    basis comes in chunks and which keep nothing per basis function in
+    shared memory). So each wrapper's input check refuses only n_rbf 0, and
+    takes n_rbf 16 and the wide sizes that some earlier design refused (95,
+    201) or no test reached (512), before a build or a launch. The check
+    runs on CPU tensors here as it does on CUDA ones."""
     from coarsegrainingvae_tpu_torch.ops import fused_message as mo
     from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
 
-    bound = mo.MAX_RBF if wrapper == "message" else po.MAX_RBF
     if wrapper == "message":
         check, s = mo._check_cuda_inputs, 3
         xyz, mask, phi, v, _ = [torch.as_tensor(a) for a in _message_inputs(4, 3, seed=3)]
@@ -233,10 +233,14 @@ def test_message_wrapper_refuses_basis_sizes_without_a_kernel(wrapper, n_rbf):
         names = ("xyz", "mask", "phi", "s", "sbar", "v", "vbar")
         args = dict(zip(names, [torch.as_tensor(a) for a in _pseudo_inputs(4, seed=3)[:7]]))
         want = (B, 4, F)
-    refused = n_rbf if n_rbf == 0 else bound + 1
-    args["w"] = torch.zeros(refused + 1, s, F)
-    with pytest.raises(ValueError, match="n_rbf"):
-        check(args, refused)
-    for taken in (R, n_rbf) if n_rbf else (R,):
+    if n_rbf == 0:
+        args["w"] = torch.zeros(1, s, F)
+        with pytest.raises(ValueError, match="n_rbf"):
+            check(args, 0)
+    for taken in (R, 95, 201, 512) if n_rbf == 0 else (n_rbf,):
         args["w"] = torch.zeros(taken + 1, s, F)
         assert check(args, taken) == want
+    # a weight tensor of another basis size is refused
+    args["w"] = torch.zeros(R + 2, s, F)
+    with pytest.raises(ValueError, match="w has shape"):
+        check(args, R)

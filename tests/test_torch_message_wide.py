@@ -38,6 +38,7 @@ torch.set_num_threads(1)
 
 HEADER = Path(__file__).resolve().parents[1] / "coarsegrainingvae_tpu_torch/csrc/pair_geometry.cuh"
 CHUNK = int(re.search(r"constexpr int kWideChunk = (\d+);", HEADER.read_text()).group(1))
+EXACT_FROM = int(re.search(r"constexpr int kExactFrom = (\d+);", HEADER.read_text()).group(1))
 # the kernels' gate against the plain version: max |a - b| <= 1e-4 max |b|
 # (chip_smoke.KERNEL_RTOL); in float64 only the order of the sums differs
 RTOL32, TOL64 = 1e-4, dict(rtol=1e-9, atol=1e-9)
@@ -57,12 +58,44 @@ def _sincospi(x):
     return torch.sin(a).to(x.dtype), torch.cos(a).to(x.dtype)
 
 
-def chunk_bases(xyz, mask, cutoff, n_rbf):
-    """pair_geometry.cuh::chunk_record for every chunk, in xyz's dtype:
+def chunk_values(d2, adj, r_aug, r0, width, cutoff):
+    """One chunk of pair_geometry.cuh::chunk_record's K, (..., width), zero
+    past R+1, from the squared distance (plus the epsilon) and the
+    adjacency, in d2's dtype: the angle-addition recurrence from an accurate
+    sin and cos at the chunk's first angle, or, for a basis of more than
+    EXACT_FROM functions, each function as ops/basis.py::painn_radial_basis
+    rounds it (the correctly rounded distance, coefficient, angle and
+    quotient)."""
+    dtype = d2.dtype
+    inv_d = torch.rsqrt(d2)
+    d = d2 * inv_d
+    u = d * (1.0 / torch.tensor(cutoff, dtype=dtype))
+    s1, c1 = _sincospi(u)
+    ae = adj * (0.5 * (c1 + 1.0))
+    zero = torch.zeros_like(ae)
+    k = []
+    if r_aug > EXACT_FROM:
+        dp = torch.sqrt(d2)
+        for j in range(r0, r0 + width):
+            coef = (torch.tensor(j + 1, dtype=dtype) * torch.tensor(math.pi, dtype=dtype)
+                    / torch.tensor(cutoff, dtype=dtype))
+            k.append(ae * (torch.sin(coef * dp) / dp) if j < r_aug - 1
+                     else (ae if j == r_aug - 1 else zero))
+    else:
+        sk, ck = _sincospi((r0 + 1) * u)
+        for j in range(r0, r0 + width):
+            k.append(ae * inv_d * sk if j < r_aug - 1 else (ae if j == r_aug - 1 else zero))
+            sk, ck = sk * c1 + ck * s1, ck * c1 - sk * s1
+    return torch.stack(k, -1)
+
+
+def chunk_bases(xyz, mask, cutoff, n_rbf, width=None):
+    """pair_geometry.cuh::chunk_record for every chunk (of ``width``
+    functions, the message kernels' width by default), in xyz's dtype:
     (unit (B,N,N,3), adj (B,N,N), [K (B,N,N,R+1), zero outside the chunk,
     per chunk])."""
     r_aug, n = n_rbf + 1, xyz.shape[1]
-    width = chunk_width(r_aug)
+    width = width or chunk_width(r_aug)
     r = xyz[:, None, :, :] - xyz[:, :, None, :]          # x_q - x_p
     d2 = (r * r).sum(-1) + EPS
     inv_d = torch.rsqrt(d2)
@@ -70,37 +103,37 @@ def chunk_bases(xyz, mask, cutoff, n_rbf):
     unit = r * inv_d[..., None]
     m = mask.to(xyz.dtype)
     adj = ((d < cutoff) & ~torch.eye(n, dtype=torch.bool)) * m[:, :, None] * m[:, None, :]
-    u = d * (1.0 / torch.tensor(cutoff, dtype=xyz.dtype))
-    s1, c1 = _sincospi(u)
-    ae = adj * (0.5 * (c1 + 1.0))
-    ae_d = ae * inv_d
     chunks = []
     for r0 in range(0, r_aug, width):
-        sk, ck = _sincospi((r0 + 1) * u)
         k = torch.zeros(d.shape + (r_aug,), dtype=xyz.dtype)
-        for j in range(r0, min(r0 + width, r_aug)):
-            k[..., j] = ae_d * sk if j < r_aug - 1 else ae
-            sk, ck = sk * c1 + ck * s1, ck * c1 - sk * s1
+        top = min(r0 + width, r_aug)
+        k[..., r0:top] = chunk_values(d2, adj, r_aug, r0, width, cutoff)[..., :top - r0]
         chunks.append(k)
     return unit, adj, chunks
 
 
+# the widest basis the tests hold the wide kernels to (the wrappers take any)
+WIDEST = 512
+
+
 def test_chunks_cover_the_basis_once():
-    """Every wide basis (R+1 from 17 to MAX_RBF + 1) splits into chunks of
+    """Every wide basis (R+1 from 17 to WIDEST + 1) splits into chunks of
     9 to CHUNK functions (the kernels' instantiations), padding fewer than
     one chunk's worth."""
-    for r_aug in range(17, mo.MAX_RBF + 2):
+    for r_aug in range(17, WIDEST + 2):
         width, n = chunk_width(r_aug), -(-r_aug // CHUNK)
         assert 9 <= width <= CHUNK and n * width - r_aug < n and (n - 1) * width < r_aug
 
 
-# The largest error found, per basis function relative to its max |K|:
-# 1.40e-5 at n_rbf 200 on the random frames, where the plain f32 basis itself
-# is 1.26e-5 from float64 (the f32 distance, through an angle of up to 200 pi,
-# sets both), a margin of ~7x under the 1e-4 gate; at n_rbf <= 32 it is
-# <= 1.7e-6 (60x), and on the line of distances <= 8.4e-7 up to n_rbf 200.
-# The recurrence of at most CHUNK - 1 steps adds ~3e-7 whatever R is.
-@pytest.mark.parametrize("n_rbf", [16, 20, 31, 32, 63, mo.MAX_RBF])
+# The largest error found, per basis function relative to its max |K|, on
+# the random frames: <= 1.7e-6 up to n_rbf 31 (the recurrence of at most
+# CHUNK - 1 steps adds ~3e-7 whatever R is); past R+1 = EXACT_FROM every
+# function rounds as the plain version does, so from n_rbf 32 on the largest
+# errors (5.35e-6 at 63, 1.26e-5 at 200, 4.77e-5 at 512) are the plain f32
+# basis's own (the f32 distance through an angle of up to 512 pi sets
+# them), a margin of 2.1x under the 1e-4 gate at 512; on the line of
+# distances <= 2.3e-6.
+@pytest.mark.parametrize("n_rbf", [16, 20, 31, 32, 63, 200, WIDEST])
 def test_chunked_basis_matches_the_plain_basis_in_float64(n_rbf):
     """The chunked f32 basis, over 4,000 distances spanning (0, cutoff) and
     over the pairs of random frames, within 1e-4 of each basis function's
