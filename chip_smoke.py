@@ -1814,12 +1814,13 @@ def native_phase(device: str = "cuda", covid_n_frames: int = COVID_FRAMES,
     from coarsegrainingvae_tpu_torch.data import neighbors
     from coarsegrainingvae_tpu_torch.eval import metrics
     from coarsegrainingvae_tpu_torch.native import bond_diff, build, cell_list
+    from coarsegrainingvae_tpu_torch.utils import tracing
 
     t = time.perf_counter()
     cell_list._lib()
     bond_diff._lib()
     print(f"native: both libraries ready in {time.perf_counter() - t:.3f} s (g++: "
-          f"{', '.join(f'{k} {v:.3f} s' for k, v in build.BUILD_SECONDS.items()) or 'cached'}) "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in tracing.seconds('native.build.').items()) or 'cached'}) "
           f"in {build.BUILD_DIR}", flush=True)
 
     def check_cell_list(frames, cutoff, label):
@@ -3446,6 +3447,7 @@ def main() -> int:
         from coarsegrainingvae_tpu_torch.ops import cuda_build
         from coarsegrainingvae_tpu_torch.ops import fused_message as message_ops
         from coarsegrainingvae_tpu_torch.ops import fused_pseudo as pseudo_ops
+        from coarsegrainingvae_tpu_torch.utils import tracing
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
@@ -3478,7 +3480,7 @@ def main() -> int:
             b.result()
     print(f"build: both kernel sources ready {time.perf_counter() - t0:.2f} s after the start, "
           f"beside the phases that launch no kernel (nvcc: "
-          f"{', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.BUILD_SECONDS.items())})",
+          f"{', '.join(f'{k} {v:.2f} s' for k, v in tracing.seconds('ops.build.').items())})",
           flush=True)
     for source, log in cuda_build.BUILD_LOG.items():
         print_ptxas(source, log)

@@ -7,8 +7,11 @@ Per fold: build the CG mapping (with the degeneracy retry of run_ala.py:
 the test split, sample prior ensembles and append one row to the
 ``cv_stats.csv`` contract. Artifacts per fold: ``mapping.json``, ``ckpt/``,
 ``train_log.csv``, ``test_recon.xyz``, ``test_samples.xyz``,
-``rotate_{ensemble,data,recon,cg}.xyz`` (``FAILED.txt`` on a NaN run); per
-run: ``modelparams.json``, ``cv_stats.csv``, ``cv_stats_summary.json``.
+``rotate_{ensemble,data,recon,cg}.xyz`` (``FAILED.txt`` on a NaN run), and
+the port's own ``tracing.json``, ``utils.tracing.snapshot()`` once ``fit``
+returns: the fold's set-up spans and the last epoch's phase means of the
+train step; per run: ``modelparams.json``, ``cv_stats.csv``,
+``cv_stats_summary.json``.
 
 Usage:  python -m coarsegrainingvae_tpu_torch.cli.run_cgvae -dataset dipeptide \\
             -n_cgs 3 -ndata 2000 -nepochs 50 ... [--device cpu]
@@ -64,6 +67,7 @@ from coarsegrainingvae_tpu_torch.parallel.mesh import init_distributed, local_de
 from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
 from coarsegrainingvae_tpu_torch.train.losses import build_steric_tables
 from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+from coarsegrainingvae_tpu_torch.utils import tracing
 from coarsegrainingvae_tpu_torch.utils.logging import CSVLogger, annotate_job
 from coarsegrainingvae_tpu_torch.utils.rng import fold_in
 from coarsegrainingvae_tpu_torch.utils.visualization import save_grid_snapshots
@@ -323,6 +327,7 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
         if max_folds and fold >= fold_offset + max_folds:
             break
         t0 = time.time()
+        fold_start_ns = time.time_ns()
         split_dir = os.path.join(cfg.logdir, f"fold{fold}")
         mapping = _from_rank0(lambda: build_fold_mapping(
             cfg, z, frames[train_idx], bonds, seed=cfg.data.seed + fold, device=device))
@@ -352,6 +357,9 @@ def run_cv(cfg: ExperimentConfig, n_ensemble: int = 16, nevals: int = 36,
         state, history = trainer.fit(state, ds_tr, ds_val,
                                      log_fn=train_logger.log if writer else None,
                                      ckpt=ckpt, resume=resume)
+        if writer:
+            with open(os.path.join(split_dir, "tracing.json"), "w") as f:
+                json.dump(tracing.snapshot(since_ns=fold_start_ns), f, indent=1)
         if not history or not np.isfinite(history[-1]["val_recon"]):
             if writer:
                 with open(os.path.join(split_dir, "FAILED.txt"), "w") as f:

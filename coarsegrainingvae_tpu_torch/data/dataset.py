@@ -23,6 +23,7 @@ from coarsegrainingvae_tpu_torch.data.topology import (
     channel_index_from_mapping,
     high_order_edges,
 )
+from coarsegrainingvae_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -156,6 +157,7 @@ def _segment_mean_np(x: np.ndarray, seg: np.ndarray, m: int) -> np.ndarray:
     return out
 
 
+@tracing.span("data.build_dataset")
 def build_dataset(
     mapping: np.ndarray,
     traj: np.ndarray,
@@ -180,6 +182,8 @@ def build_dataset(
     - CG radius graph at cg_cutoff, or the bond-contracted CG graph when
       cg_cutoff is None
     - bonded edges expanded to graph distance <= order
+
+    Each call is recorded as the span ``data.build_dataset`` (``utils.tracing``).
     """
     traj = np.asarray(traj, dtype=np.float32)
     f, n, _ = traj.shape

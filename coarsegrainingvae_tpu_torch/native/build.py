@@ -7,7 +7,9 @@ loaded. The flags are the JAX package's, so that the distance comparisons
 round alike. Each build writes a temporary file and renames it into place:
 processes that build at the same moment each load a whole library. There
 is no fallback: a missing or failing g++ raises ``BuildError`` with the
-compiler's output.
+compiler's output. Each build is recorded as the span ``native.build.<name>``
+(``utils.tracing``; ``tracing.seconds("native.build.")`` gives the seconds
+by source).
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, List, Tuple
+
+from coarsegrainingvae_tpu_torch.utils import tracing
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parents[1] / "build" / "native"
@@ -26,8 +29,6 @@ GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# the seconds each g++ build of this process took
-BUILD_SECONDS: Dict[str, float] = {}
 
 
 class BuildError(RuntimeError):
@@ -54,16 +55,15 @@ def load(name: str, symbols: Dict[str, Tuple[List, object]]) -> ctypes.CDLL:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = ["g++", *GXX_FLAGS, str(_HERE / f"{name}.cpp"), "-o", str(tmp)]
-            t0 = time.perf_counter()
             try:
-                res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+                with tracing.span(f"native.build.{name}"):
+                    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
             except (OSError, subprocess.TimeoutExpired) as e:
                 raise BuildError(f"g++ could not build {name}.cpp: {e}") from e
             if res.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise BuildError(f"g++ failed building {name}.cpp:\n{res.stdout}\n{res.stderr}")
             os.replace(tmp, out)
-            BUILD_SECONDS[name] = time.perf_counter() - t0
         lib = ctypes.CDLL(str(out))
         for sym, (argtypes, restype) in symbols.items():
             fn = getattr(lib, sym)

@@ -6,7 +6,9 @@ headers ``csrc/*.cuh``. On first use it is compiled with ``nvcc`` for Hopper
 name that carries the hash of the source and the headers, so an edited
 source is rebuilt and a stale library is never loaded. The library is loaded
 with ``ctypes``. Nothing here runs at import time, and there is no fallback:
-a missing ``nvcc`` or a failed build raises.
+a missing ``nvcc`` or a failed build raises. Each build is recorded as the
+span ``ops.build.<name>`` (``utils.tracing``; ``tracing.seconds("ops.build.")``
+gives the seconds by source) and its compiler output kept in ``BUILD_LOG``.
 """
 from __future__ import annotations
 
@@ -15,11 +17,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
+
+from coarsegrainingvae_tpu_torch.utils import tracing
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -27,9 +30,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# loaded libraries and the seconds each build took, per process
+# loaded libraries and each build's compiler output, per process
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_SECONDS: Dict[str, float] = {}
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -66,14 +68,13 @@ def load(name: str, symbols: Dict[str, Tuple[List, object]]) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        with tracing.span(f"ops.build.{name}"):
+            res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed building {name}.cu:\n{res.stdout}\n{res.stderr}"
             )
         os.replace(tmp, out)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
         BUILD_LOG[name] = res.stderr
     lib = ctypes.CDLL(str(out))
     for sym, (argtypes, restype) in symbols.items():

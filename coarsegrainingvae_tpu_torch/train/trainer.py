@@ -103,6 +103,7 @@ from coarsegrainingvae_tpu_torch.parallel.mesh import (
 from coarsegrainingvae_tpu_torch.parallel.tensor import TensorLayout, split_messages
 from coarsegrainingvae_tpu_torch.train.controller import EarlyStopping, LowessPlateauController
 from coarsegrainingvae_tpu_torch.train.losses import loss_denominators, vae_loss
+from coarsegrainingvae_tpu_torch.utils import tracing
 from coarsegrainingvae_tpu_torch.utils.rng import generator as derived_generator
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -295,10 +296,13 @@ class _EpochProgram:
     """One train or eval step over one DeviceDataset, written against
     static buffers: the (S_max, B) index table, the step counter, the
     (S_max, k) metrics buffer and, for training, the optimizer state, step
-    and lr of ``state``, all updated in place. On a CUDA device the step is
+    and lr of ``state`` and the (S_max, 7) table of the step's phase marks
+    (``utils.tracing``), all updated in place. On a CUDA device the step is
     captured once as a CUDA graph and replayed; its noise comes from a
     generator registered with the graph, loaded from the caller's before
-    the replays and copied back after them."""
+    the replays and copied back after them. The marks are kernel nodes of
+    that graph; after each epoch their rows come back with the metrics and
+    the phases' means go into the tracing counters."""
 
     def __init__(self, trainer: "Trainer", dds: DeviceDataset, train: bool, max_steps: int):
         device = trainer.device
@@ -306,6 +310,7 @@ class _EpochProgram:
         self.table = torch.zeros((max_steps, trainer.cfg.data.batch_size), dtype=torch.long,
                                  device=device)
         self.counter = torch.zeros((), dtype=torch.long, device=device)
+        self.marks = tracing.StepMarks(max_steps, self.counter) if train else None
         self.keys: Optional[List[str]] = None
         self.metrics: Optional[torch.Tensor] = None
         self.state: Optional[TrainState] = None
@@ -315,25 +320,30 @@ class _EpochProgram:
         self._generator: Optional[torch.Generator] = None
 
     def step(self) -> None:
-        """One step at row ``counter`` of the table; no host synchronisation."""
-        idx = self.table.index_select(0, self.counter.view(1)).view(-1)
-        batch = self.dds.gather(idx)
-        tr = self.trainer
-        if self.train:
-            new, metrics = tr.train_step(self.state, batch, self._generator)
+        """One step at row ``counter`` of the table; no host synchronisation.
+        A train step records its phase marks (``utils.tracing``)."""
+        with tracing.marking(self.marks):
+            tracing.mark("step")
+            idx = self.table.index_select(0, self.counter.view(1)).view(-1)
+            batch = self.dds.gather(idx)
+            tracing.mark("forward")
+            tr = self.trainer
+            if self.train:
+                new, metrics = tr.train_step(self.state, batch, self._generator)
+                with torch.no_grad():
+                    for static, value in zip(_step_tensors(self.state), _step_tensors(new)):
+                        static.copy_(value)
+            else:
+                metrics = tr.eval_step(batch, self._generator)
             with torch.no_grad():
-                for static, value in zip(_step_tensors(self.state), _step_tensors(new)):
-                    static.copy_(value)
-        else:
-            metrics = tr.eval_step(batch, self._generator)
-        with torch.no_grad():
-            if self.metrics is None:
-                self.keys = list(metrics)
-                self.metrics = torch.zeros((self.table.shape[0], len(self.keys)),
-                                           dtype=torch.float32, device=tr.device)
-            row = torch.stack([metrics[k].float() for k in self.keys])
-            self.metrics.index_copy_(0, self.counter.view(1), row.view(1, -1))
-            self.counter.add_(1)
+                if self.metrics is None:
+                    self.keys = list(metrics)
+                    self.metrics = torch.zeros((self.table.shape[0], len(self.keys)),
+                                               dtype=torch.float32, device=tr.device)
+                row = torch.stack([metrics[k].float() for k in self.keys])
+                self.metrics.index_copy_(0, self.counter.view(1), row.view(1, -1))
+                self.counter.add_(1)
+            tracing.mark("end")
 
     def _adopt(self, state: TrainState) -> None:
         """Make ``state``'s optimizer tensors the static ones, or copy them in."""
@@ -346,11 +356,12 @@ class _EpochProgram:
                 if a is not b:
                     a.copy_(b)
 
+    @tracing.span("train.capture")
     def _capture(self, source: torch.Generator) -> None:
         """Warm up on a side stream, capture one step, then undo the
         warm-up: parameters, moments and step as they were, the kernels'
         launch counts as they were. A replay adds the counts of the capture
-        to them."""
+        to them. Recorded as the span ``train.capture``."""
         device = self.trainer.device
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError("this PyTorch lacks CUDAGraph.register_generator_state; the "
@@ -387,7 +398,8 @@ class _EpochProgram:
             generator: Optional[torch.Generator], capture: bool) -> Dict[str, float]:
         """S steps over ``batches`` (S, B): replays of the captured step when
         ``capture``, else the step in a Python loop. Returns the metrics'
-        epoch means, read back once."""
+        epoch means, read back once; a train epoch's phase means go into
+        the tracing counters (``step.<phase>_ms``)."""
         n_steps = batches.shape[0]
         if n_steps > self.table.shape[0]:
             raise ValueError(f"{n_steps} steps, the program holds {self.table.shape[0]}")
@@ -413,6 +425,8 @@ class _EpochProgram:
                     fn.launches += n
             source.set_state(self.graph_generator.get_state())
         host = self.metrics[:n_steps].cpu().numpy()
+        if self.marks is not None:
+            tracing.REGISTRY.record_phases(self.marks.times[:n_steps].cpu().numpy())
         out = {k: float(np.mean(np.ascontiguousarray(host[:, j])))
                for j, k in enumerate(self.keys)}
         out["n_steps"] = n_steps
@@ -571,6 +585,7 @@ class Trainer:
         detached 0-d device tensors."""
         params = list(state.params.values())
         loss, metrics = self._loss_fn(batch, generator, self.zeta_scale(state), denominators)
+        tracing.mark("backward")
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -603,20 +618,26 @@ class Trainer:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step on ``batch`` (already on the device; under
         data parallelism the global batch, the same on every rank). Returns
-        the new state and the step's metrics as 0-d device tensors."""
+        the new state and the step's metrics as 0-d device tensors. Inside
+        an epoch program it records the phase marks of ``utils.tracing``
+        (here, outside the methods a caller may replace)."""
         if self.mesh.group is None:
             loss, metrics, grads = self.loss_and_grads(state, batch, generator)
+            tracing.mark("optimizer")
             state, ok = self.apply_gradients(state, loss, grads)
         else:
             local, gen, den = self._shard(batch, generator)
             loss, metrics, grads = self.loss_and_grads(state, local, gen, den)
+            tracing.mark("exchange")
             if self._tensor is not None:
                 grads = [self._local_gradient(grads)]
             keys = list(metrics)
             buf = self._all_reduce([*grads, loss, *(metrics[k] for k in keys)])
             p = buf.numel() - 1 - len(keys)
             metrics = dict(zip(keys, buf[p + 1:]))
+            tracing.mark("optimizer")
             state, ok = self._apply_flat(state, buf[p], buf[:p])
+        tracing.mark("bookkeeping")
         scale = ok.to(torch.float32)
         metrics.update(skipped=1.0 - scale, grad_ok=scale)
         return state, metrics

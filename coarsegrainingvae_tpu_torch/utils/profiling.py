@@ -2,7 +2,8 @@
 ``coarsegrainingvae_tpu.utils.profiling``).
 
 ``trace`` records a ``torch.profiler`` window (CPU and, with a card, CUDA
-activity) and writes it as a Chrome trace; ``StepTimer`` keeps per-step
+activity) and writes it as a Chrome trace, with the ``utils.tracing``
+spans of the window beside it; ``StepTimer`` keeps per-step
 wall-clock statistics, its ``tick`` synchronising the device first (the JAX
 package's caller blocks on each step); ``time_compile`` sets a callable's
 first call (lazy nvcc builds, CUDA-graph capture, caches) against a steady
@@ -26,6 +27,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from coarsegrainingvae_tpu_torch.utils import tracing
+
+# host calls that put work on the device: kernels one at a time, or a graph
+LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                          "cudaLaunchKernelExC", "cudaGraphLaunch", "cuGraphLaunch"})
+
 
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -35,7 +42,9 @@ def _sync() -> None:
 @contextlib.contextmanager
 def trace(logdir: str, name: str = "trace.json"):
     """Profile the block and write ``logdir/name``, a Chrome trace (open it
-    in Perfetto or chrome://tracing). Usage: ``with trace("./tb"): run()``.
+    in Perfetto or chrome://tracing) that also holds the ``utils.tracing``
+    spans of the window (category ``cgvae_span``, on the host's clock as
+    the profiler's events are). Usage: ``with trace("./tb"): run()``.
     Yields the profiler (``key_averages()`` for tables)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -43,12 +52,15 @@ def trace(logdir: str, name: str = "trace.json"):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    start = time.time_ns()
     with profile(activities=activities) as prof:
         try:
             yield prof
         finally:
             _sync()
-    prof.export_chrome_trace(os.path.join(logdir, name))
+    path = os.path.join(logdir, name)
+    prof.export_chrome_trace(path)
+    tracing.REGISTRY.write_chrome_spans(path, start, time.time_ns())
 
 
 class StepTimer:
@@ -243,11 +255,16 @@ def bound(n_bytes: int, flops: int) -> tuple:
 
 
 def device_profile(prof, wall_ms: float, steps: int) -> dict:
-    """Device busy time (union of kernel intervals), the top device items
-    and the device launches per step of a torch.profiler window."""
+    """Device busy time (union of the device intervals), the top device
+    items and the host's launch calls per step (``LAUNCH_CALLS``: kernels
+    and graph launches) of a torch.profiler window. A user annotation that
+    the profiler files under the device (``gpu_user_annotation``, a
+    ``record_function`` range around launches) is no device work and is
+    left out."""
     from torch.autograd import DeviceType
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -264,8 +281,7 @@ def device_profile(prof, wall_ms: float, steps: int) -> dict:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    host_launches = sum(1 for e in prof.events()
-                        if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    host_launches = sum(1 for e in prof.events() if e.name in LAUNCH_CALLS)
     return {"busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
             "device_events_per_step": len(events) / steps,
             "host_launch_calls_per_step": host_launches / steps,

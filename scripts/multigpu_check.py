@@ -111,9 +111,9 @@ def main(argv=None) -> int:
             report["card"] = cs.card_line() if cuda else "cpu"
             say(f"{report['card']}; {mesh.size} {mesh.backend} ranks")
         if cuda:
-            from coarsegrainingvae_tpu_torch.ops import cuda_build
             from coarsegrainingvae_tpu_torch.ops import fused_message as mo
             from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+            from coarsegrainingvae_tpu_torch.utils import tracing
 
             t = time.perf_counter()
             if rank0:                           # one nvcc per source, together
@@ -123,7 +123,7 @@ def main(argv=None) -> int:
                     list(pool.map(lambda ops: ops.build(), (mo, po)))
             dist.barrier()
             mo.build(), po.build()
-            say(f"build: {time.perf_counter() - t:.1f} s (nvcc {cuda_build.BUILD_SECONDS})")
+            say(f"build: {time.perf_counter() - t:.1f} s (nvcc {tracing.seconds('ops.build.')})")
         box = [cs.dipeptide_device_data(str(device))[0] if rank0 else None]
         dist.broadcast_object_list(box, src=0)
         ds = box[0]

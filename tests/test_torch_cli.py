@@ -97,8 +97,11 @@ def test_mapping_per_fold_is_identical(runs, fold):
 
 
 def test_artifacts_and_csv_headers_are_the_jax_packages(runs):
+    """The JAX package's files, and the port's own tracing snapshot in
+    each fold."""
     assert runs["port"].name == runs["jax"].name
-    assert _artifacts(runs["port"]) == _artifacts(runs["jax"])
+    own = {f"{fold}/tracing.json" for fold in FOLDS}
+    assert _artifacts(runs["port"]) == _artifacts(runs["jax"]) | own
     assert {"cv_stats.csv", "cv_stats_summary.json", "modelparams.json",
             "fold0/ckpt", "fold1/test_samples.xyz"} <= _artifacts(runs["port"])
 
@@ -114,6 +117,22 @@ def test_artifacts_and_csv_headers_are_the_jax_packages(runs):
         assert len((runs["port"] / fold / "train_log.csv").read_text().splitlines()) == 3
     summary = json.loads((runs["port"] / "cv_stats_summary.json").read_text())
     assert set(summary) == set(json.loads((runs["jax"] / "cv_stats_summary.json").read_text()))
+
+
+@pytest.mark.parametrize("fold", FOLDS)
+def test_each_fold_writes_its_tracing_snapshot(runs, fold):
+    """``tracing.json``: the fold's own set-up spans (its datasets) and the
+    phase means of its last train epoch (the CPU program's marks; one
+    process, so no exchange phase)."""
+    snap = json.loads((runs["port"] / fold / "tracing.json").read_text())
+    names = [s["name"] for s in snap["spans"]]
+    assert names.count("data.build_dataset") >= 1 and "train.capture" not in names
+    counters = snap["counters"]
+    phases = [k for k in counters if k.endswith("_ms") and k != "step.total_ms"]
+    assert sorted(phases) == sorted(f"step.{p}_ms" for p in
+                                    ("gather", "forward", "backward", "optimizer", "bookkeeping"))
+    assert counters["step.steps"] >= 1
+    assert sum(counters[k] for k in phases) == pytest.approx(counters["step.total_ms"])
 
 
 def test_modelparams_load_into_either_package(runs):

@@ -1567,3 +1567,130 @@ def test_tensor_parallel_gloo_ranks_on_one_card_match_one_rank(cuda_device, tmp_
             err = np.abs(r["tp"]["params"][k] - ref).max() / max(np.abs(ref).max(), 1e-30)
             assert err <= 1e-4, (k, err)
             np.testing.assert_array_equal(r["tp"]["params"][k], got[0]["tp"]["params"][k])
+
+
+# ------------------------------------------------- the step's phase marks
+def _one_rank_marked_epoch(cuda_device, tmp_path, n_frames=64):
+    """On one NCCL rank, so that the step holds all seven marks: a captured
+    epoch (the capture), then one under torch.profiler. Returns the marks
+    the trace shows with their start ns, in order, the tracing counters of
+    that epoch, and its steps."""
+    import numpy as np
+    import torch.distributed as dist
+    import torch_parallel_ranks as ranks
+    from torch.profiler import ProfilerActivity, profile
+
+    from coarsegrainingvae_tpu_torch.data.device import DeviceDataset
+    from coarsegrainingvae_tpu_torch.parallel.mesh import make_mesh
+    from coarsegrainingvae_tpu_torch.train.trainer import Trainer
+    from coarsegrainingvae_tpu_torch.utils import tracing
+
+    ds = _dp_dataset(n_frames)
+    cfg = _dp_cfg(compute_dtype="bfloat16")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
+                     device=cuda_device, mesh=make_mesh())
+        state = tr.init_state(ds.batch(np.arange(8)))
+        dds = DeviceDataset.from_dataset(ds, cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        state, _ = tr.run_epoch_scan(state, dds, gen)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, m = tr.run_epoch_scan(state, dds, gen)
+            torch.cuda.synchronize()
+        counters = dict(tracing.REGISTRY.counters)
+        tr.release_graphs()
+    finally:
+        dist.destroy_process_group()
+    return ranks.mark_events(prof), counters, m["n_steps"]
+
+
+@pytest.mark.gpu
+def test_a_profiled_captured_epoch_shows_each_mark_once_a_step_in_order_on_card(
+        cuda_device, tmp_path):
+    """Each ``cgvae_mark_*`` kernel runs once per replayed step, in the
+    order of ``tracing.MARKS`` (the exchange too, on a process group)."""
+    from coarsegrainingvae_tpu_torch.utils import tracing
+
+    events, _, steps = _one_rank_marked_epoch(cuda_device, tmp_path)
+    assert steps == 8
+    assert [m for m, _ in events] == list(tracing.MARKS) * steps
+
+
+@pytest.mark.gpu
+def test_globaltimer_phases_agree_with_the_trace_on_card(cuda_device, tmp_path):
+    """The program's own phase means (each mark's %globaltimer, read back
+    after the epoch) against the same epoch's trace (each mark kernel's
+    start): within 2 %, or 2 us for a phase shorter than 0.1 ms."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.utils import tracing
+
+    events, counters, steps = _one_rank_marked_epoch(cuda_device, tmp_path)
+    starts = np.array([t for _, t in events], dtype=np.float64).reshape(steps, len(tracing.MARKS))
+    trace_ms = np.diff(starts, axis=1).mean(axis=0) * 1e-6
+    want = {tracing.PHASES[m]: v for m, v in zip(tracing.MARKS, trace_ms)}
+    want["total"] = float(np.mean(starts[:, -1] - starts[:, 0]) * 1e-6)
+    assert counters["step.steps"] == steps
+    for phase, ms in want.items():
+        got = counters[f"step.{phase}_ms"]
+        assert abs(got - ms) <= max(0.02 * ms, 2e-3), (phase, got, ms)
+
+
+@pytest.mark.gpu
+def test_the_marked_captured_step_is_the_eager_step_bit_for_bit_on_card(cuda_device,
+                                                                         monkeypatch):
+    """The captured epoch with its mark nodes, the eager epoch
+    (``run_epoch_device``: ``train_step`` outside any program, no marks)
+    and a captured epoch with ``tracing.mark`` a no-op, from the same state,
+    rows and generator: metrics, parameters, moments and the generator's
+    state bit for bit."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.utils import tracing
+
+    tr, state, dds = _epoch_setup(cuda_device)
+    start = [t.detach().clone() for t in _tensors(state)]
+    runs = {}
+    for kind in ("marked", "eager", "unmarked"):
+        with torch.no_grad():
+            for t, v in zip(_tensors(state), start):
+                t.copy_(v)
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        rng = np.random.default_rng(0)
+        if kind == "eager":
+            st, m = tr.run_epoch_device(state, dds, gen, shuffle_rng=rng)
+        else:
+            if kind == "unmarked":
+                tr.release_graphs()
+                monkeypatch.setattr(tracing, "mark", lambda name: None)
+            st, m = tr.run_epoch_scan(state, dds, gen, shuffle_rng=rng)
+        runs[kind] = (m, [t.detach().clone() for t in _tensors(st)], gen.get_state())
+    tr.release_graphs()
+    m_a, p_a, g_a = runs["marked"]
+    for kind in ("eager", "unmarked"):
+        m_b, p_b, g_b = runs[kind]
+        assert m_a == m_b and torch.equal(g_a, g_b), kind
+        for a, b in zip(p_a, p_b):
+            assert torch.equal(a, b), kind
+
+
+@pytest.mark.gpu
+def test_every_rank_marks_each_step_once_on_cards(cuda_device, tmp_path):
+    """On every card of the machine, one NCCL rank each: each rank's
+    profiled captured epoch shows its seven marks once per step, in order."""
+    import torch_parallel_ranks as ranks
+
+    from coarsegrainingvae_tpu_torch.parallel.launch import spawn_ranks
+    from coarsegrainingvae_tpu_torch.utils import tracing
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices: one NCCL rank per card")
+    got = spawn_ranks(ranks.profiled_marks, world, str(tmp_path / "store"),
+                      (_dp_cfg(compute_dtype="bfloat16", batch=8 * world),
+                       _dp_dataset(16 * world)), backend="nccl")
+    for r in got:
+        assert r["steps"] == 2
+        assert r["marks"] == list(tracing.MARKS) * r["steps"]

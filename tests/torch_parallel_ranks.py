@@ -214,3 +214,36 @@ def reconstruct_generate(cfg, batch, parallel: bool, state_dict=None, seed: int 
     return {"recon": tr.reconstruct(batch, gen()).numpy(),
             "generate": tr.generate(batch, gen()).numpy(),
             "eval": {k: float(v) for k, v in tr.eval_step(batch, gen()).items()}}
+
+
+def mark_events(prof) -> List[tuple]:
+    """(mark, start ns) of every phase-mark kernel (``utils.tracing``) on
+    the card in a ``torch.profiler`` window, in the order they ran."""
+    from torch.autograd import DeviceType
+
+    from coarsegrainingvae_tpu_torch.utils import tracing
+
+    names = {tracing.kernel_name(m): m for m in tracing.MARKS}
+    return sorted(((names[e.name()], e.start_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and e.name() in names),
+                  key=lambda m: m[1])
+
+
+def profiled_marks(cfg, train_ds) -> dict:
+    """On this rank's card (cuda:rank), one captured epoch over ``train_ds``
+    (the capture), then one under ``torch.profiler``: its steps and the
+    marks the trace shows, in order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device("cuda", torch.distributed.get_rank())
+    torch.cuda.set_device(device)
+    tr = _trainer(cfg, make_mesh(device=device))
+    state = tr.init_state(train_ds.batch(np.arange(cfg.data.batch_size)))
+    dds = DeviceDataset.from_dataset(train_ds, device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    state, _ = tr.run_epoch_scan(state, dds, gen)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = tr.run_epoch_scan(state, dds, gen)
+        torch.cuda.synchronize(device)
+    tr.release_graphs()
+    return {"steps": m["n_steps"], "marks": [name for name, _ in mark_events(prof)]}
