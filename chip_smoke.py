@@ -16,6 +16,10 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   gamma 25, clip 0.01), 100 steps then 100 timed steps, a profiled window,
   one f32 step held against the same step on the CPU, and a 2-epoch
   ``Trainer.fit``;
+- optimizer: the fused optimizer step (``ops.fused_adam``) against its
+  plain version at the recipe's 51.4 M parameters and bf16 moments (clip
+  off bit for bit, the recipe's clip within rounding, a rejected batch
+  unchanged), both timed in CUDA graphs beside the kernel's bound;
 - captured: the epoch as one program (``Trainer.run_epoch_scan``): an
   eager and a captured epoch from the same state held bit for bit, then
   ms/step, device busy and launches of the eager epoch against the
@@ -141,6 +145,7 @@ Needs one CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -162,6 +167,10 @@ SERVE_RTOL = 1e-4
 # training: one f32 step on the card vs the same step on the CPU, every
 # gradient and every updated parameter, relative to the tensor's max |ref|
 TRAIN_RTOL = 1e-4
+# the fused optimizer step against its plain version at the recipe's clip:
+# the norm is summed in another order, so the clipped gradient may differ in
+# its last bit; each parameter within this of its tensor's largest entry
+OPTIMIZER_RTOL = 1e-6
 N_REQUESTS, FRAMES_PER_REQUEST, N_SAMPLES = 4, 4, 64
 ENCODER_LAYERS, PRIOR_LAYERS, DECODER_LAYERS = 4, 4, 5
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS, PROFILE_STEPS = 128, 256, 100, 5
@@ -506,9 +515,49 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
+    """Launches by wrapper name, of every counter (``COUNTERS``)."""
     from coarsegrainingvae_tpu_torch.ops import kernel_counters
 
     return {fn.__name__: fn.launches for fn in kernel_counters()}
+
+
+# ops.kernel_counters() by name: kernels 1-4, the fused optimizer step (one
+# launch a train step outside ZeRO-1 and tensor parallelism) and its norm
+# alone (one a ZeRO-1 step)
+COUNTERS = ("fused_message", "fused_message_vjp", "fused_pseudo_message", "fused_pseudo_vjp",
+            "fused_adam", "fused_global_norm")
+MESSAGE_KERNELS = COUNTERS[:4]
+
+
+def counts(**launches: int) -> dict:
+    """Every counter's launches: those given by name, the others 0."""
+    return {**dict.fromkeys(COUNTERS, 0), **launches}
+
+
+@contextlib.contextmanager
+def counting(cls, name: str = "train_step"):
+    """Inside the block, count the calls of ``cls.<name>``; yields a list
+    whose one entry is the count."""
+    real = getattr(cls, name)
+    n = [0]
+
+    def counted(self, *args, **kwargs):
+        n[0] += 1
+        return real(self, *args, **kwargs)
+
+    setattr(cls, name, counted)
+    try:
+        yield n
+    finally:
+        setattr(cls, name, real)
+
+
+def check_optimizer_only(launches: dict, steps: int, label: str) -> None:
+    """A model that runs none of kernels 1-4: its launches are one fused
+    optimizer step per train step."""
+    if launches != counts(fused_adam=steps):
+        raise RuntimeError(f"{label} launches {launches}, expected none of kernels 1-4 and "
+                           f"{steps} fused optimizer steps (one per train step)")
 
 
 def dipeptide_model_cfg(**kw):
@@ -573,8 +622,8 @@ def serve() -> dict:
     if not spread > 1e-5:
         raise RuntimeError("samples of one frame do not differ")
     n_calls = N_REQUESTS * FRAMES_PER_REQUEST
-    expect = {"fused_message": PRIOR_LAYERS * n_calls, "fused_message_vjp": 0,
-              "fused_pseudo_message": DECODER_LAYERS * n_calls, "fused_pseudo_vjp": 0}
+    expect = counts(fused_message=PRIOR_LAYERS * n_calls,
+                    fused_pseudo_message=DECODER_LAYERS * n_calls)
     if launches != expect:
         raise RuntimeError(f"kernel launches {launches}, expected {expect}")
     print(f"serve checks: shape {ens.shape}, finite, COM error {com_err:.2e} A, "
@@ -735,9 +784,7 @@ def train() -> dict:
         raise RuntimeError("a training loss is not finite")
     if not loss[-10:].mean() < loss[:10].mean():
         raise RuntimeError("the total loss did not fall over 200 steps")
-    per_step = {"fused_message": ENCODER_LAYERS + PRIOR_LAYERS,
-                "fused_message_vjp": ENCODER_LAYERS + PRIOR_LAYERS,
-                "fused_pseudo_message": DECODER_LAYERS, "fused_pseudo_vjp": DECODER_LAYERS}
+    per_step = DENSE_PER_STEP
     expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     print(f"train launches over the {TRAIN_STEPS} timed steps: {launches} (expected {expect})",
           flush=True)
@@ -803,9 +850,104 @@ def train() -> dict:
     print(f"fit: 2 epochs in {time.perf_counter() - t:.2f} s, train_loss "
           f"{[round(r['train_loss'], 4) for r in hist]}, val_loss "
           f"{[round(r['val_loss'], 4) for r in hist]}, launches {fit_launches}", flush=True)
-    if min(fit_launches.values()) == 0:
+    if min(fit_launches[k] for k in (*MESSAGE_KERNELS, "fused_adam")) == 0:
         raise RuntimeError(f"fit did not launch every kernel: {fit_launches}")
     return {"train": launches, "fit": fit_launches}
+
+
+def optimizer_phase(device: str = "cuda") -> dict:
+    """The fused optimizer step (``ops.fused_adam``) against its plain
+    version on the card, at the recipe's parameters (bench.py's width, bf16
+    compute: 51.4 M, the filters in bf16) and bf16 moments as after 10
+    steps: with the clip off every parameter, moment and the count bit for
+    bit; at the recipe's clip 0.01 (the norm summed in another order) the
+    parameters within OPTIMIZER_RTOL of each tensor's largest entry and the
+    moments within one bf16 step; a rejected batch keeps every bit. Then
+    each timed in CUDA graphs, alone and after the flat gradient's
+    concatenation, beside the kernel's bound (24 B/P, 32 with the
+    concatenation, at 3.35 TB/s). Returns the kernel's row."""
+    import torch
+
+    from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.ops import fused_adam as fa
+    from coarsegrainingvae_tpu_torch.train.trainer import flatten
+    from coarsegrainingvae_tpu_torch.utils.profiling import HBM_BYTES_PER_S, graph_ms
+
+    model = DenseCGVAE(dipeptide_model_cfg(), generator=torch.Generator().manual_seed(0))
+    params = [p.detach() for p in model.to(device).parameters()]
+    n = sum(p.numel() for p in params)
+    gen = torch.Generator(device=device).manual_seed(1)
+    grads = [(torch.randn(p.shape, generator=gen, device=device) * 1e-3).to(p.dtype)
+             for p in params]
+    g = flatten(grads)
+    mu0 = (torch.randn(n, generator=gen, device=device) * 1e-4).to(torch.bfloat16)
+    nu0 = (torch.rand(n, generator=gen, device=device) * 1e-8).to(torch.bfloat16)
+    count0 = torch.tensor(10, dtype=torch.int32, device=device)
+    lr = torch.tensor(3.2e-4, dtype=torch.float32, device=device)
+    start = [p.clone() for p in params]
+
+    def run(fn, clip, loss=1.0):
+        with torch.no_grad():
+            for p, v in zip(params, start):
+                p.copy_(v)
+        out = fn(params, g, torch.tensor(loss, device=device), count0.clone(), mu0.clone(),
+                 nu0.clone(), lr, 5000.0, clip, 0.9, 0.999, 1e-8)
+        return [p.clone() for p in params], out
+
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(
+            t.dtype, t.dtype))
+
+    lines = []
+    for label, clip in (("clip off", float("inf")), ("clip 0.01", 0.01)):
+        p_got, (c_got, m_got, v_got, ok_got) = run(fa.fused_adam, clip)
+        p_want, (c_want, m_want, v_want, ok_want) = run(fa.fused_adam_reference, clip)
+        exact = all(torch.equal(bits(a), bits(b)) for a, b in zip(
+            (*p_got, c_got, m_got, v_got), (*p_want, c_want, m_want, v_want)))
+        p_err = worst_rel(p_got, p_want)
+        m_err = max(float(((a.float() - b.float()).abs() / b.float().abs().clamp_min(1e-30))
+                           .max()) for a, b in ((m_got, m_want), (v_got, v_want)))
+        same = int(c_got) == int(c_want) == 11 and bool(ok_got) and bool(ok_want)
+        lines.append(f"{label}: bit for bit {exact}, parameters max|err|/max|ref| {p_err:.3e}, "
+                     f"moments max relative {m_err:.3e}")
+        if not same or (clip == float("inf") and not exact) or p_err > OPTIMIZER_RTOL \
+                or m_err > 2.0 ** -7:
+            raise RuntimeError(f"the fused optimizer step disagrees with its plain version "
+                               f"({lines[-1]}, count {int(c_got)} / {int(c_want)})")
+    p_rej, (c_rej, m_rej, v_rej, ok_rej) = run(fa.fused_adam, 0.01, loss=5000.0)
+    kept = not bool(ok_rej) and all(torch.equal(bits(a), bits(b)) for a, b in zip(
+        (*p_rej, c_rej, m_rej, v_rej), (*start, count0, mu0, nu0)))
+    if not kept:
+        raise RuntimeError("the fused optimizer step changed a rejected batch's state")
+    count, mu, nu = count0.clone(), mu0.clone(), nu0.clone()
+    loss = torch.tensor(1.0, device=device)
+
+    def step(fn, flat):
+        return lambda: fn(params, flatten(grads) if flat else g, loss, count, mu, nu, lr,
+                          5000.0, 0.01, 0.9, 0.999, 1e-8)
+
+    before = fa.fused_adam.launches
+    ms = {(name, flat): graph_ms(step(fn, flat), per_graph=10, replays=5,
+                                 counters=(fa.fused_adam,))
+          for name, fn in (("kernel", fa.fused_adam), ("plain", fa.fused_adam_reference))
+          for flat in (False, True)}
+    launched = fa.fused_adam.launches - before
+    bound = {flat: fa.kernel_bytes(params, torch.bfloat16, flat) / HBM_BYTES_PER_S * 1e3
+             for flat in (False, True)}
+    row = {"name": "fused_adam", "parameters": n, "ms": ms[("kernel", False)],
+           "plain_ms": ms[("plain", False)], "bound_ms": bound[False],
+           "share": bound[False] / ms[("kernel", False)], "with_flatten_ms": ms[("kernel", True)],
+           "plain_with_flatten_ms": ms[("plain", True)], "with_flatten_bound_ms": bound[True],
+           "with_flatten_share": bound[True] / ms[("kernel", True)], "launches": launched}
+    print(f"optimizer: fused_adam against its plain version at P {n:,} (bf16 moments): "
+          f"{'; '.join(lines)}; a rejected batch keeps every bit", flush=True)
+    print(f"optimizer: kernel {row['ms']:.4f} ms (bound {bound[False]:.4f} ms at "
+          f"{fa.kernel_bytes(params, torch.bfloat16, False) / n:.1f} B/P, "
+          f"{100 * row['share']:.1f} %), plain in a graph {row['plain_ms']:.4f} ms; with the "
+          f"flat gradient's cat: kernel {row['with_flatten_ms']:.4f} ms (bound "
+          f"{bound[True]:.4f} ms, {100 * row['with_flatten_share']:.1f} %), plain "
+          f"{row['plain_with_flatten_ms']:.4f} ms; {launched} launches counted", flush=True)
+    return row
 
 
 def train_cfg(batch_size: int, **model_kw):
@@ -961,9 +1103,12 @@ def timed_epochs(tr, state, dds, dds_prof, bs: int, per_step: dict, label: str,
     return state, timings, total, peak_gb
 
 
-DENSE_PER_STEP = {"fused_message": ENCODER_LAYERS + PRIOR_LAYERS,
-                  "fused_message_vjp": ENCODER_LAYERS + PRIOR_LAYERS,
-                  "fused_pseudo_message": DECODER_LAYERS, "fused_pseudo_vjp": DECODER_LAYERS}
+DENSE_PER_STEP = counts(fused_message=ENCODER_LAYERS + PRIOR_LAYERS,
+                        fused_message_vjp=ENCODER_LAYERS + PRIOR_LAYERS,
+                        fused_pseudo_message=DECODER_LAYERS, fused_pseudo_vjp=DECODER_LAYERS,
+                        fused_adam=1)
+# the sparse models' train step: none of kernels 1-4, the fused optimizer
+OPTIMIZER_PER_STEP = counts(fused_adam=1)
 
 
 def captured() -> tuple:
@@ -1095,7 +1240,7 @@ class PartTimes:
 
 
 def cv_expected_launches(width: list, n_frames: int, folds: int, epochs, evals: int,
-                         dec_type: str, splits: int = CV_SPLITS) -> dict:
+                         dec_type: str, splits: int = CV_SPLITS, sparse: bool = False) -> dict:
     """Kernel launches of ``run_cgvae`` over its first ``folds`` folds of
     ``splits``: per fold, ``epochs`` (one count, or one per fold) x (train
     steps + val steps) model forwards and train steps backwards,
@@ -1103,13 +1248,13 @@ def cv_expected_launches(width: list, n_frames: int, folds: int, epochs, evals: 
     reconstruction (B 1) and one generation (prior and decoder only). Each
     forward runs enc_nconv encoder and enc_nconv prior message layers and
     dec_nconv decoder layers (pseudo kernels, or message kernels for the
-    cross decoder)."""
+    cross decoder); each train step one fused optimizer step. The
+    ``sparse`` model runs the optimizer alone."""
     import numpy as np
 
     arg = dict(zip(width[::2], width[1::2]))
     bs, enc, dec = int(arg["-batch_size"]), int(arg["-enc_nconv"]), int(arg["-dec_nconv"])
-    out = dict.fromkeys(("fused_message", "fused_message_vjp", "fused_pseudo_message",
-                         "fused_pseudo_vjp"), 0)
+    out = counts()
     per_fold = [epochs] * folds if isinstance(epochs, int) else list(epochs)
     for test, epochs in zip(np.array_split(np.arange(n_frames), splits)[:folds], per_fold):
         n_full = n_frames - len(test)
@@ -1118,6 +1263,9 @@ def cv_expected_launches(width: list, n_frames: int, folds: int, epochs, evals: 
         n_eval = min(evals, len(test))
         forwards = epochs * (steps + val_steps) + -(-len(test) // bs) + n_eval
         backwards = epochs * steps
+        out["fused_adam"] += backwards
+        if sparse:
+            continue
         out["fused_message"] += 2 * enc * forwards + enc * n_eval
         out["fused_message_vjp"] += 2 * enc * backwards
         dec_fwd, dec_bwd = ("fused_message", "fused_message_vjp") if dec_type == "cross" else (
@@ -1593,8 +1741,8 @@ def fold_from_run(run: Path, trained, device: str, sparse: bool = False) -> tupl
 def cli_fold(args: list, label: str, dec_type: str, width: list, n_frames: int,
              evals: int, epochs: int, sparse: bool = False, device: str = "cuda") -> dict:
     """One fold of ``run_cgvae.main(args)`` on ``device``, its artifacts
-    checked, its launches against ``cv_expected_launches`` on the card (all
-    0 for the sparse model, which runs no kernel), and fold 0 served by
+    checked, its launches against ``cv_expected_launches`` on the card (the
+    sparse model runs the fused optimizer alone), and fold 0 served by
     ``from_run`` with 0 difference from the model it trained. Returns the
     launches. The CPU and a small width rehearse its control flow."""
     import torch
@@ -1622,8 +1770,7 @@ def cli_fold(args: list, label: str, dec_type: str, width: list, n_frames: int,
         run_cgvae.Trainer = Trainer
     (run,) = list(CV_DIR.glob(f"{label}*"))
     check_cv_run(run, 1, epochs)
-    expect = (dict.fromkeys(launches, 0) if sparse else
-              cv_expected_launches(width, n_frames, 1, epochs, evals, dec_type))
+    expect = cv_expected_launches(width, n_frames, 1, epochs, evals, dec_type, sparse=sparse)
     (tr,) = trained
     rel, _ = fold_from_run(run, tr, device, sparse=sparse)
     print(f"{label}: run_cgvae 1 fold x {epochs} epochs in {wall:.3f} s ({type(tr.model).__name__}"
@@ -1738,8 +1885,7 @@ def sparse(dense: dict) -> dict:
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
     ds, dataset, _, _ = dipeptide_device_data()
-    none = dict.fromkeys(DENSE_PER_STEP, 0)
-    total = dict(none)
+    total = counts()
     for dec_type in ("pseudo", "pseudo2"):
         cfg32 = train_cfg(8, dec_type=dec_type, sparse=True, compute_dtype="float32", det=True)
         cfg32 = dataclasses.replace(cfg32, train=dataclasses.replace(cfg32.train, lr=3.2e-4))
@@ -1762,7 +1908,8 @@ def sparse(dense: dict) -> dict:
                 eager_equals_captured(tr, state, ((1, dataset(bs)), (SPARSE_STEPS, dataset(
                     bs * SPARSE_STEPS))), bs, f"sparse {dec_type} ")
             state, timings, launches, peak = timed_epochs(
-                tr, state, dataset(bs * SPARSE_STEPS), dataset(bs * PROFILE_STEPS), bs, none,
+                tr, state, dataset(bs * SPARSE_STEPS), dataset(bs * PROFILE_STEPS), bs,
+                OPTIMIZER_PER_STEP,
                 f"sparse {dec_type} ", kinds=("captured", "captured"),
                 profile_name=f"sparse_{dec_type}_profile_b{bs}.txt")
             for k in total:
@@ -1988,17 +2135,28 @@ def pcn_step_grads(device, batch, cam, quads, qmask, cfg, kw, aux, step, dtype):
 def step_card_vs_cpu(card, ref) -> tuple:
     """(worst gradient error, worst updated-parameter error) of a step on
     the card against the same step on the CPU; the CPU's update applies
-    its own optimizer to the card's gradients. Raises if the guard
-    rejects either step."""
-    from coarsegrainingvae_tpu_torch.train.trainer import guarded_update
+    its own optimizer to the card's gradients. The card's update is the
+    fused optimizer, which takes no float64: a float64 step applies its
+    plain version on both sides. Raises if the guard rejects either
+    step."""
+    import torch
+
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam_reference
+    from coarsegrainingvae_tpu_torch.train.trainer import flatten, guarded_update
+
+    def update(tr, state, grads, loss):
+        params, opt = list(state.params.values()), state.opt_state
+        if grads[0].dtype != torch.float64:
+            return guarded_update(tr.tx, params, grads, loss, opt, state.lr, float("inf"))[1]
+        adam = tr.tx.adam
+        return fused_adam_reference(params, flatten(grads), loss, opt.count, opt.mu, opt.nu,
+                                    state.lr, float("inf"), tr.tx.grad_clip, adam.b1, adam.b2,
+                                    adam.eps)[3]
 
     (tr, state, loss, grads), (tr_ref, state_ref, _, grads_ref) = card, ref
     grad_err = worst_rel(grads, grads_ref)
-    _, ok = guarded_update(tr.tx, list(state.params.values()), grads, loss, state.opt_state,
-                           state.lr, float("inf"))
-    _, ok_ref = guarded_update(tr_ref.tx, list(state_ref.params.values()),
-                               [g.cpu() for g in grads], loss.cpu(), state_ref.opt_state,
-                               state_ref.lr, float("inf"))
+    ok = update(tr, state, grads, loss)
+    ok_ref = update(tr_ref, state_ref, [g.cpu() for g in grads], loss.cpu())
     if not (bool(ok) and bool(ok_ref)):
         raise RuntimeError("the skip guard rejected a PCN check step")
     return grad_err, worst_rel(state.params.values(), list(state_ref.params.values()))
@@ -2013,11 +2171,10 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
     whole recipe, and at f32 on the whole recipe within the f32
     conditioning the CPU shows; two card steps from one state bit for
     bit, ms/step, device busy, host launch calls and peak memory. PCN runs
-    none of the four kernels (its sums are segment sums): their counters
-    stay 0. Raises on any failed check. ``width`` flags (given after the
+    none of kernels 1-4 (its sums are segment sums): their counters stay
+    0, and the fused optimizer launches once a train step. Raises on any
+    failed check. ``width`` flags (given after the
     recipe's) and the depth arguments let the CPU rehearse it."""
-    import dataclasses
-
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2055,7 +2212,8 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
-            rows = run_pcn.main(flags + ["-logdir", str(PCN_DIR / name), "--device", device])
+            with counting(PCNTrainer) as n_steps:
+                rows = run_pcn.main(flags + ["-logdir", str(PCN_DIR / name), "--device", device])
             wall = time.perf_counter() - t
             paths[f"pcn_{name}"] = read_counts()
         finally:
@@ -2076,8 +2234,8 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
               f"mean {np.mean([r['rmsd'] for r in rows]):.4f} A over {len(rows)} proteins"
               f"{extra}; peak allocated {peak:.3f} GB; launches {paths[f'pcn_{name}']}",
               flush=True)
-        if cuda and any(paths[f"pcn_{name}"].values()):
-            raise RuntimeError(f"pcn {name} launched a kernel: {paths[f'pcn_{name}']}")
+        if cuda:
+            check_optimizer_only(paths[f"pcn_{name}"], n_steps[0], f"pcn {name}")
 
     # the p7 step on its own
     a = run_pcn.build_parser().parse_args(pcn_flags("p7") + list(width))
@@ -2143,21 +2301,28 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
     tr = PCNTrainer(PCN(cfg, generator=torch.Generator().manual_seed(1)), device=device, **kw)
     state = tr.init_state()
     start = {k: p.detach().clone() for k, p in state.params.items()}
-    opt0 = state.opt_state
+    # the fused optimizer updates the moments and their count in place
+    opt0 = [t.clone() for t in (state.opt_state.count, state.opt_state.mu, state.opt_state.nu)]
     after = []
+    before = read_counts()
     for _ in range(2):
         with torch.no_grad():
             for k, p in state.params.items():
                 p.copy_(start[k])
-        new, _ = tr.train_step(dataclasses.replace(state, opt_state=opt0), batch, cam, quads,
-                               qmask, aux)
+            for t, v in zip((state.opt_state.count, state.opt_state.mu, state.opt_state.nu),
+                            opt0):
+                t.copy_(v)
+        new, _ = tr.train_step(state, batch, cam, quads, qmask, aux)
         after.append([p.detach().clone() for p in new.params.values()]
                      + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
+    two = {k: v - before[k] for k, v in read_counts().items()}
     same = all(torch.equal(x, y) for x, y in zip(*after))
-    print(f"pcn two steps from one state: parameters and moments bit for bit: {same}",
-          flush=True)
+    print(f"pcn two steps from one state: parameters and moments bit for bit: {same}; "
+          f"launches {two}", flush=True)
     if not same:
         raise RuntimeError("two PCN steps from one state differ")
+    if cuda:
+        check_optimizer_only(two, 2, "pcn's two steps'")
     state = new
     batches = []
     rng = np.random.default_rng(0)
@@ -2202,6 +2367,14 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
     if not np.isfinite(losses).all():
         raise RuntimeError("a timed PCN step's loss is not finite")
     return paths
+
+
+def covid_expected_launches(a, n_frames: int) -> dict:
+    """The covid fold's launches (``a`` its parsed flags): the sparse model
+    runs the fused optimizer alone, one fold of one epoch."""
+    width = ["-batch_size", a.batch_size, "-enc_nconv", a.enc_nconv, "-dec_nconv", a.dec_nconv]
+    return cv_expected_launches(width, n_frames, 1, 1, COVID_EVALS, a.dec_type, a.nsplits,
+                                sparse=True)
 
 
 def covid_phase(device: str = "cuda", n_frames: int = COVID_FRAMES, width: tuple = ()) -> dict:
@@ -2290,8 +2463,10 @@ def covid_phase(device: str = "cuda", n_frames: int = COVID_FRAMES, width: tuple
         raise RuntimeError(f"the cell list built {cells} graph stacks, expected the atom graphs")
     if n_atoms > 1500 and diffs == 0:
         raise RuntimeError("the bond diff computed no metric")
-    if cuda and any(launches.values()):
-        raise RuntimeError(f"the sparse covid model launched a kernel: {launches}")
+    if cuda and launches != covid_expected_launches(a, n_frames):
+        raise RuntimeError(f"the sparse covid model's launches {launches}, expected "
+                           f"{covid_expected_launches(a, n_frames)}: none of kernels 1-4, "
+                           "one fused optimizer step per train step")
 
     if not cuda:
         return {"covid": launches}
@@ -2306,9 +2481,8 @@ def covid_phase(device: str = "cuda", n_frames: int = COVID_FRAMES, width: tuple
     dds_prof = DeviceDataset.from_dataset(
         ds_tr.subset(np.resize(np.arange(len(ds_tr)), PROFILE_STEPS * bs)), "cuda")
     state = tr.init_state(ds_tr.batch(np.arange(bs)))
-    none = dict.fromkeys(DENSE_PER_STEP, 0)
-    _, timings, _, peak = timed_epochs(tr, state, dds, dds_prof, bs, none, "covid ",
-                                       kinds=("eager", "captured", "captured"),
+    _, timings, _, peak = timed_epochs(tr, state, dds, dds_prof, bs, OPTIMIZER_PER_STEP,
+                                       "covid ", kinds=("eager", "captured", "captured"),
                                        profile_name=f"covid_profile_b{bs}.txt")
     print(f"covid step, batch {bs}: eager {timings['eager'][0]:.3f} ms/step, captured "
           f"{', '.join(f'{x:.3f}' for x in timings['captured'])} ms/step; step peak allocated "
@@ -2488,7 +2662,9 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
     and draws; the CPU's float64 step shows the loss's own f32
     conditioning), two steps from one state bit for bit, and ms/step,
     device busy, host launch calls and peak memory. DiffPool runs none of
-    the four kernels: their counters stay 0. Raises on any failed check.
+    kernels 1-4: their counters stay 0, and the fused optimizer launches
+    once a train step (a pretraining step, unguarded, keeps the plain
+    Adam). Raises on any failed check.
     ``width`` flags (given after the recipe's) let the CPU rehearse it."""
     import dataclasses
 
@@ -2499,6 +2675,7 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
     from coarsegrainingvae_tpu_torch.data.diffpool import build_diffpool_dataset
     from coarsegrainingvae_tpu_torch.data.proteins import load_frames
     from coarsegrainingvae_tpu_torch.models.cgae import uniform_noise
+    from coarsegrainingvae_tpu_torch.train.diffpool_trainer import DiffPoolTrainer
 
     cuda = device == "cuda"
     shutil.rmtree(DIFFPOOL_DIR, ignore_errors=True)
@@ -2519,7 +2696,9 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    rows = run_diffpool.main(flags + ["-logdir", str(DIFFPOOL_DIR / "v6"), "--device", device])
+    with counting(DiffPoolTrainer) as n_steps:
+        rows = run_diffpool.main(flags + ["-logdir", str(DIFFPOOL_DIR / "v6"), "--device",
+                                          device])
     wall = time.perf_counter() - t
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
@@ -2549,8 +2728,8 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
           f"{[round(r['test_recon'], 4) for r in rows]}, sample valid "
           f"{[r['sample_valid_ratio'] for r in rows]}; peak allocated {peak:.3f} GB; "
           f"launches {launches}", flush=True)
-    if any(launches.values()):
-        raise RuntimeError(f"run_diffpool launched a kernel: {launches}")
+    if cuda:
+        check_optimizer_only(launches, n_steps[0], "run_diffpool's")
 
     # the recipe's step on its own: card vs CPU mid-ramp at f32, with the
     # CPU's float64 step beside it (the loss's own f32 conditioning)
@@ -2582,19 +2761,28 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
     tr = diffpool_trainer(a, n_atoms, device, z, bonds)
     state = tr.init_state()
     start = {k: p.detach().clone() for k, p in state.params.items()}
+    # the fused optimizer updates the moments and their count in place
+    opt0 = [t.clone() for t in (state.opt_state.count, state.opt_state.mu, state.opt_state.nu)]
     after = []
+    before = read_counts()
     for _ in range(2):
         with torch.no_grad():
             for k, p in state.params.items():
                 p.copy_(start[k])
+            for t, v in zip((state.opt_state.count, state.opt_state.mu, state.opt_state.nu),
+                            opt0):
+                t.copy_(v)
         new, _ = tr.train_step(dataclasses.replace(state, step=at), batch, (0, 1))
         after.append([p.detach().clone() for p in new.params.values()]
                      + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
+    two = {k: v - before[k] for k, v in read_counts().items()}
     same = all(torch.equal(x, y) for x, y in zip(*after))
-    print(f"diffpool two steps from one state: parameters and moments bit for bit: {same}",
-          flush=True)
+    print(f"diffpool two steps from one state: parameters and moments bit for bit: {same}; "
+          f"launches {two}", flush=True)
     if not same:
         raise RuntimeError("two DiffPool steps from one state differ")
+    if cuda:
+        check_optimizer_only(two, 2, "diffpool's two steps'")
     batches = []
     rng = np.random.default_rng(0)
     while len(batches) < steps + 3:
@@ -2640,8 +2828,9 @@ def baseline_phase(device: str = "cuda", ndata: int = BASELINE_NDATA,
     equimlp, n_cgs 3, newman, knn 3, width 1, depth 1, batch 32, lr 3e-4,
     gamma 5, 2 folds) through ``cli.run_baseline``, cut in depth, every
     file checked; then one step of every zoo entry card vs CPU at f32 on
-    the same weights and batch, and the recipe's step timed. No kernel
-    runs on this path: the counters stay 0. Raises on any failed check.
+    the same weights and batch, and the recipe's step timed. None of
+    kernels 1-4 runs on this path, and the fused optimizer once a train
+    step. Raises on any failed check.
     ``width`` flags (given after the recipe's) let the CPU rehearse it."""
     import numpy as np
     import torch
@@ -2651,6 +2840,7 @@ def baseline_phase(device: str = "cuda", ndata: int = BASELINE_NDATA,
     from coarsegrainingvae_tpu_torch.data.mappings import get_mapping
     from coarsegrainingvae_tpu_torch.data.proteins import load_frames
     from coarsegrainingvae_tpu_torch.models.baseline import BASELINE_ZOO
+    from coarsegrainingvae_tpu_torch.train.baseline_trainer import BaselineTrainer
 
     cuda = device == "cuda"
     shutil.rmtree(BASELINE_DIR, ignore_errors=True)
@@ -2661,7 +2851,9 @@ def baseline_phase(device: str = "cuda", ndata: int = BASELINE_NDATA,
     a = run_baseline.build_parser().parse_args(flags)
     reset_counts()
     t = time.perf_counter()
-    rows = run_baseline.main(flags + ["-logdir", str(BASELINE_DIR / "demo"), "--device", device])
+    with counting(BaselineTrainer) as n_steps:
+        rows = run_baseline.main(flags + ["-logdir", str(BASELINE_DIR / "demo"), "--device",
+                                          device])
     wall = time.perf_counter() - t
     launches = read_counts()
     (run,) = list(BASELINE_DIR.glob("demo_*"))
@@ -2677,8 +2869,8 @@ def baseline_phase(device: str = "cuda", ndata: int = BASELINE_NDATA,
           f"{full.ndata} -> {a.ndata}, nepochs {full.nepochs} -> {a.nepochs}; {a.nsplits} folds "
           f"in {wall:.3f} s; test recon RMSD {[round(r['test_recon_rmsd'], 4) for r in rows]} "
           f"A; launches {launches}", flush=True)
-    if any(launches.values()):
-        raise RuntimeError(f"run_baseline launched a kernel: {launches}")
+    if cuda:
+        check_optimizer_only(launches, n_steps[0], "run_baseline's")
 
     z, frames, bonds = load_frames(a.dataset, a.ndata, seed=a.seed, device=device)
     n_atoms = z.shape[0]
@@ -2727,8 +2919,7 @@ def hpo_expected_launches(run: Path, rows: list, a) -> dict:
     (``trial_%04d`` in row order), ``cv_expected_launches`` of its config
     over every fold of ``-nsplits`` at the epochs each fold logged, with
     the objective's 4 evaluated frames and the CLI's decoder."""
-    total = dict.fromkeys(("fused_message", "fused_message_vjp", "fused_pseudo_message",
-                           "fused_pseudo_vjp"), 0)
+    total = counts()
     for i, row in enumerate(rows):
         trial = run / f"trial_{i:04d}"
         epochs = [len(read_csv(trial / f"fold{k}" / "train_log.csv")[1])
@@ -3015,8 +3206,9 @@ def multigpu_phase(device: str = "cuda", batches=CAPTURE_BATCHES, steps: int = M
     ds, dataset, _, _ = dipeptide_device_data(device, n_frames)
     total = dict.fromkeys(DENSE_PER_STEP, 0)
     model = dipeptide_model_cfg(**model_kw)
-    per_step = {"fused_message": 2 * model.enc_nconv, "fused_message_vjp": 2 * model.enc_nconv,
-                "fused_pseudo_message": model.dec_nconv, "fused_pseudo_vjp": model.dec_nconv}
+    per_step = counts(fused_message=2 * model.enc_nconv, fused_message_vjp=2 * model.enc_nconv,
+                      fused_pseudo_message=model.dec_nconv, fused_pseudo_vjp=model.dec_nconv,
+                      fused_adam=1)
     mesh = one_rank_mesh(device)
     single = Mesh(0, 1, None, None, torch.device(device))
     try:
@@ -3130,7 +3322,11 @@ def multigpu_phase(device: str = "cuda", batches=CAPTURE_BATCHES, steps: int = M
                         (device, cfg, ds, order, MULTIGPU_TRAIN_STEPS, str(ref_path),
                          (xyz, edges, kw)), backend="gloo", threads=2)
     spawn_s = time.perf_counter() - t
+    # per rank, MULTIGPU_TRAIN_STEPS replicated steps (the fused optimizer)
+    # and as many ZeRO-1 steps (the kernel's norm alone)
     expect = {k: v * 2 * MULTIGPU_TRAIN_STEPS * cuda for k, v in per_step.items()}
+    expect.update(fused_adam=MULTIGPU_TRAIN_STEPS * cuda,
+                  fused_global_norm=MULTIGPU_TRAIN_STEPS * cuda)
     n_params = sum(np.prod(p.shape) for p in torch.load(ref_path, weights_only=True).values())
     for r in ranks:
         print(f"multigpu rank {r['rank']} of {MULTIGPU_RANKS} sharing the {device} on "
@@ -3288,7 +3484,8 @@ def tensor_phase(device: str = "cuda", model_kw=None, n_frames: int = TRAIN_FRAM
     m = cfg.model
     per_step = {"fused_message": 2 * m.enc_nconv, "fused_message_vjp": 2 * m.enc_nconv,
                 "fused_pseudo_message": m.dec_nconv, "fused_pseudo_vjp": m.dec_nconv}
-    expect = {k: v * MULTIGPU_TRAIN_STEPS * cuda for k, v in per_step.items()}
+    # the tensor-parallel step keeps the plain optimizer
+    expect = counts(**{k: v * MULTIGPU_TRAIN_STEPS * cuda for k, v in per_step.items()})
     f = m.n_basis // model
     total = dict.fromkeys(DENSE_PER_STEP, 0)
     for r in ranks:
@@ -3420,18 +3617,18 @@ def examples_phase(device: str = "cuda", kernel_f: int = 600, n_basis: int = 600
     results["profile_flagship"] = fl
     seconds["profile_flagship"] = time.perf_counter() - t
 
-    counts = read_counts()
-    if min(counts.values()) == 0:
-        raise RuntimeError(f"examples: a kernel was not launched on this path: {counts}")
+    launched = read_counts()
+    if min(launched[k] for k in (*MESSAGE_KERNELS, "fused_adam")) == 0:
+        raise RuntimeError(f"examples: a kernel was not launched on this path: {launched}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "examples_smoke.json").write_text(json.dumps(
-        {"results": results, "seconds": seconds, "launches": counts}, indent=1))
+        {"results": results, "seconds": seconds, "launches": launched}, indent=1))
     print(f"examples: {time.perf_counter() - t_phase:.1f} s for the phase "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}); quickstart "
           f"{epochs} epochs recon RMSD {res.recon['all_atom_rmsd']:.3f} A; census "
           f"{rep['frames']} frames, all-atom valid {rep['all_valid_ratio']:.3f}; launches "
-          f"{counts}", flush=True)
-    return {"examples": counts}
+          f"{launched}", flush=True)
+    return {"examples": launched}
 
 
 def main() -> int:
@@ -3445,6 +3642,7 @@ def main() -> int:
         return 1
     try:
         from coarsegrainingvae_tpu_torch.ops import cuda_build
+        from coarsegrainingvae_tpu_torch.ops import fused_adam as adam_ops
         from coarsegrainingvae_tpu_torch.ops import fused_message as message_ops
         from coarsegrainingvae_tpu_torch.ops import fused_pseudo as pseudo_ops
         from coarsegrainingvae_tpu_torch.utils import tracing
@@ -3465,21 +3663,23 @@ def main() -> int:
         return out
 
     # one nvcc per source, together, while the phases that launch none of
-    # the four kernels run on the card (their launch counts stay 0)
+    # kernels 1-4 run on the card (their launch counts stay 0); the first
+    # phase with a train step waits for the optimizer's small source
     t0 = time.perf_counter()
     paths = {}
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(ops.build) for ops in (message_ops, pseudo_ops)]
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(ops.build) for ops in (adam_ops, message_ops, pseudo_ops)]
         phase("cgae", cgae_phase)
         phase("native", native_phase)
+        builds[0].result()
         paths.update(phase("pcn", pcn_phase))
         paths.update(phase("covid", covid_phase))
         paths.update(phase("diffpool", diffpool_phase))
         paths.update(phase("baseline", baseline_phase))
         for b in builds:
             b.result()
-    print(f"build: both kernel sources ready {time.perf_counter() - t0:.2f} s after the start, "
-          f"beside the phases that launch no kernel (nvcc: "
+    print(f"build: the kernel sources ready {time.perf_counter() - t0:.2f} s after the start, "
+          f"beside the phases that launch none of kernels 1-4 (nvcc: "
           f"{', '.join(f'{k} {v:.2f} s' for k, v in tracing.seconds('ops.build.').items())})",
           flush=True)
     for source, log in cuda_build.BUILD_LOG.items():
@@ -3488,6 +3688,7 @@ def main() -> int:
     timed = phase("kernels", check_kernels)
     paths["serve"] = phase("serve", serve)
     paths.update(phase("train", train))
+    optimizer = phase("optimizer", optimizer_phase)
     reset_counts()
     paths["captured"], dense = phase("captured", captured)
     paths.update(phase("cv", cv))
@@ -3517,6 +3718,22 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "bound_resource": t["bound_resource"], "share": t["share"],
             "library_ms": None, "library_note": LIBRARY_NOTE})
+    # the optimizer step: one row at the recipe's parameters, its launches
+    # on each path the main phases ran (the optimizer phase's own timing
+    # runs left out)
+    by_path = {path: counts["fused_adam"] for path, counts in paths.items()}
+    kernels.append({
+        "name": "fused_adam", "shape": {"parameters": optimizer["parameters"],
+                                        "moments": "bfloat16"},
+        "route": "cuda", "source": source + "fused_adam.cu", "replaces": None,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": None, "ms": optimizer["ms"], "plain_ms": optimizer["plain_ms"],
+        "bound_ms": optimizer["bound_ms"], "bound_by": "bytes",
+        "bound_resource": "HBM", "share": optimizer["share"],
+        "with_flatten_ms": optimizer["with_flatten_ms"],
+        "plain_with_flatten_ms": optimizer["plain_with_flatten_ms"],
+        "with_flatten_bound_ms": optimizer["with_flatten_bound_ms"],
+        "library_ms": None, "library_note": LIBRARY_NOTE})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,12 @@ every message layer runs a hand-written kernel forward and backward
 
 Unlike the JAX package's pure functions, the step updates the model's
 parameters in place (under ``torch.no_grad()``); ``TrainState.params``
-holds references to them. The skip-batch guard stays on the device: a
-rejected batch gives a zero update and leaves the moments and their step
-count unchanged, chosen with ``torch.where`` and no host synchronisation.
+holds references to them. On a card the optimizer step is one fused
+kernel (``ops.fused_adam``) that also updates the moments and their count
+in place, so a step's new state holds the old one's optimizer tensors; on
+the CPU its plain version returns new ones. The skip-batch guard stays on
+the device: a rejected batch leaves the parameters, the moments and their
+step count unchanged, with no host synchronisation.
 
 The device-resident epoch (``run_epoch_scan``, ``run_epoch_scan_eval``,
 ``run_epoch_streamed``; the JAX package's epoch as one ``lax.scan``) runs a
@@ -90,6 +93,15 @@ from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
 from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
 from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch, project_batch_h_bonds
 from coarsegrainingvae_tpu_torch.ops import kernel_counters
+from coarsegrainingvae_tpu_torch.ops.fused_adam import (
+    accepted,
+    add_updates_,
+    clip_by_global_norm,
+    fused_adam,
+    fused_global_norm,
+    global_norm,
+    scale_by_adam,
+)
 from coarsegrainingvae_tpu_torch.parallel.mesh import (
     Mesh,
     RowNoise,
@@ -124,41 +136,15 @@ def flatten(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.reshape(-1).to(dtype) for t in tensors])
 
 
-def add_updates_(params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor]) -> None:
-    """params[i] += updates[i], in place. Parameters of the updates' dtype
-    take one foreach launch; the others (the compute-dtype filters, which
-    the JAX package keeps in bf16 at bf16 compute) one add each, computed
-    in float32 and rounded once to the parameter's dtype, as
-    ``optax.apply_updates`` does. One foreach over mixed dtypes would fall
-    back to a launch per parameter."""
-    same = [(p, u) for p, u in zip(params, updates) if p.dtype == u.dtype]
-    if same:
-        torch._foreach_add_([p for p, _ in same], [u for _, u in same])
-    for p, u in zip(params, updates):
-        if p.dtype != u.dtype:
-            p.add_(u)
-
-
-def global_norm(flat: torch.Tensor) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(torch.sum(flat * flat))
-
-
-def clip_by_global_norm(flat: torch.Tensor, max_norm: float,
-                        g_norm: torch.Tensor) -> torch.Tensor:
-    """optax.clip_by_global_norm given the norm: g if norm < max, else
-    g / norm * max (no epsilon, unlike torch.nn.utils.clip_grad_norm_)."""
-    return torch.where(g_norm < max_norm, flat, (flat / g_norm) * max_norm)
-
-
 class ScaleByAdamCompact:
     """Adam's scaling with both moments stored in ``moment_dtype`` and the
     update math in float32 (trainer.py:42-89 of the JAX package). At float32
     moments it is ``optax.scale_by_adam``.
 
-    It works on the flat gradient of all parameters (``flatten``), so one
-    step is a dozen elementwise launches over one vector, not a dozen per
-    parameter tensor."""
+    It works on the flat gradient of all parameters (``flatten``). The
+    one-card and data-parallel step runs it fused with the clip and the
+    apply (``guarded_update_flat``, ``ops.fused_adam``); the ZeRO-1 and
+    tensor-parallel steps and DiffPool's pretraining call ``update``."""
 
     def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  moment_dtype: torch.dtype = torch.bfloat16):
@@ -179,15 +165,9 @@ class ScaleByAdamCompact:
 
     def update(self, g: torch.Tensor, state: AdamState) -> Tuple[torch.Tensor, AdamState]:
         """(flat updates, new state); the state passed in is not modified."""
-        b1, b2 = self.b1, self.b2
-        count = state.count + 1
-        c1 = 1.0 - b1 ** count.to(torch.float32)
-        c2 = 1.0 - b2 ** count.to(torch.float32)
-        m32 = b1 * state.mu.to(torch.float32) + (1.0 - b1) * g
-        n32 = b2 * state.nu.to(torch.float32) + (1.0 - b2) * (g * g)
-        upd = (m32 / c1) / (torch.sqrt(n32 / c2) + self.eps)
-        return upd, AdamState(count=count, mu=m32.to(self.moment_dtype),
-                              nu=n32.to(self.moment_dtype))
+        upd, count, mu, nu = scale_by_adam(g, state.count, state.mu, state.nu, self.b1,
+                                           self.b2, self.eps, self.moment_dtype)
+        return upd, AdamState(count=count, mu=mu, nu=nu)
 
 
 class ClippedAdam:
@@ -232,32 +212,45 @@ def guarded_update_flat(tx: ClippedAdam, params: Sequence[torch.Tensor], g: torc
                         zero: Optional[Tuple[Mesh, slice, int]] = None,
                         tensor: Optional[TensorLayout] = None
                         ) -> Tuple[AdamState, torch.Tensor]:
-    """``guarded_update`` on the flat gradient ``g``. ``zero`` = (mesh,
-    this rank's slice, padded length) of ``zero_partition``: ZeRO-1, where
-    ``opt_state`` holds the moments of this rank's slice only, clip and
-    Adam run there with the norm of the whole ``g``, and the update is
-    all-gathered over the mesh. ``tensor``: tensor parallelism, where ``g``
-    and ``opt_state`` are this model rank's local part (``TensorLayout``),
-    the norm is the whole gradient's and the shards' updates are gathered
-    over the model group."""
+    """``guarded_update`` on the flat gradient ``g``. On one device and
+    under plain data parallelism it is ``ops.fused_adam``: on a card one
+    fused kernel that updates ``params`` and ``opt_state``'s moments and
+    count in place (the state returned holds the tensors passed in; dtypes
+    it does not take raise), on the CPU its plain version, which returns
+    new moments. ``zero`` = (mesh, this rank's slice, padded
+    length) of ``zero_partition``: ZeRO-1, where ``opt_state`` holds the
+    moments of this rank's slice only, clip and Adam run there with the
+    norm of the whole ``g``, and the update is all-gathered over the mesh.
+    ``tensor``: tensor parallelism, where ``g`` and ``opt_state`` are this
+    model rank's local part (``TensorLayout``), the norm is the whole
+    gradient's and the shards' updates are gathered over the model group.
+    On a card ZeRO-1 clips with the kernel's norm (``fused_global_norm``),
+    so that its step keeps the replicated step's bits."""
     with torch.no_grad():
-        g_norm = global_norm(g) if tensor is None else torch.sqrt(tensor.sq_norm(g))
-        ok = torch.isfinite(loss) & (loss < thresh) & torch.isfinite(g_norm)
+        if zero is None and tensor is None:
+            adam = tx.adam
+            count, mu, nu, ok = fused_adam(params, g, loss, opt_state.count, opt_state.mu,
+                                           opt_state.nu, lr, thresh, tx.grad_clip, adam.b1,
+                                           adam.b2, adam.eps)
+            return AdamState(count=count, mu=mu, nu=nu), ok
+        if tensor is not None:
+            g_norm = torch.sqrt(tensor.sq_norm(g))
+        else:
+            g_norm = fused_global_norm(g) if g.is_cuda else global_norm(g)
+        ok = accepted(loss, thresh, g_norm)
         # a rejected batch's update and moments are discarded below with
         # torch.where, which passes over NaN and inf, so its gradient
         # need not be zeroed first
         if zero is None:
             upd, new_opt = tx.update(g, opt_state, g_norm)
             upd = torch.where(ok, -lr * upd, 0.0)
+            add_updates_(params, tensor.expand(upd))
         else:
             mesh, part, padded = zero
             g_part = torch.nn.functional.pad(g, (0, padded - g.numel()))[part]
             upd, new_opt = tx.update(g_part, opt_state, g_norm)
             upd = all_gather_(torch.empty(padded, dtype=g.dtype, device=g.device),
                               torch.where(ok, -lr * upd, 0.0), mesh)[:g.numel()]
-        if tensor is not None:
-            add_updates_(params, tensor.expand(upd))
-        else:
             add_updates_(params, [u.view_as(p) for u, p in zip(
                 torch.split(upd, [p.numel() for p in params]), params)])
         opt_state = AdamState(count=torch.where(ok, new_opt.count, opt_state.count),
@@ -332,7 +325,8 @@ class _EpochProgram:
                 new, metrics = tr.train_step(self.state, batch, self._generator)
                 with torch.no_grad():
                     for static, value in zip(_step_tensors(self.state), _step_tensors(new)):
-                        static.copy_(value)
+                        if static is not value:     # the fused optimizer's, updated in place
+                            static.copy_(value)
             else:
                 metrics = tr.eval_step(batch, self._generator)
             with torch.no_grad():

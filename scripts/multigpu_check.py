@@ -135,6 +135,10 @@ def main(argv=None) -> int:
         m = cs.dipeptide_model_cfg(**model_kw)
         per_step = {"fused_message": 2 * m.enc_nconv, "fused_message_vjp": 2 * m.enc_nconv,
                     "fused_pseudo_message": m.dec_nconv, "fused_pseudo_vjp": m.dec_nconv}
+        # the optimizer's launches a step: the fused step (plain and data
+        # parallel), its norm alone (ZeRO-1), none (tensor parallel's plain)
+        optimizer = {"plain": {"fused_adam": 1}, "dp": {"fused_adam": 1},
+                     "zero": {"fused_global_norm": 1}, "tp": {}}
 
         # 1. captured epochs: plain, data-parallel, ZeRO-1
         report["epochs"] = {}
@@ -168,9 +172,9 @@ def main(argv=None) -> int:
             tp_exact = all(torch.equal(p.detach(), q) for p, q in zip(st.params.values(),
                                                                       runs["tp"]["params"]))
             del tr, st
-            expect = {k: v * a.steps for k, v in per_step.items()} if cuda else \
-                dict.fromkeys(per_step, 0)
             for label, r in runs.items():
+                expect = cs.counts(**{k: v * a.steps * cuda for k, v in
+                                      {**per_step, **optimizer[label]}.items()})
                 if r["launches"] != expect:
                     raise RuntimeError(f"rank {mesh.rank} {label} at batch {bs}: launches "
                                        f"{r['launches']}, expected {expect}")

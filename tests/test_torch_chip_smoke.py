@@ -89,16 +89,19 @@ def test_smoke_run_needs_a_card(capsys):
 def counted_plain(monkeypatch):
     """The kernels launch nothing on the CPU, so each plain version's calls
     are counted in their place (a CUDA launch happens exactly where the
-    wrapper would call them), through chip_smoke's reset/read of counts."""
+    wrapper would call them), and the optimizer step's where the train step
+    calls the fused one; through chip_smoke's reset/read of counts. The
+    norm alone (ZeRO-1's) is counted on the card only."""
     from coarsegrainingvae_tpu_torch.ops import fused_message as mo
     from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
+    from coarsegrainingvae_tpu_torch.train import trainer
 
-    calls = dict.fromkeys(("fused_message", "fused_message_vjp", "fused_pseudo_message",
-                           "fused_pseudo_vjp"), 0)
+    calls = dict.fromkeys(chip_smoke.COUNTERS, 0)
     for mod, attr, name in ((mo, "message_reference", "fused_message"),
                             (mo, "message_vjp_reference", "fused_message_vjp"),
                             (po, "pseudo_reference", "fused_pseudo_message"),
-                            (po, "pseudo_vjp_reference", "fused_pseudo_vjp")):
+                            (po, "pseudo_vjp_reference", "fused_pseudo_vjp"),
+                            (trainer, "fused_adam", "fused_adam")):
         def counted(*args, _fn=getattr(mod, attr), _name=name, **kwargs):
             calls[_name] += 1
             return _fn(*args, **kwargs)
@@ -107,6 +110,16 @@ def counted_plain(monkeypatch):
     monkeypatch.setattr(chip_smoke, "reset_counts", lambda: calls.update(dict.fromkeys(calls, 0)))
     monkeypatch.setattr(chip_smoke, "read_counts", lambda: dict(calls))
     return calls
+
+
+# the counters a dense model's training moves: kernels 1-4 and the optimizer
+TRAINED = (*chip_smoke.MESSAGE_KERNELS, "fused_adam")
+
+
+def _optimizer_only(launches: dict) -> bool:
+    """None of kernels 1-4, and the fused optimizer in some train step."""
+    return launches["fused_adam"] > 0 and launches == chip_smoke.counts(
+        fused_adam=launches["fused_adam"])
 
 
 SMALL_WIDTH = ["-n_basis", "16", "-n_rbf", "4", "-enc_nconv", "2", "-dec_nconv", "3",
@@ -124,7 +137,8 @@ def test_cv_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
         width, 90, chip_smoke.CV_FOLDS, chip_smoke.CV_EPOCHS, chip_smoke.CV_EVALS, "pseudo")
     assert paths["cv_cross"] == chip_smoke.cv_expected_launches(
         width, 90, 1, 1, chip_smoke.CV_EVALS, "cross")
-    assert min(paths["cv"].values()) > 0 and paths["cv_cross"]["fused_pseudo_message"] == 0
+    assert min(paths["cv"][k] for k in TRAINED) > 0
+    assert paths["cv_cross"]["fused_pseudo_message"] == 0
     assert (tmp_path / "chiprun_out" / "cv_data" / "dipeptide.npz").is_file()
 
 
@@ -137,7 +151,7 @@ def test_runfiles_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plai
     monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))  # restored after
     chip_smoke.cv(device="cpu", width=SMALL_WIDTH, n_frames=90)
     paths = chip_smoke.runfiles_phase(device="cpu")
-    assert set(paths) == {"runfiles"} and min(paths["runfiles"].values()) > 0
+    assert set(paths) == {"runfiles"} and min(paths["runfiles"][k] for k in TRAINED) > 0
     out = capsys.readouterr().out
     assert "every tensor bit for bit: True; re-written bytes identical: True" in out
     assert "bit for bit the original fold's: True" in out
@@ -169,7 +183,8 @@ def test_steric_and_sparse_folds_rehearse_on_the_cpu(tmp_path, monkeypatch, coun
     CPU: the dip_full_z100 recipe's flags plus --h_project_eval (the width
     flags given after them win), and the CV recipe with --sparse; each fold
     checked, served by from_run with 0 difference, and its plain calls held
-    to ``cv_expected_launches`` (none for the sparse model)."""
+    to ``cv_expected_launches`` (the optimizer's alone for the sparse
+    model)."""
     import numpy as np
 
     from coarsegrainingvae_tpu_torch.data.proteins import save_npz_traj
@@ -190,9 +205,11 @@ def test_steric_and_sparse_folds_rehearse_on_the_cpu(tmp_path, monkeypatch, coun
         args = recipe + ["--h_project_eval"] + SMALL_WIDTH + depth
     launches = chip_smoke.cli_fold(args, "fold", "pseudo", SMALL_WIDTH, n_frames, 2, 2,
                                    sparse=sparse, device="cpu")
-    want = chip_smoke.cv_expected_launches(SMALL_WIDTH, n_frames, 1, 2, 2, "pseudo")
-    assert launches == (dict.fromkeys(want, 0) if sparse else want)
-    assert min(want.values()) > 0
+    dense = chip_smoke.cv_expected_launches(SMALL_WIDTH, n_frames, 1, 2, 2, "pseudo")
+    want = chip_smoke.cv_expected_launches(SMALL_WIDTH, n_frames, 1, 2, 2, "pseudo",
+                                           sparse=sparse)
+    assert launches == (chip_smoke.counts(fused_adam=dense["fused_adam"]) if sparse else dense)
+    assert launches == want and min(dense[k] for k in TRAINED) > 0
     (run,) = list((tmp_path / "build" / "cv_smoke").glob("fold*"))
     params = json.loads((run / "modelparams.json").read_text())
     assert params["model"]["sparse"] == sparse and params["model"]["n_basis"] == 16
@@ -204,13 +221,14 @@ def test_steric_and_sparse_folds_rehearse_on_the_cpu(tmp_path, monkeypatch, coun
 def test_pcn_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
     """The pcn phase at a small width on the CPU: both recipes' runs and
     artifacts, the f32 step against itself, two steps from one state bit
-    for bit, the timed steps; no kernel's plain version is called."""
+    for bit, the timed steps; none of kernels 1-4's plain versions is
+    called, and the fused optimizer's in every train step."""
     monkeypatch.chdir(tmp_path)
     width = ("-n_basis", "16", "-n_rbf", "4", "-dec_nconv", "1", "-batch_size", "2",
              "-min_res", "6", "-max_res", "10", "-n_ensemble", "2")
     paths = chip_smoke.pcn_phase(device="cpu", ndata=10, epochs=2, steps=2, width=width)
     assert set(paths) == {"pcn_p7", "pcn_p7s"}
-    assert all(v == 0 for counts in paths.values() for v in counts.values())
+    assert all(_optimizer_only(counts) for counts in paths.values())
     flags = chip_smoke.pcn_flags("p7s")
     assert "--stochastic" in flags and flags[flags.index("-n_basis") + 1] == "256"
     assert sorted(p.name.split("_")[0] for p in (tmp_path / "build" / "pcn_smoke").iterdir()) \
@@ -224,6 +242,7 @@ def test_covid_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
     the bond diff forced by lowering their thresholds."""
     import functools
 
+    from coarsegrainingvae_tpu_torch.cli import run_cgvae
     from coarsegrainingvae_tpu_torch.data import neighbors
     from coarsegrainingvae_tpu_torch.eval import metrics, sampling
 
@@ -239,7 +258,9 @@ def test_covid_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain):
     width = ("-dataset", "pentapeptide", "-n_cgs", "12", "-n_basis", "64", "-n_rbf", "4",
              "-enc_nconv", "1", "-dec_nconv", "1")
     paths = chip_smoke.covid_phase(device="cpu", width=width)
-    assert paths["covid"] == dict.fromkeys(paths["covid"], 0)
+    assert _optimizer_only(paths["covid"])
+    a = run_cgvae.build_parser().parse_args(flags + list(width))
+    assert paths["covid"] == chip_smoke.covid_expected_launches(a, chip_smoke.COVID_FRAMES)
     (run,) = list((tmp_path / "build" / "cv_smoke").glob("covid*"))
     params = json.loads((run / "modelparams.json").read_text())
     assert params["model"]["sparse"] and params["model"]["degree_norm"]
@@ -265,13 +286,14 @@ def test_diffpool_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plai
     """The diffpool phase at a small width on the CPU: the v6 recipe's
     flags (graph_grad, zeta, h_project, sample_hard) through run_diffpool
     and every file, the step against the CPU's own (and float64), two steps
-    bit for bit, the timed steps; no kernel's plain version is called."""
+    bit for bit, the timed steps; none of kernels 1-4's plain versions is
+    called, and the fused optimizer's in every train step."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))  # restored after
     width = ("-num_features", "16", "-n_rbf", "4", "-n_cgs", "4", "-batch_size", "4")
     paths = chip_smoke.diffpool_phase(device="cpu", ndata=24, epochs=1, pretrain=1, steps=2,
                                       width=width)
-    assert paths == {"diffpool": dict.fromkeys(counted_plain, 0)}
+    assert set(paths) == {"diffpool"} and _optimizer_only(paths["diffpool"])
     flags = chip_smoke.json_recipe_flags(chip_smoke.DIFFPOOL_RECIPE / "v6_modelparams.json")
     for flag in ("--graph_grad", "--h_project", "--sample_hard"):
         assert flag in flags
@@ -285,12 +307,13 @@ def test_diffpool_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plai
 def test_baseline_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plain, capsys):
     """The baseline phase on the CPU: the baseline_demo recipe through
     run_baseline, every zoo entry's step against the CPU's own, the timed
-    steps; no kernel's plain version is called."""
+    steps; none of kernels 1-4's plain versions is called, and the fused
+    optimizer's in every train step."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("COARSEGRAININGVAE_DATA", str(tmp_path / "unused"))
     paths = chip_smoke.baseline_phase(device="cpu", ndata=24, epochs=1, steps=2,
                                       width=("-batch_size", "4"))
-    assert paths == {"baseline": dict.fromkeys(counted_plain, 0)}
+    assert set(paths) == {"baseline"} and _optimizer_only(paths["baseline"])
     out = capsys.readouterr().out
     assert all(f"{name} 0.000e+00" in out for name in ("linear", "setequimlp", "edgesetmlp"))
 
@@ -368,8 +391,9 @@ def test_multigpu_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plai
         device="cpu", batches=(8,), steps=2, n_frames=16, train_batch=8,
         model_kw=dict(n_basis=16, n_rbf=4, enc_nconv=1, dec_nconv=2),
         halo_frame=(cloud, 3.0, 4, "swish", 8))
-    assert paths["multigpu"] == {"fused_message": 4, "fused_message_vjp": 4,
-                                 "fused_pseudo_message": 4, "fused_pseudo_vjp": 4}
+    assert paths["multigpu"] == chip_smoke.counts(
+        fused_message=4, fused_message_vjp=4, fused_pseudo_message=4, fused_pseudo_vjp=4,
+        fused_adam=2)
     out = capsys.readouterr().out
     assert "bit for bit True" in out and "ZeRO-1 against the replicated optimizer: bit for " \
         "bit True" in out
@@ -422,7 +446,7 @@ def test_examples_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, counted_plai
     paths = chip_smoke.examples_phase(device="cpu", kernel_f=4, n_basis=16, ab_n_basis=16,
                                       quick_ndata=200, kernel_steps=1, epochs=1,
                                       flagship_steps=1)
-    assert set(paths) == {"examples"} and min(paths["examples"].values()) > 0
+    assert set(paths) == {"examples"} and min(paths["examples"][k] for k in TRAINED) > 0
     summary = json.loads((tmp_path / "chiprun_out" / "examples_smoke.json").read_text())
     assert set(summary["seconds"]) == {"profile_kernels", "quickstart", "census",
                                        "accuracy_ab", "profile_flagship"}

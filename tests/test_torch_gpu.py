@@ -464,7 +464,8 @@ def test_graph_ms_counts_only_launches_that_ran_on_card(cuda_device, per_graph, 
     rose = {c.__name__: c.launches - n for c, n in zip(counters, before)}
     want = 3 + per_graph * (1 + replays)
     assert rose == {"fused_message": want, "fused_message_vjp": want,
-                    "fused_pseudo_message": 0, "fused_pseudo_vjp": 0}
+                    "fused_pseudo_message": 0, "fused_pseudo_vjp": 0, "fused_adam": 0,
+                    "fused_global_norm": 0}
 
 
 def _tiny_train_cfg(dec_type="pseudo"):
@@ -813,10 +814,13 @@ def test_registered_generator_streams_per_epoch_on_card(cuda_device):
 @pytest.mark.gpu
 def test_replays_count_their_launches_on_card(cuda_device):
     """A replay runs no Python; each credits the launches its capture
-    counted: 2 + 2 message forwards and backwards and 2 pseudo ones per
-    train step, 2 + 2 and 2 forwards per eval step. The warm-up and the
-    capture itself count none."""
-    counters = (fused_message, fused_message_vjp, fused_pseudo_message, fused_pseudo_vjp)
+    counted: 2 + 2 message forwards and backwards, 2 pseudo ones and one
+    fused optimizer step per train step, 2 + 2 and 2 forwards per eval
+    step. The warm-up and the capture itself count none."""
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
+
+    counters = (fused_message, fused_message_vjp, fused_pseudo_message, fused_pseudo_vjp,
+                fused_adam)
     tr, state, dds = _epoch_setup(cuda_device)
     before = [fn.launches for fn in counters]
     state, m = tr.run_epoch_scan(state, dds, torch.Generator(device=cuda_device).manual_seed(0))
@@ -825,8 +829,9 @@ def test_replays_count_their_launches_on_card(cuda_device):
     after = [fn.launches for fn in counters]
     tr.release_graphs()
     steps = m["n_steps"]
-    assert [b - a for a, b in zip(before, mid)] == [4 * steps, 4 * steps, 2 * steps, 2 * steps]
-    assert [b - a for a, b in zip(mid, after)] == [4 * steps, 0, 2 * steps, 0]
+    assert [b - a for a, b in zip(before, mid)] == [4 * steps, 4 * steps, 2 * steps, 2 * steps,
+                                                    steps]
+    assert [b - a for a, b in zip(mid, after)] == [4 * steps, 0, 2 * steps, 0, 0]
 
 
 @pytest.mark.gpu
@@ -1012,8 +1017,19 @@ def test_pcn_step_on_card_matches_cpu(cuda_device, dec_type, dtype):
     its smooth terms: at random weights the dihedral's atan2 wraps at +-pi
     and the projection divides by decoded bond lengths near zero, so f32
     rounding alone moves some of their gradients by far more than 1e-4
-    (the test below holds the whole loss at f32)."""
-    from coarsegrainingvae_tpu_torch.train.trainer import guarded_update
+    (the test below holds the whole loss at f32). At f32 the card's update
+    is the fused optimizer (one launch); the kernel takes no float64, so at
+    float64 both sides apply its plain version."""
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam, fused_adam_reference
+    from coarsegrainingvae_tpu_torch.train.trainer import flatten, guarded_update
+
+    def update(tr, params, grads, loss, opt, lr):
+        if dtype == "float32":
+            guarded_update(tr.tx, params, grads, loss, opt, lr, 1e9)
+        else:
+            adam = tr.tx.adam
+            fused_adam_reference(params, flatten(grads), loss, opt.count, opt.mu, opt.nu, lr,
+                                 1e9, tr.tx.grad_clip, adam.b1, adam.b2, adam.eps)
 
     kw = dict(PCN_CARD_KW)
     kw.update(dict(kappa=1.0, bond_project=True) if dtype == "float64" else dict(kappa=0.0))
@@ -1021,10 +1037,12 @@ def test_pcn_step_on_card_matches_cpu(cuda_device, dec_type, dtype):
     tr_ref, state_ref, _, grads_ref = _pcn_step_grads(torch.device("cpu"), dec_type, dtype, kw)
     assert _worst_rel(grads, grads_ref) <= 1e-4
     params = list(state.params.values())
-    guarded_update(tr.tx, params, grads, loss, state.opt_state, state.lr, 1e9)
+    before = fused_adam.launches
+    update(tr, params, grads, loss, state.opt_state, state.lr)
+    assert fused_adam.launches == before + (dtype == "float32")
     params_ref = list(state_ref.params.values())
-    guarded_update(tr_ref.tx, params_ref, [g.cpu() for g in grads], loss.cpu(),
-                   state_ref.opt_state, state_ref.lr, 1e9)
+    update(tr_ref, params_ref, [g.cpu() for g in grads], loss.cpu(), state_ref.opt_state,
+           state_ref.lr)
     assert _worst_rel(params, params_ref) <= 1e-4
 
 
@@ -1184,22 +1202,32 @@ def test_diffpool_sample_hard_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.gpu
 def test_diffpool_steps_repeat_their_bits_on_card(cuda_device):
-    """Two v6 steps from one state (the same key, so the same draws): the
-    parameters and both moments bit for bit."""
+    """Two v6 steps from one state (the same key, so the same draws; the
+    parameters, moments and count restored before each): the parameters
+    and both moments bit for bit, each step one fused optimizer launch."""
     import dataclasses
+
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
 
     z, _, steric, batch = _diffpool_setup()
     tr = _diffpool_trainer(cuda_device, z, steric)
     state = dataclasses.replace(tr.init_state(), step=2500)
     start = {k: p.detach().clone() for k, p in state.params.items()}
+    # the fused optimizer updates the moments and their count in place
+    opt0 = [t.clone() for t in (state.opt_state.count, state.opt_state.mu, state.opt_state.nu)]
     after = []
+    before = fused_adam.launches
     for _ in range(2):
         with torch.no_grad():
             for k, p in state.params.items():
                 p.copy_(start[k])
+            for t, v in zip((state.opt_state.count, state.opt_state.mu, state.opt_state.nu),
+                            opt0):
+                t.copy_(v)
         new, _ = tr.train_step(state, batch, (0, 1))
         after.append([p.detach().clone() for p in new.params.values()]
                      + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
+    assert fused_adam.launches == before + 2
     assert all(torch.equal(x, y) for x, y in zip(*after))
 
 
@@ -1242,6 +1270,71 @@ def test_baseline_step_on_card_matches_cpu(cuda_device, name):
         grads.append([t.cpu() for t in g])
     for got, want in zip(*grads):
         assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-30)
+
+
+def _pcn_eager(dtype, device):
+    from coarsegrainingvae_tpu_torch.models.cgvae import PCN
+    from coarsegrainingvae_tpu_torch.train.pcn_trainer import PCNTrainer
+
+    cfg = ModelConfig(n_basis=16, n_rbf=6, atom_cutoff=10.0, dec_nconv=1, dec_type="pseudo",
+                      compute_dtype=dtype)
+    tr = PCNTrainer(PCN(cfg, generator=torch.Generator().manual_seed(0)), device=device,
+                    **PCN_CARD_KW)
+    batch, cam, quads, qmask = _pcn_batch(2)
+    return tr.init_state(), lambda state: tr.train_step(state, batch, cam, quads, qmask, 0.5)
+
+
+def _diffpool_eager(device):
+    from coarsegrainingvae_tpu_torch.config import DiffPoolConfig
+    from coarsegrainingvae_tpu_torch.train.diffpool_trainer import DiffPoolTrainer
+
+    z, _, steric, batch = _diffpool_setup(4)
+    tr = DiffPoolTrainer(DiffPoolConfig(n_atoms=z.shape[0], n_cgs=3, feat_dim=16, n_rbf=4,
+                                        enc_nconv=1, dec_nconv=1, cross=True),
+                         steric_tables=steric, device=device, **V6_TRAIN)
+    return tr.init_state(), lambda state: tr.train_step(state, batch, (0, 1))
+
+
+def _baseline_eager(device):
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.diffpool import build_diffpool_dataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+    from coarsegrainingvae_tpu_torch.models.baseline import build_baseline
+    from coarsegrainingvae_tpu_torch.train.baseline_trainer import BaselineTrainer
+
+    z, frames, bonds = synthetic_peptide("dipeptide", n_frames=4, seed=0, device="cpu")
+    mapping = newman_mapping(bonds, z.shape[0], 3, seed=0)
+    batch = build_diffpool_dataset(frames, z, bonds).batch(np.arange(4))
+    model = build_baseline("mlp", 3, z.shape[0], mapping,
+                           generator=torch.Generator().manual_seed(0), width=1, depth=1)
+    tr = BaselineTrainer(model, gamma=5.0, lr=3e-4, device=device)
+    return tr.init_state(), lambda state: tr.train_step(state, batch)
+
+
+# one tiny step of each trainer that keeps its learning rate on the host as
+# a number: name -> device -> (state, state -> (new state, metrics))
+EAGER_STEPS = {"pcn float32": lambda device: _pcn_eager("float32", device),
+               "pcn bfloat16": lambda device: _pcn_eager("bfloat16", device),
+               "diffpool": _diffpool_eager, "baseline": _baseline_eager}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(EAGER_STEPS))
+def test_eager_trainers_take_the_fused_step_on_card(cuda_device, name):
+    """One step of the PCN (f32 and bf16 compute), DiffPool and baseline
+    trainers on the card, their learning rate a host number: the fused
+    optimizer launches once, accepts the batch and updates the moments and
+    their count in place."""
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
+
+    state, step = EAGER_STEPS[name](cuda_device)
+    mu, count = state.opt_state.mu, state.opt_state.count
+    before = fused_adam.launches
+    new, _ = step(state)
+    assert fused_adam.launches == before + 1
+    assert new.opt_state.mu is mu and new.opt_state.count is count and int(count) == 1
 
 
 @pytest.mark.gpu
@@ -1471,7 +1564,8 @@ def test_full_width_converted_fold_serves_and_resumes_bit_for_bit_on_card(
         cuda_device, full_width_run, tmp_path):
     """(b) from_run of the fold rewritten from (a)'s state serves the
     original's bits through kernels 1 and 3; (c) an epoch resumed from it
-    gives the original's parameters, through kernels 1-4."""
+    gives the original's parameters, through kernels 1-4 and the fused
+    optimizer step."""
     import chip_smoke
     from coarsegrainingvae_tpu_torch.config import ExperimentConfig
 
@@ -1485,7 +1579,9 @@ def test_full_width_converted_fold_serves_and_resumes_bit_for_bit_on_card(
     assert served["fused_message_vjp"] == served["fused_pseudo_vjp"] == 0
     after_conv, launches, _ = chip_smoke.resume_one_epoch(converted, "cuda")
     after_orig, _, _ = chip_smoke.resume_one_epoch(original, "cuda")
-    assert min(launches.values()) > 0
+    assert min(launches[k] for k in ("fused_message", "fused_message_vjp", "fused_pseudo_message",
+                                     "fused_pseudo_vjp", "fused_adam")) > 0
+    assert launches["fused_global_norm"] == 0
     assert all(chip_smoke.torch_equal(after_conv[k], after_orig[k]) for k in after_orig)
 
 
@@ -1694,3 +1790,156 @@ def test_every_rank_marks_each_step_once_on_cards(cuda_device, tmp_path):
     for r in got:
         assert r["steps"] == 2
         assert r["marks"] == list(tracing.MARKS) * r["steps"]
+
+
+# ------------------------------------------------- the fused optimizer step
+def _adam_problem(device, moment_dtype, seed=0, steps_done=3):
+    """Parameters of odd sizes in f32 and bf16 (heads and tails, a chunk
+    and a bit, one an unaligned view into a larger storage), a flat f32
+    gradient, moments and a count as after a few steps."""
+    g = torch.Generator().manual_seed(seed)
+    sizes = [5, 600, 17, 8192 + 13, 1203, 3, 2 * 8192, 8]
+    dtypes = [torch.float32, torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
+              torch.bfloat16, torch.float32, torch.float32]
+    params = [torch.randn(n, generator=g).to(dt).to(device) for n, dt in zip(sizes, dtypes)]
+    params[2] = torch.randn(18, generator=g).to(device)[1:]       # 4 bytes off alignment
+    n = sum(sizes)
+    grad = (torch.randn(n, generator=g) * 0.05).to(device)
+    mu = (torch.randn(n, generator=g) * 0.01).to(moment_dtype).to(device)
+    nu = (torch.rand(n, generator=g) * 1e-4).to(moment_dtype).to(device)
+    count = torch.tensor(steps_done, dtype=torch.int32, device=device)
+    lr = torch.tensor(3.2e-4, dtype=torch.float32, device=device)
+    return params, grad, count, mu, nu, lr
+
+
+def _adam_run(fn, problem, loss, clip, thresh=5000.0):
+    """One step of ``fn`` on ``problem``'s tensors: (parameters, count, mu,
+    nu, ok); the parameters move in place."""
+    params, grad, count, mu, nu, lr = problem
+    count, mu, nu, ok = fn(params, grad, torch.tensor(loss, device=grad.device), count, mu, nu,
+                           lr, thresh, clip, 0.9, 0.999, 1e-8)
+    return params, count, mu, nu, ok
+
+
+ADAM_CLIPS = {"active": 0.01, "inactive": 1e3, "infinite": float("inf")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", list(ADAM_CLIPS))
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_adam_matches_plain_on_card(cuda_device, moments, clip):
+    """The kernel against its plain version on the card. With the clip
+    inactive or infinite every parameter, moment and the count bit for
+    bit (the same f32 operations in the same order, each rounded alone);
+    with it active the norm is summed in another order, so the clipped
+    gradient may differ in its last bit: parameters within 1e-6 of their
+    largest entry, f32 moments within 1e-6 relative, bf16 moments within
+    one bf16 step."""
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam, fused_adam_reference
+
+    before = fused_adam.launches
+    got = _adam_run(fused_adam, _adam_problem(cuda_device, moments), 1.0, ADAM_CLIPS[clip])
+    want = _adam_run(fused_adam_reference, _adam_problem(cuda_device, moments), 1.0,
+                     ADAM_CLIPS[clip])
+    assert fused_adam.launches == before + 1
+    (p_got, c_got, m_got, v_got, ok_got), (p_want, c_want, m_want, v_want, ok_want) = got, want
+    assert bool(ok_got) and bool(ok_want) and int(c_got) == int(c_want) == 4
+    exact = clip != "active"
+    for a, b in zip(p_got, p_want):
+        assert a.dtype == b.dtype
+        if exact:
+            assert torch.equal(a, b)
+        else:
+            assert float((a.float() - b.float()).abs().max()) <= 1e-6 * float(b.float().abs().max())
+    for a, b in ((m_got, m_want), (v_got, v_want)):
+        assert a.dtype == b.dtype == moments
+        if exact:
+            assert torch.equal(a, b)
+        else:
+            rel = 2.0 ** -7 if moments == torch.bfloat16 else 1e-6
+            assert bool(((a.float() - b.float()).abs() <= rel * b.float().abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["loss at the threshold", "nan loss", "inf gradient"])
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_adam_leaves_a_rejected_batch_bit_for_bit_on_card(cuda_device, moments, case):
+    """A rejected batch: ok false, parameters (a -0.0 among them), moments
+    and count keep every bit."""
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
+
+    problem = _adam_problem(cuda_device, moments, seed=1)
+    params, grad = problem[:2]
+    params[0][0] = -0.0
+    loss = {"loss at the threshold": 5000.0, "nan loss": float("nan")}.get(case, 1.0)
+    if case == "inf gradient":
+        grad[100] = float("inf")
+    start = [t.clone() for t in (*params, *problem[2:5])]
+    p_new, c_new, m_new, v_new, ok = _adam_run(fused_adam, problem, loss, 0.01)
+    assert not bool(ok) and int(c_new) == 3
+    for a, b in zip((*p_new, c_new, m_new, v_new), start):
+        bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(a.dtype, a.dtype)
+        assert torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.gpu
+def test_fused_adam_replays_bit_for_bit_and_equals_its_eager_step_on_card(cuda_device):
+    """Two eager steps from one state give the same bits (a fixed order of
+    summation, no atomics); a captured step's replays from that state give
+    them again; the kernel's norm is within 1e-6 of the plain norm."""
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam, fused_global_norm
+
+    params, grad, count, mu, nu, lr = _adam_problem(cuda_device, torch.bfloat16, seed=2)
+    loss = torch.tensor(1.0, device=cuda_device)
+    start = [t.clone() for t in (*params, count, mu, nu)]
+    live = (*params, count, mu, nu)
+
+    def restore():
+        for t, v in zip(live, start):
+            t.copy_(v)
+
+    def step():
+        fused_adam(params, grad, loss, count, mu, nu, lr, 5000.0, 0.01, 0.9, 0.999, 1e-8)
+
+    runs = []
+    for _ in range(2):
+        restore()
+        step()
+        runs.append([t.clone() for t in live])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for _ in range(2):
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in live])
+    graph.reset()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    norm = float(fused_global_norm(grad))
+    assert abs(norm - float(torch.sqrt(torch.sum(grad * grad)))) <= 1e-6 * norm
+
+
+@pytest.mark.gpu
+def test_a_captured_dense_step_launches_the_fused_optimizer_once_on_card(cuda_device):
+    """The captured train step takes the fused optimizer: one launch per
+    replay in ``_EpochProgram.launches``, credited once a step; the state's
+    moments and count are the program's static tensors, updated in place."""
+    from coarsegrainingvae_tpu_torch.ops import kernel_counters
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
+
+    tr, state, dds = _epoch_setup(cuda_device)
+    mu = state.opt_state.mu
+    before = fused_adam.launches
+    state, m = tr.run_epoch_scan(state, dds, torch.Generator(device=cuda_device).manual_seed(0))
+    prog = next(iter(tr._programs.values()))
+    assert prog.launches[kernel_counters().index(fused_adam)] == 1
+    assert fused_adam.launches - before == m["n_steps"]
+    assert state.opt_state.mu is mu and int(state.opt_state.count) == m["n_steps"]
+    tr.release_graphs()
