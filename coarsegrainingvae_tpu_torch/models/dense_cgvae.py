@@ -9,7 +9,9 @@ the pseudo decoder); on CPU tensors the kernels' plain versions run.
 
 Entry points: ``forward(batch, eps=None, generator=None)`` returns all six
 ``VAEOutput`` fields and is differentiable (training runs it under
-autograd: each kernel has a hand-written backward kernel);
+autograd: each kernel has a hand-written backward kernel); inside a train
+epoch program it records the mark ``decode`` before the decoder
+(``utils.tracing``);
 ``generate(batch, generator=None, eps=None)`` returns only the
 reconstruction drawn from the prior and skips the encoder, whose outputs
 never reach it.
@@ -36,6 +38,7 @@ from coarsegrainingvae_tpu_torch.models.dense import (
 )
 from coarsegrainingvae_tpu_torch.models.modules import MLP, Dense, DistanceEmbed, EmbeddingZeroPad
 from coarsegrainingvae_tpu_torch.ops.fused_pseudo import fused_pseudo_message
+from coarsegrainingvae_tpu_torch.utils import tracing
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -283,6 +286,7 @@ class DenseCGVAE(nn.Module):
         H, mu, sigma = self._encode(batch, onehot, norm)
         prior_mu, prior_sigma = self._prior(batch)
         z_lat = H if self.cfg.det else mu + sigma * draw_eps(mu, generator, eps)
+        tracing.mark("decode")
         xyz_recon = self._decode(batch, z_lat, onehot, norm)
         return VAEOutput(
             mu=mu.reshape(b * m, f), sigma=sigma.reshape(b * m, f),

@@ -289,7 +289,7 @@ class _EpochProgram:
     """One train or eval step over one DeviceDataset, written against
     static buffers: the (S_max, B) index table, the step counter, the
     (S_max, k) metrics buffer and, for training, the optimizer state, step
-    and lr of ``state`` and the (S_max, 7) table of the step's phase marks
+    and lr of ``state`` and the (S_max, 9) table of the step's phase marks
     (``utils.tracing``), all updated in place. On a CUDA device the step is
     captured once as a CUDA graph and replayed; its noise comes from a
     generator registered with the graph, loaded from the caller's before
@@ -520,6 +520,7 @@ class Trainer:
     def _loss_fn(self, batch: CGBatch, generator=None, zeta_scale=None, denominators=None):
         tc = self.cfg.train
         out = self.model(batch, generator=generator)
+        tracing.mark("loss")
         zeta = tc.zeta if zeta_scale is None else tc.zeta * zeta_scale
         return vae_loss(out, flatten_batch(batch), tc.beta, tc.gamma, zeta=zeta,
                         steric=self.steric_tables, h_bond_weight=tc.h_bond_weight,

@@ -12,20 +12,23 @@ Two recording points feed it:
   trace), and the name of the span open around it in the same thread. The
   registry keeps the last ``MAX_SPANS``. No span is opened inside the
   replay loop or around launches.
-- ``mark(name)``, a phase boundary of the train step (``MARKS``). While an
-  epoch program's ``StepMarks`` is active (``marking``), a mark writes a
-  timestamp into row ``counter`` of the program's (S_max, 7) int64 table:
-  on a CUDA device a one-thread kernel named ``cgvae_mark_<name>``
-  (``csrc/step_marks.cu``) writes ``%globaltimer``, and a capture takes it
-  into the graph as a node; on the CPU the call writes
+- ``mark(name)``, a phase boundary of the train step (``MARKS``) or a
+  boundary inside its forward phase (``FORWARD_MARKS``). While an epoch
+  program's ``StepMarks`` is active (``marking``), a mark writes a
+  timestamp into row ``counter`` of the program's (S_max, len(COLUMNS))
+  int64 table: on a CUDA device a one-thread kernel named
+  ``cgvae_mark_<name>`` (``csrc/step_marks.cu``) writes ``%globaltimer``,
+  and a capture takes it into the graph as a node; on the CPU the call writes
   ``time.perf_counter_ns()``. Anywhere else a mark does nothing, so the
   eager API, eval, PCN and DiffPool launch nothing new. Marks read nothing
   the step computes. After each epoch the program copies the rows back
-  (``record_phases``) and the counters hold each phase's mean ms of that
-  epoch, ``step.<phase>_ms``, with ``step.total_ms`` and ``step.steps``.
+  (``record_phases``) and the counters hold each phase's and each part's
+  mean ms of that epoch, ``step.<phase>_ms``, with ``step.total_ms`` and
+  ``step.steps``.
 
-A phase runs from its mark to the next mark the step recorded, so the
-phases tile the step from ``step`` to ``end`` with no gap:
+A phase runs from its mark to the next mark of ``MARKS`` the step
+recorded, so the phases tile the step from ``step`` to ``end`` with no
+gap:
 
     step         the index gather
     forward      the model forward and ``vae_loss``
@@ -33,6 +36,16 @@ phases tile the step from ``step`` to ``end`` with no gap:
     exchange     the flat all-reduce (data-parallel only)
     optimizer    norm, guard, clip, Adam, apply, moment selects
     bookkeeping  static copies, metrics row, counter
+
+Inside the forward phase a part runs from its mark to the next mark of
+either kind the step recorded:
+
+    decode       the dense model's decoder: its message and update layers
+                 and the channel lift (``models/dense_cgvae.py``)
+    loss         ``vae_loss``: recon, KL, graph and steric terms
+
+so ``forward`` still spans ``forward`` to ``backward``; the sparse model
+records no ``decode``, and its ``loss`` part runs to ``backward``.
 
 ``snapshot()`` gives the spans and counters as JSON data (``cli.run_cgvae``
 writes one per fold).
@@ -52,11 +65,15 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-# the step's boundaries, in order: the columns of a StepMarks table
+# the step's boundaries, in order
 MARKS = ("step", "forward", "backward", "exchange", "optimizer", "bookkeeping", "end")
 # the phase that starts at each mark but the last
 PHASES = {"step": "gather", "forward": "forward", "backward": "backward",
           "exchange": "exchange", "optimizer": "optimizer", "bookkeeping": "bookkeeping"}
+# boundaries inside the forward phase, in order; each starts a part of that name
+FORWARD_MARKS = ("decode", "loss")
+# the columns of a StepMarks table
+COLUMNS = MARKS + FORWARD_MARKS
 MAX_SPANS = 10_000
 
 
@@ -85,16 +102,16 @@ _SYMBOLS = {
 
 
 class StepMarks:
-    """An epoch program's mark table: (rows, len(MARKS)) int64 on the
+    """An epoch program's mark table: (rows, len(COLUMNS)) int64 on the
     program's device, row i the timestamps of step i (0 where a mark was
     never recorded), written at the program's device step ``counter``."""
 
     def __init__(self, rows: int, counter: torch.Tensor):
         self.counter = counter
-        self.times = torch.zeros((rows, len(MARKS)), dtype=torch.int64, device=counter.device)
+        self.times = torch.zeros((rows, len(COLUMNS)), dtype=torch.int64, device=counter.device)
 
     def record(self, name: str) -> None:
-        col = MARKS.index(name)
+        col = COLUMNS.index(name)
         back = 1 if name == "end" else 0      # end follows the counter's increment
         if self.times.device.type == "cuda":
             from coarsegrainingvae_tpu_torch.ops import cuda_build
@@ -123,6 +140,24 @@ def phase_means(times: np.ndarray) -> Dict[str, float]:
     gaps = np.diff(t, axis=1).mean(axis=0)
     out = {PHASES[MARKS[j]]: float(g) for j, g in zip(used, gaps)}
     out["total"] = float(np.mean(t[:, -1] - t[:, 0]))
+    return out
+
+
+def part_means(times: np.ndarray) -> Dict[str, float]:
+    """Each part of the forward phase (``FORWARD_MARKS``) that every step
+    (row) of a mark table recorded: its mean ms from its mark to the next
+    mark the step recorded."""
+    used = [j for j in range(times.shape[1]) if times[:, j].all()]
+    t = times[:, used].astype(np.float64) * 1e-6
+    out = {}
+    for name in FORWARD_MARKS:
+        j = COLUMNS.index(name)
+        if j not in used:
+            continue
+        own = t[:, used.index(j)]
+        nxt = np.where(t > own[:, None], t, np.inf).min(axis=1)
+        if np.isfinite(nxt).all():
+            out[name] = float(np.mean(nxt - own))
     return out
 
 
@@ -180,9 +215,10 @@ class Registry:
             marks.record(name)
 
     def record_phases(self, times: np.ndarray) -> Dict[str, float]:
-        """Store an epoch's phase means (``phase_means`` of its mark rows)
-        in the counters, in place of the last epoch's."""
-        means = phase_means(times)
+        """Store an epoch's phase and part means (``phase_means`` and
+        ``part_means`` of its mark rows) in the counters, in place of the
+        last epoch's."""
+        means = dict(phase_means(times), **part_means(times))
         with self._lock:
             for k in [k for k in self.counters if k.startswith("step.")]:
                 del self.counters[k]
@@ -226,8 +262,8 @@ def span(name: str):
 
 
 def mark(name: str) -> None:
-    """Record the step boundary ``name`` (one of ``MARKS``) in the active
-    epoch program's table; nothing outside one."""
+    """Record the step boundary ``name`` (one of ``COLUMNS``) in the
+    active epoch program's table; nothing outside one."""
     REGISTRY.mark(name)
 
 

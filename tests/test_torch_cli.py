@@ -123,16 +123,19 @@ def test_artifacts_and_csv_headers_are_the_jax_packages(runs):
 def test_each_fold_writes_its_tracing_snapshot(runs, fold):
     """``tracing.json``: the fold's own set-up spans (its datasets) and the
     phase means of its last train epoch (the CPU program's marks; one
-    process, so no exchange phase)."""
+    process, so no exchange phase), with the dense model's decoder and
+    loss parts inside the forward phase."""
     snap = json.loads((runs["port"] / fold / "tracing.json").read_text())
     names = [s["name"] for s in snap["spans"]]
     assert names.count("data.build_dataset") >= 1 and "train.capture" not in names
     counters = snap["counters"]
-    phases = [k for k in counters if k.endswith("_ms") and k != "step.total_ms"]
-    assert sorted(phases) == sorted(f"step.{p}_ms" for p in
-                                    ("gather", "forward", "backward", "optimizer", "bookkeeping"))
+    phases = [f"step.{p}_ms" for p in ("gather", "forward", "backward", "optimizer", "bookkeeping")]
+    parts = ["step.decode_ms", "step.loss_ms"]
+    assert sorted(k for k in counters if k.endswith("_ms") and k != "step.total_ms") == \
+        sorted(phases + parts)
     assert counters["step.steps"] >= 1
     assert sum(counters[k] for k in phases) == pytest.approx(counters["step.total_ms"])
+    assert sum(counters[k] for k in parts) < counters["step.forward_ms"]
 
 
 def test_modelparams_load_into_either_package(runs):

@@ -1773,6 +1773,42 @@ def test_the_marked_captured_step_is_the_eager_step_bit_for_bit_on_card(cuda_dev
 
 
 @pytest.mark.gpu
+def test_a_captured_dense_step_marks_its_decoder_and_loss_in_order_on_card(cuda_device):
+    """A profiled captured epoch of the dense model: ``cgvae_mark_decode``
+    and ``cgvae_mark_loss`` run once a replayed step, in that order between
+    ``forward`` and ``backward``; the epoch's counters hold
+    ``step.decode_ms`` and ``step.loss_ms``, and ``step.forward_ms`` still
+    spans ``forward`` to ``backward`` (within 2 %, or 2 us, of the trace)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from coarsegrainingvae_tpu_torch.utils import tracing
+
+    tr, state, dds = _epoch_setup(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    state, _ = tr.run_epoch_scan(state, dds, gen)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = tr.run_epoch_scan(state, dds, gen)
+        torch.cuda.synchronize()
+    counters = dict(tracing.REGISTRY.counters)
+    tr.release_graphs()
+    names = {tracing.kernel_name(k): k for k in tracing.COLUMNS}
+    events = sorted(((names[e.name()], e.start_ns()) for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA and e.name() in names),
+                    key=lambda e: e[1])
+    order = ["step", "forward", "decode", "loss", "backward", "optimizer", "bookkeeping", "end"]
+    steps = m["n_steps"]
+    assert [k for k, _ in events] == order * steps
+    starts = np.array([t for _, t in events], dtype=np.float64).reshape(steps, len(order)) * 1e-6
+    want = {"decode": starts[:, 3] - starts[:, 2], "loss": starts[:, 4] - starts[:, 3],
+            "forward": starts[:, 4] - starts[:, 1]}
+    for part, ms in want.items():
+        got, ms = counters[f"step.{part}_ms"], float(np.mean(ms))
+        assert abs(got - ms) <= max(0.02 * ms, 2e-3), (part, got, ms)
+
+
+@pytest.mark.gpu
 def test_every_rank_marks_each_step_once_on_cards(cuda_device, tmp_path):
     """On every card of the machine, one NCCL rank each: each rank's
     profiled captured epoch shows its seven marks once per step, in order."""

@@ -27,6 +27,8 @@ from coarsegrainingvae_tpu_torch.utils import profiling, tracing
 torch.set_num_threads(1)
 
 BATCH = 4
+# the marks a dense train step records on one process, in order
+STEP_ORDER = ["step", "forward", "decode", "loss", "backward", "optimizer", "bookkeeping", "end"]
 
 
 # ---------------------------------------------------------------- registry
@@ -131,6 +133,23 @@ def test_phase_means_tile_the_step_and_skip_unrecorded_marks():
     assert list(tracing.PHASES) == list(tracing.MARKS[:-1])
 
 
+def test_part_means_run_from_a_forward_mark_to_the_next_recorded_mark():
+    """decode runs to loss, loss to backward (the next mark of either
+    kind); the phases still tile the step, forward spanning forward to
+    backward, and a table without the forward's marks has no parts."""
+    phases = np.array([[100, 300, 600, 0, 1100, 1700, 2000],
+                       [3000, 3200, 3700, 0, 4000, 4900, 5000]], dtype=np.int64) * 1000
+    parts = np.array([[350, 550], [3300, 3500]], dtype=np.int64) * 1000
+    times = np.concatenate([phases, parts], axis=1)
+    assert list(tracing.COLUMNS) == list(tracing.MARKS) + ["decode", "loss"]
+    assert tracing.part_means(times) == pytest.approx({"decode": 0.2, "loss": 0.125})
+    assert tracing.phase_means(times) == pytest.approx(tracing.phase_means(phases))
+    assert tracing.part_means(phases) == {}
+    sparse = times.copy()
+    sparse[:, tracing.COLUMNS.index("decode")] = 0
+    assert tracing.part_means(sparse) == pytest.approx({"loss": 0.125})
+
+
 # ------------------------------------------------------ the epoch program
 @pytest.fixture(scope="module")
 def dataset():
@@ -207,6 +226,28 @@ def test_cpu_epoch_program_marks_every_step_in_order(dataset, ranked, request, m
     assert sum(v for k, v in means.items() if k != "total") == pytest.approx(means["total"])
 
 
+def test_the_forward_phase_marks_its_decoder_and_loss_in_order(dataset):
+    """In the dense model's CPU epoch program (no capture), ``decode`` and
+    ``loss`` come in that order between ``forward`` and ``backward`` in
+    every step; the counters hold ``step.decode_ms`` and ``step.loss_ms``,
+    and ``step.forward_ms`` still spans ``forward`` to ``backward``."""
+    tr, state = _trainer(dataset)
+    dds = DeviceDataset.from_dataset(dataset, "cpu")
+    tracing.REGISTRY.counters.clear()
+    m, _, _ = _epoch(tr, state, dds)
+    times = tr._programs[(id(dds), True)].marks.times[:m["n_steps"]].numpy()
+    order = [tracing.COLUMNS.index(k) for k in STEP_ORDER]
+    assert (np.diff(times[:, order], axis=1) > 0).all()
+    assert not times[:, tracing.COLUMNS.index("exchange")].any()
+    counters = tracing.REGISTRY.counters
+    col = {k: times[:, tracing.COLUMNS.index(k)].astype(np.float64) * 1e-6
+           for k in ("forward", "decode", "loss", "backward")}
+    assert counters["step.decode_ms"] == pytest.approx(np.mean(col["loss"] - col["decode"]))
+    assert counters["step.loss_ms"] == pytest.approx(np.mean(col["backward"] - col["loss"]))
+    assert counters["step.forward_ms"] == pytest.approx(np.mean(col["backward"] - col["forward"]))
+    assert counters["step.forward_ms"] > counters["step.decode_ms"] + counters["step.loss_ms"]
+
+
 def test_marks_leave_the_arithmetic_bit_for_bit(dataset, monkeypatch):
     """An epoch with the marks and one with ``tracing.mark`` a no-op, from
     the same state and draws: the same parameters, moments and metrics."""
@@ -224,8 +265,9 @@ def test_marks_leave_the_arithmetic_bit_for_bit(dataset, monkeypatch):
 
 def test_eager_steps_and_eval_programs_record_no_mark(dataset, monkeypatch):
     """Outside a train epoch program a mark does nothing: the eager
-    ``train_step`` and the eval program record none; a train epoch records
-    len(MARKS) - 1 a step on one process."""
+    ``train_step`` and the eval program record none; a train epoch of the
+    dense model records len(MARKS) - 1 a step on one process, with its
+    forward phase's two marks between ``forward`` and ``backward``."""
     calls = []
     record = tracing.StepMarks.record
     monkeypatch.setattr(tracing.StepMarks, "record",
@@ -238,7 +280,7 @@ def test_eager_steps_and_eval_programs_record_no_mark(dataset, monkeypatch):
     assert tr._programs[(id(dds), False)].marks is None
     batches = epoch_index_batches(dds.n_frames, BATCH, None)
     tr._run_program(state, dds, batches, torch.Generator().manual_seed(2), True, False)
-    assert calls == [k for k in tracing.MARKS if k != "exchange"] * batches.shape[0]
+    assert calls == STEP_ORDER * batches.shape[0]
     assert tracing.REGISTRY.marks is None
 
 
