@@ -313,9 +313,12 @@ def ptxas_summary(log: str) -> dict:
 def print_ptxas(label: str, log: str, ra: int = 9) -> None:
     """The ptxas lines of the main path's instantiations (the templated
     kernels exist for every R+1 in 2..16, the first template argument,
-    mangled ``ILi<R+1>E``) and of the wide kernels (R+1 > 16)."""
+    mangled ``ILi<R+1>E``; the tensor-core forward for ceil((R+1) / 8))
+    and of the wide kernels (R+1 > 16)."""
     for kernel, line in ptxas_summary(log).items():
-        if "ILi" not in kernel or f"ILi{ra}E" in kernel or "wide" in kernel:
+        tc = "tc_kernel" in kernel
+        if ("ILi" not in kernel or "wide" in kernel or (tc and f"ILi{(ra + 7) // 8}E" in kernel)
+                or (not tc and f"ILi{ra}E" in kernel)):
             print(f"  ptxas {label} {kernel}: {line}", flush=True)
 
 
@@ -522,10 +525,11 @@ def read_counts() -> dict:
 
 
 # ops.kernel_counters() by name: kernels 1-4, the fused optimizer step (one
-# launch a train step outside ZeRO-1 and tensor parallelism) and its norm
-# alone (one a ZeRO-1 step)
+# launch a train step outside ZeRO-1 and tensor parallelism), its norm
+# alone (one a ZeRO-1 step), and kernel 1's launches on the tensor-core
+# route (the encoder on chignolin's atoms; none at the dipeptide's 27)
 COUNTERS = ("fused_message", "fused_message_vjp", "fused_pseudo_message", "fused_pseudo_vjp",
-            "fused_adam", "fused_global_norm")
+            "fused_adam", "fused_global_norm", "fused_message_tc")
 MESSAGE_KERNELS = COUNTERS[:4]
 
 
@@ -1240,7 +1244,8 @@ class PartTimes:
 
 
 def cv_expected_launches(width: list, n_frames: int, folds: int, epochs, evals: int,
-                         dec_type: str, splits: int = CV_SPLITS, sparse: bool = False) -> dict:
+                         dec_type: str, splits: int = CV_SPLITS, sparse: bool = False,
+                         atoms: int = 0) -> dict:
     """Kernel launches of ``run_cgvae`` over its first ``folds`` folds of
     ``splits``: per fold, ``epochs`` (one count, or one per fold) x (train
     steps + val steps) model forwards and train steps backwards,
@@ -1249,12 +1254,19 @@ def cv_expected_launches(width: list, n_frames: int, folds: int, epochs, evals: 
     forward runs enc_nconv encoder and enc_nconv prior message layers and
     dec_nconv decoder layers (pseudo kernels, or message kernels for the
     cross decoder); each train step one fused optimizer step. The
-    ``sparse`` model runs the optimizer alone."""
+    ``sparse`` model runs the optimizer alone. With the molecule's
+    ``atoms``, the encoder's forwards count on the tensor-core route too
+    where the library routes them there (asks the card's build)."""
     import numpy as np
 
     arg = dict(zip(width[::2], width[1::2]))
     bs, enc, dec = int(arg["-batch_size"]), int(arg["-enc_nconv"]), int(arg["-dec_nconv"])
     out = counts()
+    tc = False
+    if atoms:
+        from coarsegrainingvae_tpu_torch.ops.fused_message import tensor_core_route
+
+        tc = tensor_core_route(1, atoms, 3, int(arg["-n_rbf"]))
     per_fold = [epochs] * folds if isinstance(epochs, int) else list(epochs)
     for test, epochs in zip(np.array_split(np.arange(n_frames), splits)[:folds], per_fold):
         n_full = n_frames - len(test)
@@ -1268,6 +1280,8 @@ def cv_expected_launches(width: list, n_frames: int, folds: int, epochs, evals: 
             continue
         out["fused_message"] += 2 * enc * forwards + enc * n_eval
         out["fused_message_vjp"] += 2 * enc * backwards
+        if tc:
+            out["fused_message_tc"] += enc * forwards
         dec_fwd, dec_bwd = ("fused_message", "fused_message_vjp") if dec_type == "cross" else (
             "fused_pseudo_message", "fused_pseudo_vjp")
         out[dec_fwd] += dec * (forwards + n_eval)
@@ -1739,7 +1753,8 @@ def fold_from_run(run: Path, trained, device: str, sparse: bool = False) -> tupl
 
 
 def cli_fold(args: list, label: str, dec_type: str, width: list, n_frames: int,
-             evals: int, epochs: int, sparse: bool = False, device: str = "cuda") -> dict:
+             evals: int, epochs: int, sparse: bool = False, device: str = "cuda",
+             atoms: int = 0) -> dict:
     """One fold of ``run_cgvae.main(args)`` on ``device``, its artifacts
     checked, its launches against ``cv_expected_launches`` on the card (the
     sparse model runs the fused optimizer alone), and fold 0 served by
@@ -1770,7 +1785,8 @@ def cli_fold(args: list, label: str, dec_type: str, width: list, n_frames: int,
         run_cgvae.Trainer = Trainer
     (run,) = list(CV_DIR.glob(f"{label}*"))
     check_cv_run(run, 1, epochs)
-    expect = cv_expected_launches(width, n_frames, 1, epochs, evals, dec_type, sparse=sparse)
+    expect = cv_expected_launches(width, n_frames, 1, epochs, evals, dec_type, sparse=sparse,
+                                  atoms=atoms if device == "cuda" else 0)
     (tr,) = trained
     rel, _ = fold_from_run(run, tr, device, sparse=sparse)
     print(f"{label}: run_cgvae 1 fold x {epochs} epochs in {wall:.3f} s ({type(tr.model).__name__}"
@@ -1865,7 +1881,8 @@ def steric(dense: dict) -> dict:
     chig = recipe_flags("chig_full_z200w")
     out["chig"] = cli_fold(chig + ["-ndata", str(CHIG_FRAMES), "-n_ensemble", "4", "-nevals",
                                    str(CHIG_EVALS), "--graph_eval"],
-                           "chig", "cross", chig, CHIG_FRAMES, CHIG_EVALS, 2)
+                           "chig", "cross", chig, CHIG_FRAMES, CHIG_EVALS, 2,
+                           atoms=zc.shape[0])
     return out
 
 

@@ -111,18 +111,49 @@
 //   fixed order and writes one partial per (b, node tile, feature), and
 //   sum_over_batch adds the partials in a fixed order. No atomics: d_w is
 //   deterministic.
+// Forward, S = 3, R+1 <= 16 and N >= kTcMinN (chignolin's encoder on its
+//   209 atoms; fused_message_tc_kernel; fused_message_route says which
+//   launches take it): under a 25-A cutoff every ordered pair interacts,
+//   and the tiled kernel spends 33 of its 41 FMAs per pair and feature
+//   folding the filter, filt_c = sum_r K[r] w[r, c]. Here the fold runs on
+//   the tensor cores as 3xTF32 m16n8k8 MMAs: A = w^T (a warp's 16 features
+//   x 8 basis functions a step, split once into registers), B = K^T (8
+//   basis functions x 8 receivers, one sender's records), C = filt (16
+//   features x 8 receivers). Each f32 operand is split into a TF32 high
+//   and low part (cvt.rna), and lo x hi, hi x lo, hi x hi are accumulated
+//   in f32: within ~1e-6 of max|ref|, where single-pass TF32 reads 2.9-4.6e-4
+//   at N 209 (tests/test_torch_message_tc.py), past the 1e-4 gate; no bf16.
+//   The message stays on the FMA pipes (9 per pair and feature). A block
+//   owns kTcTiles x 8 receivers and 64 features and walks the senders in
+//   chunks of kTcCols, staged by 16-byte cp.async (their payload rows) and
+//   built once per block (pair_geometry.cuh::pair_basis: K[r][i] and
+//   unit[d][i], 19 floats per pair); nothing of size N^2 leaves the chip.
+//   Per ordered pair and feature the fold is 3 channels x 16 basis slots x
+//   3 passes = 144 tensor-core MACs, bound in time like the FMA fold's 33
+//   FMAs: mma.sync does not reach the card's TF32 rate (~9 cycles an
+//   m16n8k8 MMA per sub-partition here), and the gain comes as much from
+//   the structure around it. Where it engages, and why kTcMinN = 33
+//   (scripts/kernel_ab.py --nodes, B 16, S 3, R+1 11, cutoff 25, F 600,
+//   one H100 80GB HBM3 at 700 W; the tiled kernel -> this one, ms): N 33
+//   0.0549 -> 0.0414, N 48 0.1132 -> 0.0581, N 64 0.1558 -> 0.0907, N 128
+//   0.5093 -> 0.3461, N 209 1.1720 -> 0.9315 (32.6 % of its 0.3038-ms
+//   FP32 bound, chip_smoke.py::kernel_cost); faster from the first N the
+//   symmetric kernel leaves (N <= 27 keeps it), so the threshold is the
+//   least allowed.
 // Left out, and why:
-// - Tensor cores. The f32 gate against the plain version is 1e-4 of the
-//   output's max; single-pass TF32 (~5e-4 relative) fails it, so the TPU's
-//   per-basis contraction (TI (R+1), N) @ (N, F) would need the 3xTF32
-//   split, three MMAs per product on a contraction depth of only N = 27.
-//   They become the lever once these kernels reach about half their FP32
-//   bound.
+// - The backward on the tensor cores. A 3xTF32 backward (the fold as here,
+//   d_w[r, c] = sum_pairs K[p, q, r] phi[p, c] t_c as MMAs with the fold's
+//   C fragment as the A fragment, one partial per (b, node tile)) was
+//   within 1.1e-6 of max|ref| but took 2.37-2.46 ms at N 209 against the
+//   templated kernel's 2.41 (its 288 tensor-core MACs and ~36 ALU
+//   operations per pair and feature against ~81 FMAs), so the backward
+//   keeps its kernel at every N.
 // - K's symmetry in the backward: one pair would need both nodes' inputs
 //   (v, phi, gs, gv) and sums (d_phi, d_v) at once, some 16 registers per
 //   node beyond the 9-node group's, more than a thread holds.
 
 #include <algorithm>
+#include <cstdint>
 
 #include "pair_geometry.cuh"
 
@@ -140,6 +171,13 @@ constexpr int kBwdMaxWarps = 3;
 constexpr int kSymRows = 9;       // nodes per warp group (symmetric forward)
 constexpr int kSymGroups = 3;     // so it covers N <= 27
 constexpr int kWideBwdWarps = 3;  // warps per block of the wide backward, kBwdTogether nodes each
+constexpr int kTcWarps = 4;       // warps per block of the tensor-core forward, 16 features each
+constexpr int kTcF = 16 * kTcWarps;   // features per block (tensor cores)
+constexpr int kTcKR = 16;         // basis slots per pair record (tensor cores), zero past R+1
+constexpr int kTcK = 8;           // basis functions per fold MMA (m16n8k8)
+constexpr int kTcTiles = 2;       // tiles of 8 receivers (the MMAs' n) per block (tensor cores)
+constexpr int kTcCols = 16;       // senders per staged chunk (tensor cores)
+constexpr int kTcMinN = 33;       // the tensor-core forward takes N >= kTcMinN (the note at the top)
 
 // Stage one batch element's coordinates and mask, (x, y, z, m) per node.
 __device__ __forceinline__ void stage_nodes(float4* __restrict__ nodes,
@@ -946,6 +984,251 @@ fused_message_bwd_wide_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core forward, S = 3, R+1 <= 16, N >= kTcMinN (the note at the
+// top): the per-pair fold of the filter over the basis as 3xTF32 MMAs. A
+// block owns one batch element, kTcTiles tiles of 8 receivers (the MMAs'
+// n) and kTcF features (16, the MMAs' m, per warp), and walks the senders
+// in staged chunks of kTcCols.
+
+// floats of one sender's records for rn receivers: K[r][i], then unit[d][i]
+__host__ __device__ constexpr int tc_geo(int rn) { return (kTcKR + 3) * rn; }
+
+// x as TF32 (round to nearest, ties away; the low 13 bits zero)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~2^-22 of x, each part TF32: the 3xTF32 split
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b: one m16n8k8 TF32 MMA, f32 accumulator
+__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The fold's A operand, w^T (this warp's 16 features x kTcK basis functions
+// a step), split: wa[c][step][i][0 hi, 1 lo] is A register i, at feature
+// fw + g + 8 (i % 2) and basis function kTcK step + t + 4 (i / 2); zeros
+// past R+1 and past F.
+template <int KK>
+__device__ __forceinline__ void tc_weights(uint32_t (&wa)[3][KK][4][2],
+                                           const float* __restrict__ w, int RA, int F, int fw,
+                                           int g, int t) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = kTcK * kk + t + 4 * (i / 2), f = fw + g + 8 * (i % 2);
+        const float x = r < RA && f < F ? w[((size_t)r * 3 + c) * F + f] : 0.f;
+        split_tf32(x, wa[c][kk][i][0], wa[c][kk][i][1]);
+      }
+}
+
+// filt[s][c] = sum_r w[r, c, f] K[i, j, r] of one sender j for the
+// block's tiles s of 8 receivers, whose records K[r][i] start at gq: the C
+// fragment (row f = fw + g + 8 (e / 2), column i = 8 s + 2 t + e % 2) of
+// w^T (16 x kTcK) by K^T (kTcK x 8) per basis step, 3xTF32, lo x hi and
+// hi x lo before hi x hi. The tiles' and channels' MMAs form 3 RT
+// independent chains.
+template <int KK, int RT>
+__device__ __forceinline__ void tc_fold(float (&filt)[RT][3][4],
+                                        const uint32_t (&wa)[3][KK][4][2],
+                                        const float* __restrict__ gq, int g, int t) {
+  constexpr int RN = 8 * RT;
+#pragma unroll
+  for (int s = 0; s < RT; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) filt[s][c][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    uint32_t bh[RT][2], bl[RT][2];    // K[8 s + g][kTcK kk + t + 4 i]
+#pragma unroll
+    for (int s = 0; s < RT; ++s)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        split_tf32(gq[(kTcK * kk + t + 4 * i) * RN + 8 * s + g], bh[s][i], bl[s][i]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[i] = wa[c][kk][i][0];
+        al[i] = wa[c][kk][i][1];
+      }
+#pragma unroll
+      for (int s = 0; s < RT; ++s) {
+        mma_k8(filt[s][c], al, bh[s][0], bh[s][1]);    // lo x hi
+        mma_k8(filt[s][c], ah, bl[s][0], bl[s][1]);    // hi x lo
+        mma_k8(filt[s][c], ah, bh[s][0], bh[s][1]);    // hi x hi
+      }
+    }
+  }
+}
+
+// The chunk's pair records, one per (receiver i0 + i, sender j0 + jj), i <
+// RN: G[jj][r][i] = K[r] (zeros from R+1 on and for a receiver past N),
+// then G[jj][kTcKR + d][i] = unit[d] = (x_j - x_i)[d] / d_ij. rows holds
+// the receivers' (x, y, z, mask).
+template <int RN>
+__device__ __forceinline__ void tc_stage_pairs(float* __restrict__ G, const float4* __restrict__ rows,
+                                               const float* __restrict__ xb,
+                                               const float* __restrict__ mb, int i0, int j0,
+                                               int nc, int N, int RA, float cutoff, float pi_c) {
+  for (int k = threadIdx.x; k < RN * nc; k += blockDim.x) {
+    const int i = k % RN, jj = k / RN, j = j0 + jj;
+    float K[kTcKR], unit[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < kTcKR; ++r) K[r] = 0.f;
+    if (i0 + i < N) {
+      const float4 c = make_float4(xb[j * 3 + 0], xb[j * 3 + 1], xb[j * 3 + 2], mb[j]);
+      pair_basis<kTcKR>(K, unit, rows[i], c, i0 + i == j, RA, cutoff, pi_c);
+    }
+    float* gj = G + jj * tc_geo(RN) + i;
+#pragma unroll
+    for (int r = 0; r < kTcKR; ++r) gj[r * RN] = K[r];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) gj[(kTcKR + d) * RN] = unit[d];
+  }
+}
+
+// The chunk's sender payloads by cp.async: P[jj][e][fl] = phi[j, e] (e < 3)
+// or v[j, e - 3] of sender j = j0 + jj at feature fb + fl, features past F
+// repeating the last ones. 16-byte copies when F % 4 == 0.
+__device__ __forceinline__ void tc_stage_payloads(float* __restrict__ P,
+                                                  const float* __restrict__ phib,
+                                                  const float* __restrict__ vb, int j0, int nc,
+                                                  int fb, int F) {
+  constexpr int E = 6, V = kTcF / 4;
+  auto row = [&](int e, int j) {
+    return e < 3 ? phib + ((size_t)j * 3 + e) * F : vb + ((size_t)j * 3 + e - 3) * F;
+  };
+  if (F % 4 == 0) {
+    for (int k = threadIdx.x; k < nc * E * V; k += blockDim.x) {
+      const int fl = 4 * (k % V), e = (k / V) % E, jj = k / (E * V);
+      cp_async16(P + 4 * k, row(e, j0 + jj) + min(fb + fl, F - 4));
+    }
+  } else {
+    for (int k = threadIdx.x; k < nc * E * kTcF; k += blockDim.x) {
+      const int fl = k % kTcF, e = (k / kTcF) % E, jj = k / (E * kTcF);
+      cp_async4(P + k, row(e, j0 + jj) + min(fb + fl, F - 1));
+    }
+  }
+  cp_async_commit();
+}
+
+// Per sender the fold gives filt[c] (16 features x 8 receivers per tile) on
+// the tensor cores, and each thread adds its four (feature, receiver)
+// elements' messages per tile on the FMA pipes from the sender's staged
+// payload, read once for all tiles. Grid (F / kTcF, N / (8 kTcTiles), B).
+template <int KK>
+__global__ void __launch_bounds__(kLanes * kTcWarps, 3)
+fused_message_tc_kernel(
+    const float* __restrict__ xyz,    // (B, N, 3)
+    const float* __restrict__ mask,   // (B, N)
+    const float* __restrict__ phi,    // (B, N, 3, F)
+    const float* __restrict__ v,      // (B, N, 3, F)
+    const float* __restrict__ w,      // (RA, 3, F)
+    float* __restrict__ ds,           // (B, N, F)
+    float* __restrict__ dv,           // (B, N, 3, F)
+    int N, int F, int RA, float cutoff) {
+  constexpr int E = 6;                // payload rows per sender: phi[j, 0..2], v[j, 0..2]
+  constexpr int RT = kTcTiles, RN = 8 * RT, GEO = tc_geo(RN);
+  extern __shared__ float4 smem[];
+
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.z, i0 = blockIdx.y * RN;
+  const int fb = blockIdx.x * kTcF, fw = fb + warp * 16;
+  const float pi_c = kPi / cutoff;
+  float4* rows = smem;                                    // (RN): x, y, z, mask
+  float* G = reinterpret_cast<float*>(smem + RN);         // (kTcCols, GEO)
+  float* P = G + kTcCols * GEO;                           // (kTcCols, E, kTcF)
+  const float* xb = xyz + (size_t)b * N * 3;
+  const float* mb = mask + (size_t)b * N;
+
+  uint32_t wa[3][KK][4][2];
+  tc_weights<KK>(wa, w, RA, F, fw, g, t);
+  float acc[RT][4][4];                // per tile and C element: ds, dv[0..2]
+#pragma unroll
+  for (int s = 0; s < RT; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[s][e][0] = acc[s][e][1] = acc[s][e][2] = acc[s][e][3] = 0.f;
+  if (threadIdx.x < RN) {
+    const int i = i0 + threadIdx.x;
+    rows[threadIdx.x] = i < N ? make_float4(xb[i * 3 + 0], xb[i * 3 + 1], xb[i * 3 + 2], mb[i])
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int j0 = 0; j0 < N; j0 += kTcCols) {
+    const int nc = min(kTcCols, N - j0);
+    __syncthreads();                  // the rows are staged; the previous chunk's readers are done
+    tc_stage_payloads(P, phi + (size_t)b * N * 3 * F, v + (size_t)b * N * 3 * F, j0, nc, fb, F);
+    tc_stage_pairs<RN>(G, rows, xb, mb, i0, j0, nc, N, RA, cutoff, pi_c);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (fw >= F) continue;            // a warp wholly past F stages, and computes nothing
+
+#pragma unroll 1
+    for (int jj = 0; jj < nc; ++jj) {
+      const float* gj = G + jj * GEO;
+      float filt[RT][3][4];
+      tc_fold<KK, RT>(filt, wa, gj, g, t);
+      float pay[2][E];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < E; ++e) pay[h][e] = P[(jj * E + e) * kTcF + warp * 16 + g + 8 * h];
+#pragma unroll
+      for (int s = 0; s < RT; ++s) {
+        float u[3][2];                // unit[d] of receivers 8 s + 2 t, + 1
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(gj + (kTcKR + d) * RN + 8 * s + 2 * t);
+          u[d][0] = x.x;
+          u[d][1] = x.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, c = e % 2;
+          acc[s][e][0] = fmaf(filt[s][1][e], pay[h][1], acc[s][e][0]);
+          const float p0 = filt[s][0][e] * pay[h][0], p2 = filt[s][2][e] * pay[h][2];
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            acc[s][e][1 + d] = fmaf(p2, u[d][c], fmaf(p0, pay[h][3 + d], acc[s][e][1 + d]));
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int s = 0; s < RT; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + 8 * s + 2 * t + e % 2, f = fw + g + 8 * (e / 2);
+      if (i >= N || f >= F) continue;
+      const size_t row = (size_t)b * N + i;
+      ds[row * F + f] = acc[s][e][0];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dv[(row * 3 + d) * F + f] = acc[s][e][1 + d];
+    }
+}
+
 // Warps of a block: kFwdRows receivers (forward) and kBwdRows nodes
 // (backward) per warp; the wide backward's kBwdTogether nodes per warp.
 int fwd_warps(int N) { return std::min(kFwdMaxWarps, (N + kFwdRows - 1) / kFwdRows); }
@@ -968,6 +1251,18 @@ int with_shape(int S, int RA, Fn&& fn) {
   if (S == 4)
     return with_ra(RA, [&](auto ra_c) { return fn(std::integral_constant<int, 4>{}, ra_c); });
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core forward takes a launch of S = 3, R+1 <= 16 and N >=
+// kTcMinN; fused_message_fwd and fused_message_route ask this.
+bool tc_route(int N, int S, int RA) { return S == 3 && RA <= kTemplateMaxRA && N >= kTcMinN; }
+
+// Run fn(integral_constant<KK>) for the tensor-core forward's basis steps:
+// KK = ceil(RA / kTcK), 1 or 2 for RA in 2..16.
+template <typename Fn>
+int with_tc(int RA, Fn&& fn) {
+  if (RA <= kTcK) return fn(std::integral_constant<int, 1>{});
+  return fn(std::integral_constant<int, 2>{});
 }
 
 // Run fn(integral_constant<S>, integral_constant<C>) for the runtime S and
@@ -994,12 +1289,33 @@ int with_wide(int S, int RA, Fn&& fn) {
 }  // namespace
 }  // namespace cgvae
 
+// 1 when a forward launch of (B, N, S, R+1) takes the tensor-core kernel,
+// else 0.
+extern "C" int fused_message_route(int B, int N, int S, int RA) {
+  return B > 0 && N > 0 && cgvae::tc_route(N, S, RA) ? 1 : 0;
+}
+
 extern "C" int fused_message_fwd(
     const void* xyz, const void* mask, const void* phi, const void* v,
     const void* w, void* ds, void* dv, int B, int N, int S, int F, int RA,
     float cutoff, void* stream) {
   using namespace cgvae;
   if (B <= 0 || N <= 0) return 0;
+  if (fused_message_route(B, N, S, RA)) {
+    constexpr int rn = 8 * kTcTiles;
+    const dim3 grid((unsigned)((F + kTcF - 1) / kTcF), (unsigned)((N + rn - 1) / rn), (unsigned)B);
+    return with_tc(RA, [&](auto kk_c) {
+      constexpr int kKK = decltype(kk_c)::value;
+      const size_t smem = sizeof(float4) * rn + sizeof(float) * kTcCols * (tc_geo(rn) + 6 * kTcF);
+      static int allowed[kMaxDevices] = {};
+      const int err = allow_smem(fused_message_tc_kernel<kKK>, smem, allowed);
+      if (err != 0) return err;
+      fused_message_tc_kernel<kKK><<<grid, kTcWarps * kLanes, smem, (cudaStream_t)stream>>>(
+          (const float*)xyz, (const float*)mask, (const float*)phi, (const float*)v,
+          (const float*)w, (float*)ds, (float*)dv, N, F, RA, cutoff);
+      return (int)cudaGetLastError();
+    });
+  }
   if (RA > kTemplateMaxRA) {
     const int warps = fwd_warps(N), rows = warps * kFwdRows;
     const dim3 grid((unsigned)((F + kLanes - 1) / kLanes), (unsigned)((N + rows - 1) / rows),

@@ -29,12 +29,48 @@ constexpr int kMaxDevices = 64;
 // floats per pair record: K[0..RA-1], unit[0..2], padded to a multiple of 4
 __host__ __device__ constexpr int record_width(int RA) { return (RA + 3 + 3) / 4 * 4; }
 
-// The record of row node p against partner q (zeros when either lies past
-// N): K[r] for the pair, then unit = (x_q - x_p) / d, written as float4.
-// Returns the plain adjacency adj. nodes holds (x, y, z, mask); pi_c =
+// The pair of node a against partner c, each (x, y, z, mask), both below
+// N: k[r] = K[r] for r < RA and zeros on to KR, and unit = (x_c - x_a) / d.
+// self: a and c are one node. Returns the plain adjacency adj; pi_c =
 // pi / cutoff. One rsqrtf and one __sincosf per pair; the radial sines
 // follow by the angle-addition recurrence (relative error ~3e-6 against the
 // plain version's sin per basis function).
+template <int KR>
+__device__ __forceinline__ float pair_basis(float (&k)[KR], float (&unit)[3], float4 a,
+                                            float4 c, bool self, int RA, float cutoff,
+                                            float pi_c) {
+  const float r0 = c.x - a.x, r1 = c.y - a.y, r2 = c.z - a.z;
+  const float d2 = r0 * r0 + r1 * r1 + r2 * r2 + kEps;
+  const float inv_d = rsqrtf(d2);
+  const float d = d2 * inv_d;
+  unit[0] = r0 * inv_d;
+  unit[1] = r1 * inv_d;
+  unit[2] = r2 * inv_d;
+#pragma unroll
+  for (int r = 0; r < KR; ++r) k[r] = 0.f;
+  float adj = 0.f;
+  if (d < cutoff && !self) {
+    float s1, c1;                         // sin and cos of pi d / cutoff
+    __sincosf(pi_c * d, &s1, &c1);      // |error| < 4e-7 for arguments in [0, pi)
+    adj = a.w * c.w;
+    const float ae = adj * (0.5f * (c1 + 1.f));
+    const float ae_d = ae * inv_d;
+    float sk = s1, ck = c1;               // sin and cos of (r + 1) pi d / cutoff
+#pragma unroll
+    for (int r = 0; r < KR; ++r) {
+      k[r] = r < RA - 1 ? ae_d * sk : (r == RA - 1 ? ae : 0.f);
+      const float sn = sk * c1 + ck * s1;
+      ck = ck * c1 - sk * s1;
+      sk = sn;
+    }
+  }
+  return adj;
+}
+
+// The record of row node p against partner q (zeros when either lies past
+// N): K[r] for the pair, then unit = (x_q - x_p) / d, written as float4
+// (pair_basis). Returns the plain adjacency adj. nodes holds (x, y, z,
+// mask).
 template <int RA>
 __device__ __forceinline__ float pair_record(float* __restrict__ rec,
                                              const float4* __restrict__ nodes,
@@ -45,30 +81,12 @@ __device__ __forceinline__ float pair_record(float* __restrict__ rec,
   for (int k = 0; k < W; ++k) out[k] = 0.f;
   float adj = 0.f;
   if (p < N && q < N) {
-    const float4 a = nodes[p], c = nodes[q];
-    const float r0 = c.x - a.x, r1 = c.y - a.y, r2 = c.z - a.z;
-    const float d2 = r0 * r0 + r1 * r1 + r2 * r2 + kEps;
-    const float inv_d = rsqrtf(d2);
-    const float d = d2 * inv_d;
-    out[RA + 0] = r0 * inv_d;
-    out[RA + 1] = r1 * inv_d;
-    out[RA + 2] = r2 * inv_d;
-    if (d < cutoff && p != q) {
-      float s1, c1;                       // sin and cos of pi d / cutoff
-      __sincosf(pi_c * d, &s1, &c1);    // |error| < 4e-7 for arguments in [0, pi)
-      adj = a.w * c.w;
-      const float ae = adj * (0.5f * (c1 + 1.f));
-      const float ae_d = ae * inv_d;
-      float sk = s1, ck = c1;             // sin and cos of (k + 1) pi d / cutoff
+    float k[RA], unit[3];
+    adj = pair_basis<RA>(k, unit, nodes[p], nodes[q], p == q, RA, cutoff, pi_c);
 #pragma unroll
-      for (int k = 0; k < RA - 1; ++k) {
-        out[k] = ae_d * sk;
-        const float sn = sk * c1 + ck * s1;
-        ck = ck * c1 - sk * s1;
-        sk = sn;
-      }
-      out[RA - 1] = ae;
-    }
+    for (int r = 0; r < RA; ++r) out[r] = k[r];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) out[RA + d] = unit[d];
   }
   float4* r4 = reinterpret_cast<float4*>(rec);
 #pragma unroll
@@ -77,11 +95,16 @@ __device__ __forceinline__ float pair_record(float* __restrict__ rec,
   return adj;
 }
 
-// 4-byte asynchronous copy global -> shared (cp.async), its group commit
-// and the wait until at most n groups are in flight.
+// 4-byte and 16-byte (both addresses 16-byte aligned; through L2 only)
+// asynchronous copies global -> shared (cp.async), their group commit and
+// the wait until at most n groups are in flight.
 __device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
+}
+__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int n>

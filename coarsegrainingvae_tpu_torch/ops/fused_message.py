@@ -14,7 +14,10 @@ adjacency, per-basis filters) stays inside the kernels
 
 The kernels take any n_rbf >= 1: R+1 in 2..16 as a template parameter,
 past it on the wide path, whose basis comes in chunks of at most 12
-functions and which keeps nothing per basis function in shared memory.
+functions and which keeps nothing per basis function in shared memory. At
+S = 3, R+1 <= 16 and many nodes (the library's ``fused_message_route``
+says which launches) the forward takes the tensor-core kernel, counted in
+``fused_message.tc_launches``.
 
 ``fused_message`` is differentiable: one ``torch.autograd.Function`` pairs
 the forward kernel with the backward kernel (``fused_message_vjp``) for
@@ -123,12 +126,20 @@ _SYMBOLS = {
     ),
     "fused_message_bwd_tiles": ([ctypes.c_int], ctypes.c_int),
     "fused_message_bwd_partials": ([ctypes.c_int] * 3, ctypes.c_int),
+    "fused_message_route": ([ctypes.c_int] * 4, ctypes.c_int),
 }
 
 
 def build():
     """Build (first call only) and load ``csrc/fused_message.cu``."""
     return cuda_build.load("fused_message", _SYMBOLS)
+
+
+def tensor_core_route(b: int, n: int, s: int, n_rbf: int) -> bool:
+    """Whether a CUDA forward launch of (B, N, S, n_rbf) takes the
+    tensor-core kernel: the library's own rule (``fused_message_route``;
+    builds it)."""
+    return bool(build().fused_message_route(b, n, s, n_rbf + 1))
 
 
 def _check_cuda_inputs(args: dict, n_rbf: int) -> Tuple[int, int, int, int]:
@@ -166,6 +177,7 @@ def _launch_forward(xyz, mask, phi, v, w, cutoff, n_rbf):
         )
     cuda_build.check(err, "fused_message")
     fused_message.launches += 1
+    fused_message.tc_launches += lib.fused_message_route(b, n, s, n_rbf + 1)
     return ds, dv
 
 
@@ -240,7 +252,8 @@ def fused_message(
     phi: (B, N, S, F) pre-split per-node features (S=3 painn, S=4 cross);
     w: (R+1, S, F) filter weights (last basis row = bias channel). All
     inputs float32. CUDA tensors launch the kernel (counted in
-    ``fused_message.launches``); CPU tensors take ``message_reference``.
+    ``fused_message.launches``, and in ``tc_launches`` on the tensor-core
+    route); CPU tensors take ``message_reference``.
     """
     device = xyz.device
     if device.type not in ("cpu", "cuda"):
@@ -250,3 +263,4 @@ def fused_message(
 
 fused_message.launches = 0
 fused_message_vjp.launches = 0
+fused_message.tc_launches = 0

@@ -8,6 +8,12 @@ one GPU.
     done
     python3 scripts/kernel_ab.py --parent build/parent                    # fused_message.cu
     python3 scripts/kernel_ab.py --parent build/parent --library pseudo   # fused_pseudo.cu
+    python3 scripts/kernel_ab.py --parent build/off --nodes 27 33 64 128 209
+
+``--nodes`` replaces the message shapes by chignolin's encoder shape (B 16,
+S 3, n_rbf 10, cutoff 25) at each node count: with a copy of the checkout's
+source whose tensor-core route is switched off as the other side, it
+measures where that route starts to pay.
 
 Builds the other source (any version with a backward: its d_w scratch holds
 the partial count that the library exports, ``fused_message_bwd_partials(B,
@@ -223,7 +229,14 @@ def main() -> int:
                     help="message: fused_message.cu; pseudo: fused_pseudo.cu")
     ap.add_argument("--pairs", type=int, default=4, help="alternating (parent, change) pairs")
     ap.add_argument("--launches", type=int, default=1000, help="launches per timed run, at most")
+    ap.add_argument("--nodes", type=int, nargs="+",
+                    help="message kernels only: chignolin's encoder shape at these node counts")
     args = ap.parse_args()
+    shapes = SHAPES[args.library]
+    if args.nodes:
+        if args.library != "message":
+            ap.error("--nodes takes the message library")
+        shapes = [(f"chignolin encoder N={n}", 16, n, 3, 25.0, 10) for n in args.nodes]
 
     import torch
 
@@ -244,11 +257,11 @@ def main() -> int:
         libs["parent"], logs["parent"] = parent.result()
     print(f"build: both libraries in {time.perf_counter() - t0:.2f} s", flush=True)
     for side, log in logs.items():
-        for ra in sorted({shape[5] + 1 for shape in SHAPES[library]}):
+        for ra in sorted({shape[5] + 1 for shape in shapes}):
             chip_smoke.print_ptxas(f"{side} R+1={ra}", log, ra)
 
     rows, load = [], None
-    for seed, (label, b, n, s, cut, n_rbf) in enumerate(SHAPES[library]):
+    for seed, (label, b, n, s, cut, n_rbf) in enumerate(shapes):
         t = inputs(library, b, n, s, n_rbf, seed)
         sides = {side: launchers(library, libs[side], t, cut) for side in ("parent", "change")}
         want = plain(library, t, cut)
@@ -291,7 +304,7 @@ def main() -> int:
         if load is None:
             load = sides["change"][1][0]
     clocks = clocks_under_load(load)
-    print(f"under load (change, {SHAPES[library][0][0]} backward): {clocks}", flush=True)
+    print(f"under load (change, {shapes[0][0]} backward): {clocks}", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"kernel_ab_{library}_{args.parent.resolve().name}.json").write_text(json.dumps(

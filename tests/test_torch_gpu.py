@@ -11,17 +11,21 @@ Without a CUDA device every test skips: the kernels are CUDA C++ for
 sm_90a and have no CPU or interpret mode (their plain versions and plain
 VJPs are held against the JAX package by tests/test_torch_kernels.py).
 """
+import re
+
 import pytest
 import torch
 
 from coarsegrainingvae_tpu_torch.config import ModelConfig
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+from coarsegrainingvae_tpu_torch.ops import cuda_build
 from coarsegrainingvae_tpu_torch.ops.fused_message import (
     fused_message,
     fused_message_vjp,
     message_reference,
     message_vjp_reference,
+    tensor_core_route,
 )
 from coarsegrainingvae_tpu_torch.ops.fused_pseudo import (
     fused_pseudo_message,
@@ -29,6 +33,7 @@ from coarsegrainingvae_tpu_torch.ops.fused_pseudo import (
     pseudo_reference,
     pseudo_vjp_reference,
 )
+from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
 torch.set_num_threads(1)
 
@@ -184,6 +189,74 @@ def test_message_vjp_weight_gradient_is_bit_identical_on_card(cuda_device, n):
     second = fused_message_vjp(*args, gs, gv, CUT, 8)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _tc_min_n() -> int:
+    """kTcMinN of csrc/fused_message.cu: the fewest nodes the tensor-core
+    forward takes."""
+    text = (cuda_build.CSRC / "fused_message.cu").read_text()
+    return int(re.search(r"constexpr int kTcMinN = (\d+);", text).group(1))
+
+
+# the tensor-core forward: chignolin's encoder shape with every pair live
+# (a 12-A box under the 25-A cutoff, no node masked); ragged N with masked
+# nodes and pairs past the cutoff, F not a multiple of 4 or of the
+# 64-feature block, R+1 of one basis step (7) and of two (16); the route's
+# threshold at R+1 3
+TC_CASES = {"chignolin": (16, 209, 600, 10, 25.0), "ragged 61": (3, 61, 70, 6, CUT),
+            "ragged 130": (3, 130, 40, 15, CUT), "threshold": (3, None, 24, 2, CUT)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tensor_core_message_kernel_matches_plain_on_card(cuda_device, case):
+    """The forward on the tensor-core route within 1e-4 of max|ref| of the
+    plain version in f32 (PyTorch's default: no TF32 in its matmuls),
+    counted on the route; the VJP at the same inputs too."""
+    b, n, f, r, cut = TC_CASES[case]
+    n = n or _tc_min_n()
+    args = _message_inputs(n, 3, 24, cuda_device, f=f, r=r, b=b)
+    if case == "chignolin":
+        g = torch.Generator().manual_seed(25)
+        args[0] = (torch.rand(b, n, 3, generator=g) * 12.0).to(cuda_device)
+        args[1] = torch.ones(b, n, device=cuda_device)
+    live = int(pair_filter_basis(args[0], args[1], cut, r)[1].sum())
+    if case == "chignolin":
+        assert live == b * n * (n - 1)
+    else:
+        assert 0 < live < b * n * (n - 1)
+    before = fused_message.tc_launches
+    out = fused_message(*args, cut, r)
+    ref = message_reference(*args, cut, r)
+    _close_rel(out, ref)
+    assert fused_message.tc_launches == before + 1
+    masked = args[1] == 0
+    if masked.any():
+        assert float(out[0][masked].abs().max()) == 0.0 and float(out[1][masked].abs().max()) == 0.0
+    gs, gv = _cotangents(ref, 26, cuda_device)
+    _close_rel(fused_message_vjp(*args, gs, gv, cut, r),
+               message_vjp_reference(*args, gs, gv, cut, r))
+
+
+@pytest.mark.gpu
+def test_tensor_core_route_takes_the_chignolin_encoder_alone_on_card(cuda_device):
+    """Chignolin's encoder shape takes the tensor-core route; the dipeptide's
+    N 27, the priors' M 3 and M 6, the cross decoder's S 4 (at M 6 and at
+    N 209), the wide basis and one node short of the threshold do not. The
+    backward never does."""
+    n_min = _tc_min_n()
+    for (b, n, s, r), routed in [((16, 209, 3, 10), True), ((2, n_min, 3, 6), True),
+                                 ((2, n_min - 1, 3, 6), False), ((8, 27, 3, 8), False),
+                                 ((8, 3, 3, 8), False), ((16, 6, 3, 10), False),
+                                 ((16, 6, 4, 10), False), ((2, 209, 4, 10), False),
+                                 ((2, 209, 3, 20), False)]:
+        args = _message_inputs(n, s, 27, cuda_device, f=40, r=r, b=b)
+        before = fused_message.tc_launches
+        ds, dv = fused_message(*args, CUT, r)
+        fused_message_vjp(*args, ds, dv, CUT, r)
+        torch.cuda.synchronize()
+        assert fused_message.tc_launches - before == int(routed), (b, n, s, r)
+        assert tensor_core_route(b, n, s, r) == routed
 
 
 @pytest.mark.gpu
@@ -465,7 +538,7 @@ def test_graph_ms_counts_only_launches_that_ran_on_card(cuda_device, per_graph, 
     want = 3 + per_graph * (1 + replays)
     assert rose == {"fused_message": want, "fused_message_vjp": want,
                     "fused_pseudo_message": 0, "fused_pseudo_vjp": 0, "fused_adam": 0,
-                    "fused_global_norm": 0}
+                    "fused_global_norm": 0, "fused_message_tc": 0}
 
 
 def _tiny_train_cfg(dec_type="pseudo"):
