@@ -13,8 +13,9 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
 - serve: dipeptide backmapping through ``Backmapper.backmap``;
 - train: ``Trainer.train_step`` at batch 128 over a ``DeviceDataset`` on the
   card (bench.py's recipe: Adam with bf16 moments, lr 3.2e-4, beta 0.05,
-  gamma 25, clip 0.01), 100 steps then 100 timed steps, a profiled window,
-  one f32 step held against the same step on the CPU, and a 2-epoch
+  gamma 25, clip 0.01), 200 steps (the loss falls; the last 100 held to
+  their launches), one f32 step held against the same step on the CPU
+  (and one at n_rbf 120, on the wide kernels), and a 2-epoch
   ``Trainer.fit``;
 - optimizer: the fused optimizer step (``ops.fused_adam``) against its
   plain version at the recipe's 51.4 M parameters and bf16 moments (clip
@@ -22,8 +23,8 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
   unchanged), both timed in CUDA graphs beside the kernel's bound;
 - captured: the epoch as one program (``Trainer.run_epoch_scan``): an
   eager and a captured epoch from the same state held bit for bit, then
-  ms/step, device busy and launches of the eager epoch against the
-  replayed one over 100 steps at batch 128 and 32;
+  one captured epoch of 100 steps at batch 128 and at 32 held to its
+  launches;
 - cgae: ``learn_map``'s 1,500 steps on the card against the CPU from the
   same numpy draws, then ``get_mapping("cgae")`` on the card, timed;
 - cv: the k-fold workflow, ``cli.run_cgvae.main`` (the README quickstart's
@@ -43,17 +44,16 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
 - steric: the committed ``examples/results/steric_ab`` recipes. The
   ``dip_full_c6_hprojecteval`` step (zeta 100, h_project_eval, zeta_warmup
   cut to 50): one f32 step card vs CPU mid-ramp, an eager and a captured
-  epoch bit for bit across the ramp's end, ms/step captured at batch 128
-  and 32 beside the captured phase's zeta-0 step; then ``run_cgvae`` with
+  epoch bit for bit across the ramp's end, a captured epoch at batch 128
+  and 32 held to its launches; then ``run_cgvae`` with
   the ``dip_full_z100`` flags plus ``--h_project_eval`` and the
   ``chig_full_z200w`` recipe (chignolin, 209 atoms, 6 beads, cross decoder
   dec 9, n_rbf 10, batch 16), one fold each cut in depth, read back by
   ``from_run``;
 - sparse: the sparse ``CGequiVAE`` at the same width, pseudo then pseudo2
   decoder: one f32 step card vs CPU, an eager and a captured epoch bit for
-  bit, ms/step, device busy and peak memory captured at batch 128 and 32
-  beside the dense model's, no kernel launched; then ``run_cgvae --sparse``
-  cut in depth and ``from_run(sparse=True)``;
+  bit, a captured epoch at batch 128 and 32 launching none of kernels 1-4;
+  then ``run_cgvae --sparse`` cut in depth and ``from_run(sparse=True)``;
 - native: the host C++ (``native/``) built with g++ on this machine, the
   cell list against the dense radius graph at N 300 and on the covid
   stand-in's frames (10,333 atoms, synthesised here and cached), the bond
@@ -94,8 +94,8 @@ enc 4 / dec 5, pseudo decoder, bf16 matmuls) from seeded random weights:
 - multigpu: data-parallel training and the halo stack (``parallel/``) on
   the one card. One rank of an NCCL process group through
   ``Trainer(mesh=make_mesh())``: its captured epoch, the all-reduce in the
-  graph, bit for bit the plain trainer's at batch 128 and 32, both timed
-  in turns, with the collective's bytes per step; then two spawned ranks
+  graph, bit for bit the plain trainer's at batch 128 and 32, with the
+  collective's bytes per step; then two spawned ranks
   sharing the card on gloo (NCCL refuses two ranks on one device): 3 f32
   steps at batch 128 against the one-rank run, ZeRO-1 against the
   replicated optimizer, each rank's kernel launches as counted; and on
@@ -125,14 +125,13 @@ spills, each kernel against its plain version (with, at the main path's
 shapes, its time and the plain version's from CUDA graph replays, and its
 roofline bound from ``kernel_cost``; the wide kernels, R+1 > 16, at n_rbf
 16, 20 and the largest each takes; the chignolin recipe's shapes), the
-serve, train and captured checks and timings, the cv phase's checks and
-its wall time by part, the runfiles, steric, sparse, hpo, multigpu,
-tensor and examples phases' checks and timings, the seconds of every phase, one JSON line with
-one entry per kernel and timed shape, and last one JSON line ``{"ok":
-true, "device": {...}}``. The profiles' tables go to
-``chiprun_out/train_profile.txt``, ``captured_profile_b{128,32}.txt`` and
-``sparse_{pseudo,pseudo2}_profile_b{128,32}.txt``, ``pcn_profile.txt``,
-``covid_profile_b2.txt``, ``diffpool_profile.txt`` and
+serve, train and captured checks, the cv phase's checks and its wall time
+by part, the runfiles, steric, sparse, hpo, multigpu, tensor and examples
+phases' checks (and the examples' timings), the seconds of every phase,
+one JSON line with one entry per kernel and timed shape, and last one
+JSON line ``{"ok": true, "device": {...}}``. The profiles' tables go to
+``chiprun_out/pcn_profile.txt``, ``covid_profile_b2.txt``,
+``diffpool_profile.txt`` and
 ``baseline_profile.txt``, the dipeptide data to ``chiprun_out/cv_data/``,
 the cv runs (the covid fold's too) to ``build/cv_smoke/``, the PCN, DiffPool,
 baseline and hpo runs to ``build/{pcn,diffpool,baseline,hpo}_smoke/``, the
@@ -157,6 +156,8 @@ from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from coarsegrainingvae_tpu_torch.ops import KERNELS, read_launches, reset_launches
+
 # kernel comparison: max |kernel - plain| / max |plain| per output (f32,
 # different summation order only; the backward's d_w also sums the batch in
 # another order)
@@ -179,7 +180,7 @@ TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS, PROFILE_STEPS = 128, 256, 100, 5
 # vs CPU, past the n_rbf 94 that the pseudo wrappers once refused
 WIDE_RBF, WIDEST_RBF, WIDE_TRAIN_RBF = 20, 512, 120
 # the captured phase: bench.py's batch and the README quickstart's, an
-# epoch of CAPTURE_STEPS steps timed eager and captured
+# epoch of CAPTURE_STEPS steps eager against captured, and captured alone
 CAPTURE_BATCHES, CAPTURE_STEPS = (128, 32), 100
 # the cgae phase: learn_map's 1,500 steps on 640 frames; card vs CPU on the
 # same draws, the final logits within 1e-3 of their range (f32 in another
@@ -204,7 +205,7 @@ CV_DIR = Path("build") / "cv_smoke"
 STERIC_RECIPES = Path(__file__).resolve().parent / "examples" / "results" / "steric_ab"
 STERIC_WARMUP = 50
 CHIG_BATCH, CHIG_RBF, CHIG_FRAMES, CHIG_EVALS = 16, 10, 160, 4
-# the sparse phase: eager vs captured, and each timed epoch, over
+# the sparse phase: eager vs captured, and each captured epoch, over
 # SPARSE_STEPS steps (its step is ~10x the dense one's and device-bound)
 SPARSE_STEPS = 20
 # the native phase: the cell list against the dense path on NATIVE_FRAMES
@@ -510,32 +511,16 @@ def check_kernels(cases=None, timer=None, extra=None) -> list:
     return timed
 
 
-def reset_counts() -> None:
-    from coarsegrainingvae_tpu_torch.ops import kernel_counters
-
-    for fn in kernel_counters():
-        fn.launches = 0
-
-
-def read_counts() -> dict:
-    """Launches by wrapper name, of every counter (``COUNTERS``)."""
-    from coarsegrainingvae_tpu_torch.ops import kernel_counters
-
-    return {fn.__name__: fn.launches for fn in kernel_counters()}
-
-
-# ops.kernel_counters() by name: kernels 1-4, the fused optimizer step (one
-# launch a train step outside ZeRO-1 and tensor parallelism), its norm
+# ops.LAUNCHES by name (ops.KERNELS): kernels 1-4, the fused optimizer step
+# (one launch a train step outside ZeRO-1 and tensor parallelism), its norm
 # alone (one a ZeRO-1 step), and kernel 1's launches on the tensor-core
 # route (the encoder on chignolin's atoms; none at the dipeptide's 27)
-COUNTERS = ("fused_message", "fused_message_vjp", "fused_pseudo_message", "fused_pseudo_vjp",
-            "fused_adam", "fused_global_norm", "fused_message_tc")
-MESSAGE_KERNELS = COUNTERS[:4]
+MESSAGE_KERNELS = KERNELS[:4]
 
 
 def counts(**launches: int) -> dict:
-    """Every counter's launches: those given by name, the others 0."""
-    return {**dict.fromkeys(COUNTERS, 0), **launches}
+    """Every kernel's launches: those given by name, the others 0."""
+    return {**dict.fromkeys(KERNELS, 0), **launches}
 
 
 @contextlib.contextmanager
@@ -600,7 +585,7 @@ def serve() -> dict:
     bm = Backmapper(model, mapping, z, cfg, device="cuda")
     bm.backmap(cg[0], n_samples=N_SAMPLES, seed=99)       # warm-up request
 
-    reset_counts()
+    reset_launches()
     outs, lat = [], []
     for q in range(N_REQUESTS):
         req = cg[q * FRAMES_PER_REQUEST:(q + 1) * FRAMES_PER_REQUEST]
@@ -609,7 +594,7 @@ def serve() -> dict:
         outs.append(bm.backmap(req, n_samples=N_SAMPLES, seed=q))
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t)
-    launches = read_counts()
+    launches = read_launches()
 
     ens = np.stack(outs)                     # (requests, frames, samples, N, 3)
     want = (N_REQUESTS, FRAMES_PER_REQUEST, N_SAMPLES, z.shape[0], 3)
@@ -726,7 +711,6 @@ def train() -> dict:
     from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
     from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
-    from coarsegrainingvae_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
     # bench.py::dipeptide_dataset
@@ -759,17 +743,10 @@ def train() -> dict:
         return state
 
     first, second = [], []
-    t = time.perf_counter()
     state = run(state, first)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t
-
-    reset_counts()
-    t = time.perf_counter()
+    reset_launches()
     state = run(state, second)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
-    launches = read_counts()
+    launches = read_launches()
 
     def series(rec, key):
         return torch.stack([m[key] for m in rec]).float().cpu().numpy()
@@ -777,11 +754,8 @@ def train() -> dict:
     loss = np.concatenate([series(first, "loss"), series(second, "loss")])
     recon = np.concatenate([series(first, "recon"), series(second, "recon")])
     skipped = float(series(first, "skipped").sum() + series(second, "skipped").sum())
-    ms = dt / TRAIN_STEPS * 1e3
-    print(f"train: {TRAIN_STEPS} steps in {warm_s:.2f} s, then {TRAIN_STEPS} timed steps in "
-          f"{dt:.3f} s: {ms:.3f} ms/step, {TRAIN_STEPS * TRAIN_BATCH / dt:.1f} samples/s "
-          f"(batch {TRAIN_BATCH}, bf16 matmuls, bf16 Adam moments)", flush=True)
-    print(f"train loss: first 10 mean {loss[:10].mean():.4f}, last 10 mean "
+    print(f"train: {2 * TRAIN_STEPS} steps at batch {TRAIN_BATCH} (bf16 matmuls, bf16 Adam "
+          f"moments); loss: first 10 mean {loss[:10].mean():.4f}, last 10 mean "
           f"{loss[-10:].mean():.4f}; recon first 10 {recon[:10].mean():.4f}, last 10 "
           f"{recon[-10:].mean():.4f} (not gated); skipped batches {skipped:.0f}", flush=True)
     if not np.isfinite(loss).all():
@@ -790,31 +764,10 @@ def train() -> dict:
         raise RuntimeError("the total loss did not fall over 200 steps")
     per_step = DENSE_PER_STEP
     expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    print(f"train launches over the {TRAIN_STEPS} timed steps: {launches} (expected {expect})",
+    print(f"train launches over the last {TRAIN_STEPS} steps: {launches} (expected {expect})",
           flush=True)
     if launches != expect:
         raise RuntimeError(f"train kernel launches {launches}, expected {expect}")
-
-    # where the time goes: a profiled window of a few steps
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for i in range(PROFILE_STEPS):
-            state, _ = tr.train_step(state, dds.gather(idx[i]), gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    p = profiling.device_profile(prof, wall_ms, PROFILE_STEPS)
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "train_profile.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-    print(f"train profile ({PROFILE_STEPS} steps, {wall_ms / PROFILE_STEPS:.3f} ms/step profiled): "
-          f"device busy {p['busy_ms'] / PROFILE_STEPS:.3f} ms/step = {100 * p['busy_share']:.1f} % "
-          f"of wall; {p['device_events_per_step']:.0f} device events and "
-          f"{p['host_launch_calls_per_step']:.0f} host launch calls per step", flush=True)
-    for name, ms_step, n in p["top"]:
-        print(f"  device {ms_step:.3f} ms/step, {n}/step: {name}", flush=True)
 
     grad_err, param_err = f32_step_card_vs_cpu(ds)
     print(f"train f32 step card vs CPU (batch 8): every gradient max|err|/max|ref| "
@@ -823,13 +776,13 @@ def train() -> dict:
     if not max(grad_err, param_err) <= TRAIN_RTOL:
         raise RuntimeError("the f32 train step on the card disagrees with the CPU")
     # the same step at n_rbf WIDE_TRAIN_RBF: all four kernels on their wide path
-    before = read_counts()
+    before = read_launches()
     grad_err, param_err = f32_step_card_vs_cpu(ds, cfg=ExperimentConfig(
         model=dipeptide_model_cfg(compute_dtype="float32", det=True, n_rbf=WIDE_TRAIN_RBF),
         data=DataConfig(batch_size=8),
         train=TrainConfig(lr=3.2e-4, beta=0.05, gamma=25.0, grad_clip=0.01,
                           adam_moment_dtype="bfloat16")))
-    wide_launches = {k: v - before[k] for k, v in read_counts().items()}
+    wide_launches = {k: v - before[k] for k, v in read_launches().items()}
     print(f"train f32 step card vs CPU at n_rbf {WIDE_TRAIN_RBF} (batch 8): every gradient "
           f"max|err|/max|ref| {grad_err:.3e}, every updated parameter {param_err:.3e} "
           f"(tolerance {TRAIN_RTOL:g}); launches {wide_launches}", flush=True)
@@ -841,14 +794,14 @@ def train() -> dict:
                            f"expected {per_step}")
 
     # Trainer.fit, 2 epochs on a 224/32 split
-    reset_counts()
+    reset_launches()
     fit_tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(2)), cfg,
                      device="cuda")
     fit_state = fit_tr.init_state(ds.batch(np.arange(TRAIN_BATCH)))
     t = time.perf_counter()
     fit_state, hist = fit_tr.fit(fit_state, ds.subset(np.arange(224)),
                                  ds.subset(np.arange(224, 256)), nepochs=2)
-    fit_launches = read_counts()
+    fit_launches = read_launches()
     if len(hist) != 2 or not all(np.isfinite(v) for row in hist for v in row.values()):
         raise RuntimeError(f"fit history is not 2 finite rows: {hist}")
     print(f"fit: 2 epochs in {time.perf_counter() - t:.2f} s, train_loss "
@@ -930,12 +883,11 @@ def optimizer_phase(device: str = "cuda") -> dict:
         return lambda: fn(params, flatten(grads) if flat else g, loss, count, mu, nu, lr,
                           5000.0, 0.01, 0.9, 0.999, 1e-8)
 
-    before = fa.fused_adam.launches
-    ms = {(name, flat): graph_ms(step(fn, flat), per_graph=10, replays=5,
-                                 counters=(fa.fused_adam,))
+    before = read_launches()["fused_adam"]
+    ms = {(name, flat): graph_ms(step(fn, flat), per_graph=10, replays=5)
           for name, fn in (("kernel", fa.fused_adam), ("plain", fa.fused_adam_reference))
           for flat in (False, True)}
-    launched = fa.fused_adam.launches - before
+    launched = read_launches()["fused_adam"] - before
     bound = {flat: fa.kernel_bytes(params, torch.bfloat16, flat) / HBM_BYTES_PER_S * 1e3
              for flat in (False, True)}
     row = {"name": "fused_adam", "parameters": n, "ms": ms[("kernel", False)],
@@ -1029,82 +981,27 @@ def eager_equals_captured(tr, state, cases, bs: int, label: str) -> None:
     tr.release_graphs()
 
 
-def timed_epochs(tr, state, dds, dds_prof, bs: int, per_step: dict, label: str,
-                 kinds=("eager", "captured", "eager", "captured"), profile_name=None):
-    """Epochs over ``dds`` (n_frames / bs steps) of each of ``kinds`` in turn (eager:
-    ``run_epoch_device``; captured: ``run_epoch_scan``, captured before the
-    first timed one), each held to ``per_step`` launches per step; then a
-    profiled PROFILE_STEPS-step epoch of each kind. Prints one line per
-    kind with ms/step, samples/s, device busy and the peak memory allocated
-    over the epochs. Returns (state, {kind: [ms/step]}, captured launches,
-    peak GB)."""
+def captured_epoch(tr, state, dds, bs: int, per_step: dict, label: str) -> dict:
+    """One captured epoch over ``dds`` (n_frames / bs steps; the capture
+    launches nothing and its warm-up is undone), held to ``per_step``
+    launches per step, its step count and a finite loss; the graphs are
+    released after. Returns its launches."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from coarsegrainingvae_tpu_torch.utils import profiling
 
     steps = dds.n_frames // bs
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    rng = np.random.default_rng(2)
-    timings, total = {}, dict.fromkeys(per_step, 0)
-    torch.cuda.reset_peak_memory_stats()
-    for kind in kinds:
-        if kind == "captured" and (id(dds), True) not in tr._programs:
-            state, _ = tr.run_epoch_scan(state, dds, gen, shuffle_rng=rng)  # capture
-        reset_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if kind == "eager":
-            state, m = tr.run_epoch_device(state, dds, gen, shuffle_rng=rng)
-        else:
-            state, m = tr.run_epoch_scan(state, dds, gen, shuffle_rng=rng)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        launches = read_counts()
-        expect = {k: v * steps for k, v in per_step.items()}
-        if launches != expect or m["n_steps"] != steps or not np.isfinite(m["loss"]):
-            raise RuntimeError(f"{label}{kind} epoch at batch {bs}: launches {launches} "
-                               f"(expected {expect}), n_steps {m['n_steps']}, loss {m['loss']}")
-        if kind == "captured":
-            for k in total:
-                total[k] += launches[k]
-        timings.setdefault(kind, []).append(dt / steps * 1e3)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    state, _ = tr.run_epoch_scan(state, dds_prof, gen)      # capture outside the window
-    busy = {}
-    for kind in dict.fromkeys(kinds):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if kind == "eager":
-                state, _ = tr.run_epoch_device(state, dds_prof, gen)
-            else:
-                state, _ = tr.run_epoch_scan(state, dds_prof, gen)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        busy[kind] = profiling.device_profile(prof, wall_ms, PROFILE_STEPS)
-        busy[kind]["wall_ms"] = wall_ms / PROFILE_STEPS
-        if kind == "captured" and profile_name:
-            (OUT_DIR / profile_name).write_text(
-                prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    reset_launches()
+    _, m = tr.run_epoch_scan(state, dds, torch.Generator(device="cuda").manual_seed(12),
+                             shuffle_rng=np.random.default_rng(2))
+    launches = read_launches()
     tr.release_graphs()
-    for kind in busy:
-        ms = timings[kind]
-        p = busy[kind]
-        print(f"{label}{kind} epoch, batch {bs}, {steps} steps: "
-              f"{', '.join(f'{x:.3f}' for x in ms)} ms/step, "
-              f"{', '.join(f'{bs * 1e3 / x:.1f}' for x in ms)} samples/s; profiled "
-              f"{PROFILE_STEPS} steps {p['wall_ms']:.3f} ms/step, device busy "
-              f"{p['busy_ms'] / PROFILE_STEPS:.3f} ms/step ({100 * p['busy_share']:.1f} %), "
-              f"{p['device_events_per_step']:.0f} device events and "
-              f"{p['host_launch_calls_per_step']:.0f} host launch calls per step; launches "
-              f"{per_step} per step; peak allocated {peak_gb:.3f} GB", flush=True)
-    if "captured" in busy:
-        for name, ms_step, n in busy["captured"]["top"]:
-            print(f"  {label}captured b{bs} device {ms_step:.3f} ms/step, {n}/step: {name}",
-                  flush=True)
-    return state, timings, total, peak_gb
+    expect = {k: v * steps for k, v in per_step.items()}
+    print(f"{label}captured epoch, batch {bs}, {steps} steps: loss {m['loss']:.4f}; launches "
+          f"{launches} (expected {expect})", flush=True)
+    if launches != expect or m["n_steps"] != steps or not np.isfinite(m["loss"]):
+        raise RuntimeError(f"{label}captured epoch at batch {bs}: launches {launches} "
+                           f"(expected {expect}), n_steps {m['n_steps']}, loss {m['loss']}")
+    return launches
 
 
 DENSE_PER_STEP = counts(fused_message=ENCODER_LAYERS + PRIOR_LAYERS,
@@ -1115,15 +1012,13 @@ DENSE_PER_STEP = counts(fused_message=ENCODER_LAYERS + PRIOR_LAYERS,
 OPTIMIZER_PER_STEP = counts(fused_adam=1)
 
 
-def captured() -> tuple:
+def captured() -> dict:
     """The epoch as one program (``Trainer.run_epoch_scan``): one epoch of
     the static step run eagerly and one replayed from its CUDA graph, from
     the same parameters, moments and generator state, held bit for bit
-    (one step, then CAPTURE_STEPS); then ms/step of the eager epoch
-    (``run_epoch_device``, the step in a Python loop) against the captured
-    one at batch 128 and 32, their device busy time per step, launches and
-    peak memory. Raises on any failed check. Returns (the captured epochs'
-    launches, {batch: (captured ms/step runs, peak GB)})."""
+    (one step, then CAPTURE_STEPS); then at batch 128 and 32 one captured
+    epoch of CAPTURE_STEPS steps held to its launches (``captured_epoch``).
+    Raises on any failed check. Returns the captured epochs' launches."""
     import numpy as np
     import torch
 
@@ -1131,8 +1026,7 @@ def captured() -> tuple:
     from coarsegrainingvae_tpu_torch.train.trainer import Trainer
 
     ds, dataset, _, _ = dipeptide_device_data()
-    total = dict.fromkeys(DENSE_PER_STEP, 0)
-    summary = {}
+    total = counts()
     for bs in CAPTURE_BATCHES:
         tr = Trainer(DenseCGVAE(train_cfg(bs).model, generator=torch.Generator().manual_seed(0)),
                      train_cfg(bs), device="cuda")
@@ -1140,15 +1034,10 @@ def captured() -> tuple:
         dds_long = dataset(bs * CAPTURE_STEPS)
         if bs == CAPTURE_BATCHES[0]:
             eager_equals_captured(tr, state, ((1, dataset(bs)), (CAPTURE_STEPS, dds_long)), bs, "")
-        state, timings, launches, peak = timed_epochs(
-            tr, state, dds_long, dataset(bs * PROFILE_STEPS), bs, DENSE_PER_STEP, "",
-            profile_name=f"captured_profile_b{bs}.txt")
-        for k in total:
-            total[k] += launches[k]
-        summary[bs] = (timings["captured"], peak)
+        total = add_counts(total, captured_epoch(tr, state, dds_long, bs, DENSE_PER_STEP, ""))
         del tr, state, dds_long
         torch.cuda.empty_cache()
-    return total, summary
+    return total
 
 
 def cgae_phase(device: str = "cuda", n_frames: int = CGAE_FRAMES,
@@ -1385,12 +1274,12 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
         "-nepochs", str(CV_EPOCHS)]
     run_cgvae.Trainer = RecordingTrainer
     try:
-        reset_counts()
+        reset_launches()
         t = time.perf_counter()
         with PartTimes(parts) as times:
             rows = run_cgvae.main(main_args)
         wall = time.perf_counter() - t
-        launches = read_counts()
+        launches = read_launches()
     finally:
         run_cgvae.Trainer = Trainer
     (run,) = [p for p in CV_DIR.iterdir() if p.name.startswith("run")]
@@ -1469,11 +1358,11 @@ def cv(device: str = "cuda", width: list = CV_WIDTH, n_frames: int = CV_FRAMES) 
     # one fold, one epoch, of the CLI's default decoder (cross)
     cross_args = CV_RECIPE + width + depth + [
         "-logdir", str(CV_DIR / "cross"), "-max_folds", "1", "-nepochs", "1"]
-    reset_counts()
+    reset_launches()
     t = time.perf_counter()
     cross_rows = run_cgvae.main(cross_args)
     cross_s = time.perf_counter() - t
-    cross_launches = read_counts()
+    cross_launches = read_launches()
     (cross_run,) = list(CV_DIR.glob("cross*"))
     check_cv_run(cross_run, 1, 1)
     expect = cv_expected_launches(width, n_frames, 1, 1, CV_EVALS, "cross")
@@ -1584,11 +1473,11 @@ def serve_converted(original: Path, converted: Path, device: str) -> tuple:
     cg = _segment_mean_np(np.repeat(orig.ref_xyz[None], 4, 0)
                           + np.random.default_rng(0).normal(size=(4,) + orig.ref_xyz.shape) * 0.2,
                           mapping, orig.cfg.model.n_cgs)
-    reset_counts()
+    reset_launches()
     t = time.perf_counter()
     got = conv.backmap(cg, n_samples=RUNFILES_SAMPLES, seed=3)
     seconds = time.perf_counter() - t
-    launches = read_counts()
+    launches = read_launches()
     want = orig.backmap(cg, n_samples=RUNFILES_SAMPLES, seed=3)
     same = got.shape == want.shape and bool(np.array_equal(got, want))
     line = (f"runfiles (b): from_run of the converted fold served {got.shape} in {seconds:.3f} s; "
@@ -1626,13 +1515,13 @@ def resume_one_epoch(fold: Path, device: str) -> tuple:
     state = trainer.init_state(ds_tr.batch(np.arange(min(cfg.data.batch_size, len(ds_tr)))))
     ckpt = CheckpointManager(str(fold / "ckpt"))
     step = ckpt.latest_step()
-    reset_counts()
+    reset_launches()
     t = time.perf_counter()
     state, history = trainer.fit(state, ds_tr, ds_val, nepochs=step + 2, ckpt=ckpt, resume=True)
     if device == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launches = read_counts()
+    launches = read_launches()
     if [h["epoch"] for h in history] != list(range(step + 2)):
         raise RuntimeError(f"runfiles: resumed epochs {[h['epoch'] for h in history]}")
     return {n: p.detach().cpu().clone() for n, p in state.params.items()}, launches, seconds
@@ -1775,12 +1664,12 @@ def cli_fold(args: list, label: str, dec_type: str, width: list, n_frames: int,
     logdir = CV_DIR / label
     run_cgvae.Trainer = RecordingTrainer
     try:
-        reset_counts()
+        reset_launches()
         t = time.perf_counter()
         rows = run_cgvae.main(args + ["-logdir", str(logdir), "-max_folds", "1",
                                       "-nepochs", str(epochs), "--device", device])
         wall = time.perf_counter() - t
-        launches = read_counts()
+        launches = read_launches()
     finally:
         run_cgvae.Trainer = Trainer
     (run,) = list(CV_DIR.glob(f"{label}*"))
@@ -1804,12 +1693,12 @@ def cli_fold(args: list, label: str, dec_type: str, width: list, n_frames: int,
     return launches
 
 
-def steric(dense: dict) -> dict:
+def steric() -> dict:
     """The steric recipes. The dip_full_c6_hprojecteval step (zeta 100,
     h_project_eval; zeta_warmup cut to STERIC_WARMUP): one f32 step card vs
     CPU mid-ramp, an eager and a captured epoch across the ramp's end bit
-    for bit, ms/step captured at batch 128 and 32 beside the zeta-0 step
-    of the captured phase; then run_cgvae with the dip_full_z100 flags
+    for bit, a captured epoch at batch 128 and 32 held to its launches;
+    then run_cgvae with the dip_full_z100 flags
     plus --h_project_eval, and the chig_full_z200w recipe at full width,
     each one fold cut in depth, read back by from_run. Raises on any
     failed check."""
@@ -1843,7 +1732,7 @@ def steric(dense: dict) -> dict:
     if not max(grad_err, param_err) <= TRAIN_RTOL:
         raise RuntimeError("the f32 steric step on the card disagrees with the CPU")
 
-    total = dict.fromkeys(DENSE_PER_STEP, 0)
+    total = counts()
     for bs in CAPTURE_BATCHES:
         cfg = recipe_cfg(name, bs, zeta_warmup=STERIC_WARMUP)
         tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
@@ -1852,15 +1741,8 @@ def steric(dense: dict) -> dict:
         dds_long = dataset(bs * CAPTURE_STEPS)
         if bs == CAPTURE_BATCHES[0]:
             eager_equals_captured(tr, state, ((CAPTURE_STEPS, dds_long),), bs, "steric ")
-        state, timings, launches, peak = timed_epochs(
-            tr, state, dds_long, dataset(bs * PROFILE_STEPS), bs, DENSE_PER_STEP, "steric ",
-            kinds=("captured", "captured"))
-        zeta0, zeta0_peak = dense[bs]
-        print(f"steric vs zeta 0, batch {bs}, captured: {', '.join(f'{x:.3f}' for x in timings['captured'])}"
-              f" vs {', '.join(f'{x:.3f}' for x in zeta0)} ms/step (the captured phase, this "
-              f"call); peak allocated {peak:.3f} vs {zeta0_peak:.3f} GB", flush=True)
-        for k in total:
-            total[k] += launches[k]
+        total = add_counts(total, captured_epoch(tr, state, dds_long, bs, DENSE_PER_STEP,
+                                                 "steric "))
         del tr, state, dds_long
         torch.cuda.empty_cache()
 
@@ -1886,12 +1768,11 @@ def steric(dense: dict) -> dict:
     return out
 
 
-def sparse(dense: dict) -> dict:
+def sparse() -> dict:
     """The sparse CGequiVAE at bench.py's width, pseudo decoder then
     pseudo2: one f32 step card vs CPU, an eager and a captured epoch bit
-    for bit, ms/step, device busy and peak memory captured at batch 128 and
-    32 beside the dense model's (the captured phase, this call), no kernel
-    launched; then run_cgvae --sparse cut in depth and from_run(sparse=True).
+    for bit, a captured epoch at batch 128 and 32 launching none of kernels
+    1-4; then run_cgvae --sparse cut in depth and from_run(sparse=True).
     Raises on any failed check."""
     import dataclasses
 
@@ -1924,18 +1805,8 @@ def sparse(dense: dict) -> dict:
                       flush=True)
                 eager_equals_captured(tr, state, ((1, dataset(bs)), (SPARSE_STEPS, dataset(
                     bs * SPARSE_STEPS))), bs, f"sparse {dec_type} ")
-            state, timings, launches, peak = timed_epochs(
-                tr, state, dataset(bs * SPARSE_STEPS), dataset(bs * PROFILE_STEPS), bs,
-                OPTIMIZER_PER_STEP,
-                f"sparse {dec_type} ", kinds=("captured", "captured"),
-                profile_name=f"sparse_{dec_type}_profile_b{bs}.txt")
-            for k in total:
-                total[k] += launches[k]
-            dense_ms, dense_peak = dense[bs]
-            print(f"sparse {dec_type} vs dense, batch {bs}, captured: "
-                  f"{', '.join(f'{x:.3f}' for x in timings['captured'])} vs "
-                  f"{', '.join(f'{x:.3f}' for x in dense_ms)} ms/step; peak allocated "
-                  f"{peak:.3f} vs {dense_peak:.3f} GB", flush=True)
+            total = add_counts(total, captured_epoch(tr, state, dataset(bs * SPARSE_STEPS), bs,
+                                                     OPTIMIZER_PER_STEP, f"sparse {dec_type} "))
             del tr, state
             torch.cuda.empty_cache()
     args = CV_RECIPE + CV_WIDTH + ["-ndata", str(CV_FRAMES), "-nsplits", str(CV_SPLITS),
@@ -2225,14 +2096,14 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
         a = run_pcn.build_parser().parse_args(flags)
         run_pcn.load_protein_items = timed_load
         try:
-            reset_counts()
+            reset_launches()
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             with counting(PCNTrainer) as n_steps:
                 rows = run_pcn.main(flags + ["-logdir", str(PCN_DIR / name), "--device", device])
             wall = time.perf_counter() - t
-            paths[f"pcn_{name}"] = read_counts()
+            paths[f"pcn_{name}"] = read_launches()
         finally:
             run_pcn.load_protein_items = real_load
         (run,) = list(PCN_DIR.glob(f"{name}_*"))
@@ -2321,7 +2192,7 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
     # the fused optimizer updates the moments and their count in place
     opt0 = [t.clone() for t in (state.opt_state.count, state.opt_state.mu, state.opt_state.nu)]
     after = []
-    before = read_counts()
+    before = read_launches()
     for _ in range(2):
         with torch.no_grad():
             for k, p in state.params.items():
@@ -2332,7 +2203,7 @@ def pcn_phase(device: str = "cuda", ndata: int = PCN_NDATA, epochs: int = PCN_EP
         new, _ = tr.train_step(state, batch, cam, quads, qmask, aux)
         after.append([p.detach().clone() for p in new.params.values()]
                      + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
-    two = {k: v - before[k] for k, v in read_counts().items()}
+    two = {k: v - before[k] for k, v in read_launches().items()}
     same = all(torch.equal(x, y) for x, y in zip(*after))
     print(f"pcn two steps from one state: parameters and moments bit for bit: {same}; "
           f"launches {two}", flush=True)
@@ -2450,14 +2321,14 @@ def covid_phase(device: str = "cuda", n_frames: int = COVID_FRAMES, width: tuple
     run_cgvae.Trainer = RecordingTrainer
     run_cgvae.build_dataset = recording_build
     try:
-        reset_counts()
+        reset_launches()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         with PartTimes(parts) as times:
             rows = run_cgvae.main(flags + depth)
         wall = time.perf_counter() - t
-        launches = read_counts()
+        launches = read_launches()
     finally:
         run_cgvae.Trainer = Trainer
         run_cgvae.build_dataset = real_build
@@ -2487,23 +2358,55 @@ def covid_phase(device: str = "cuda", n_frames: int = COVID_FRAMES, width: tuple
 
     if not cuda:
         return {"covid": launches}
-    # the step: eager and captured epochs over the fold's train frames
+    # the step over the fold's train frames, cycled to PROFILE_STEPS steps:
+    # an eager epoch (the static step in a loop), two captured ones and a
+    # profiled captured one, each held to one fused optimizer step a step
+    from torch.profiler import ProfilerActivity, profile
+
+    from coarsegrainingvae_tpu_torch.data.device import epoch_index_batches
+    from coarsegrainingvae_tpu_torch.utils import profiling
+
     tr = trained[0]
     n_val = max(int(len(ds_train) * 0.1), 1)
     ds_tr = ds_train.subset(np.arange(n_val, len(ds_train)))
     bs = a.batch_size
-    steps = max(len(ds_tr) // bs, 1)
-    dds = DeviceDataset.from_dataset(ds_tr.subset(np.resize(np.arange(len(ds_tr)), steps * bs)),
-                                     "cuda")
-    dds_prof = DeviceDataset.from_dataset(
+    dds = DeviceDataset.from_dataset(
         ds_tr.subset(np.resize(np.arange(len(ds_tr)), PROFILE_STEPS * bs)), "cuda")
     state = tr.init_state(ds_tr.batch(np.arange(bs)))
-    _, timings, _, peak = timed_epochs(tr, state, dds, dds_prof, bs, OPTIMIZER_PER_STEP,
-                                       "covid ", kinds=("eager", "captured", "captured"),
-                                       profile_name=f"covid_profile_b{bs}.txt")
-    print(f"covid step, batch {bs}: eager {timings['eager'][0]:.3f} ms/step, captured "
-          f"{', '.join(f'{x:.3f}' for x in timings['captured'])} ms/step; step peak allocated "
-          f"{peak:.3f} GB (fold {peak_fold:.3f} GB)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    expect = {k: v * PROFILE_STEPS for k, v in OPTIMIZER_PER_STEP.items()}
+
+    def epoch_ms(capture: bool) -> float:
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = tr._run_program(state, dds, epoch_index_batches(dds.n_frames, bs, None), gen,
+                               True, capture)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if read_launches() != expect or not np.isfinite(m["loss"]):
+            raise RuntimeError(f"covid epoch (captured {capture}): launches {read_launches()} "
+                               f"(expected {expect}), loss {m['loss']}")
+        return dt / PROFILE_STEPS * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    epoch_ms(True)                               # the capture, untimed
+    eager, captured_ms = epoch_ms(False), [epoch_ms(True), epoch_ms(True)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = epoch_ms(True) * PROFILE_STEPS
+    tr.release_graphs()
+    p = profiling.device_profile(prof, wall_ms, PROFILE_STEPS)
+    (OUT_DIR / f"covid_profile_b{bs}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    print(f"covid step, batch {bs}, {PROFILE_STEPS}-step epochs: eager {eager:.3f} ms/step, "
+          f"captured {', '.join(f'{x:.3f}' for x in captured_ms)} ms/step; step peak allocated "
+          f"{peak:.3f} GB (fold {peak_fold:.3f} GB); profiled captured: device busy "
+          f"{p['busy_ms'] / PROFILE_STEPS:.3f} ms/step ({100 * p['busy_share']:.1f} %)",
+          flush=True)
+    for name, ms_step, n in p["top"]:
+        print(f"  covid captured b{bs} device {ms_step:.3f} ms/step, {n}/step: {name}",
+              flush=True)
     return {"covid": launches}
 
 
@@ -2709,7 +2612,7 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
           f"sample_hard {a.sample_hard}) cut in depth: ndata {full.ndata} -> {a.ndata}, nepochs "
           f"{full.nepochs} -> {a.nepochs}, n_pretrain {full.n_pretrain} -> {a.n_pretrain}, "
           f"folds {a.nsplits} of {a.nsplits}", flush=True)
-    reset_counts()
+    reset_launches()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -2717,7 +2620,7 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
         rows = run_diffpool.main(flags + ["-logdir", str(DIFFPOOL_DIR / "v6"), "--device",
                                           device])
     wall = time.perf_counter() - t
-    launches = read_counts()
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
     (run,) = list(DIFFPOOL_DIR.glob("v6_*"))
     check_finite_rows(run / "cv_stats.csv", DIFFPOOL_CV_COLUMNS, a.nsplits)
@@ -2781,7 +2684,7 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
     # the fused optimizer updates the moments and their count in place
     opt0 = [t.clone() for t in (state.opt_state.count, state.opt_state.mu, state.opt_state.nu)]
     after = []
-    before = read_counts()
+    before = read_launches()
     for _ in range(2):
         with torch.no_grad():
             for k, p in state.params.items():
@@ -2792,7 +2695,7 @@ def diffpool_phase(device: str = "cuda", ndata: int = DIFFPOOL_NDATA,
         new, _ = tr.train_step(dataclasses.replace(state, step=at), batch, (0, 1))
         after.append([p.detach().clone() for p in new.params.values()]
                      + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
-    two = {k: v - before[k] for k, v in read_counts().items()}
+    two = {k: v - before[k] for k, v in read_launches().items()}
     same = all(torch.equal(x, y) for x, y in zip(*after))
     print(f"diffpool two steps from one state: parameters and moments bit for bit: {same}; "
           f"launches {two}", flush=True)
@@ -2866,13 +2769,13 @@ def baseline_phase(device: str = "cuda", ndata: int = BASELINE_NDATA,
     full = run_baseline.build_parser().parse_args(recipe)
     flags = recipe + list(width) + ["-ndata", str(ndata), "-nepochs", str(epochs)]
     a = run_baseline.build_parser().parse_args(flags)
-    reset_counts()
+    reset_launches()
     t = time.perf_counter()
     with counting(BaselineTrainer) as n_steps:
         rows = run_baseline.main(flags + ["-logdir", str(BASELINE_DIR / "demo"), "--device",
                                           device])
     wall = time.perf_counter() - t
-    launches = read_counts()
+    launches = read_launches()
     (run,) = list(BASELINE_DIR.glob("demo_*"))
     check_finite_rows(run / "cv_stats.csv",
                       ["fold", "test_recon_rmsd", "test_graph", "test_loss", "test_recon"],
@@ -2974,7 +2877,7 @@ def hpo_phase(device: str = "cuda", recipe: list = HPO_RECIPE, width: tuple = ()
         trials.append(evaluate(*args))
         return trials[-1]
 
-    reset_counts()
+    reset_launches()
     hpo._evaluate = recording
     try:
         t = time.perf_counter()
@@ -2982,7 +2885,7 @@ def hpo_phase(device: str = "cuda", recipe: list = HPO_RECIPE, width: tuple = ()
         wall = time.perf_counter() - t
     finally:
         hpo._evaluate = evaluate
-    launches = read_counts()
+    launches = read_launches()
     log = HPO_DIR / ("hpo_asha_log.csv" if a.strategy == "asha" else "hpo_log.csv")
     _, rows = read_csv(log)
     failed = [(i, cfg.get("error")) for i, (cfg, _, bad, _) in enumerate(trials) if bad]
@@ -3015,9 +2918,9 @@ def hpo_rank(flags: list, space: dict) -> dict:
     from coarsegrainingvae_tpu_torch.cli import hpo
 
     hpo.CGVAE_SPACE = space
-    reset_counts()
+    reset_launches()
     best, value = hpo.main(flags)
-    return {"launches": read_counts(), "best": best, "value": value}
+    return {"launches": read_launches(), "best": best, "value": value}
 
 
 def hpo_on_ranks(device: str, flags: list) -> dict:
@@ -3121,7 +3024,7 @@ def multigpu_rank(device: str, cfg, ds, order, n_steps: int, ref_path: str, halo
         if cuda:
             torch.cuda.synchronize()
 
-    reset_counts()
+    reset_launches()
     mesh = make_mesh(device=device)
     bs = cfg.data.batch_size
     out = {"rank": mesh.rank, "transport": mesh.transport}
@@ -3147,7 +3050,7 @@ def multigpu_rank(device: str, cfg, ds, order, n_steps: int, ref_path: str, halo
         out["zero_ms" if zero else "ms"] = ms
         out["zero_moments" if zero else "moments"] = st.opt_state.mu.numel()
         del tr, st
-    out["launches"] = read_counts()
+    out["launches"] = read_launches()
     out["dp_err"] = worst_rel([trained[False][k] for k in ref], [ref[k] for k in ref])
     out["zero_equal"] = all(torch.equal(trained[True][k], trained[False][k]) for k in ref)
     out["zero_err"] = worst_rel([trained[True][k] for k in ref],
@@ -3181,23 +3084,22 @@ def multigpu_rank(device: str, cfg, ds, order, n_steps: int, ref_path: str, halo
 
 def multigpu_phase(device: str = "cuda", batches=CAPTURE_BATCHES, steps: int = MULTIGPU_STEPS,
                    model_kw=None, n_frames: int = TRAIN_FRAMES, train_batch: int = TRAIN_BATCH,
-                   halo_frame=None, dense=None) -> dict:
+                   halo_frame=None) -> dict:
     """Multi-GPU training (A14) on one card. (a) One rank of an NCCL
     process group (gloo on the CPU) through ``Trainer(mesh=make_mesh())``:
     at each of ``batches`` a ``steps``-step captured epoch, its all-reduce
     in the graph, held bit for bit to the plain trainer's from the same
-    weights and draws, then both timed in turns, with the bytes the
-    collective moves per step. (b) MULTIGPU_RANKS spawned ranks sharing the
-    card on gloo: MULTIGPU_TRAIN_STEPS f32 steps at ``train_batch`` against
-    the one-rank run, ZeRO-1 against the replicated optimizer, the kernels'
-    launches on each rank against their counts (none on the CPU, where the
-    wrappers run their plain versions). (c) On the same ranks the
-    halo stack on ``halo_frame`` = (xyz (N, 3), cutoff, n_rbf, activation,
-    feat_dim) (default: the covid stand-in's first frame at the covid
-    recipe's width and cutoff) against the unsharded ``EquiStack`` on the
-    device, with each rank's peak memory. ``dense`` is the captured
-    phase's summary, printed beside. Raises on any failed check; returns
-    {"multigpu": the launches of (a) and of every rank in (b)}."""
+    weights and draws, with the bytes the collective moves per step. (b)
+    MULTIGPU_RANKS spawned ranks sharing the card on gloo:
+    MULTIGPU_TRAIN_STEPS f32 steps at ``train_batch`` against the one-rank
+    run, ZeRO-1 against the replicated optimizer, the kernels' launches on
+    each rank against their counts (none on the CPU, where the wrappers run
+    their plain versions). (c) On the same ranks the halo stack on
+    ``halo_frame`` = (xyz (N, 3), cutoff, n_rbf, activation, feat_dim)
+    (default: the covid stand-in's first frame at the covid recipe's width
+    and cutoff) against the unsharded ``EquiStack`` on the device, with each
+    rank's peak memory. Raises on any failed check; returns {"multigpu":
+    the launches of (a) and of every rank in (b)}."""
     import dataclasses
 
     import numpy as np
@@ -3215,13 +3117,8 @@ def multigpu_phase(device: str = "cuda", batches=CAPTURE_BATCHES, steps: int = M
     t_phase = time.perf_counter()
     cuda = device == "cuda"
     model_kw = model_kw or {}
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-
     ds, dataset, _, _ = dipeptide_device_data(device, n_frames)
-    total = dict.fromkeys(DENSE_PER_STEP, 0)
+    total = counts()
     model = dipeptide_model_cfg(**model_kw)
     per_step = counts(fused_message=2 * model.enc_nconv, fused_message_vjp=2 * model.enc_nconv,
                       fused_pseudo_message=model.dec_nconv, fused_pseudo_vjp=model.dec_nconv,
@@ -3239,9 +3136,9 @@ def multigpu_phase(device: str = "cuda", batches=CAPTURE_BATCHES, steps: int = M
                              cfg, device=device, mesh=on)
                 st = tr.init_state(ds.batch(np.arange(bs)))
                 gen = torch.Generator(device=device).manual_seed(11)
-                reset_counts()
+                reset_launches()
                 st, _ = tr._run_program(st, dds, idx, gen, True, tr.captures)
-                launches = read_counts()
+                launches = read_launches()
                 prog = tr._programs[(id(dds), True)]
                 runs[label] = dict(tr=tr, st=st, launches=launches, keys=prog.keys,
                                    metrics=prog.metrics[:steps].clone(), gen=gen.get_state(),
@@ -3269,23 +3166,6 @@ def multigpu_phase(device: str = "cuda", batches=CAPTURE_BATCHES, steps: int = M
             if not exact and not rel <= TRAIN_RTOL:
                 raise RuntimeError(f"multigpu: one rank disagrees with the plain trainer at "
                                    f"batch {bs}")
-            timings = {"plain": [], "one rank": []}
-            for label in ("plain", "one rank", "one rank", "plain"):
-                r = runs[label]
-                gen = torch.Generator(device=device).manual_seed(12)
-                sync()
-                t = time.perf_counter()
-                r["st"], _ = r["tr"]._run_program(r["st"], dds, idx, gen, True, r["tr"].captures)
-                sync()
-                timings[label].append((time.perf_counter() - t) / steps * 1e3)
-            beside = ""
-            if dense is not None and bs in dense:
-                beside = (f"; the captured phase, this call: "
-                          f"{', '.join(f'{x:.3f}' for x in dense[bs][0])} ms/step")
-            print(f"multigpu one rank, batch {bs}: "
-                  f"{', '.join(f'{x:.3f}' for x in timings['one rank'])} ms/step against the plain "
-                  f"trainer's {', '.join(f'{x:.3f}' for x in timings['plain'])} in turns{beside}",
-                  flush=True)
             for r in runs.values():
                 r["tr"].release_graphs()
             del runs, ref, got, dds
@@ -3407,7 +3287,7 @@ def tensor_rank(device: str, cfg, ds, order, n_steps: int, ref_path: str) -> dic
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    reset_launches()
     ms = []
     for i in range(n_steps):
         batch = ds.batch(order[i * bs:(i + 1) * bs]).to(device)
@@ -3420,7 +3300,7 @@ def tensor_rank(device: str, cfg, ds, order, n_steps: int, ref_path: str) -> dic
         ms.append((time.perf_counter() - t) * 1e3)
         if float(m["grad_ok"]) != 1.0:
             raise RuntimeError(f"rank {mesh.rank}: step {i} was rejected")
-    launches = read_counts()
+    launches = read_launches()
     ref = torch.load(ref_path, weights_only=True)
     shards = tr.shards(st)
     blocks = [mod.feature_split for mod in tr.model.modules()
@@ -3569,7 +3449,7 @@ def examples_phase(device: str = "cuda", kernel_f: int = 600, n_basis: int = 600
     shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
     EXAMPLES_DIR.mkdir(parents=True)
     dipeptide_data(device, CV_FRAMES)
-    reset_counts()
+    reset_launches()
     seconds, results = {}, {}
 
     def finite(*xs) -> bool:
@@ -3634,7 +3514,7 @@ def examples_phase(device: str = "cuda", kernel_f: int = 600, n_basis: int = 600
     results["profile_flagship"] = fl
     seconds["profile_flagship"] = time.perf_counter() - t
 
-    launched = read_counts()
+    launched = read_launches()
     if min(launched[k] for k in (*MESSAGE_KERNELS, "fused_adam")) == 0:
         raise RuntimeError(f"examples: a kernel was not launched on this path: {launched}")
     OUT_DIR.mkdir(exist_ok=True)
@@ -3706,14 +3586,13 @@ def main() -> int:
     paths["serve"] = phase("serve", serve)
     paths.update(phase("train", train))
     optimizer = phase("optimizer", optimizer_phase)
-    reset_counts()
-    paths["captured"], dense = phase("captured", captured)
+    paths["captured"] = phase("captured", captured)
     paths.update(phase("cv", cv))
     paths.update(phase("runfiles", runfiles_phase))
-    paths.update(phase("steric", steric, dense))
-    paths.update(phase("sparse", sparse, dense))
+    paths.update(phase("steric", steric))
+    paths.update(phase("sparse", sparse))
     paths.update(phase("hpo", hpo_phase))
-    paths.update(phase("multigpu", multigpu_phase, dense=dense))
+    paths.update(phase("multigpu", multigpu_phase))
     paths.update(phase("tensor", tensor_phase))
     paths.update(phase("examples", examples_phase))
     print(f"phase seconds: {seconds}; {time.perf_counter() - t0:.1f} s in all", flush=True)

@@ -22,14 +22,14 @@ Adam's moments and update are computed in float32 and every parameter
 moves by -lr * update. A rejected batch leaves parameters, moments and
 count as they were.
 
-CUDA tensors launch the kernel (counted in ``fused_adam.launches``) and are
+CUDA tensors launch the kernel (counted in ``ops.LAUNCHES``) and are
 updated in place: the returned count and moments are the ones passed in;
 inputs it does not take (float64, say) raise. CPU tensors take
 ``fused_adam_reference``, which returns new count and moments and leaves
 those passed in untouched. There is no other fallback.
 
-``fused_global_norm`` is the kernel's norm alone (counted in
-``fused_global_norm.launches``): ZeRO-1 clips its slice with it, so that
+``fused_global_norm`` is the kernel's norm alone (counted as
+``fused_global_norm``): ZeRO-1 clips its slice with it, so that
 its step keeps the bits of the replicated one.
 
 The kernel finds the parameters through a chunk table (``chunk_table``):
@@ -46,7 +46,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from coarsegrainingvae_tpu_torch.ops import cuda_build
+from coarsegrainingvae_tpu_torch.ops import LAUNCHES, cuda_build
 
 VEC = 8           # elements a thread takes a pass (csrc/fused_adam.cu::kVec)
 CHUNK = 8192      # most elements of a chunk: one block's work; a multiple of VEC
@@ -266,7 +266,7 @@ def fused_adam(params: Sequence[torch.Tensor], g: torch.Tensor, loss: torch.Tens
             lr.data_ptr(), thresh, max_norm, b1, 1.0 - b1, b2, 1.0 - b2, eps,
             scratch.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
     cuda_build.check(err, "fused_adam_step")
-    fused_adam.launches += 1
+    LAUNCHES["fused_adam"] += 1
     return count, mu, nu, ok
 
 
@@ -282,12 +282,8 @@ def fused_global_norm(g: torch.Tensor) -> torch.Tensor:
         err = lib.fused_adam_norm(g.data_ptr(), g.numel(), scratch.data_ptr(),
                                   torch.cuda.current_stream(g.device).cuda_stream)
     cuda_build.check(err, "fused_adam_norm")
-    fused_global_norm.launches += 1
+    LAUNCHES["fused_global_norm"] += 1
     return scratch[_LAYOUT[1]]
-
-
-fused_adam.launches = 0
-fused_global_norm.launches = 0
 
 
 def kernel_bytes(params: Sequence[torch.Tensor], moment_dtype: torch.dtype,

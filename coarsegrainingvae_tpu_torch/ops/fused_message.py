@@ -16,8 +16,8 @@ The kernels take any n_rbf >= 1: R+1 in 2..16 as a template parameter,
 past it on the wide path, whose basis comes in chunks of at most 12
 functions and which keeps nothing per basis function in shared memory. At
 S = 3, R+1 <= 16 and many nodes (the library's ``fused_message_route``
-says which launches) the forward takes the tensor-core kernel, counted in
-``fused_message.tc_launches``.
+says which launches) the forward takes the tensor-core kernel, counted
+also as ``fused_message_tc`` in ``ops.LAUNCHES``.
 
 ``fused_message`` is differentiable: one ``torch.autograd.Function`` pairs
 the forward kernel with the backward kernel (``fused_message_vjp``) for
@@ -33,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from coarsegrainingvae_tpu_torch.ops import cuda_build
+from coarsegrainingvae_tpu_torch.ops import LAUNCHES, cuda_build
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
 
@@ -176,8 +176,8 @@ def _launch_forward(xyz, mask, phi, v, w, cutoff, n_rbf):
             b, n, s, f, n_rbf + 1, float(cutoff), stream,
         )
     cuda_build.check(err, "fused_message")
-    fused_message.launches += 1
-    fused_message.tc_launches += lib.fused_message_route(b, n, s, n_rbf + 1)
+    LAUNCHES["fused_message"] += 1
+    LAUNCHES["fused_message_tc"] += lib.fused_message_route(b, n, s, n_rbf + 1)
     return ds, dv
 
 
@@ -189,7 +189,7 @@ def fused_message_vjp(
     """The message's VJP: (d_phi (B,N,S,F), d_v (B,N,3,F), d_w (R+1,S,F)).
 
     CUDA tensors launch the backward kernel (counted in
-    ``fused_message_vjp.launches``); CPU tensors take
+    ``ops.LAUNCHES``); CPU tensors take
     ``message_vjp_reference``.
     """
     device = xyz.device
@@ -217,7 +217,7 @@ def fused_message_vjp(
             b, n, s, f, r_aug, float(cutoff), stream,
         )
     cuda_build.check(err, "fused_message_vjp")
-    fused_message_vjp.launches += 1
+    LAUNCHES["fused_message_vjp"] += 1
     return d_phi, d_v, d_w
 
 
@@ -252,7 +252,7 @@ def fused_message(
     phi: (B, N, S, F) pre-split per-node features (S=3 painn, S=4 cross);
     w: (R+1, S, F) filter weights (last basis row = bias channel). All
     inputs float32. CUDA tensors launch the kernel (counted in
-    ``fused_message.launches``, and in ``tc_launches`` on the tensor-core
+    ``ops.LAUNCHES``, also as ``fused_message_tc`` on the tensor-core
     route); CPU tensors take ``message_reference``.
     """
     device = xyz.device
@@ -260,7 +260,3 @@ def fused_message(
         raise ValueError(f"fused_message runs on cpu or cuda, not {device}")
     return _FusedMessage.apply(xyz, mask, phi, v, w, cutoff, n_rbf)
 
-
-fused_message.launches = 0
-fused_message_vjp.launches = 0
-fused_message.tc_launches = 0

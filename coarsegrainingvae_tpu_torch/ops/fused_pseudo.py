@@ -33,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from coarsegrainingvae_tpu_torch.ops import cuda_build
+from coarsegrainingvae_tpu_torch.ops import LAUNCHES, cuda_build
 from coarsegrainingvae_tpu_torch.ops.geometry import pair_filter_basis
 
 # the sender payload of channels 2..8 (pallas_pseudo.py:54)
@@ -187,7 +187,7 @@ def _launch_forward(xyz, mask, phi, s, sbar, v, vbar, w, cutoff, n_rbf):
             b, m, f, n_rbf + 1, float(cutoff), stream,
         )
     cuda_build.check(err, "fused_pseudo_message")
-    fused_pseudo_message.launches += 1
+    LAUNCHES["fused_pseudo_message"] += 1
     return ds, dsbar, dv, dvbar
 
 
@@ -200,7 +200,7 @@ def fused_pseudo_vjp(
     """The pseudo message's VJP: (d_phi, d_s, d_sbar, d_v, d_vbar, d_w).
 
     CUDA tensors launch the backward kernel (counted in
-    ``fused_pseudo_vjp.launches``); CPU tensors take
+    ``ops.LAUNCHES``); CPU tensors take
     ``pseudo_vjp_reference``.
     """
     device = xyz.device
@@ -234,7 +234,7 @@ def fused_pseudo_vjp(
             b, m, f, r_aug, float(cutoff), stream,
         )
     cuda_build.check(err, "fused_pseudo_vjp")
-    fused_pseudo_vjp.launches += 1
+    LAUNCHES["fused_pseudo_vjp"] += 1
     return d_phi, d_s, d_sbar, d_v, d_vbar, d_w
 
 
@@ -271,14 +271,11 @@ def fused_pseudo_message(
 
     phi: (B, M, 9, F) pre-split per-node features; w: (R+1, 9, F) factored
     filter weights (last basis row = bias). All inputs float32. CUDA
-    tensors launch the kernel (counted in ``fused_pseudo_message.launches``);
-    CPU tensors take ``pseudo_reference``.
+    tensors launch the kernel (counted in ``ops.LAUNCHES``); CPU tensors
+    take ``pseudo_reference``.
     """
     device = xyz.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_pseudo_message runs on cpu or cuda, not {device}")
     return _FusedPseudo.apply(xyz, mask, phi, s, sbar, v, vbar, w, cutoff, n_rbf)
 
-
-fused_pseudo_message.launches = 0
-fused_pseudo_vjp.launches = 0

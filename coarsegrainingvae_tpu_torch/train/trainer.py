@@ -17,8 +17,8 @@ the CPU its plain version returns new ones. The skip-batch guard stays on
 the device: a rejected batch leaves the parameters, the moments and their
 step count unchanged, with no host synchronisation.
 
-The device-resident epoch (``run_epoch_scan``, ``run_epoch_scan_eval``,
-``run_epoch_streamed``; the JAX package's epoch as one ``lax.scan``) runs a
+The device-resident epoch (``run_epoch_scan``, ``run_epoch_scan_eval``;
+the JAX package's epoch as one ``lax.scan``) runs a
 step written against static buffers (``_EpochProgram``): it gathers its
 batch from a device index table at a device step counter and writes the
 optimizer state and its metrics into tensors whose addresses never change.
@@ -92,7 +92,7 @@ from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
 from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
 from coarsegrainingvae_tpu_torch.models.cgvae import flatten_batch, project_batch_h_bonds
-from coarsegrainingvae_tpu_torch.ops import kernel_counters
+from coarsegrainingvae_tpu_torch.ops import GraphLaunches
 from coarsegrainingvae_tpu_torch.ops.fused_adam import (
     accepted,
     add_updates_,
@@ -271,9 +271,6 @@ def _mean(values: List[torch.Tensor]) -> float:
     return float(np.mean(torch.stack(values).float().cpu().numpy()))
 
 
-# the per-frame arrays run_epoch_streamed copies into its chunk buffers
-STREAMED_FIELDS = ("xyz", "cg_xyz", "nbrs", "nbr_mask", "cg_nbrs", "cg_nbr_mask")
-
 # eager steps on a side stream before a capture: the lazy set-up (kernel
 # builds and their shared-memory limits, cuBLAS handles and workspaces,
 # autograd's device threads) happens there, not inside the capture
@@ -309,7 +306,7 @@ class _EpochProgram:
         self.state: Optional[TrainState] = None
         self.graph = None
         self.graph_generator: Optional[torch.Generator] = None
-        self.launches: Optional[List[int]] = None     # per replay, counted at capture
+        self.graph_launches: Optional[GraphLaunches] = None
         self._generator: Optional[torch.Generator] = None
 
     def step(self) -> None:
@@ -354,8 +351,8 @@ class _EpochProgram:
     def _capture(self, source: torch.Generator) -> None:
         """Warm up on a side stream, capture one step, then undo the
         warm-up: parameters, moments and step as they were, the kernels'
-        launch counts as they were. A replay adds the counts of the capture
-        to them. Recorded as the span ``train.capture``."""
+        launch counts as they were (``ops.GraphLaunches``). Recorded as the
+        span ``train.capture``."""
         device = self.trainer.device
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError("this PyTorch lacks CUDAGraph.register_generator_state; the "
@@ -363,26 +360,26 @@ class _EpochProgram:
         gen = torch.Generator(device=device)
         gen.set_state(source.get_state())
         self._generator = gen
-        counters = kernel_counters()
-        before = [fn.launches for fn in counters]
         changed = (*self.state.params.values(), *_step_tensors(self.state)) if self.train else ()
         saved = [t.detach().clone() for t in changed]
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self.counter.zero_()
-                self.step()
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.counter.zero_()
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(gen)
-        counts = [fn.launches for fn in counters]
-        with torch.cuda.graph(graph):
-            self.step()
-        self.launches = [fn.launches - c for fn, c in zip(counters, counts)]
-        for fn, n in zip(counters, before):
-            fn.launches = n
+
+        def warm_up():
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self.counter.zero_()
+                    self.step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.counter.zero_()
+
+        def capture():
+            graph.register_generator_state(gen)
+            with torch.cuda.graph(graph):
+                self.step()
+
+        self.graph_launches = GraphLaunches(capture, warm_up)
         with torch.no_grad():
             for t, v in zip(changed, saved):
                 t.copy_(v)
@@ -412,11 +409,9 @@ class _EpochProgram:
             if self.graph is None:
                 self._capture(source)
             self.graph_generator.set_state(source.get_state())
-            counters = kernel_counters()
             for _ in range(n_steps):
                 self.graph.replay()
-                for fn, n in zip(counters, self.launches):
-                    fn.launches += n
+            self.graph_launches.replayed(n_steps)
             source.set_state(self.graph_generator.get_state())
         host = self.metrics[:n_steps].cpu().numpy()
         if self.marks is not None:
@@ -472,10 +467,8 @@ class Trainer:
             self._partial = [names.index(n) for n in split_messages(self.model,
                                                                     self.mesh.model_axis)]
         self.tx = make_optimizer(cfg.train.grad_clip, cfg.train.adam_moment_dtype)
-        # static-buffer epoch programs by (DeviceDataset, train), and the two
-        # chunk buffers of run_epoch_streamed; release_graphs frees them
+        # static-buffer epoch programs by (DeviceDataset, train); release_graphs frees them
         self._programs: Dict[Tuple[int, bool], _EpochProgram] = {}
-        self._stream_buffers = None
 
     # ------------------------------------------------------------------ init
     def init_state(self, batch: CGBatch) -> TrainState:
@@ -702,18 +695,6 @@ class Trainer:
         out["n_steps"] = n_steps
         return state, out
 
-    def run_epoch_device(
-        self, state: TrainState, dds: DeviceDataset,
-        generator: Optional[torch.Generator] = None, train: bool = True,
-        shuffle_rng: Optional[np.random.Generator] = None,
-    ) -> Tuple[TrainState, Dict[str, float]]:
-        """Epoch over a DeviceDataset: the epoch's (S, B) frame indices go to
-        the device once; each step gathers its batch there."""
-        batches = epoch_index_batches(
-            dds.n_frames, self.cfg.data.batch_size, shuffle_rng if train else None)
-        idx = torch.as_tensor(batches, dtype=torch.long).to(self.device)
-        return self._run_batches(state, (dds.gather(i) for i in idx), generator, train)
-
     # ------------------------------------------- the epoch as one program
     def _run_program(self, state: Optional[TrainState], dds: DeviceDataset,
                      batches: np.ndarray, generator: Optional[torch.Generator],
@@ -747,79 +728,6 @@ class Trainer:
         ``state.params`` holds."""
         batches = epoch_index_batches(dds.n_frames, self.cfg.data.batch_size, None)
         return self._run_program(None, dds, batches, generator, False, self.captures)[1]
-
-    def run_epoch_streamed(
-        self, state: TrainState, dataset: CGDatasetArrays,
-        generator: Optional[torch.Generator], chunk_frames: int,
-        shuffle_rng: Optional[np.random.Generator] = None,
-    ) -> Tuple[TrainState, Dict[str, float]]:
-        """Epoch over a dataset too large for device memory: the frames go
-        to the device in chunks, each trained as one program, chunk c
-        drawing from a generator seeded from (the generator's seed, c) as
-        the JAX package folds c into its key. Two static chunk buffers
-        alternate; on a CUDA device the next chunk's copy runs from pinned
-        memory on a side stream while this chunk's steps replay, and the
-        replays wait for its event. chunk_frames should be a multiple of
-        the batch size; a tail chunk cycles as usual."""
-        bs = self.cfg.data.batch_size
-        order = np.arange(len(dataset))
-        if shuffle_rng is not None:
-            shuffle_rng.shuffle(order)
-        chunks = [order[lo:lo + chunk_frames] for lo in range(0, len(order), chunk_frames)
-                  if len(order) - lo >= bs or lo == 0]
-        seed = generator.initial_seed() if generator is not None else torch.initial_seed()
-        cap = max(len(c) for c in chunks)
-        if self._stream_buffers is None or self._stream_buffers[0] is not dataset \
-                or self._stream_buffers[1] < cap:
-            self._stream_buffers = (dataset, cap, [
-                DeviceDataset.from_dataset(dataset.subset(order[:cap]), self.device)
-                for _ in range(2)])
-        buffers = self._stream_buffers[2]
-        cuda = self.device.type == "cuda"
-        copy_stream = torch.cuda.Stream(self.device) if cuda else None
-        ready: List[Optional[torch.cuda.Event]] = [None, None]
-        pinned = []                  # host copies kept alive until their copy ends
-
-        def fill(c: int) -> None:
-            buf, idx = buffers[c % 2], chunks[c]
-            host = [torch.from_numpy(np.ascontiguousarray(getattr(dataset, k)[idx])).to(
-                getattr(buf, k).dtype) for k in STREAMED_FIELDS]
-            dests = [getattr(buf, k)[:len(idx)] for k in STREAMED_FIELDS]
-            if cuda:
-                host = [h.pin_memory() for h in host]
-                pinned.append(host)
-                # the replays that read this buffer (chunk c - 2) come first
-                copy_stream.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(copy_stream):
-                    for dest, h in zip(dests, host):
-                        dest.copy_(h, non_blocking=True)
-                    ready[c % 2] = torch.cuda.Event()
-                    ready[c % 2].record(copy_stream)
-            else:
-                for dest, h in zip(dests, host):
-                    dest.copy_(h)
-            buf.n_frames = len(idx)
-
-        agg: Dict[str, list] = {}
-        n_steps = 0
-        fill(0)
-        for c in range(len(chunks)):
-            if c + 1 < len(chunks):
-                fill(c + 1)          # enqueued before this chunk's steps
-            if cuda:
-                torch.cuda.current_stream(self.device).wait_event(ready[c % 2])
-            state, m = self.run_epoch_scan(state, buffers[c % 2],
-                                           derived_generator(self.device, seed, c))
-            steps = m.pop("n_steps")
-            n_steps += steps
-            for k, v in m.items():
-                agg.setdefault(k, []).append((v, steps))
-        if cuda:
-            torch.cuda.current_stream(self.device).synchronize()
-        out = {k: float(sum(v * w for v, w in vs) / sum(w for _, w in vs))
-               for k, vs in agg.items()}
-        out["n_steps"] = n_steps
-        return state, out
 
     def shards(self, state: TrainState) -> Dict[str, torch.Tensor]:
         """Under tensor parallelism, this model rank's shard of every
@@ -869,12 +777,11 @@ class Trainer:
             count=opt.count, mu=own(opt.mu), nu=own(opt.nu)))
 
     def release_graphs(self) -> None:
-        """Free the captured graphs, their memory pools and the chunk
-        buffers; the next epoch program captures anew."""
+        """Free the captured graphs and their memory pools; the next epoch
+        program captures anew."""
         for prog in self._programs.values():
             prog.release()
         self._programs.clear()
-        self._stream_buffers = None
 
     def run_epoch(
         self, state: TrainState, dataset: CGDatasetArrays,
@@ -892,15 +799,14 @@ class Trainer:
         valset: CGDatasetArrays,
         log_fn: Optional[Callable[[Dict[str, float]], None]] = None,
         nepochs: Optional[int] = None, ckpt=None, resume: bool = False,
-        on_device: bool = True,
     ) -> Tuple[TrainState, list]:
         """Training run with the LOWESS plateau LR and early stopping;
-        returns (final state, per-epoch history rows). on_device=True holds
-        both splits on the device (DeviceDataset) and runs each epoch as one
-        program (``run_epoch_scan``, ``run_epoch_scan_eval``: on a CUDA
-        device replays of a captured step, freed when fit returns); False,
-        or a dataset with per-frame aux edges, streams host batches
-        through the eager step.
+        returns (final state, per-epoch history rows). Both splits are held
+        on the device (DeviceDataset) and each epoch runs as one program
+        (``run_epoch_scan``, ``run_epoch_scan_eval``: on a CUDA device
+        replays of a captured step, freed when fit returns); a dataset with
+        per-frame aux edges, which DeviceDataset does not hold, streams host
+        batches through the eager step (``run_epoch``).
 
         ckpt: an optional ``train.checkpoint.CheckpointManager``. The full
         train state is saved when the run stops, on the final epoch and
@@ -933,7 +839,7 @@ class Trainer:
         warm_epochs = -(-warm_steps // steps_per_epoch)
 
         dds_train = dds_val = None
-        if on_device and trainset.aux_bonds is None:
+        if trainset.aux_bonds is None:
             dds_train = DeviceDataset.from_dataset(trainset, self.device)
             dds_val = DeviceDataset.from_dataset(valset, self.device)
 

@@ -22,11 +22,12 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from coarsegrainingvae_tpu_torch.ops import GraphLaunches
 from coarsegrainingvae_tpu_torch.utils import tracing
 
 # host calls that put work on the device: kernels one at a time, or a graph
@@ -127,13 +128,11 @@ class Replays:
     """``per_graph`` calls of ``fn`` captured in one CUDA graph, after three
     warm-up calls on a side stream (lazy builds, autograd's first pass,
     ``torch.compile``). ``fn`` may run autograd; it draws random numbers only
-    from the default generator. ``counters`` are kernel wrappers with a
-    ``launches`` count: the warm-up calls launch their kernels and count
-    them; the capture records one graph's launches as ``per_replay`` and
-    puts each count back, since it launches nothing; ``replay`` adds
-    ``per_replay`` for every replay, which launches them."""
+    from the default generator. The kernels' launch counts (``ops.LAUNCHES``)
+    take the warm-up calls, which launch, and every replay, but not the
+    capture (``ops.GraphLaunches``)."""
 
-    def __init__(self, fn, per_graph: int = 1, counters: Sequence = ()):
+    def __init__(self, fn, per_graph: int = 1):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -141,32 +140,30 @@ class Replays:
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        self.counters = tuple(counters)
-        before = [c.launches for c in self.counters]
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            for _ in range(per_graph):
-                fn()
-        self.per_replay = [c.launches - n for c, n in zip(self.counters, before)]
-        for c, n in zip(self.counters, before):
-            c.launches = n
+
+        def capture():
+            with torch.cuda.graph(self.graph):
+                for _ in range(per_graph):
+                    fn()
+
+        self.graph_launches = GraphLaunches(capture)
 
     def replay(self, n: int = 1) -> None:
         for _ in range(n):
             self.graph.replay()
-        for c, k in zip(self.counters, self.per_replay):
-            c.launches += k * n
+        self.graph_launches.replayed(n)
 
     def reset(self) -> None:
         self.graph.reset()
 
 
-def graph_ms(fn, per_graph: int = 20, replays: int = 5, counters: Sequence = ()) -> float:
+def graph_ms(fn, per_graph: int = 20, replays: int = 5) -> float:
     """ms per call of ``fn``: ``per_graph`` calls captured in one CUDA graph
     (``Replays``), replayed ``replays`` times between two CUDA events, so
     the host's launch cost stays out of the time (device time, also at the
     small shapes)."""
-    run = Replays(fn, per_graph, counters)
+    run = Replays(fn, per_graph)
     run.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)

@@ -154,10 +154,9 @@ def replay_times(fn, steps: int, device: torch.device) -> tuple:
         for _ in range(steps):
             fn()
         return (time.perf_counter() - t) / steps * 1e3, dict(NO_DEVICE)
-    from coarsegrainingvae_tpu_torch.ops import kernel_counters
     from coarsegrainingvae_tpu_torch.utils.profiling import Replays
 
-    run = Replays(fn, 1, kernel_counters())
+    run = Replays(fn, 1)
     run.replay()
     torch.cuda.synchronize()
     t = time.perf_counter()

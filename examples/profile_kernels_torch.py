@@ -174,13 +174,13 @@ def check(kind: str, fns: dict, t: dict, cutoff: float, label: str) -> dict:
     return rel
 
 
-def timed_ms(fn, steps: int, device: torch.device, counters=()) -> float:
+def timed_ms(fn, steps: int, device: torch.device) -> float:
     """ms per call: CUDA-graph replays on the card, the host clock on the
     CPU."""
     if device.type == "cuda":
         from coarsegrainingvae_tpu_torch.utils.profiling import graph_ms
 
-        return graph_ms(fn, steps, REPLAYS, counters)
+        return graph_ms(fn, steps, REPLAYS)
     fn()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -207,8 +207,6 @@ def run_row(kind: str, b: int, n: int, f: int, steps: int, device: torch.device,
             compile_plain: bool = False) -> list:
     """The two JSON rows of one (kernel, shape): the plain version's
     (``*_xla_*``) and the kernels' (``*_pallas_*``)."""
-    from coarsegrainingvae_tpu_torch.ops import kernel_counters
-
     size = "M" if kind == "pseudo" else "N"
     label = f"{kind}_{{}}_B{b}_{size}{n}_F{f}"
     cutoff = CUTOFF[kind]
@@ -216,9 +214,7 @@ def run_row(kind: str, b: int, n: int, f: int, steps: int, device: torch.device,
     t = to_tensors(arrays, device)
     fns = paths(kind, compile_plain)
     rel = check(kind, fns, t, cutoff, label.format("pallas"))
-    counters = kernel_counters()
-    ms = {name: timed_ms(lambda fn=fn: step(kind, fn, t, cutoff)[0], steps, device,
-                         counters if name == "kernel" else ())
+    ms = {name: timed_ms(lambda fn=fn: step(kind, fn, t, cutoff)[0], steps, device)
           for name, fn in fns.items()}
     compiled = ms.get("compiled")
     plain_row = {"label": label.format("xla"), "ms_per_step": ms["plain"],

@@ -78,6 +78,7 @@ def main(argv=None) -> int:
     from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
     from coarsegrainingvae_tpu_torch.data.neighbors import radius_graph_frames
     from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
+    from coarsegrainingvae_tpu_torch.ops import read_launches, reset_launches
     from coarsegrainingvae_tpu_torch.parallel import halo
     from coarsegrainingvae_tpu_torch.parallel.mesh import (Mesh, all_reduce_, init_distributed,
                                                            local_device, make_mesh)
@@ -155,9 +156,9 @@ def main(argv=None) -> int:
                              device=device, mesh=on)
                 st = tr.init_state(ds.batch(np.arange(bs)))
                 gen = torch.Generator(device=device).manual_seed(11)
-                cs.reset_counts()
+                reset_launches()
                 st, _ = tr._run_program(st, dds, idx, gen, True, tr.captures)
-                runs[label] = dict(tr=tr, st=st, launches=cs.read_counts(),
+                runs[label] = dict(tr=tr, st=st, launches=read_launches(),
                                    params=[p.detach().clone() for p in st.params.values()],
                                    moments=st.opt_state.mu.numel())
             exact = all(torch.equal(x, y) for x, y in zip(runs["zero"]["params"],

@@ -88,28 +88,29 @@ def test_smoke_run_needs_a_card(capsys):
 @pytest.fixture
 def counted_plain(monkeypatch):
     """The kernels launch nothing on the CPU, so each plain version's calls
-    are counted in their place (a CUDA launch happens exactly where the
-    wrapper would call them), and the optimizer step's where the train step
-    calls the fused one; through chip_smoke's reset/read of counts. The
-    norm alone (ZeRO-1's) is counted on the card only."""
+    are counted in the launch ledger (``ops.LAUNCHES``) in their place (a
+    CUDA launch happens exactly where the wrapper would call them), and the
+    optimizer step's where the train step calls the fused one; chip_smoke
+    resets and reads the ledger as on the card. The norm alone (ZeRO-1's)
+    is counted on the card only. The ledger is put back after."""
+    from coarsegrainingvae_tpu_torch import ops
     from coarsegrainingvae_tpu_torch.ops import fused_message as mo
     from coarsegrainingvae_tpu_torch.ops import fused_pseudo as po
     from coarsegrainingvae_tpu_torch.train import trainer
 
-    calls = dict.fromkeys(chip_smoke.COUNTERS, 0)
+    saved = ops.read_launches()
     for mod, attr, name in ((mo, "message_reference", "fused_message"),
                             (mo, "message_vjp_reference", "fused_message_vjp"),
                             (po, "pseudo_reference", "fused_pseudo_message"),
                             (po, "pseudo_vjp_reference", "fused_pseudo_vjp"),
                             (trainer, "fused_adam", "fused_adam")):
         def counted(*args, _fn=getattr(mod, attr), _name=name, **kwargs):
-            calls[_name] += 1
+            ops.LAUNCHES[_name] += 1
             return _fn(*args, **kwargs)
 
         monkeypatch.setattr(mod, attr, counted)
-    monkeypatch.setattr(chip_smoke, "reset_counts", lambda: calls.update(dict.fromkeys(calls, 0)))
-    monkeypatch.setattr(chip_smoke, "read_counts", lambda: dict(calls))
-    return calls
+    yield ops.LAUNCHES
+    ops.LAUNCHES.update(saved)
 
 
 # the counters a dense model's training moves: kernels 1-4 and the optimizer

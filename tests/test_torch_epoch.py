@@ -1,6 +1,6 @@
 """The port's epoch as one program (``run_epoch_scan``,
-``run_epoch_scan_eval``, ``run_epoch_streamed``) against the JAX package's
-``lax.scan`` epochs, and against the port's own eager epoch.
+``run_epoch_scan_eval``) against the JAX package's ``lax.scan`` epochs, and
+against the port's own eager steps.
 
 Both packages run on the CPU at f32, on the same batches and the same
 converted parameters. On the CPU the port's static-buffer step runs in a
@@ -21,7 +21,7 @@ from coarsegrainingvae_tpu.train.trainer import Trainer as JaxTrainer
 from coarsegrainingvae_tpu_torch import config as tcfg
 from coarsegrainingvae_tpu_torch.convert import convert_flax_params
 from coarsegrainingvae_tpu_torch.data.dataset import CGDatasetArrays
-from coarsegrainingvae_tpu_torch.data.device import DeviceDataset
+from coarsegrainingvae_tpu_torch.data.device import DeviceDataset, epoch_index_batches
 from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
 from coarsegrainingvae_tpu_torch.train.checkpoint import CheckpointManager
 from coarsegrainingvae_tpu_torch.train.trainer import Trainer
@@ -83,10 +83,10 @@ def test_run_epoch_scan_matches_jax(small_dataset, tiny_model_cfg):
     assert int(state.step) == jm["n_steps"] == int(state.opt_state.count)
 
 
-def test_run_epoch_scan_equals_run_epoch_device(small_dataset, tiny_model_cfg):
-    """The static-buffer step in a loop against the eager epoch, with the
-    model's noise on: every metric, parameter, moment and counter bit for
-    bit."""
+def test_run_epoch_scan_equals_train_step_loop(small_dataset, tiny_model_cfg):
+    """The static-buffer step in a loop against ``train_step`` over the
+    same batches gathered on the device, with the model's noise on: every
+    metric's epoch mean, parameter, moment and counter bit for bit."""
     tc = tcfg.ExperimentConfig.from_json(_cfg(tiny_model_cfg, det=False).to_json())
     runs = []
     for scan in (True, False):
@@ -102,7 +102,14 @@ def test_run_epoch_scan_equals_run_epoch_device(small_dataset, tiny_model_cfg):
             if scan:
                 state, m = tr.run_epoch_scan(state, dds, gen, shuffle_rng=rng)
             else:
-                state, m = tr.run_epoch_device(state, dds, gen, shuffle_rng=rng)
+                batches = epoch_index_batches(dds.n_frames, BATCH, rng)
+                steps = []
+                for idx in torch.as_tensor(batches, dtype=torch.long):
+                    state, metrics = tr.train_step(state, dds.gather(idx), gen)
+                    steps.append(metrics)
+                m = {k: float(np.mean(torch.stack([s[k] for s in steps]).float().numpy()))
+                     for k in steps[0]}
+                m["n_steps"] = len(steps)
             epochs.append(m)
         runs.append((epochs, state, gen.get_state()))
     (m_scan, s_scan, g_scan), (m_dev, s_dev, g_dev) = runs
@@ -125,29 +132,6 @@ def test_run_epoch_scan_eval_matches_jax(small_dataset, tiny_model_cfg):
     assert m["n_steps"] == jm["n_steps"] == 2 and set(m) == set(jm)
     for k in jm:
         np.testing.assert_allclose(m[k], jm[k], rtol=LOSS_RTOL, atol=1e-6, err_msg=k)
-
-
-def test_run_epoch_streamed_matches_jax_and_the_full_scan(small_dataset, tiny_model_cfg):
-    """Chunks of 16 frames, no shuffle: JAX's streamed epoch within the
-    tolerance; the port's own full-dataset scan bit for bit (the same batch
-    sequence; det=True, so the per-chunk noise streams do not enter)."""
-    cfg = _cfg(tiny_model_cfg)
-    jtr, jstate, tr, state = _models(cfg, small_dataset)
-    jstate, jm = jtr.run_epoch_streamed(jstate, small_dataset, jax.random.PRNGKey(0),
-                                        chunk_frames=16, shuffle_rng=None)
-    tds = _port_dataset(small_dataset)
-    state, m = tr.run_epoch_streamed(state, tds, torch.Generator().manual_seed(0),
-                                     chunk_frames=16)
-    assert m["n_steps"] == jm["n_steps"] == len(small_dataset) // BATCH
-    np.testing.assert_allclose(m["loss"], jm["loss"], rtol=LOSS_RTOL)
-    _assert_params_match(tr, jstate, state)
-
-    _, _, full_tr, full_state = _models(cfg, small_dataset)
-    full_state, full_m = full_tr.run_epoch_scan(
-        full_state, DeviceDataset.from_dataset(tds, "cpu"), torch.Generator().manual_seed(0))
-    assert full_m["n_steps"] == m["n_steps"]
-    for k in full_state.params:
-        assert torch.equal(full_state.params[k], state.params[k]), k
 
 
 def test_fit_resume_equals_uninterrupted(small_dataset, tiny_model_cfg, tmp_path):

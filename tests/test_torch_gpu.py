@@ -19,7 +19,7 @@ import torch
 from coarsegrainingvae_tpu_torch.config import ModelConfig
 from coarsegrainingvae_tpu_torch.data.batch import CGBatch
 from coarsegrainingvae_tpu_torch.models.dense_cgvae import DenseCGVAE
-from coarsegrainingvae_tpu_torch.ops import cuda_build
+from coarsegrainingvae_tpu_torch.ops import LAUNCHES, cuda_build
 from coarsegrainingvae_tpu_torch.ops.fused_message import (
     fused_message,
     fused_message_vjp,
@@ -96,10 +96,10 @@ NODE_COUNTS = [1, 3, 11, 27, 32, 33, 70, 209]
 @pytest.mark.parametrize("n,s", [(n, s) for n in NODE_COUNTS for s in (3, 4)])
 def test_message_kernel_matches_plain_on_card(cuda_device, n, s):
     args = _message_inputs(n, s, 5, cuda_device)
-    before = fused_message.launches
+    before = LAUNCHES["fused_message"]
     out = fused_message(*args, CUT, R)
     torch.cuda.synchronize()
-    assert fused_message.launches == before + 1
+    assert LAUNCHES["fused_message"] == before + 1
     for a, b in zip(out, message_reference(*args, CUT, R)):
         torch.testing.assert_close(a, b, **TOL)
     # masked receivers, the whole last batch element among them, get exact zeros
@@ -126,10 +126,10 @@ PSEUDO_CASES = ([(m, F, R, B) for m in (1, 2, 3, 4, 6, 7, 70)]
 @pytest.mark.parametrize("m,f,r,b", PSEUDO_CASES)
 def test_pseudo_kernel_matches_plain_on_card(cuda_device, m, f, r, b):
     args = _pseudo_inputs(m, 6, cuda_device, f=f, r=r, b=b)
-    before = fused_pseudo_message.launches
+    before = LAUNCHES["fused_pseudo_message"]
     out = fused_pseudo_message(*args, CUT, r)
     torch.cuda.synchronize()
-    assert fused_pseudo_message.launches == before + 1
+    assert LAUNCHES["fused_pseudo_message"] == before + 1
     for a, b in zip(out, pseudo_reference(*args, CUT, r)):
         torch.testing.assert_close(a, b, **TOL)
     # masked receivers, the whole last batch element among them, get exact zeros
@@ -149,10 +149,10 @@ def _cotangents(like, seed, device):
 def test_message_vjp_kernel_matches_plain_on_card(cuda_device, n, s):
     args = _message_inputs(n, s, 8, cuda_device)
     gs, gv = _cotangents(message_reference(*args, CUT, R), 9, cuda_device)
-    before = fused_message_vjp.launches
+    before = LAUNCHES["fused_message_vjp"]
     out = fused_message_vjp(*args, gs, gv, CUT, R)
     torch.cuda.synchronize()
-    assert fused_message_vjp.launches == before + 1
+    assert LAUNCHES["fused_message_vjp"] == before + 1
     ref = message_vjp_reference(*args, gs, gv, CUT, R)
     _close_rel(out, ref)
     # masked nodes, the whole last batch element among them, get no gradient
@@ -225,11 +225,11 @@ def test_tensor_core_message_kernel_matches_plain_on_card(cuda_device, case):
         assert live == b * n * (n - 1)
     else:
         assert 0 < live < b * n * (n - 1)
-    before = fused_message.tc_launches
+    before = LAUNCHES["fused_message_tc"]
     out = fused_message(*args, cut, r)
     ref = message_reference(*args, cut, r)
     _close_rel(out, ref)
-    assert fused_message.tc_launches == before + 1
+    assert LAUNCHES["fused_message_tc"] == before + 1
     masked = args[1] == 0
     if masked.any():
         assert float(out[0][masked].abs().max()) == 0.0 and float(out[1][masked].abs().max()) == 0.0
@@ -251,11 +251,11 @@ def test_tensor_core_route_takes_the_chignolin_encoder_alone_on_card(cuda_device
                                  ((16, 6, 4, 10), False), ((2, 209, 4, 10), False),
                                  ((2, 209, 3, 20), False)]:
         args = _message_inputs(n, s, 27, cuda_device, f=40, r=r, b=b)
-        before = fused_message.tc_launches
+        before = LAUNCHES["fused_message_tc"]
         ds, dv = fused_message(*args, CUT, r)
         fused_message_vjp(*args, ds, dv, CUT, r)
         torch.cuda.synchronize()
-        assert fused_message.tc_launches - before == int(routed), (b, n, s, r)
+        assert LAUNCHES["fused_message_tc"] - before == int(routed), (b, n, s, r)
         assert tensor_core_route(b, n, s, r) == routed
 
 
@@ -264,10 +264,10 @@ def test_tensor_core_route_takes_the_chignolin_encoder_alone_on_card(cuda_device
 def test_pseudo_vjp_kernel_matches_plain_on_card(cuda_device, m, f, r, b):
     args = _pseudo_inputs(m, 10, cuda_device, f=f, r=r, b=b)
     cts = _cotangents(pseudo_reference(*args, CUT, r), 11, cuda_device)
-    before = fused_pseudo_vjp.launches
+    before = LAUNCHES["fused_pseudo_vjp"]
     out = fused_pseudo_vjp(*args, *cts, CUT, r)
     torch.cuda.synchronize()
-    assert fused_pseudo_vjp.launches == before + 1
+    assert LAUNCHES["fused_pseudo_vjp"] == before + 1
     _close_rel(out, pseudo_vjp_reference(*args, *cts, CUT, r))
     # masked nodes, the whole last batch element among them, get no gradient
     masked = args[1] == 0
@@ -301,14 +301,14 @@ def test_pseudo_kernels_match_plain_at_m300_on_card(cuda_device, f, r, b):
     reaches 1.5e-5 at an element near zero (3e-7 of the output's max), past
     the elementwise atol of 1e-5 the smaller cases hold."""
     args = _pseudo_inputs(300, 24, cuda_device, f=f, r=r, b=b)
-    before = (fused_pseudo_message.launches, fused_pseudo_vjp.launches)
+    before = (LAUNCHES["fused_pseudo_message"], LAUNCHES["fused_pseudo_vjp"])
     out = fused_pseudo_message(*args, CUT, r)
     ref = pseudo_reference(*args, CUT, r)
     cts = _cotangents(ref, 25, cuda_device)
     grads = fused_pseudo_vjp(*args, *cts, CUT, r)
     torch.cuda.synchronize()
-    assert (fused_pseudo_message.launches, fused_pseudo_vjp.launches) == (before[0] + 1,
-                                                                          before[1] + 1)
+    assert (LAUNCHES["fused_pseudo_message"], LAUNCHES["fused_pseudo_vjp"]) == (
+        before[0] + 1, before[1] + 1)
     _close_rel(out, ref)
     _close_rel(grads, pseudo_vjp_reference(*args, *cts, CUT, r))
     masked = args[1] == 0
@@ -347,10 +347,11 @@ def test_autograd_runs_both_kernels_on_card(cuda_device):
     margs = _message_inputs(11, 4, 12, cuda_device)
     for t in margs[2:]:
         t.requires_grad_(True)
-    before = (fused_message.launches, fused_message_vjp.launches)
+    before = (LAUNCHES["fused_message"], LAUNCHES["fused_message_vjp"])
     ds, dv = fused_message(*margs, CUT, R)
     (ds.sum() + dv.transpose(2, 3).square().sum()).backward()
-    assert (fused_message.launches, fused_message_vjp.launches) == (before[0] + 1, before[1] + 1)
+    assert (LAUNCHES["fused_message"], LAUNCHES["fused_message_vjp"]) == (
+        before[0] + 1, before[1] + 1)
     cpu = [t.detach().cpu().requires_grad_(t.requires_grad) for t in margs]
     ds, dv = fused_message(*cpu, CUT, R)
     (ds.sum() + dv.transpose(2, 3).square().sum()).backward()
@@ -359,10 +360,10 @@ def test_autograd_runs_both_kernels_on_card(cuda_device):
     pargs = _pseudo_inputs(3, 13, cuda_device)
     for t in pargs[2:]:
         t.requires_grad_(True)
-    before = fused_pseudo_vjp.launches
+    before = LAUNCHES["fused_pseudo_vjp"]
     ds, dsbar, dv, dvbar = fused_pseudo_message(*pargs, CUT, R)
     (ds.sum() + dv.square().sum()).backward()       # dsbar and dvbar unused
-    assert fused_pseudo_vjp.launches == before + 1
+    assert LAUNCHES["fused_pseudo_vjp"] == before + 1
 
 
 @pytest.mark.gpu
@@ -428,9 +429,9 @@ def _train_step_card_vs_cpu(cuda_device, n_rbf):
         tr = Trainer(DenseCGVAE(cfg.model, generator=torch.Generator().manual_seed(0)), cfg,
                      device=device)
         state = tr.init_state(batch)
-        before = (fused_message_vjp.launches, fused_pseudo_vjp.launches)
+        before = (LAUNCHES["fused_message_vjp"], LAUNCHES["fused_pseudo_vjp"])
         loss, _, grads = tr.loss_and_grads(state, batch.to(device))
-        after = (fused_message_vjp.launches, fused_pseudo_vjp.launches)
+        after = (LAUNCHES["fused_message_vjp"], LAUNCHES["fused_pseudo_vjp"])
         steps[str(device)] = (tr, state, loss, grads, (after[0] - before[0], after[1] - before[1]))
     assert steps["cpu"][4] == (0, 0) and steps["cuda"][4] == (4, 2)
     for got, want in zip(steps["cuda"][3], steps["cpu"][3]):
@@ -521,7 +522,6 @@ def test_graph_ms_counts_only_launches_that_ran_on_card(cuda_device, per_graph, 
     """Around ``graph_ms`` of fwd + bwd, each counter rises by the warm-up's
     three calls and the 1 + ``replays`` replays of ``per_graph`` calls; the
     capture launches nothing."""
-    from coarsegrainingvae_tpu_torch.ops import kernel_counters
     from coarsegrainingvae_tpu_torch.utils.profiling import graph_ms
 
     args = [*_message_inputs(27, 3, 15, cuda_device, f=64, r=8, b=4), 9.5, 8]
@@ -531,10 +531,9 @@ def test_graph_ms_counts_only_launches_that_ran_on_card(cuda_device, per_graph, 
         fused_message(*args)
         fused_message_vjp(*args[:-2], *cts, *args[-2:])
 
-    counters = kernel_counters()
-    before = [c.launches for c in counters]
-    graph_ms(step, per_graph, replays, counters)
-    rose = {c.__name__: c.launches - n for c, n in zip(counters, before)}
+    before = dict(LAUNCHES)
+    graph_ms(step, per_graph, replays)
+    rose = {k: n - before[k] for k, n in LAUNCHES.items()}
     want = 3 + per_graph * (1 + replays)
     assert rose == {"fused_message": want, "fused_message_vjp": want,
                     "fused_pseudo_message": 0, "fused_pseudo_vjp": 0, "fused_adam": 0,
@@ -666,14 +665,14 @@ WIDE_RBFS = [16, 17, 19, 31, 32, 47, 200, 201, 512]
 @pytest.mark.parametrize("n,s", [(n, s) for n in (3, 27, 209) for s in (3, 4)])
 def test_wide_message_kernels_at_the_chunk_edges_on_card(cuda_device, n, s, r):
     args = _message_inputs(n, s, 26, cuda_device, f=40, r=r)
-    before = (fused_message.launches, fused_message_vjp.launches)
+    before = (LAUNCHES["fused_message"], LAUNCHES["fused_message_vjp"])
     out = fused_message(*args, CUT, r)
     ref = message_reference(*args, CUT, r)
     gs, gv = _cotangents(ref, 27, cuda_device)
     grads = fused_message_vjp(*args, gs, gv, CUT, r)
     torch.cuda.synchronize()
-    assert (fused_message.launches, fused_message_vjp.launches) == (before[0] + 1,
-                                                                    before[1] + 1)
+    assert (LAUNCHES["fused_message"], LAUNCHES["fused_message_vjp"]) == (
+        before[0] + 1, before[1] + 1)
     _close_rel(out, ref)
     _close_rel(grads, message_vjp_reference(*args, gs, gv, CUT, r))
     # masked nodes, the whole last batch element among them, get exact zeros
@@ -735,14 +734,14 @@ WIDE_PSEUDO_RBFS = [16, 17, 18, 20, 21, 26, 27, 31, 32, 95, 200, 512]
 @pytest.mark.parametrize("m", [3, 6, 10, 70])
 def test_wide_pseudo_kernels_match_plain_on_card(cuda_device, m, r):
     args = _pseudo_inputs(m, 22, cuda_device, f=40, r=r, b=8)
-    before = (fused_pseudo_message.launches, fused_pseudo_vjp.launches)
+    before = (LAUNCHES["fused_pseudo_message"], LAUNCHES["fused_pseudo_vjp"])
     out = fused_pseudo_message(*args, CUT, r)
     ref = pseudo_reference(*args, CUT, r)
     cts = _cotangents(ref, 23, cuda_device)
     grads = fused_pseudo_vjp(*args, *cts, CUT, r)
     torch.cuda.synchronize()
-    assert (fused_pseudo_message.launches, fused_pseudo_vjp.launches) == (before[0] + 1,
-                                                                          before[1] + 1)
+    assert (LAUNCHES["fused_pseudo_message"], LAUNCHES["fused_pseudo_vjp"]) == (
+        before[0] + 1, before[1] + 1)
     _close_rel(out, ref)
     _close_rel(grads, pseudo_vjp_reference(*args, *cts, CUT, r))
     # masked nodes, the whole last batch element among them, get exact zeros
@@ -787,6 +786,26 @@ def test_wide_pseudo_kernels_replay_bit_for_bit_on_card(cuda_device, m, b):
     torch.cuda.synchronize()
     for a, b in zip(eager, replayed):
         assert torch.equal(a, b)
+
+
+def _eager_epoch(tr, state, dds, gen, rng):
+    """The epoch's batches (``epoch_index_batches``) gathered on the device
+    and trained by ``train_step`` outside any program (no marks): (state,
+    the metrics' epoch means with ``n_steps``, as an epoch program reports
+    them)."""
+    import numpy as np
+
+    from coarsegrainingvae_tpu_torch.data.device import epoch_index_batches
+
+    batches = epoch_index_batches(dds.n_frames, tr.cfg.data.batch_size, rng)
+    steps = []
+    for idx in torch.as_tensor(batches, dtype=torch.long).to(tr.device):
+        state, metrics = tr.train_step(state, dds.gather(idx), gen)
+        steps.append(metrics)
+    m = {k: float(np.mean(torch.stack([s[k] for s in steps]).float().cpu().numpy()))
+         for k in steps[0]}
+    m["n_steps"] = len(steps)
+    return state, m
 
 
 def _epoch_setup(cuda_device, n_frames=32, det=False, sparse=False, zeta=0.0,
@@ -876,7 +895,7 @@ def test_registered_generator_streams_per_epoch_on_card(cuda_device):
             if scan:
                 state, m = tr.run_epoch_scan(state, dds, gen, np.random.default_rng(seed))
             else:
-                state, m = tr.run_epoch_device(state, dds, gen, shuffle_rng=np.random.default_rng(seed))
+                state, m = _eager_epoch(tr, state, dds, gen, np.random.default_rng(seed))
             rows.append((m, gen.get_state()))
         out[scan] = rows
     tr.release_graphs()
@@ -890,16 +909,14 @@ def test_replays_count_their_launches_on_card(cuda_device):
     counted: 2 + 2 message forwards and backwards, 2 pseudo ones and one
     fused optimizer step per train step, 2 + 2 and 2 forwards per eval
     step. The warm-up and the capture itself count none."""
-    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
-
-    counters = (fused_message, fused_message_vjp, fused_pseudo_message, fused_pseudo_vjp,
-                fused_adam)
+    counters = ("fused_message", "fused_message_vjp", "fused_pseudo_message", "fused_pseudo_vjp",
+                "fused_adam")
     tr, state, dds = _epoch_setup(cuda_device)
-    before = [fn.launches for fn in counters]
+    before = [LAUNCHES[k] for k in counters]
     state, m = tr.run_epoch_scan(state, dds, torch.Generator(device=cuda_device).manual_seed(0))
-    mid = [fn.launches for fn in counters]
+    mid = [LAUNCHES[k] for k in counters]
     tr.run_epoch_scan_eval(state.params, dds, torch.Generator(device=cuda_device).manual_seed(1))
-    after = [fn.launches for fn in counters]
+    after = [LAUNCHES[k] for k in counters]
     tr.release_graphs()
     steps = m["n_steps"]
     assert [b - a for a, b in zip(before, mid)] == [4 * steps, 4 * steps, 2 * steps, 2 * steps,
@@ -1093,7 +1110,7 @@ def test_pcn_step_on_card_matches_cpu(cuda_device, dec_type, dtype):
     (the test below holds the whole loss at f32). At f32 the card's update
     is the fused optimizer (one launch); the kernel takes no float64, so at
     float64 both sides apply its plain version."""
-    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam, fused_adam_reference
+    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam_reference
     from coarsegrainingvae_tpu_torch.train.trainer import flatten, guarded_update
 
     def update(tr, params, grads, loss, opt, lr):
@@ -1110,9 +1127,9 @@ def test_pcn_step_on_card_matches_cpu(cuda_device, dec_type, dtype):
     tr_ref, state_ref, _, grads_ref = _pcn_step_grads(torch.device("cpu"), dec_type, dtype, kw)
     assert _worst_rel(grads, grads_ref) <= 1e-4
     params = list(state.params.values())
-    before = fused_adam.launches
+    before = LAUNCHES["fused_adam"]
     update(tr, params, grads, loss, state.opt_state, state.lr)
-    assert fused_adam.launches == before + (dtype == "float32")
+    assert LAUNCHES["fused_adam"] == before + (dtype == "float32")
     params_ref = list(state_ref.params.values())
     update(tr_ref, params_ref, [g.cpu() for g in grads], loss.cpu(), state_ref.opt_state,
            state_ref.lr)
@@ -1280,8 +1297,6 @@ def test_diffpool_steps_repeat_their_bits_on_card(cuda_device):
     and both moments bit for bit, each step one fused optimizer launch."""
     import dataclasses
 
-    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
-
     z, _, steric, batch = _diffpool_setup()
     tr = _diffpool_trainer(cuda_device, z, steric)
     state = dataclasses.replace(tr.init_state(), step=2500)
@@ -1289,7 +1304,7 @@ def test_diffpool_steps_repeat_their_bits_on_card(cuda_device):
     # the fused optimizer updates the moments and their count in place
     opt0 = [t.clone() for t in (state.opt_state.count, state.opt_state.mu, state.opt_state.nu)]
     after = []
-    before = fused_adam.launches
+    before = LAUNCHES["fused_adam"]
     for _ in range(2):
         with torch.no_grad():
             for k, p in state.params.items():
@@ -1300,7 +1315,7 @@ def test_diffpool_steps_repeat_their_bits_on_card(cuda_device):
         new, _ = tr.train_step(state, batch, (0, 1))
         after.append([p.detach().clone() for p in new.params.values()]
                      + [new.opt_state.mu.clone(), new.opt_state.nu.clone()])
-    assert fused_adam.launches == before + 2
+    assert LAUNCHES["fused_adam"] == before + 2
     assert all(torch.equal(x, y) for x, y in zip(*after))
 
 
@@ -1400,13 +1415,11 @@ def test_eager_trainers_take_the_fused_step_on_card(cuda_device, name):
     trainers on the card, their learning rate a host number: the fused
     optimizer launches once, accepts the batch and updates the moments and
     their count in place."""
-    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
-
     state, step = EAGER_STEPS[name](cuda_device)
     mu, count = state.opt_state.mu, state.opt_state.count
-    before = fused_adam.launches
+    before = LAUNCHES["fused_adam"]
     new, _ = step(state)
-    assert fused_adam.launches == before + 1
+    assert LAUNCHES["fused_adam"] == before + 1
     assert new.opt_state.mu is mu and new.opt_state.count is count and int(count) == 1
 
 
@@ -1811,7 +1824,7 @@ def test_globaltimer_phases_agree_with_the_trace_on_card(cuda_device, tmp_path):
 def test_the_marked_captured_step_is_the_eager_step_bit_for_bit_on_card(cuda_device,
                                                                          monkeypatch):
     """The captured epoch with its mark nodes, the eager epoch
-    (``run_epoch_device``: ``train_step`` outside any program, no marks)
+    (``_eager_epoch``: ``train_step`` outside any program, no marks)
     and a captured epoch with ``tracing.mark`` a no-op, from the same state,
     rows and generator: metrics, parameters, moments and the generator's
     state bit for bit."""
@@ -1829,7 +1842,7 @@ def test_the_marked_captured_step_is_the_eager_step_bit_for_bit_on_card(cuda_dev
         gen = torch.Generator(device=cuda_device).manual_seed(4)
         rng = np.random.default_rng(0)
         if kind == "eager":
-            st, m = tr.run_epoch_device(state, dds, gen, shuffle_rng=rng)
+            st, m = _eager_epoch(tr, state, dds, gen, rng)
         else:
             if kind == "unmarked":
                 tr.release_graphs()
@@ -1946,11 +1959,11 @@ def test_fused_adam_matches_plain_on_card(cuda_device, moments, clip):
     one bf16 step."""
     from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam, fused_adam_reference
 
-    before = fused_adam.launches
+    before = LAUNCHES["fused_adam"]
     got = _adam_run(fused_adam, _adam_problem(cuda_device, moments), 1.0, ADAM_CLIPS[clip])
     want = _adam_run(fused_adam_reference, _adam_problem(cuda_device, moments), 1.0,
                      ADAM_CLIPS[clip])
-    assert fused_adam.launches == before + 1
+    assert LAUNCHES["fused_adam"] == before + 1
     (p_got, c_got, m_got, v_got, ok_got), (p_want, c_want, m_want, v_want, ok_want) = got, want
     assert bool(ok_got) and bool(ok_want) and int(c_got) == int(c_want) == 4
     exact = clip != "active"
@@ -2038,17 +2051,14 @@ def test_fused_adam_replays_bit_for_bit_and_equals_its_eager_step_on_card(cuda_d
 @pytest.mark.gpu
 def test_a_captured_dense_step_launches_the_fused_optimizer_once_on_card(cuda_device):
     """The captured train step takes the fused optimizer: one launch per
-    replay in ``_EpochProgram.launches``, credited once a step; the state's
+    replay in ``_EpochProgram.graph_launches``, credited once a step; the state's
     moments and count are the program's static tensors, updated in place."""
-    from coarsegrainingvae_tpu_torch.ops import kernel_counters
-    from coarsegrainingvae_tpu_torch.ops.fused_adam import fused_adam
-
     tr, state, dds = _epoch_setup(cuda_device)
     mu = state.opt_state.mu
-    before = fused_adam.launches
+    before = LAUNCHES["fused_adam"]
     state, m = tr.run_epoch_scan(state, dds, torch.Generator(device=cuda_device).manual_seed(0))
     prog = next(iter(tr._programs.values()))
-    assert prog.launches[kernel_counters().index(fused_adam)] == 1
-    assert fused_adam.launches - before == m["n_steps"]
+    assert prog.graph_launches.per_replay["fused_adam"] == 1
+    assert LAUNCHES["fused_adam"] - before == m["n_steps"]
     assert state.opt_state.mu is mu and int(state.opt_state.count) == m["n_steps"]
     tr.release_graphs()

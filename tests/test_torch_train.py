@@ -309,19 +309,30 @@ def test_skip_guard_leaves_params_and_moments(small_dataset, tiny_model_cfg):
     assert int(state.opt_state.count) == 0 and int(state.step) == 1
 
 
-@pytest.mark.parametrize("on_device", [True, False])
-def test_fit_runs_two_epochs(small_dataset, tiny_model_cfg, on_device, tmp_path):
-    """Two epochs on the device-resident path and on host batches; with a
+@pytest.mark.parametrize("device_resident", [True, False])
+def test_fit_runs_two_epochs(small_dataset, tiny_model_cfg, device_resident, tmp_path):
+    """Two epochs on the device-resident path and, for a dataset with aux
+    edges (which a DeviceDataset does not hold), on host batches; with a
     checkpoint manager, fit saves the final epoch."""
+    from coarsegrainingvae_tpu_torch.data.dataset import build_dataset
+    from coarsegrainingvae_tpu_torch.data.mappings import newman_mapping
+    from coarsegrainingvae_tpu_torch.data.synthetic import synthetic_peptide
+
     cfg = _exp(dataclasses.replace(tiny_model_cfg, n_basis=16), lr=3e-3)
     tc = _torch_cfg(cfg)
     tr = Trainer(DenseCGVAE(tc.model, generator=torch.Generator().manual_seed(0)), tc,
                  device="cpu")
-    tds = _port_dataset(small_dataset)
+    if device_resident:
+        tds = _port_dataset(small_dataset)
+    else:
+        z, frames, bonds = synthetic_peptide("dipeptide", n_frames=32, seed=7, device="cpu")
+        tds = build_dataset(newman_mapping(bonds, z.shape[0], 3, seed=0), frames, 8.5, 9.5, z,
+                            bonds, order=2, seed=5, aux_cutoff=2.0)
+        assert tds.aux_bonds is not None
     state = tr.init_state(tds.batch(np.arange(BATCH)))
     rows = []
     state, hist = tr.fit(state, tds.subset(np.arange(24)), tds.subset(np.arange(24, 32)),
-                         log_fn=rows.append, nepochs=2, on_device=on_device)
+                         log_fn=rows.append, nepochs=2)
     assert [r["epoch"] for r in hist] == [0, 1] and rows == hist
     for r in hist:
         assert all(np.isfinite(v) for v in r.values())
@@ -330,6 +341,6 @@ def test_fit_runs_two_epochs(small_dataset, tiny_model_cfg, on_device, tmp_path)
 
     mgr = CheckpointManager(str(tmp_path))
     state, hist = tr.fit(state, tds.subset(np.arange(24)), tds.subset(np.arange(24, 32)),
-                         nepochs=1, ckpt=mgr, on_device=on_device)
+                         nepochs=1, ckpt=mgr)
     _, meta, step = mgr.read()
     assert step == 0 and meta["epoch"] == 0 and meta["history"] == json.loads(json.dumps(hist))
